@@ -1,0 +1,110 @@
+"""Render orchestration: camera samples -> integrator -> film.
+
+Port of pbrt_tpu/render.py. One call evaluates a whole sample wave (every
+pixel x samples_per_pass samples) as one batch, and a Python loop runs the
+waves, so memory stays O(pixels x samples_per_pass) in-flight rays.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .core import spectrum
+from .films.rgb import RGBFilm, spectrum_to_rgb
+from .samplers.samplers import Sampler, as_sampler
+
+
+def camera_rays_full(camera, pixel, sample_idx, sampler, jitter: bool = True,
+                     filt=None, n_spectrum: int = spectrum.N_SPECTRUM_DEFAULT):
+    """Primary rays + wavelengths + camera weight for pixel ids.
+
+    pixel, sample_idx: (N,) integer tensors (sample_idx may be an int);
+    sampler: a Sampler or an int seed. Only the box filter (filt=None) is
+    ported. Returns (o, d, wl, w).
+    """
+    if filt is not None and getattr(filt, "kind", "box") != "box":
+        raise NotImplementedError(
+            "non-box reconstruction filters are not ported yet (ROADMAP "
+            "Queue 1 item 14)"
+        )
+    sampler = as_sampler(sampler)
+    nx, _ = camera.resolution
+    jx, jy = sampler.get_2d(pixel, sample_idx, 0)
+    if not jitter:
+        jx = torch.full_like(jx, 0.5)
+        jy = torch.full_like(jy, 0.5)
+    px = (pixel % nx).to(torch.float32) + jx
+    py = torch.div(pixel, nx, rounding_mode="floor").to(torch.float32) + jy
+    p_film = torch.stack([px, py], dim=-1)
+    ul0, ul1 = sampler.get_2d(pixel, sample_idx, 2)
+    u_wl = sampler.get_1d(pixel, sample_idx, 4)
+    wl = spectrum.sample_visible(u_wl, n_spectrum)
+    o, d = camera.generate_rays(p_film, torch.stack([ul0, ul1], dim=-1))
+    return o, d, wl, torch.ones_like(px)
+
+
+def render(scene, camera, integrator, spp: int = 16, seed: int = 0,
+           samples_per_pass: int = 1, jitter: bool = True,
+           sampler_kind: str = "independent", sample_offset: int = 0,
+           total_spp: int | None = None, filter_kind: str = "box",
+           n_spectrum: int = spectrum.N_SPECTRUM_DEFAULT, *,
+           device) -> torch.Tensor:
+    """Render and return the developed linear-RGB image (ny, nx, 3).
+
+    `device` is required: the scene and camera are moved there and every
+    wave runs there. A CUDA device without a card raises; nothing falls
+    back to the CPU. sample_offset/total_spp cover sample indices
+    [sample_offset, sample_offset + spp) of a total_spp-sample render.
+    """
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "render(device='cuda'): no CUDA device is available"
+            )
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError(
+                "render keeps float32 throughout: set "
+                "torch.backends.cuda.matmul.allow_tf32 = False"
+            )
+    if filter_kind != "box":
+        raise NotImplementedError(
+            f"filter {filter_kind!r} is not ported yet (ROADMAP Queue 1 "
+            "item 14)"
+        )
+    if spp % samples_per_pass != 0:
+        raise ValueError("spp must divide by samples_per_pass")
+    scene = scene.to(device)
+    camera = camera.to(device)
+    nx, ny = camera.resolution
+    sampler = Sampler(
+        seed=int(seed), kind=sampler_kind, spp=total_spp or spp, nx=nx,
+        log2_res=max(1, (max(nx, ny) - 1).bit_length()),
+    )
+    npix = nx * ny
+    k = samples_per_pass
+    pixel_b = torch.arange(npix, dtype=torch.int64, device=device).repeat(k)
+    film = RGBFilm.zeros((nx, ny), device)
+    for pass_idx in range(spp // k):
+        first = sample_offset + pass_idx * k
+        sample_b = torch.arange(
+            first, first + k, dtype=torch.int64, device=device
+        ).repeat_interleave(npix)
+        o, d, wl, w = camera_rays_full(
+            camera, pixel_b, sample_b, sampler, jitter, None, n_spectrum
+        )
+        radiance = integrator.trace(scene, o, d, wl, pixel_b, sample_b, sampler)
+        rgb = spectrum_to_rgb(radiance, wl) * w[:, None]  # (k*npix, 3)
+        # NaN/Inf sample quarantine: drop non-finite samples (value AND
+        # weight), as the reference does per sample in Film::AddSample.
+        finite = torch.all(torch.isfinite(rgb), dim=-1)
+        rgb = torch.where(finite[:, None], rgb, 0.0)
+        rgb_img = torch.sum(rgb.reshape(k, ny, nx, 3), dim=0) / k
+        w_img = torch.mean(finite.to(rgb.dtype).reshape(k, ny, nx), dim=0)
+        rgb_img = torch.where(
+            w_img[..., None] > 0.0,
+            rgb_img / torch.clamp(w_img, min=1e-12)[..., None],
+            0.0,
+        )
+        film = film.add_sample_image(rgb_img, w_img)
+    return film.image()
