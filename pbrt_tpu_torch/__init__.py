@@ -5,20 +5,26 @@ is). Module paths and public names mirror the reference: a reader finds
 `pbrt_tpu/lights/buffers.py::LightBuffers.sample_li` at
 `pbrt_tpu_torch/lights/buffers.py::LightBuffers.sample_li`.
 
-What is ported (the forward spectral path trace of the diffuse Cornell box):
+What is ported (the forward spectral path trace of the diffuse Cornell box
+and of the killeroo-class mesh scene):
   core/      tensor dataclasses, pcg4d RNG, CIE/sRGB colour, rgb2spec,
              vector maths, sampling warps, transforms
   samplers/  the independent sampler
   cameras/   perspective camera ray generation
   shapes/    triangle geometry buffers + Interaction
-  materials/ material table + the diffuse BxDF of the select chain
-  lights/    area lights (uniform / power selection)
-  ops/       K1, the small-scene intersection kernel (csrc/smallscene.cu)
-             and its plain PyTorch twin
-  accel/     closest / any-hit queries on the small-scene tier
+  materials/ material table, the GGX and Fresnel terms, and the diffuse and
+             conductor BxDFs of the select chain
+  lights/    area lights and the uniform infinite light (uniform / power
+             selection)
+  ops/       K1, the small-scene intersection kernel (csrc/smallscene.cu),
+             and K2, the Morton cluster kernel (csrc/cluster.cu), each with
+             its plain PyTorch twin
+  accel/     closest / any-hit queries on the small-scene and cluster tiers,
+             the ray sort and the Morton order
   models/    the path integrator (NEE + MIS + RR), primal only
   films/     spectrum -> sRGB film
-  scenes/    the Cornell box (diffuse variant)
+  io/        PLY mesh reading and writing
+  scenes/    the Cornell box (diffuse variant) and the procedural meshes
 
 Anything outside that slice raises NotImplementedError at build or convert
 time, naming the ROADMAP Queue 1 item that will port it.

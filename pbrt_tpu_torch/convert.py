@@ -3,8 +3,9 @@
 `scene_from_arrays(arrays, static)` builds the port's Scene from the
 reference scene's fields. `arrays` maps dataclass field paths to numpy
 arrays ("geom.tri_verts", "materials.albedo_coeffs", "lights.area_scale",
-"small.table", ...); `static` maps the paths of static (non-array) fields
-to their values ("small.n_tris", "lights.sampler", "geom.has_alpha", ...).
+"small.table", "clusters.boxes", ...); `static` maps the paths of static
+(non-array) fields to their values ("small.n_tris", "lights.sampler",
+"geom.has_alpha", ...).
 A field the port does not carry raises NotImplementedError when it holds
 data (a non-empty, non-zero array, or a static value other than the one
 the port implies), naming the ROADMAP Queue 1 item that will port it.
@@ -21,19 +22,19 @@ from .cameras.perspective import PerspectiveCamera
 from .core.transform import Transform
 from .lights.buffers import LightBuffers
 from .materials.buffers import MaterialBuffers
+from .ops.cluster import ClusterAccel
 from .ops.smallscene import SmallTriAccel
 from .scene import Scene
 from .shapes.geometry import UNPORTED_SHAPES, GeometryBuffers
 
 # Scene members the port does not carry -> ROADMAP Queue 1 item.
 _UNPORTED_MEMBERS = {
-    "medium": 12, "media_stack": 12, "textures": 10, "bvh": 6,
-    "clusters": 6, "kdtree": 6, "sweep": 7, "anim": 7,
+    "medium": 12, "media_stack": 12, "textures": 10, "bvh": 8,
+    "kdtree": 8, "sweep": 7, "anim": 7,
 }
 # Static fields the port does not carry, with the only value it accepts.
 _IMPLIED_STATIC = {
     "geom.has_alpha": False,
-    "lights.has_infinite": False,
     "camera.motion": None,
 }
 _LIGHT_ITEM = 11  # ROADMAP Queue 1 item of the unported lights
@@ -89,7 +90,8 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
         if member in _UNPORTED_MEMBERS:
             if path in arrays or static[path] is not None:
                 raise _unported(path, _UNPORTED_MEMBERS[member])
-        elif member not in ("geom", "materials", "lights", "small"):
+        elif member not in ("geom", "materials", "lights", "small",
+                            "clusters"):
             raise ValueError(f"unknown scene field {path!r}")
     geom = _section(GeometryBuffers, "geom", arrays, static,
                     lambda n: UNPORTED_SHAPES.get(n, 8))
@@ -97,10 +99,11 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
                          lambda n: 10)
     lights = _section(LightBuffers, "lights", arrays, static,
                       lambda n: _LIGHT_ITEM)
-    small = None
-    if any(p.startswith("small.") for p in list(arrays) + list(static)):
-        small = _section(SmallTriAccel, "small", arrays, static, lambda n: 6)
-    return Scene(geom=geom, materials=materials, lights=lights, small=small)
+    accels = {}
+    for member, cls in (("small", SmallTriAccel), ("clusters", ClusterAccel)):
+        if any(p.startswith(member + ".") for p in list(arrays) + list(static)):
+            accels[member] = _section(cls, member, arrays, static, lambda n: 6)
+    return Scene(geom=geom, materials=materials, lights=lights, **accels)
 
 
 def camera_from_arrays(arrays: dict[str, np.ndarray],

@@ -36,6 +36,16 @@ def cosine_hemisphere_pdf(cos_theta):
     return cos_theta * INV_PI
 
 
+def sample_uniform_sphere(u):
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+UNIFORM_SPHERE_PDF = 1.0 / (4.0 * math.pi)
+
+
 def sample_uniform_triangle(u):
     """Low-distortion triangle warp returning barycentrics (b0, b1, b2)
     (the sqrt-free fold: split the square along the diagonal)."""

@@ -1,10 +1,12 @@
 """Area lights + NEE sampling (port of pbrt_tpu/lights/buffers.py).
 
-Only area lights (one emissive triangle each) with uniform or
-power-proportional selection are ported. Sphere, point, spot, projection,
-goniometric, distant, infinite and environment lights, and the light BVH,
-raise NotImplementedError at build (ROADMAP Queue 1 item 11). With no
-infinite light, escaped rays carry no radiance and no pdf.
+Area lights (one emissive triangle each) and the uniform infinite light,
+with uniform or power-proportional selection, are ported. The light list
+is [area lights] ++ [infinite light], as in the reference when it has no
+other lights. Sphere, point, spot, projection, goniometric, distant and
+environment-map lights, and the light BVH and exhaustive samplers, raise
+NotImplementedError at build (ROADMAP Queue 1 item 11). With no infinite
+light, escaped rays carry no radiance and no pdf.
 
 Emission RGBs are sigmoid-polynomial coefficients + scale; each light flags
 whether its spectrum is D65-shaped (pbrt's RGBIlluminantSpectrum) or flat.
@@ -16,7 +18,11 @@ import numpy as np
 import torch
 
 from ..core import cie, rgb2spec
-from ..core.sampling import sample_uniform_triangle
+from ..core.sampling import (
+    UNIFORM_SPHERE_PDF,
+    sample_uniform_sphere,
+    sample_uniform_triangle,
+)
 from ..core.tensorclass import static_field, tensorclass
 from ..core.vecmath import cross, dot, normalize
 
@@ -24,7 +30,7 @@ _EPS = 1e-9
 
 # Light-list prefixes of the reference that are not ported yet.
 UNPORTED_LIGHTS = ("sphere_lights", "points", "spots", "projections",
-                   "gonios", "distants", "infinite", "envmap")
+                   "gonios", "distants", "envmap")
 
 
 @tensorclass
@@ -53,9 +59,14 @@ class LightBuffers:
     area_illum: torch.Tensor  # (La,) bool: D65-shaped vs flat spectrum
     area_two_sided: torch.Tensor  # (La,) bool
     area_area: torch.Tensor  # (La,) triangle area
+    # Uniform infinite light (0 or 1; zeros when absent).
+    infinite_coeffs: torch.Tensor  # (3,)
+    infinite_scale: torch.Tensor  # ()
+    infinite_illum: torch.Tensor  # () bool
     select_cdf: torch.Tensor  # (n_lights,) inclusive cdf
     select_pmf: torch.Tensor  # (n_lights,)
     sampler: str = static_field(default="uniform")
+    has_infinite: bool = static_field(default=False)
 
     def __post_init__(self):
         if self.sampler not in ("uniform", "power"):
@@ -70,13 +81,25 @@ class LightBuffers:
 
     @property
     def n_lights(self) -> int:
-        return self.n_area
+        return self.n_area + (1 if self.has_infinite else 0)
+
+    @property
+    def n_inf_list(self) -> int:
+        """Lights sampled outside a light BVH: the infinite light."""
+        return 1 if self.has_infinite else 0
+
+    @property
+    def _p_infinite(self) -> float:
+        """Probability of sampling the non-BVH light list; with no light
+        BVH (not ported) the reference's rule reduces to this."""
+        return 0.0 if self.n_area > 0 else 1.0
 
     @staticmethod
-    def build(area_tris=None, sampler: str = "uniform",
+    def build(area_tris=None, infinite=None, sampler: str = "uniform",
               **other_lights) -> "LightBuffers":
         """area_tris: dicts with verts (3, 3), rgb, scale, two_sided,
-        illuminant. sampler: "uniform" | "power" selection."""
+        illuminant. infinite: dict with rgb, scale, illuminant, or None.
+        sampler: "uniform" | "power" selection."""
         for name, value in other_lights.items():
             if name not in UNPORTED_LIGHTS:
                 raise TypeError(f"unknown light argument {name!r}")
@@ -107,6 +130,18 @@ class LightBuffers:
             lum = float(np.mean(a["rgb"])) * a.get("scale", 1.0)
             two = 2.0 if a.get("two_sided", False) else 1.0
             powers.append(lum * float(areas[i]) * np.pi * two)
+        if infinite is not None:
+            powers.append(float(np.mean(infinite["rgb"]))
+                          * infinite.get("scale", 1.0) * 4 * np.pi)
+            ic, isc = rgb2spec.fit_unbounded(
+                np.asarray(infinite["rgb"], np.float32)
+                * infinite.get("scale", 1.0)
+            )
+            isc = isc.reshape(())
+            iil = torch.tensor(bool(infinite.get("illuminant", True)))
+        else:
+            ic, isc = torch.zeros((3,)), torch.zeros(())
+            iil = torch.tensor(False)
         powers = np.asarray(powers, np.float64)
         nl = len(powers)
         if nl == 0:
@@ -130,9 +165,13 @@ class LightBuffers:
             area_illum=flags("illuminant", True),
             area_two_sided=flags("two_sided", False),
             area_area=torch.as_tensor(np.asarray(areas, np.float32)),
+            infinite_coeffs=ic,
+            infinite_scale=isc,
+            infinite_illum=iil,
             select_cdf=torch.as_tensor(np.asarray(cdf, np.float32)),
             select_pmf=torch.as_tensor(np.asarray(pmf, np.float32)),
             sampler=sampler,
+            has_infinite=infinite is not None,
         )
 
     # -- selection ----------------------------------------------------------
@@ -145,6 +184,11 @@ class LightBuffers:
             max=self.n_lights - 1,
         )
         return idx, self.select_pmf[idx]
+
+    def selection_pmf(self, light_idx, p_ref=None, n_ref=None):
+        """PMF that `select` picks light_idx (>= 0)."""
+        i = torch.clamp(light_idx, 0, self.n_lights - 1)
+        return torch.where(light_idx >= 0, self.select_pmf[i], 0.0)
 
     # -- emission queries ---------------------------------------------------
 
@@ -163,13 +207,26 @@ class LightBuffers:
         use = (light_idx >= 0) & (light_idx < na) & vis
         return torch.where(use[..., None], L_a, 0.0)
 
+    def _infinite_radiance(self, lam):
+        return eval_emission(
+            self.infinite_coeffs[None, :], self.infinite_scale[None],
+            self.infinite_illum[None], lam,
+        )
+
     def escaped_radiance(self, d, lam, p_ref=None):
-        """Radiance for escaping rays: zero, with no infinite light."""
-        return torch.zeros_like(lam)
+        """Radiance for rays escaping in direction d: the uniform infinite
+        light's, or zero without one."""
+        if not self.has_infinite:
+            return torch.zeros_like(lam)
+        return self._infinite_radiance(lam)
 
     def pdf_escaped(self, d, p_ref=None):
-        """NEE pdf of an escaped direction: zero, with no infinite light."""
-        return torch.zeros(d.shape[:-1], dtype=d.dtype, device=d.device)
+        """Solid-angle pdf that NEE produced the escaped direction d,
+        including the infinite light's selection pmf; zero without one."""
+        if not self.has_infinite:
+            return torch.zeros(d.shape[:-1], dtype=d.dtype, device=d.device)
+        return torch.full(d.shape[:-1], UNIFORM_SPHERE_PDF, dtype=d.dtype,
+                          device=d.device) * self.select_pmf[self.n_area]
 
     # -- NEE sampling -------------------------------------------------------
 
@@ -178,31 +235,49 @@ class LightBuffers:
         solid angle at p_ref and INCLUDES the selection pmf."""
         if self.n_lights == 0:
             raise ValueError("sample_li with no lights")
+        n, na = p_ref.shape[0], self.n_area
         idx, sel_pmf = self.select(p_ref, n_ref, u_select)
-        ai = torch.clamp(idx, 0, self.n_area - 1)
-        verts = self.area_verts[ai]  # (N, 3, 3)
-        b = sample_uniform_triangle(u_pos)  # (N, 3)
-        p_l = (b[:, 0:1] * verts[:, 0] + b[:, 1:2] * verts[:, 1]
-               + b[:, 2:3] * verts[:, 2])
-        e1 = verts[:, 1] - verts[:, 0]
-        e2 = verts[:, 2] - verts[:, 0]
-        n_l = normalize(cross(e1, e2))
-        to_l = p_l - p_ref
-        d2 = torch.clamp(torch.sum(to_l * to_l, dim=-1), min=_EPS)
-        d = torch.sqrt(d2)
-        wi = to_l / d[..., None]
-        cos_l = dot(n_l, -wi)
-        two = self.area_two_sided[ai]
-        emit_ok = (cos_l > _EPS) | (two & (torch.abs(cos_l) > _EPS))
-        area = torch.clamp(self.area_area[ai], min=_EPS)
-        pdf = d2 / (torch.abs(cos_l) * area + _EPS)
-        L = eval_emission(
-            self.area_coeffs[ai], self.area_scale[ai], self.area_illum[ai], lam
-        )
-        L = torch.where(emit_ok[..., None], L, 0.0)
+        L = torch.zeros((n, lam.shape[-1]), dtype=p_ref.dtype, device=p_ref.device)
+        wi = torch.zeros_like(p_ref)
+        pdf = torch.zeros((n,), dtype=p_ref.dtype, device=p_ref.device)
+        dist = torch.full((n,), float("inf"), dtype=p_ref.dtype,
+                          device=p_ref.device)
+        if na > 0:
+            ai = torch.clamp(idx, 0, na - 1)
+            verts = self.area_verts[ai]  # (N, 3, 3)
+            b = sample_uniform_triangle(u_pos)  # (N, 3)
+            p_l = (b[:, 0:1] * verts[:, 0] + b[:, 1:2] * verts[:, 1]
+                   + b[:, 2:3] * verts[:, 2])
+            e1 = verts[:, 1] - verts[:, 0]
+            e2 = verts[:, 2] - verts[:, 0]
+            n_l = normalize(cross(e1, e2))
+            to_l = p_l - p_ref
+            d2 = torch.clamp(torch.sum(to_l * to_l, dim=-1), min=_EPS)
+            d = torch.sqrt(d2)
+            wi_a = to_l / d[..., None]
+            cos_l = dot(n_l, -wi_a)
+            two = self.area_two_sided[ai]
+            emit_ok = (cos_l > _EPS) | (two & (torch.abs(cos_l) > _EPS))
+            area = torch.clamp(self.area_area[ai], min=_EPS)
+            pdf_a = d2 / (torch.abs(cos_l) * area + _EPS)
+            L_a = eval_emission(self.area_coeffs[ai], self.area_scale[ai],
+                                self.area_illum[ai], lam)
+            L_a = torch.where(emit_ok[..., None], L_a, 0.0)
+            use = idx < na
+            L = torch.where(use[..., None], L_a, L)
+            wi = torch.where(use[..., None], wi_a, wi)
+            pdf = torch.where(use, pdf_a, pdf)
+            dist = torch.where(use, d, dist)
+        if self.has_infinite:
+            # The uniform infinite light: a direction on the sphere, at
+            # infinite distance (accel.dense.shadow_segment handles it).
+            use = idx == na
+            L = torch.where(use[..., None], self._infinite_radiance(lam), L)
+            wi = torch.where(use[..., None], sample_uniform_sphere(u_pos), wi)
+            pdf = torch.where(use, UNIFORM_SPHERE_PDF, pdf)
         return LightLiSample(
-            L=L, wi=wi, pdf=pdf * sel_pmf, dist=d,
-            is_delta=torch.zeros_like(emit_ok),
+            L=L, wi=wi, pdf=pdf * sel_pmf, dist=dist,
+            is_delta=torch.zeros((n,), dtype=torch.bool, device=p_ref.device),
         )
 
     def pdf_li_area(self, light_idx, dist, cos_l, p_ref=None, n_ref=None):

@@ -1,10 +1,10 @@
 """Flat material parameter tables (port of pbrt_tpu/materials/buffers.py).
 
 Every field of the reference is carried, so a converted JAX scene maps 1:1
-and a scene may list materials the port cannot shade yet. Only the diffuse
-family is shaded (materials/bxdf.py); `Scene` refuses geometry that
-references any other kind. RGB parameters are stored as sigmoid-polynomial
-coefficients fitted on the host (core/rgb2spec.py).
+and a scene may list materials the port cannot shade yet. The diffuse and
+conductor families are shaded (materials/bxdf.py); `Scene` refuses
+geometry that references any other kind. RGB parameters are stored as
+sigmoid-polynomial coefficients fitted on the host (core/rgb2spec.py).
 """
 
 from __future__ import annotations
@@ -173,4 +173,5 @@ class MaterialBuffers:
         }
         out["measured_coeffs"] = self.measured_coeffs
         out["measured_scale"] = self.measured_scale
+        out["any_conductor"] = self.any_conductor
         return out

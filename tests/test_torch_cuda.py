@@ -1,5 +1,5 @@
-"""K1 on the card: the CUDA kernel against its plain twin, and a render on
-the card against the same render on the CPU.
+"""K1 and K2 on the card: each CUDA kernel against its plain twin, and
+renders on the card against the same renders on the CPU.
 
 These tests need a CUDA device and skip without one. They import neither
 jax nor pbrt_tpu, so they run on a machine that has only the port's
@@ -14,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from pbrt_tpu_torch.accel.api import ray_sort_perm
 from pbrt_tpu_torch.models.path import PathIntegrator
+from pbrt_tpu_torch.ops import cluster
 from pbrt_tpu_torch.ops.smallscene import (
     STATS,
     build_smallscene,
@@ -23,6 +25,9 @@ from pbrt_tpu_torch.ops.smallscene import (
 )
 from pbrt_tpu_torch.render import camera_rays_full, render
 from pbrt_tpu_torch.scenes.cornell import cornell_box
+from pbrt_tpu_torch.scenes.meshes import killeroo_class_scene
+
+from .torch_port_killeroo import small_killeroo_class_scene
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -31,7 +36,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1 kernel runs only on the card")
+        pytest.skip("needs a CUDA device: the K1 and K2 kernels run only on "
+                    "the card")
     return torch.device("cuda", 0)
 
 
@@ -116,6 +122,72 @@ def test_render_on_card_matches_cpu(card):
     got = render(scene, camera, PathIntegrator(max_depth=5), device=card, **kw)
     torch.cuda.synchronize()
     assert STATS.launches == 11 * 2
+    want = render(scene, camera, PathIntegrator(max_depth=5), device="cpu",
+                  **kw)
+    got = got.cpu().numpy()
+    want = want.numpy()
+    assert np.all(np.isfinite(got))
+    ok = np.abs(got - want) <= 1e-5 + 1e-3 * np.abs(want)
+    assert np.mean(ok) >= 0.99, int(np.sum(~ok))
+
+
+def test_k2_matches_twin_on_killeroo(card):
+    """All three modes on the full killeroo-class scene, on rays from the
+    scene's box (random, axis-parallel, dead, finite segments) and its
+    camera, sorted as the path sorts them."""
+    scene, camera = killeroo_class_scene(resolution=(128, 128))
+    acc = scene.clusters.to(card)
+    lo = scene.geom.tri_verts.reshape(-1, 3).amin(0).to(card)
+    hi = scene.geom.tri_verts.reshape(-1, 3).amax(0).to(card)
+    o_box, d_box, t_box = _box_rays(1 << 16, 3, card)
+    pixel = torch.arange(128 * 128, device=card)
+    o_cam, d_cam, _, _ = camera_rays_full(camera.to(card), pixel, 0, 0)
+    o = torch.cat([lo + (hi - lo) * o_box, o_cam])
+    d = torch.cat([d_box, d_cam])
+    tmax = torch.cat([t_box * 3.0, torch.full((pixel.shape[0],), float("inf"),
+                                              device=card)])
+    perm, _ = ray_sort_perm(o, d, tmax)
+    o, d, tmax = o[perm], d[perm], tmax[perm]
+    for kw in ({}, {"any_hit": True}, {"defer_attrs": False}):
+        cluster.STATS.reset()
+        got = cluster.cluster_intersect(acc, o, d, tmax, **kw)
+        torch.cuda.synchronize()
+        assert cluster.STATS.launches == 1
+        want = cluster.cluster_intersect_ref(acc, o, d, tmax, **kw)
+        assert set(got) == set(want)
+        assert 0 < int((want["prim"] >= 0).sum()) < o.shape[0]
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            assert torch.equal(got[k], want[k]), (kw, k)
+
+
+def test_k2_checks_its_inputs(card):
+    scene, _ = small_killeroo_class_scene("pbrt_tpu_torch", (8, 8))
+    acc = scene.clusters.to(card)
+    o, d, tmax = _box_rays(64, 1, card)
+    with pytest.raises(ValueError, match="float32"):
+        cluster.cluster_intersect(acc, o.double(), d, tmax)
+    with pytest.raises(ValueError, match="contiguous"):
+        cluster.cluster_intersect(acc, o, d.t().contiguous().t(), tmax)
+    with pytest.raises(ValueError, match="on cuda"):
+        cluster.cluster_intersect(acc, o, d, tmax.cpu())
+    with pytest.raises(ValueError, match="v0x"):
+        cluster.cluster_intersect(scene.clusters, o, d, tmax)  # tables on the CPU
+    cluster.STATS.reset()
+    empty = cluster.cluster_intersect(acc, o[:0], d[:0], tmax[:0],
+                                      defer_attrs=False)
+    assert empty["t"].shape == (0,) and empty["n"].shape == (0, 3)
+    assert cluster.STATS.launches == 0
+
+
+def test_killeroo_render_on_card_matches_cpu(card):
+    scene, camera = small_killeroo_class_scene("pbrt_tpu_torch", (16, 16))
+    kw = dict(spp=4, seed=1, samples_per_pass=2, n_spectrum=8)
+    STATS.reset()
+    cluster.STATS.reset()
+    got = render(scene, camera, PathIntegrator(max_depth=5), device=card, **kw)
+    torch.cuda.synchronize()
+    assert cluster.STATS.launches == 11 * 2 and STATS.launches == 0
     want = render(scene, camera, PathIntegrator(max_depth=5), device="cpu",
                   **kw)
     got = got.cpu().numpy()

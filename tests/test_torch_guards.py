@@ -11,6 +11,7 @@ import torch
 
 from pbrt_tpu_torch.lights.buffers import LightBuffers
 from pbrt_tpu_torch.materials.buffers import (
+    MAT_COATEDCONDUCTOR,
     MAT_CONDUCTOR,
     MAT_DIFFUSE,
     MaterialBuffers,
@@ -20,6 +21,7 @@ from pbrt_tpu_torch.render import camera_rays_full, render
 from pbrt_tpu_torch.samplers.samplers import Sampler
 from pbrt_tpu_torch.scene import Scene
 from pbrt_tpu_torch.scenes.cornell import cornell_box
+from pbrt_tpu_torch.scenes.meshes import mesh_gallery_scene
 from pbrt_tpu_torch.shapes.geometry import GeometryBuffers, make_quad
 
 torch.set_num_threads(2)
@@ -29,7 +31,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_loads_no_jax():
     code = (
         "import sys, pbrt_tpu_torch.render, pbrt_tpu_torch.convert, "
-        "pbrt_tpu_torch.scenes.cornell; "
+        "pbrt_tpu_torch.scenes.cornell, pbrt_tpu_torch.scenes.meshes, "
+        "pbrt_tpu_torch.ops.cluster, pbrt_tpu_torch.io.ply; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pbrt_tpu' or m.startswith('pbrt_tpu.')]; "
         "sys.exit(1 if bad else 0)"
@@ -58,34 +61,62 @@ def _quad_geom(mat=0):
                 tri_mat=np.array([mat, mat], np.int32))
 
 
+
 @pytest.mark.parametrize("build", [
     lambda: cornell_box(variant="specular"),
     lambda: GeometryBuffers.build(**_quad_geom(),
                                   spheres=np.array([[0.5, 0.5, 0.5, 0.1]])),
     lambda: GeometryBuffers.build(**_quad_geom(), tri_alpha=np.array([0.5, 1.0])),
     lambda: LightBuffers.build(points=[{"p": (0, 1, 0), "rgb": (1, 1, 1)}]),
-    lambda: LightBuffers.build(infinite={"rgb": (1, 1, 1)}),
+    # The image-based infinite light (an environment map) is not ported;
+    # the uniform one is.
+    lambda: LightBuffers.build(infinite={"rgb": (1, 1, 1)}, envmap=object()),
     lambda: LightBuffers.build(sampler="bvh"),
     lambda: MaterialBuffers.build([{"kind": MAT_DIFFUSE, "albedo_texture": 2}]),
+    # Of the conductor families only the plain conductor is ported.
     lambda: Scene(geom=GeometryBuffers.build(**_quad_geom(mat=1)),
                   materials=MaterialBuffers.build(
-                      [{"kind": MAT_DIFFUSE}, {"kind": MAT_CONDUCTOR}]),
+                      [{"kind": MAT_DIFFUSE}, {"kind": MAT_COATEDCONDUCTOR}]),
                   lights=LightBuffers.build()),
     lambda: Sampler(kind="sobol"),
-    lambda: cornell_box()[0].with_accel(threshold=16),
+    # The sweep accelerator is not ported.
     lambda: cornell_box()[0].with_accel(kind="sweep"),
+    lambda: mesh_gallery_scene(resolution=(8, 8), subdiv=1),  # glass torus
 ], ids=["specular_variant", "sphere", "alpha", "point_light", "infinite_light",
         "light_bvh", "texture", "referenced_conductor", "sobol_sampler",
-        "over_1024_tier", "explicit_accel"])
+        "explicit_accel", "mesh_gallery_dielectric"])
 def test_unsupported_features_raise(build):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         build()
+
+
+def test_accelerator_tiers():
+    scene, _ = cornell_box(resolution=(8, 8))
+    small = scene.with_accel()
+    assert small.small is not None and small.clusters is None
+    # Exactly one tier is attached, whatever the scene held before.
+    for attached in (scene.with_accel(threshold=16),
+                     scene.with_accel(kind="cluster"),
+                     small.with_accel(kind="cluster")):
+        assert attached.small is None and attached.clusters is not None
+        assert attached.clusters.n_clusters == 1  # 38 triangles
+    back = small.with_accel(kind="cluster").with_accel()
+    assert back.small is not None and back.clusters is None
+    conductor = Scene(geom=GeometryBuffers.build(**_quad_geom(mat=1)),
+                      materials=MaterialBuffers.build(
+                          [{"kind": MAT_DIFFUSE}, {"kind": MAT_CONDUCTOR}]),
+                      lights=LightBuffers.build(infinite={"rgb": (1, 1, 1)}))
+    assert conductor.lights.has_infinite and conductor.lights.n_lights == 1
+    assert conductor.shaded_kinds == {MAT_CONDUCTOR}
 
 
 def test_unreferenced_non_diffuse_rows_are_carried():
     scene, _ = cornell_box(resolution=(8, 8))
     assert scene.materials.kind.tolist() == [0, 0, 0, 1, 2]
     assert scene.materials.any_conductor and scene.materials.any_dielectric
+    # The BxDF chain runs only the links of referenced kinds, so the spare
+    # copper row costs the Cornell pass nothing.
+    assert scene.shaded_kinds == {MAT_DIFFUSE}
 
 
 def test_queries_need_the_accelerator():

@@ -83,16 +83,13 @@ def test_camera_rays_match(jax_cornell):
 
 
 def test_convert_refuses_unported_members(jax_cornell):
-    from pbrt_tpu.ops.cluster import build_clusters
     from pbrt_tpu_torch.convert import scene_from_arrays
 
     js = jax_cornell[0]
-    clustered = js.replace(small=None, clusters=build_clusters(
-        np.asarray(js.geom.tri_verts), np.asarray(js.geom.tri_mat),
-        np.asarray(js.geom.tri_light),
-    ))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        scene_from_arrays(*flatten_jax(clustered))
+    # The clusters convert (tests/test_torch_meshes.py); the kd-tree
+    # aggregate does not.
+    with pytest.raises(NotImplementedError, match="item 8"):
+        scene_from_arrays(*flatten_jax(js.replace(small=None).with_kdtree()))
     sampler_bvh = js.replace(lights=js.lights.replace(sampler="bvh"))
     with pytest.raises(NotImplementedError, match="item 11"):
         scene_from_arrays(*flatten_jax(sampler_bvh))

@@ -13,9 +13,12 @@ import numpy as np
 
 def flatten_jax(obj, prefix: str = ""):
     """Flatten a reference dataclass tree into (arrays, static) dicts keyed
-    by dotted field paths, as pbrt_tpu_torch.convert expects."""
+    by dotted field paths, as pbrt_tpu_torch.convert expects. Fields a
+    constructor does not take (derived in __post_init__) are left out."""
     arrays, static = {}, {}
     for f in dataclasses.fields(obj):
+        if not f.init:
+            continue
         value = getattr(obj, f.name)
         path = prefix + f.name
         if f.metadata.get("static", False) or value is None:
