@@ -6,17 +6,18 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from the sources in the checkout,
-checks each against its plain PyTorch twin, renders the Cornell box and the
-killeroo-class mesh scene on the card against the committed JAX goldens,
-and times the forward render of both at their benchmark configurations.
-Each phase prints one JSON line; any failure raises, so the script exits
-non-zero and never prints the final line. Without a CUDA device it exits
-non-zero at once. It never imports JAX.
+checks each against its plain PyTorch twin, renders the Cornell box, the
+killeroo-class mesh scene and the instanced field (a .pbrt file through the
+port's parser) on the card against the committed JAX goldens, and times
+the forward render of each at its benchmark configuration. Each phase
+prints one JSON line; any failure raises, so the script exits non-zero and
+never prints the final line. Without a CUDA device it exits non-zero at
+once. It never imports JAX.
 
 Phases:
   a   device: name, nvidia-smi name and power limit, torch/CUDA versions
-  b   build: nvcc builds of K1 (csrc/smallscene.cu) and K2 (csrc/cluster.cu),
-      started together, with their ptxas summaries
+  b   build: nvcc builds of K1 (csrc/smallscene.cu), K2 (csrc/cluster.cu)
+      and K3 (csrc/sweep.cu), started together, with their ptxas summaries
   c   K1 vs its twin on 4,194,304 rays (the Cornell pass's query shape):
       camera rays, random rays inside the box, dead lanes (tmax = 0),
       axis-parallel rays and NEE shadow segments; closest and any-hit
@@ -27,17 +28,32 @@ Phases:
       rays) in closest, any-hit and non-deferred closest modes, bit-equal;
       K2, its twin, ray_sort_perm and resolve_tri_attrs timed at the main
       path's shape (1,048,576 sorted rays)
+  c3  K3 vs its twin on every query of a 32x32, 4 spp pass (camera, four
+      bounces and the terminal query in closest mode, five shadow queries
+      with the path's dead lanes in any-hit mode), for the instanced field
+      (tests/data/torch_port/instanced_field.pbrt: 37 instances, 17,191
+      entries) and for with_accel(kind="sweep") on the killeroo-class
+      scene, bit-equal; then K3 and its twin at the main path's shape (the
+      1,048,576 camera rays of one instanced-field pass and their shadow
+      rays), bit-equal key by key, timed
   d   Cornell 32x32, 16 spp, 32 lanes, depth 5 (default Russian roulette)
       against tests/data/torch_port/cornell32_spp16.npy: >= 99% of pixel
       values within rtol 1e-3 / atol 1e-5, and 11 K1 launches per pass
   d2  killeroo-class 64x64, 4 spp, 8 lanes, depth 5 against
       tests/data/torch_port/killeroo64_spp4.npy: the same gate, 11 K2 and
       0 K1 launches per pass
+  d3  the instanced field, 64x64, 4 spp, 8 lanes, the file's integrator
+      against tests/data/torch_port/instanced64_spp4.npy: the same gate, 11
+      K3 and no K1 or K2 launches per pass
   e   timed Cornell forward at its benchmark configuration (256x256, 128
       spp in passes of 64, depth 5, no Russian roulette) at 8 and 32 lanes
   e2  timed killeroo-class forward at its benchmark configuration (512x512,
       8 spp in passes of 4, depth 5, no Russian roulette, 8 lanes): Mrays/s,
       first-pass seconds, peak memory, K2's and the ray sorts' shares
+  e3  timed instanced-field forward (the file's 512x512 and 8 spp, in passes
+      of 4, depth 5, no Russian roulette, 8 lanes): Mrays/s, peak memory,
+      K3's launches and share, and the first image's seconds from the parse
+      on (PLY reads, sweep build and upload included)
   f   the kernels line, the nvidia-smi line and the final result line
 """
 
@@ -57,9 +73,14 @@ K1_SOURCE = "pbrt_tpu_torch/csrc/smallscene.cu"
 K1_REPLACES = "pbrt_tpu/ops/smallscene.py:73"
 K2_SOURCE = "pbrt_tpu_torch/csrc/cluster.cu"
 K2_REPLACES = "pbrt_tpu/ops/cluster.py:177"
+K3_SOURCE = "pbrt_tpu_torch/csrc/sweep.cu"
+K3_REPLACES = "pbrt_tpu/ops/sweep.py:308"
+GOLDEN_INSTANCED = os.path.join(ROOT, "tests", "data", "torch_port",
+                                "instanced64_spp4.npy")
 MAIN_PATH_RAYS = 256 * 256 * 64  # one forward pass of the bench config
-KILLEROO_RES, KILLEROO_PER_PASS = 512, 4
-KILLEROO_PASS_RAYS = KILLEROO_RES * KILLEROO_RES * KILLEROO_PER_PASS
+# The killeroo and instanced-field passes: 512x512 at 4 samples per pixel.
+PASS_RES, PASS_SPP = 512, 4
+PASS_RAYS = PASS_RES * PASS_RES * PASS_SPP
 K2_SAMPLE = 65536  # rays of each kind held against the twin
 
 # The card's limits for the kernels' bounds (NVIDIA's data sheet, H100 SXM
@@ -108,7 +129,8 @@ def max_abs_err(got: dict, want: dict) -> float:
     import torch
 
     finite = torch.isfinite(want["t"])
-    err = float(torch.max(torch.abs(got["t"][finite] - want["t"][finite])))
+    err = (float(torch.abs(got["t"][finite] - want["t"][finite]).max())
+           if bool(finite.any()) else 0.0)
     for k in ("u", "v", "n"):
         if k in want:
             err = max(err, float(torch.max(torch.abs(got[k] - want[k]))))
@@ -133,7 +155,7 @@ def phase_build():
 
     from pbrt_tpu_torch.ops import nvcc_build
 
-    names = ("smallscene", "cluster")
+    names = ("smallscene", "cluster", "sweep")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(nvcc_build.load_library, names))
@@ -256,7 +278,7 @@ def killeroo_on(dev):
     from pbrt_tpu_torch.scenes.meshes import killeroo_class_scene
 
     t0 = time.perf_counter()
-    scene, camera = killeroo_class_scene(resolution=(KILLEROO_RES, KILLEROO_RES))
+    scene, camera = killeroo_class_scene(resolution=(PASS_RES, PASS_RES))
     scene, camera = scene.to(dev), camera.to(dev)
     return scene, camera, time.perf_counter() - t0
 
@@ -380,78 +402,220 @@ def phase_k2_vs_twin(dev, killeroo):
     return _k2_timed(scene, camera, dev)
 
 
-def _k2_timed(scene, camera, dev):
-    """K2 at the main path's shape: the 1,048,576 camera rays of one pass
-    (closest) and their NEE shadow rays (any-hit, with the path's dead
-    lanes: origin 1e8, tmax 0), sorted as the path sorts them. The twin
-    runs once on each, for its time and the work count, and K2 must equal
-    it on every output."""
+def _pass_batches(scene, camera, dev):
+    """The query batches of one 512x512, 4 spp pass at the main path's
+    shape: its 1,048,576 camera rays (closest) and their NEE shadow rays
+    (any-hit, with the path's dead lanes: origin 1e8, tmax 0), each sorted
+    as the path sorts them. Returns ({mode: (o, d, tmax)}, the unsorted
+    camera (o, d, tmax), the camera rays' hit prims)."""
     import torch
 
-    from pbrt_tpu_torch.accel.api import ray_sort_perm, resolve_tri_attrs
+    from pbrt_tpu_torch.accel.api import closest, ray_sort_perm
     from pbrt_tpu_torch.accel.dense import shadow_segment
-    from pbrt_tpu_torch.ops.cluster import (
-        STATS, cluster_intersect, cluster_intersect_ref,
-    )
     from pbrt_tpu_torch.render import camera_rays_full
 
-    acc = scene.clusters
-    n = KILLEROO_PASS_RAYS
-    npix = KILLEROO_RES * KILLEROO_RES
-    pixel = torch.arange(npix, device=dev).repeat(KILLEROO_PER_PASS)
-    sample = torch.arange(KILLEROO_PER_PASS, device=dev).repeat_interleave(npix)
+    n = PASS_RAYS
+    npix = PASS_RES * PASS_RES
+    pixel = torch.arange(npix, device=dev).repeat(PASS_SPP)
+    sample = torch.arange(PASS_SPP, device=dev).repeat_interleave(npix)
     o, d, _, _ = camera_rays_full(camera, pixel, sample, 0)
     tmax = torch.full((n,), float("inf"), device=dev)
-    sort_ms = cuda_ms(lambda: ray_sort_perm(o, d, tmax), reps=10)
-    perm, inv = ray_sort_perm(o, d, tmax)
+    perm, _ = ray_sort_perm(o, d, tmax)
     rays = {"closest": (o[perm], d[perm], tmax[perm])}
-    hit = cluster_intersect(acc, *rays["closest"])
-    prim = hit["prim"][inv]
-    attrs_ms = cuda_ms(lambda: resolve_tri_attrs(scene.geom, o, d, prim), reps=10)
-    _, _, ng, _, _ = resolve_tri_attrs(scene.geom, o, d, prim)
-    p = torch.where((prim >= 0)[:, None], o + hit["t"][inv][:, None] * d, 0.0)
+    isect = closest(scene, o, d, tmax)
     gen = torch.Generator(device=dev).manual_seed(0)
     ls = scene.lights.sample_li(
-        p, torch.full((n, 1), 550.0, device=dev),
+        isect.p, torch.full((n, 1), 550.0, device=dev),
         torch.rand(n, device=dev, generator=gen),
         torch.rand((n, 2), device=dev, generator=gen),
     )
-    so, wi, smax = shadow_segment(p, ng, ls.wi, ls.dist)
-    smax = torch.where(prim >= 0, smax, 0.0)  # dead lanes, as the path sends
-    so = torch.where((prim >= 0)[:, None], so, 1e8)
+    so, wi, smax = shadow_segment(isect.p, isect.n, ls.wi, ls.dist)
+    smax = torch.where(isect.valid, smax, 0.0)  # dead lanes, as the path sends
+    so = torch.where(isect.valid[:, None], so, 1e8)
     perm_s, _ = ray_sort_perm(so, wi, smax)
     rays["any_hit"] = (so[perm_s], wi[perm_s], smax[perm_s])
-    out = {"rays": n, "ray_sort_perm_ms": sort_ms, "resolve_tri_attrs_ms": attrs_ms}
+    return rays, (o, d, tmax), isect.prim
+
+
+def _timed_vs_twin(name, module, acc, rays, cost) -> dict:
+    """Time the kernel of `module` (its intersect function is `name`) and
+    its twin on each batch of `rays`; the kernel must equal the twin on
+    every output. cost(counts) gives the batch's (operations, bytes) from
+    the twin's work counts, for the bound."""
+    import torch
+
+    intersect = getattr(module, name)
+    intersect_ref = getattr(module, name + "_ref")
+    out = {}
     for mode, (ro, rd, rt) in rays.items():
         any_hit = mode == "any_hit"
-        STATS.reset()
-        ms = cuda_ms(lambda: cluster_intersect(acc, ro, rd, rt, any_hit=any_hit),
+        module.STATS.reset()
+        ms = cuda_ms(lambda: intersect(acc, ro, rd, rt, any_hit=any_hit),
                      reps=10)
-        got = cluster_intersect(acc, ro, rd, rt, any_hit=any_hit)
+        got = intersect(acc, ro, rd, rt, any_hit=any_hit)
         counts = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = cluster_intersect_ref(acc, ro, rd, rt, any_hit=any_hit,
-                                     counts=counts)
+        want = intersect_ref(acc, ro, rd, rt, any_hit=any_hit, counts=counts)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         bad = [k for k in want if not torch.equal(got[k], want[k])]
         if set(got) != set(want) or bad:
-            raise AssertionError(f"K2 {mode} at {n} rays differs from its twin "
-                                 f"in {bad or sorted(set(got) ^ set(want))}")
-        # Work of this data: 128 triangle tests per (ray, cluster) pair left
-        # after per-ray culling; bytes: 28 B of ray in, 8 B of (t, prim)
-        # out, and the ten triangle planes and the boxes read once.
-        tests = counts["pairs"] * 128
-        nbytes = (n * (28 + 8) + acc.n_clusters * 128 * 10 * 4
-                  + (acc.n_clusters + acc.n_supers) * 32)
-        out[mode] = {"ms": ms, "plain_ms": plain_ms, "pairs": counts["pairs"],
-                     "tests": tests, "hits": int((want["prim"] >= 0).sum()),
+            raise AssertionError(f"{name} {mode} at {ro.shape[0]} rays differs "
+                                 f"from its twin in "
+                                 f"{bad or sorted(set(got) ^ set(want))}")
+        ops, nbytes = cost(counts)
+        out[mode] = {"ms": ms, "plain_ms": plain_ms, **counts,
+                     "tests": counts["pairs"] * 128,
+                     "hits": int((want["prim"] >= 0).sum()),
                      "live": int((rt > 0).sum()), "mismatched_keys": bad,
                      "max_abs_err": max_abs_err(got, want),
-                     **_bound(tests * MT_OPS, nbytes)}
-    STATS.reset()
+                     **_bound(ops, nbytes)}
+    module.STATS.reset()
+    return out
+
+
+def _k2_timed(scene, camera, dev):
+    """K2, its twin, ray_sort_perm and resolve_tri_attrs at the main path's
+    shape (_pass_batches)."""
+    from pbrt_tpu_torch.accel.api import ray_sort_perm, resolve_tri_attrs
+    from pbrt_tpu_torch.ops import cluster
+
+    acc = scene.clusters
+    rays, (o, d, tmax), prim = _pass_batches(scene, camera, dev)
+    out = {"rays": PASS_RAYS,
+           "ray_sort_perm_ms": cuda_ms(lambda: ray_sort_perm(o, d, tmax), reps=10),
+           "resolve_tri_attrs_ms": cuda_ms(
+               lambda: resolve_tri_attrs(scene.geom, o, d, prim), reps=10)}
+
+    def cost(counts):
+        # 128 triangle tests per (ray, cluster) pair left after per-ray
+        # culling; 28 B of ray in, 8 B of (t, prim) out, and the ten
+        # triangle planes and the boxes read once.
+        return (counts["pairs"] * 128 * MT_OPS,
+                PASS_RAYS * (28 + 8) + acc.n_clusters * 128 * 10 * 4
+                + (acc.n_clusters + acc.n_supers) * 32)
+
+    out.update(_timed_vs_twin("cluster_intersect", cluster, acc, rays, cost))
     emit("c2_k2_timed", **out)
+    return out
+
+
+# FP32 operations of K3's world-to-object move per (ray, entered instance):
+# the origin's 9 multiplies and 9 adds (the direction's 15 operations are
+# left out, so the bound stays a lower bound).
+XFORM_OPS = 18
+K3_SAMPLE_RES = 32  # the pass whose every K3 query is held against the twin
+
+
+def field_on(dev):
+    """The instanced field on the card: its PLY prototypes written into a
+    temporary directory, then the file parsed there by the port's parser.
+    Returns (scene, camera, settings, mesh seconds, load seconds)."""
+    import tempfile
+
+    import torch
+
+    from pbrt_tpu_torch.io.parser import load_pbrt_string
+    from tests.torch_port_instanced import field_text, write_field_meshes
+
+    with tempfile.TemporaryDirectory(prefix="instanced_field_") as tmp:
+        t0 = time.perf_counter()
+        write_field_meshes("pbrt_tpu_torch", tmp)
+        t1 = time.perf_counter()
+        scene, camera, settings = load_pbrt_string(field_text(), tmp,
+                                                   device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return scene, camera, settings, t1 - t0, t2 - t1
+
+
+def _k3_queries(scene, camera, res: int, k: int):
+    """Every K3 query of one res x res, k spp forward pass (8 lanes), as the
+    path sends it: sorted rays, tmax and mode, in the order sent (camera,
+    then per bounce a shadow and a bounce query, then the terminal one)."""
+    from pbrt_tpu_torch.accel import api
+
+    queries = []
+    launch = api.sweep_intersect
+
+    def capture(acc, o, d, tmax, any_hit=False):
+        queries.append((o.clone(), d.clone(), tmax.clone(), any_hit))
+        return launch(acc, o, d, tmax, any_hit=any_hit)
+
+    api.sweep_intersect = capture
+    try:
+        make_pass(scene, camera.replace(resolution=(res, res)), res, k, 8)(0)
+    finally:
+        api.sweep_intersect = launch
+    names, bounce = [], 0
+    for _, _, _, any_hit in queries:
+        if any_hit:
+            bounce += 1
+            names.append(f"shadow{bounce}")
+        else:
+            names.append("camera" if not names else f"bounce{bounce}")
+    names[-1] = "terminal"
+    return dict(zip(names, queries))
+
+
+def phase_k3_vs_twin(dev, field, killeroo):
+    """K3 against its twin on every query of a small pass, for the
+    instanced field and for the killeroo-class scene under
+    with_accel(kind="sweep"); then at the main path's shape."""
+    import torch
+
+    from pbrt_tpu_torch.ops.sweep import sweep_intersect, sweep_intersect_ref
+
+    result, err = {}, 0.0
+    scenes = {"instanced_field": (field[0], field[1]),
+              "killeroo_sweep": (killeroo[0].with_accel(kind="sweep"),
+                                 killeroo[1])}
+    for label, (scene, camera) in scenes.items():
+        acc = scene.sweep
+        per_query = {}
+        for name, (o, d, tmax, any_hit) in _k3_queries(
+                scene, camera, K3_SAMPLE_RES, 4).items():
+            got = sweep_intersect(acc, o, d, tmax, any_hit=any_hit)
+            counts = {}
+            want = sweep_intersect_ref(acc, o, d, tmax, any_hit=any_hit,
+                                       counts=counts)
+            torch.cuda.synchronize()
+            bad = [k for k in want if not torch.equal(got[k], want[k])]
+            if set(got) != set(want) or bad:
+                raise AssertionError(f"K3 {label} {name} differs from its "
+                                     f"twin in {bad}")
+            err = max(err, max_abs_err(got, want))
+            per_query[name] = {"rays": int(o.shape[0]),
+                               "live": int((tmax > 0).sum()),
+                               "hits": int((want["prim"] >= 0).sum()),
+                               "pairs": counts["pairs"]}
+        result[label] = {"instances": acc.n_instances,
+                         "entries": acc.n_entries, "queries": per_query}
+    emit("c3_k3_vs_twin", max_abs_err=err, **result)
+    return _k3_timed(field[0], field[1], dev)
+
+
+def _k3_timed(scene, camera, dev):
+    """K3 and its twin at the main path's shape (_pass_batches) on the
+    instanced field."""
+    from pbrt_tpu_torch.ops import sweep
+
+    acc = scene.sweep
+    rays, _, _ = _pass_batches(scene, camera, dev)
+
+    def cost(counts):
+        # 128 triangle tests per (ray, cluster) pair and one move into
+        # object space per (ray, instance) entered, after per-ray culling;
+        # 28 B of ray in, 12 B of (t, prim, inst) out, and the ten triangle
+        # planes, the boxes and the instance rows read once.
+        return (counts["pairs"] * 128 * MT_OPS + counts["instances"] * XFORM_OPS,
+                PASS_RAYS * (28 + 12) + acc.n_clusters * (128 * 10 * 4 + 32)
+                + acc.n_instances * (12 + 8 + 2) * 4)
+
+    out = {"rays": PASS_RAYS,
+           **_timed_vs_twin("sweep_intersect", sweep, acc, rays, cost)}
+    emit("c3_k3_timed", **out)
     return out
 
 
@@ -523,6 +687,42 @@ def phase_golden_killeroo(dev, killeroo):
         raise AssertionError(f"only {share:.4f} of pixel values match the golden")
     if k2 != 11 * (spp // per_pass) or k1 != 0:
         raise AssertionError(f"{k2} K2 and {k1} K1 launches for "
+                             f"{spp // per_pass} passes")
+
+
+def phase_golden_instanced(dev, field):
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.ops import cluster, smallscene, sweep
+    from pbrt_tpu_torch.render import render
+
+    golden = np.load(GOLDEN_INSTANCED)
+    scene, camera, settings = field[:3]
+    spp = per_pass = 4
+    for counter in (smallscene.STATS, cluster.STATS, sweep.STATS):
+        counter.reset()
+    img = render(scene, camera.replace(resolution=(64, 64)),
+                 settings["integrator"], spp=spp, seed=0,
+                 samples_per_pass=per_pass, n_spectrum=8, device=dev)
+    torch.cuda.synchronize()
+    k1, k2, k3 = (c.STATS.launches for c in (smallscene, cluster, sweep))
+    img = img.cpu().numpy()
+    if img.shape != golden.shape or not np.all(np.isfinite(img)):
+        raise AssertionError(f"bad render: shape {img.shape}, finite "
+                             f"{bool(np.all(np.isfinite(img)))}")
+    diff = np.abs(img - golden)
+    ok = diff <= 1e-5 + 1e-3 * np.abs(golden)
+    share = float(np.mean(ok))
+    emit("d3_golden_instanced", share_within=share, outliers=int(np.sum(~ok)),
+         values=int(ok.size), largest_abs_diff=sorted(diff.ravel().tolist())[-5:],
+         mean=float(img.mean()), golden_mean=float(golden.mean()),
+         k3_launches=k3, k2_launches=k2, k1_launches=k1,
+         passes=spp // per_pass)
+    if share < 0.99:
+        raise AssertionError(f"only {share:.4f} of pixel values match the golden")
+    if k3 != 11 * (spp // per_pass) or k1 or k2:
+        raise AssertionError(f"{k3} K3, {k2} K2 and {k1} K1 launches for "
                              f"{spp // per_pass} passes")
 
 
@@ -602,7 +802,7 @@ def phase_timed_killeroo(dev, build_seconds: float):
     from pbrt_tpu_torch.ops import cluster, smallscene
     from pbrt_tpu_torch.scenes.meshes import killeroo_class_scene
 
-    res, spp, k, lanes = KILLEROO_RES, 8, KILLEROO_PER_PASS, 8
+    res, spp, k, lanes = PASS_RES, 8, PASS_SPP, 8
 
     # First pass, from the scene build on (Morton sort and cluster build
     # included; the kernel was built in phase b). It is the warm-up.
@@ -645,6 +845,49 @@ def phase_timed_killeroo(dev, build_seconds: float):
          k2_ms_per_launch=out["k2_ms"] / k2, sorts=len(sort_events),
          sort_ms=sort_ms, sort_share=sort_ms / (out["seconds"] * 1e3))
     return k2
+
+
+def phase_timed_instanced(dev, mesh_seconds: float):
+    """The instanced-field forward render at its file's configuration
+    (512x512, 8 spp) in passes of 4, depth 5 without Russian roulette, 8
+    lanes, timed on the card, with the first image's seconds from the parse
+    on (the kernels were built in phase b)."""
+    import tempfile
+
+    import torch
+
+    from pbrt_tpu_torch.io.parser import load_pbrt_string
+    from pbrt_tpu_torch.ops import cluster, smallscene, sweep
+    from tests.torch_port_instanced import field_text, write_field_meshes
+
+    k, lanes = PASS_SPP, 8
+    with tempfile.TemporaryDirectory(prefix="instanced_field_") as tmp:
+        write_field_meshes("pbrt_tpu_torch", tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene, camera, settings = load_pbrt_string(field_text(), tmp,
+                                                   device=dev)
+        res, _ = camera.resolution
+        spp = settings["spp"]
+        render_pass = make_pass(scene, camera, res, k, lanes,
+                                depth=settings["integrator"].max_depth)
+        render_pass(0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    out = timed_forward(render_pass, spp // k,
+                        {"k1": smallscene.STATS, "k2": cluster.STATS,
+                         "k3": sweep.STATS})
+    k1, k2, k3 = out["k1_launches"], out["k2_launches"], out["k3_launches"]
+    if k3 == 0 or k1 or k2:
+        raise AssertionError(f"timed instanced field: K3 launches={k3} K2 "
+                             f"launches={k2} K1 launches={k1}")
+    emit("e3_timed_instanced", lanes=lanes, resolution=res, spp=spp,
+         samples_per_pass=k, max_depth=settings["integrator"].max_depth,
+         **out, first_image_seconds=first_s,
+         first_image_with_meshes_seconds=first_s + mesh_seconds,
+         k3_ms_per_launch=out["k3_ms"] / k3,
+         instances=scene.sweep.n_instances, entries=scene.sweep.n_entries)
+    return k3
 
 
 def phase_timed(dev, lanes: int):
@@ -692,26 +935,35 @@ def main() -> int:
     k1 = phase_kernel_vs_twin(dev)
     killeroo = killeroo_on(dev)
     k2 = phase_k2_vs_twin(dev, killeroo)
+    field = field_on(dev)
+    k3 = phase_k3_vs_twin(dev, field, killeroo)
     phase_golden(dev)
     phase_golden_killeroo(dev, killeroo)
+    phase_golden_instanced(dev, field)
     k1_launches = phase_timed(dev, 8)
     phase_timed(dev, 32)
     k2_launches = phase_timed_killeroo(dev, builds["cluster"]["seconds"])
+    k3_launches = phase_timed_instanced(dev, field[3])
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    # No single PyTorch call computes a ray/triangle intersection, so
-    # neither kernel has a library yardstick.
-    # K2's error is that of the 1,048,576-ray comparisons, both modes.
-    k2_line = {**k2["closest"], "max_abs_err": max(
-        k2["closest"]["max_abs_err"], k2["any_hit"]["max_abs_err"])}
+    # No single PyTorch call computes a ray/triangle intersection, so no
+    # kernel has a library yardstick. K2's and K3's errors are those of the
+    # 1,048,576-ray comparisons, both modes.
+    lines = {}
+    for name, res in (("cluster", k2), ("sweep", k3)):
+        lines[name] = {**res["closest"], "max_abs_err": max(
+            res["closest"]["max_abs_err"], res["any_hit"]["max_abs_err"])}
     print(json.dumps({"kernels": [
         _kernel_entry("smallscene", K1_SOURCE, K1_REPLACES, k1_launches, k1),
-        _kernel_entry("cluster", K2_SOURCE, K2_REPLACES, k2_launches, k2_line),
+        _kernel_entry("cluster", K2_SOURCE, K2_REPLACES, k2_launches,
+                      lines["cluster"]),
+        _kernel_entry("sweep", K3_SOURCE, K3_REPLACES, k3_launches,
+                      lines["sweep"]),
     ]}), flush=True)
     print(smi, flush=True)
-    # The run uses one device, whatever the host holds.
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
 

@@ -1,12 +1,13 @@
 """Acceleration dispatch (port of pbrt_tpu/accel/api.py).
 
-Every closest-hit and any-hit query goes through the accelerator that
-`Scene.with_accel()` attached: K1 (ops/smallscene.py) for scenes of up to
-1024 triangles, K2 (ops/cluster.py) above that. K2 answers on rays
-permuted by `ray_sort_perm`, and the closest-hit query defers the hit's
-attributes to `resolve_tri_attrs`, as the reference does. The sweep
-accelerator (ROADMAP Queue 1 item 7), the BVH and kd-tree, and the dense
-watertight tester (item 8) are not ported.
+Every closest-hit and any-hit query goes through the one accelerator the
+scene carries: K1 (ops/smallscene.py) for scenes of up to 1024 triangles,
+K2 (ops/cluster.py) above that, or K3 (ops/sweep.py) for instanced scenes
+from the parser and `with_accel(kind="sweep")`. K2 and K3 answer on rays
+permuted by `ray_sort_perm`, and their closest-hit queries defer the
+hit's attributes to `resolve_tri_attrs` (`resolve_tri_attrs_inst` for
+instances), as the reference does. The BVH and kd-tree, and the dense
+watertight tester (ROADMAP Queue 1 item 8) are not ported.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from ..core.vecmath import cross, normalize
 from ..ops.cluster import cluster_intersect
 from ..ops.smallscene import smallscene_intersect
+from ..ops.sweep import sweep_intersect
 from ..shapes.geometry import Interaction
 
 
@@ -27,7 +29,7 @@ def _spread8(x):
 
 
 def ray_sort_perm(o, d, tmax):
-    """Coherence permutation for K2: (perm, inv) such that o[perm] puts
+    """Coherence permutation for K2 and K3: (perm, inv) such that o[perm] puts
     rays of compact beams next to each other and x[perm][inv] == x.
 
     The reference's key, lexicographic: the 24-bit origin Morton code
@@ -82,6 +84,32 @@ def resolve_tri_attrs(geom, o, d, prim):
     return u, v, ng, geom.tri_mat[tri_idx], geom.tri_light[tri_idx]
 
 
+def resolve_tri_attrs_inst(geom, sweep, o, d, prim, inst):
+    """Hit attributes of instanced hits: the prototype triangle `prim`
+    (object space) lifted to world space by instance `inst`'s
+    object-to-world row, then the Moller-Trumbore u, v and the unit
+    geometric normal re-evaluated against the world ray, so non-uniform
+    instance scales shade correctly. Misses read triangle 0 of instance
+    0."""
+    n_tri = geom.num_triangles
+    tri_idx = torch.clamp(prim, 0, max(n_tri - 1, 0)).long()
+    tv = geom.tri_verts[tri_idx]  # (N, 3, 3) object space
+    rows = sweep.o2w[torch.clamp(inst, 0, sweep.o2w.shape[0] - 1).long()]
+    m = rows.reshape(-1, 3, 4)
+    tv = torch.einsum("nij,nkj->nki", m[:, :, :3], tv) + m[:, None, :, 3]
+    e1 = tv[:, 1] - tv[:, 0]
+    e2 = tv[:, 2] - tv[:, 0]
+    ng = normalize(cross(e1, e2))
+    pvec = cross(d, e2)
+    det = torch.sum(e1 * pvec, dim=-1)
+    inv = torch.where(torch.abs(det) > 1e-12, 1.0 / det, 0.0)
+    tvec = o - tv[:, 0]
+    u = torch.sum(tvec * pvec, dim=-1) * inv
+    qvec = cross(tvec, e1)
+    v = torch.sum(d * qvec, dim=-1) * inv
+    return u, v, ng, geom.tri_mat[tri_idx], geom.tri_light[tri_idx]
+
+
 def _no_accel():
     return NotImplementedError(
         "scene has no accelerator: call Scene.with_accel() (the dense "
@@ -119,6 +147,17 @@ def _tri_closest(scene, o, d, tmax):
                                 any_hit=False, defer_attrs=True)
         t, prim = res["t"][inv], res["prim"][inv]
         return (t, prim, *resolve_tri_attrs(scene.geom, o, d, prim))
+    if scene.sweep is not None:
+        perm, inv = ray_sort_perm(o, d, tmax)
+        res = sweep_intersect(scene.sweep, o[perm], d[perm], tmax[perm],
+                              any_hit=False)
+        t, prim, inst = res["t"][inv], res["prim"][inv], res["inst"][inv]
+        if scene.sweep.instanced:
+            attrs = resolve_tri_attrs_inst(scene.geom, scene.sweep, o, d,
+                                           prim, inst)
+        else:
+            attrs = resolve_tri_attrs(scene.geom, o, d, prim)
+        return (t, prim, *attrs)
     raise _no_accel()
 
 
@@ -154,5 +193,10 @@ def any_hit(scene, o, d, tmax) -> torch.Tensor:
         perm, inv = ray_sort_perm(o, d, tmax)
         res = cluster_intersect(scene.clusters, o[perm], d[perm], tmax[perm],
                                 any_hit=True)
+        return (res["prim"] >= 0)[inv]
+    if scene.sweep is not None:
+        perm, inv = ray_sort_perm(o, d, tmax)
+        res = sweep_intersect(scene.sweep, o[perm], d[perm], tmax[perm],
+                              any_hit=True)
         return (res["prim"] >= 0)[inv]
     raise _no_accel()

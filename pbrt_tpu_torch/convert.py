@@ -24,13 +24,14 @@ from .lights.buffers import LightBuffers
 from .materials.buffers import MaterialBuffers
 from .ops.cluster import ClusterAccel
 from .ops.smallscene import SmallTriAccel
+from .ops.sweep import SweepAccel
 from .scene import Scene
 from .shapes.geometry import UNPORTED_SHAPES, GeometryBuffers
 
 # Scene members the port does not carry -> ROADMAP Queue 1 item.
 _UNPORTED_MEMBERS = {
     "medium": 12, "media_stack": 12, "textures": 10, "bvh": 8,
-    "kdtree": 8, "sweep": 7, "anim": 7,
+    "kdtree": 8, "anim": 7,
 }
 # Static fields the port does not carry, with the only value it accepts.
 _IMPLIED_STATIC = {
@@ -91,7 +92,7 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
             if path in arrays or static[path] is not None:
                 raise _unported(path, _UNPORTED_MEMBERS[member])
         elif member not in ("geom", "materials", "lights", "small",
-                            "clusters"):
+                            "clusters", "sweep"):
             raise ValueError(f"unknown scene field {path!r}")
     geom = _section(GeometryBuffers, "geom", arrays, static,
                     lambda n: UNPORTED_SHAPES.get(n, 8))
@@ -100,7 +101,8 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
     lights = _section(LightBuffers, "lights", arrays, static,
                       lambda n: _LIGHT_ITEM)
     accels = {}
-    for member, cls in (("small", SmallTriAccel), ("clusters", ClusterAccel)):
+    for member, cls in (("small", SmallTriAccel), ("clusters", ClusterAccel),
+                        ("sweep", SweepAccel)):
         if any(p.startswith(member + ".") for p in list(arrays) + list(static)):
             accels[member] = _section(cls, member, arrays, static, lambda n: 6)
     return Scene(geom=geom, materials=materials, lights=lights, **accels)

@@ -44,13 +44,18 @@
 
 #include <cuda_runtime.h>
 
+#include "triangle.cuh"
+
 namespace {
+
+using isect::Ray;
+using isect::inv_dir;
+using isect::slab;
 
 constexpr int kCluster = 128;
 constexpr int kSuper = 32;
 constexpr int kThreads = 128;  // one ray per thread; == kCluster for staging
 constexpr int kTriPlanes = 10;  // v0x v0y v0z e1x e1y e1z e2x e2y e2z pid
-constexpr float kEps = 1e-12f;
 constexpr float kBig = 3e38f;
 
 static_assert(kThreads == kCluster, "staging loads one triangle per thread");
@@ -65,31 +70,6 @@ struct Tables {
   const float* matf;
   const float* lightf;
 };
-
-struct Ray {
-  float ox, oy, oz, ix, iy, iz;
-};
-
-__device__ __forceinline__ float inv_dir(float x) {
-  return 1.0f / (fabsf(x) < kEps ? kEps : x);
-}
-
-// Per-ray AABB test of box row [lox loy loz hix hiy hiz], including the
-// closer-hit prune (tmin < t_best); the reference's op order.
-__device__ __forceinline__ bool slab(const float* __restrict__ box,
-                                     const Ray& r, float t_best) {
-  const float tx0 = (box[0] - r.ox) * r.ix;
-  const float tx1 = (box[3] - r.ox) * r.ix;
-  const float ty0 = (box[1] - r.oy) * r.iy;
-  const float ty1 = (box[4] - r.oy) * r.iy;
-  const float tz0 = (box[2] - r.oz) * r.iz;
-  const float tz1 = (box[5] - r.oz) * r.iz;
-  const float tmin = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                           fmaxf(fminf(tz0, tz1), 0.0f));
-  const float tmx = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                          fmaxf(tz0, tz1));
-  return tmx >= tmin && tmin < t_best;
-}
 
 template <bool kAnyHit, bool kAttrs>
 __global__ void __launch_bounds__(kThreads)
@@ -145,27 +125,10 @@ cluster_kernel(Tables tab, int n_clusters, int n_supers,
       int bj = -1;
       bool got = false;
       for (int j = 0; j < kCluster; ++j) {
-        const float v0x = tri[0][j], v0y = tri[1][j], v0z = tri[2][j];
-        const float e1x = tri[3][j], e1y = tri[4][j], e1z = tri[5][j];
-        const float e2x = tri[6][j], e2y = tri[7][j], e2z = tri[8][j];
+        float tk, u, v;
+        const bool hit = isect::mt_row(tri, j, ray.ox, ray.oy, ray.oz, dx, dy,
+                                       dz, tb, tk, u, v);
         const float pid = tri[9][j];
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const bool ok = fabsf(det) > kEps;
-        const float inv_det = ok ? 1.0f / det : 0.0f;
-        const float tvx = ray.ox - v0x;
-        const float tvy = ray.oy - v0y;
-        const float tvz = ray.oz - v0z;
-        const float u = (tvx * px + tvy * py + tvz * pz) * inv_det;
-        const float qx = tvy * e1z - tvz * e1y;
-        const float qy = tvz * e1x - tvx * e1z;
-        const float qz = tvx * e1y - tvy * e1x;
-        const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-        const float tk = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        const bool hit = ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                         tk > 0.0f && tk < tb;
         if (!hit) continue;
         if (kAnyHit) {
           got = true;

@@ -156,7 +156,7 @@ def build_clusters(tri_verts, tri_mat=None, tri_light=None) -> ClusterAccel:
     )
 
 
-def _slab(box, ox, oy, oz, ix, iy, iz, t_best):
+def slab(box, ox, oy, oz, ix, iy, iz, t_best):
     """Per-ray AABB test of box = (lox, loy, loz, hix, hiy, hiz), including
     the closer-hit prune (tmin < t_best); the reference's op order."""
     lox, loy, loz, hix, hiy, hiz = box[:6]
@@ -177,8 +177,45 @@ def _slab(box, ox, oy, oz, ix, iy, iz, t_best):
     return (tmx >= tmin) & (tmin < t_best)
 
 
-def _inv(x):
+def inv_dir(x):
     return 1.0 / torch.where(torch.abs(x) < _EPS, _EPS, x)
+
+
+def mt_rows(tri: dict, c: int, rox, roy, roz, rdx, rdy, rdz, tb):
+    """Moller-Trumbore of k rays (columns (k, 1)) against the 128 rows of
+    cluster c in the kernels' operation order. A row hits when |det| >
+    1e-12, u >= 0, v >= 0, u + v <= 1 and 0 < t < tb. Returns (hit, t, u,
+    v) as (k, 128) and the rows' pid + 1 as (1, 128)."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, pid = (
+        tri[key][c][None, :] for key in _TRI_KEYS
+    )
+    px = rdy * e2z - rdz * e2y
+    py = rdz * e2x - rdx * e2z
+    pz = rdx * e2y - rdy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    ok = torch.abs(det) > _EPS
+    inv_det = torch.where(ok, 1.0 / det, 0.0)
+    tvx = rox - v0x
+    tvy = roy - v0y
+    tvz = roz - v0z
+    uk = (tvx * px + tvy * py + tvz * pz) * inv_det
+    qx = tvy * e1z - tvz * e1y
+    qy = tvz * e1x - tvx * e1z
+    qz = tvx * e1y - tvy * e1x
+    vk = (rdx * qx + rdy * qy + rdz * qz) * inv_det
+    tk = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    hit = (ok & (uk >= 0.0) & (vk >= 0.0) & (uk + vk <= 1.0)
+           & (tk > 0.0) & (tk < tb[:, None]))
+    return hit, tk, uk, vk, pid
+
+
+def closest_of_rows(hit, tk, pid):
+    """Each ray's smallest hit t over its 128 rows (3e38 without a hit),
+    the rows at that t, and the largest pid + 1 among them (0 without)."""
+    tkh = torch.where(hit, tk, _BIG)
+    tmin = torch.amin(tkh, dim=1)
+    eq = hit & (tkh == tmin[:, None])
+    return tmin, eq, torch.amax(torch.where(eq, pid, 0.0), dim=1)
 
 
 def cluster_intersect_ref(accel: ClusterAccel, o, d, tmax,
@@ -193,7 +230,7 @@ def cluster_intersect_ref(accel: ClusterAccel, o, d, tmax,
     dev = o.device
     ox, oy, oz = (o[:, i].contiguous() for i in range(3))
     dx, dy, dz = (d[:, i].contiguous() for i in range(3))
-    ix, iy, iz = _inv(dx), _inv(dy), _inv(dz)
+    ix, iy, iz = inv_dir(dx), inv_dir(dy), inv_dir(dz)
     t_best = tmax.clone()
     prim_f = torch.zeros((n,), dtype=torch.float32, device=dev)
     attrs = not (any_hit or defer_attrs)
@@ -206,51 +243,30 @@ def cluster_intersect_ref(accel: ClusterAccel, o, d, tmax,
     tri = {k: getattr(accel, k) for k in _TRI_KEYS}
     pairs = 0
     for s in range(accel.n_supers):
-        live_s = _slab(sboxes[s], ox, oy, oz, ix, iy, iz, t_best)
+        live_s = slab(sboxes[s], ox, oy, oz, ix, iy, iz, t_best)
         idx_s = torch.nonzero(live_s).squeeze(1)
         if idx_s.numel() == 0:
             continue
         ray_s = [x[idx_s] for x in (ox, oy, oz, ix, iy, iz)]
         for c in range(s * _SUPER, min((s + 1) * _SUPER, accel.n_clusters)):
-            live_c = _slab(boxes[c], *ray_s, t_best[idx_s])
+            live_c = slab(boxes[c], *ray_s, t_best[idx_s])
             idx = idx_s[live_c]
             k = idx.numel()
             if k == 0:
                 continue
             pairs += k
-            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, pid = (
-                tri[key][c][None, :] for key in _TRI_KEYS
-            )
-            rox, roy, roz = (x[idx][:, None] for x in (ox, oy, oz))
-            rdx, rdy, rdz = (x[idx][:, None] for x in (dx, dy, dz))
+            rox, roy, roz, rdx, rdy, rdz = (
+                x[idx][:, None] for x in (ox, oy, oz, dx, dy, dz))
             tb = t_best[idx]
-            px = rdy * e2z - rdz * e2y
-            py = rdz * e2x - rdx * e2z
-            pz = rdx * e2y - rdy * e2x
-            det = e1x * px + e1y * py + e1z * pz
-            ok = torch.abs(det) > _EPS
-            inv_det = torch.where(ok, 1.0 / det, 0.0)
-            tvx = rox - v0x
-            tvy = roy - v0y
-            tvz = roz - v0z
-            uk = (tvx * px + tvy * py + tvz * pz) * inv_det
-            qx = tvy * e1z - tvz * e1y
-            qy = tvz * e1x - tvx * e1z
-            qz = tvx * e1y - tvy * e1x
-            vk = (rdx * qx + rdy * qy + rdz * qz) * inv_det
-            tk = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-            hit = (ok & (uk >= 0.0) & (vk >= 0.0) & (uk + vk <= 1.0)
-                   & (tk > 0.0) & (tk < tb[:, None]))
+            hit, tk, uk, vk, pid = mt_rows(tri, c, rox, roy, roz, rdx, rdy,
+                                           rdz, tb)
             if any_hit:
                 got = torch.any(hit, dim=1)
                 pid_max = torch.amax(torch.where(hit, pid, 0.0), dim=1)
                 t_best[idx] = torch.where(got, 0.0, tb)
                 prim_f[idx] = torch.where(got, pid_max, prim_f[idx])
                 continue
-            tkh = torch.where(hit, tk, _BIG)
-            tmin = torch.amin(tkh, dim=1)
-            eq = hit & (tkh == tmin[:, None])
-            pid_sel = torch.amax(torch.where(eq, pid, 0.0), dim=1)
+            tmin, eq, pid_sel = closest_of_rows(hit, tk, pid)
             better = tmin < tb
             t_best[idx] = torch.where(better, tmin, tb)
             prim_f[idx] = torch.where(better, pid_sel, prim_f[idx])

@@ -3,9 +3,10 @@
 Each kernel source `pbrt_tpu_torch/csrc/<name>.cu` exposes a plain C
 interface (no PyTorch headers, so a build takes seconds). On first use it
 is compiled for sm_90a into `pbrt_tpu_torch/_build/<name>-<key>.so`, where
-the key hashes the source, the flags and the compiler path, so an edited
-source or flag rebuilds; a file lock serializes concurrent builders. A
-build failure raises: there is no fallback.
+the key hashes the source, the package's shared headers (`csrc/*.cuh`),
+the flags and the compiler path, so an edited source, header or flag
+rebuilds; a file lock serializes concurrent builders. A build failure
+raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -54,8 +55,9 @@ def load_library(name: str) -> ctypes.CDLL:
     """Compile csrc/<name>.cu if its build is missing, then load it."""
     src = CSRC_DIR / f"{name}.cu"
     nvcc = nvcc_path()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     key = hashlib.sha256(
-        src.read_bytes() + "\0".join((nvcc, *NVCC_FLAGS)).encode()
+        src.read_bytes() + headers + "\0".join((nvcc, *NVCC_FLAGS)).encode()
     ).hexdigest()[:16]
     BUILD_DIR.mkdir(exist_ok=True)
     lib = BUILD_DIR / f"{name}-{key}.so"

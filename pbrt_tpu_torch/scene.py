@@ -1,10 +1,12 @@
 """Scene container (port of pbrt_tpu/scene.py).
 
-Geometry, materials and lights as flat tensors, plus the triangle
-accelerator once `with_accel()` has attached it: the small-scene table (K1)
-or the Morton clusters (K2). The reference's other optional members
-(media, textures, BVH, kd-tree, sweep, animated instances) are not ported;
-convert.py refuses scenes that carry them.
+Geometry, materials and lights as flat tensors, plus the one triangle
+accelerator the scene carries: the small-scene table (K1) or the Morton
+clusters (K2), which `with_accel()` attaches, or the instanced sweep
+tables (K3), which the parser attaches to scenes with object instances and
+`with_accel(kind="sweep")` to any scene. The reference's other optional
+members (media, textures, BVH, kd-tree, animated instances) are not
+ported; convert.py refuses scenes that carry them.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from .lights.buffers import LightBuffers
 from .materials.buffers import MAT_CONDUCTOR, MAT_DIFFUSE, MaterialBuffers
 from .ops.cluster import ClusterAccel, build_clusters
 from .ops.smallscene import SmallTriAccel, build_smallscene
+from .ops.sweep import SweepAccel, build_sweep
 from .shapes.geometry import GeometryBuffers
 
 # Material families the BxDF select chain shades (materials/bxdf.py).
@@ -33,6 +36,9 @@ class Scene:
     small: Optional[SmallTriAccel] = None
     # Morton cluster intersector (ops/cluster.py, kernel K2).
     clusters: Optional[ClusterAccel] = None
+    # Instanced cluster sweep (ops/sweep.py, kernel K3); the only tier
+    # that holds object instances.
+    sweep: Optional[SweepAccel] = None
     # Material kinds the geometry references; the BxDF select chain runs
     # only their links (materials/bxdf.py). Derived, never passed.
     shaded_kinds: FrozenSet[int] = static_field(init=False, default=frozenset())
@@ -58,25 +64,36 @@ class Scene:
 
         Up to `threshold` triangles: the small-scene table (K1). Above it,
         or for kind="cluster": the Morton clusters (K2), the reference's
-        default. Exactly one tier is attached; any other is dropped. The sweep accelerator (kind="sweep") is not ported; the
+        default. kind="sweep": the sweep tables (K3) with one identity
+        instance. Exactly one tier is attached; any other is dropped. The
         reference's PBRT_TPU_ACCEL variable is not read.
         """
         n_tri = self.geom.num_triangles
         if n_tri == 0:
             return self
+        if self.sweep is not None and self.sweep.instanced:
+            raise ValueError(
+                "the scene's triangles are instance prototypes in object "
+                "space; another tier would drop the instances"
+            )
+        tri_verts = self.geom.tri_verts.detach().cpu().numpy()
         args = (
-            self.geom.tri_verts.detach().cpu().numpy(),
+            tri_verts,
             self.geom.tri_mat.detach().cpu().numpy(),
             self.geom.tri_light.detach().cpu().numpy(),
         )
         dev = self.geom.tri_verts.device
+        tiers = dict(small=None, clusters=None, sweep=None)
         if kind == "auto" and n_tri <= threshold:
-            return self.replace(small=build_smallscene(*args).to(dev),
-                                clusters=None)
+            return self.replace(**{**tiers,
+                                   "small": build_smallscene(*args).to(dev)})
         if kind in ("auto", "cluster"):
-            return self.replace(small=None,
-                                clusters=build_clusters(*args).to(dev))
+            return self.replace(**{**tiers,
+                                   "clusters": build_clusters(*args).to(dev)})
+        if kind == "sweep":
+            return self.replace(**{**tiers,
+                                   "sweep": build_sweep(tri_verts).to(dev)})
         raise NotImplementedError(
-            f"accelerator kind {kind!r} is not ported yet (ROADMAP Queue 1 "
-            "item 7); only the small-scene tier and 'cluster' are"
+            f"accelerator kind {kind!r} is not ported yet: the BVH and "
+            "kd-tree tiers are ROADMAP Queue 1 item 8"
         )

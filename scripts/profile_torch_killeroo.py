@@ -44,7 +44,11 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def kernel_view(render_pass, out_dir: str) -> dict:
+def kernel_view(render_pass, out_dir: str, kernel: str = "cluster_kernel",
+                key: str = "k2_ms", table: str = "profile_killeroo.txt") -> dict:
+    """torch.profiler over one pass after a warm-up; `kernel` names the
+    intersection kernel whose device time is reported under `key`, and
+    the full table goes to out_dir/`table`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -62,14 +66,14 @@ def kernel_view(render_pass, out_dir: str) -> dict:
         key=lambda x: -x[1],
     )
     device_ms = sum(ms for _, ms, _ in kern)
-    with open(os.path.join(out_dir, "profile_killeroo.txt"), "w") as f:
+    with open(os.path.join(out_dir, table), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=80))
     return {
         "view": "kernels", "rays": float(rays), "wall_ms": wall_ms,
         "device_kernel_ms": device_ms if kern else "not measured",
         "device_busy_share": device_ms / wall_ms if kern else "not measured",
-        "k2_ms": sum(ms for n, ms, _ in kern if "cluster_kernel" in n),
+        key: sum(ms for n, ms, _ in kern if kernel in n),
         "kernel_launches": sum(c for _, _, c in kern),
         "top": [[name[:80], round(ms, 3), c] for name, ms, c in kern[:12]],
     }

@@ -1,4 +1,4 @@
-"""K1 and K2 on the card: each CUDA kernel against its plain twin, and
+"""K1, K2 and K3 on the card: each CUDA kernel against its plain twin, and
 renders on the card against the same renders on the CPU.
 
 These tests need a CUDA device and skip without one. They import neither
@@ -10,13 +10,16 @@ conftest.py imports jax, hence --noconftest):
         tests/test_torch_cuda.py
 """
 
+import tempfile
+
 import numpy as np
 import pytest
 import torch
 
 from pbrt_tpu_torch.accel.api import ray_sort_perm
 from pbrt_tpu_torch.models.path import PathIntegrator
-from pbrt_tpu_torch.ops import cluster
+from pbrt_tpu_torch.io.parser import load_pbrt_string
+from pbrt_tpu_torch.ops import cluster, sweep
 from pbrt_tpu_torch.ops.smallscene import (
     STATS,
     build_smallscene,
@@ -27,6 +30,7 @@ from pbrt_tpu_torch.render import camera_rays_full, render
 from pbrt_tpu_torch.scenes.cornell import cornell_box
 from pbrt_tpu_torch.scenes.meshes import killeroo_class_scene
 
+from .torch_port_instanced import FULL, SMALL, field_text, write_field_meshes
 from .torch_port_killeroo import small_killeroo_class_scene
 
 torch.set_num_threads(2)
@@ -36,8 +40,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1 and K2 kernels run only on "
-                    "the card")
+        pytest.skip("needs a CUDA device: the K1, K2 and K3 kernels run "
+                    "only on the card")
     return torch.device("cuda", 0)
 
 
@@ -190,6 +194,94 @@ def test_killeroo_render_on_card_matches_cpu(card):
     assert cluster.STATS.launches == 11 * 2 and STATS.launches == 0
     want = render(scene, camera, PathIntegrator(max_depth=5), device="cpu",
                   **kw)
+    got = got.cpu().numpy()
+    want = want.numpy()
+    assert np.all(np.isfinite(got))
+    ok = np.abs(got - want) <= 1e-5 + 1e-3 * np.abs(want)
+    assert np.mean(ok) >= 0.99, int(np.sum(~ok))
+
+
+def _field(size, dev, resolution):
+    with tempfile.TemporaryDirectory() as tmp:
+        write_field_meshes("pbrt_tpu_torch", tmp, size)
+        scene, camera, settings = load_pbrt_string(field_text(), tmp,
+                                                   device=dev)
+    return scene, camera.replace(resolution=resolution), settings
+
+
+def _assert_k3_equals_twin(acc, scene, camera, dev):
+    """Both modes on rays from the scene's box (random, axis-parallel,
+    dead, finite segments) and the camera's, sorted as the path sorts."""
+    lo = scene.geom.tri_verts.reshape(-1, 3).amin(0)
+    hi = scene.geom.tri_verts.reshape(-1, 3).amax(0)
+    if acc.instanced:
+        lo, hi = acc.ibox[:, :3].amin(0), acc.ibox[:, 3:6].amax(0)
+    o_box, d_box, t_box = _box_rays(1 << 16, 3, dev)
+    nx, ny = camera.resolution
+    pixel = torch.arange(nx * ny, device=dev)
+    o_cam, d_cam, _, _ = camera_rays_full(camera, pixel, 0, 0)
+    o = torch.cat([lo + (hi - lo) * o_box, o_cam])
+    d = torch.cat([d_box, d_cam])
+    tmax = torch.cat([t_box * 3.0, torch.full((pixel.shape[0],), float("inf"),
+                                              device=dev)])
+    perm, _ = ray_sort_perm(o, d, tmax)
+    o, d, tmax = o[perm], d[perm], tmax[perm]
+    for any_hit in (False, True):
+        sweep.STATS.reset()
+        got = sweep.sweep_intersect(acc, o, d, tmax, any_hit=any_hit)
+        torch.cuda.synchronize()
+        assert sweep.STATS.launches == 1
+        want = sweep.sweep_intersect_ref(acc, o, d, tmax, any_hit=any_hit)
+        assert set(got) == set(want) == {"t", "prim", "inst"}
+        assert 0 < int((want["prim"] >= 0).sum()) < o.shape[0]
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            assert torch.equal(got[k], want[k]), (any_hit, k)
+
+
+def test_k3_matches_twin_on_instanced_field(card):
+    """The full-size instanced field: 37 instances, 17,191 entries."""
+    scene, camera, _ = _field(FULL, card, (128, 128))
+    assert scene.sweep.instanced and scene.sweep.n_entries == 17_191
+    _assert_k3_equals_twin(scene.sweep, scene, camera, card)
+
+
+def test_k3_matches_twin_without_instances(card):
+    """with_accel(kind="sweep") on the killeroo-class scene: one identity
+    instance, the world rays used as they are."""
+    scene, camera = killeroo_class_scene(resolution=(128, 128))
+    scene = scene.with_accel(kind="sweep").to(card)
+    assert not scene.sweep.instanced and scene.clusters is None
+    _assert_k3_equals_twin(scene.sweep, scene, camera.to(card), card)
+
+
+def test_k3_checks_its_inputs(card):
+    scene, _, _ = _field(SMALL, "cpu", (8, 8))
+    acc = scene.sweep.to(card)
+    o, d, tmax = _box_rays(64, 1, card)
+    with pytest.raises(ValueError, match="float32"):
+        sweep.sweep_intersect(acc, o.double(), d, tmax)
+    with pytest.raises(ValueError, match="contiguous"):
+        sweep.sweep_intersect(acc, o, d.t().contiguous().t(), tmax)
+    with pytest.raises(ValueError, match="on cuda"):
+        sweep.sweep_intersect(acc, o, d, tmax.cpu())
+    with pytest.raises(ValueError, match="v0x"):
+        sweep.sweep_intersect(scene.sweep, o, d, tmax)  # tables on the CPU
+    sweep.STATS.reset()
+    empty = sweep.sweep_intersect(acc, o[:0], d[:0], tmax[:0])
+    assert empty["inst"].shape == (0,)
+    assert sweep.STATS.launches == 0
+
+
+def test_instanced_render_on_card_matches_cpu(card):
+    scene, camera, settings = _field(SMALL, "cpu", (16, 16))
+    kw = dict(spp=4, seed=1, samples_per_pass=2, n_spectrum=8)
+    sweep.STATS.reset()
+    cluster.STATS.reset()
+    got = render(scene, camera, settings["integrator"], device=card, **kw)
+    torch.cuda.synchronize()
+    assert sweep.STATS.launches == 11 * 2 and cluster.STATS.launches == 0
+    want = render(scene, camera, settings["integrator"], device="cpu", **kw)
     got = got.cpu().numpy()
     want = want.numpy()
     assert np.all(np.isfinite(got))

@@ -32,7 +32,8 @@ def test_import_loads_no_jax():
     code = (
         "import sys, pbrt_tpu_torch.render, pbrt_tpu_torch.convert, "
         "pbrt_tpu_torch.scenes.cornell, pbrt_tpu_torch.scenes.meshes, "
-        "pbrt_tpu_torch.ops.cluster, pbrt_tpu_torch.io.ply; "
+        "pbrt_tpu_torch.ops.cluster, pbrt_tpu_torch.ops.sweep, "
+        "pbrt_tpu_torch.io.ply, pbrt_tpu_torch.io.parser; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pbrt_tpu' or m.startswith('pbrt_tpu.')]; "
         "sys.exit(1 if bad else 0)"
@@ -79,8 +80,8 @@ def _quad_geom(mat=0):
                       [{"kind": MAT_DIFFUSE}, {"kind": MAT_COATEDCONDUCTOR}]),
                   lights=LightBuffers.build()),
     lambda: Sampler(kind="sobol"),
-    # The sweep accelerator is not ported.
-    lambda: cornell_box()[0].with_accel(kind="sweep"),
+    # The BVH and kd-tree tiers are not ported.
+    lambda: cornell_box()[0].with_accel(kind="bvh"),
     lambda: mesh_gallery_scene(resolution=(8, 8), subdiv=1),  # glass torus
 ], ids=["specular_variant", "sphere", "alpha", "point_light", "infinite_light",
         "light_bvh", "texture", "referenced_conductor", "sobol_sampler",
