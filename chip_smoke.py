@@ -6,18 +6,21 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from the sources in the checkout,
-checks each against its plain PyTorch twin, renders the Cornell box, the
-killeroo-class mesh scene and the instanced field (a .pbrt file through the
-port's parser) on the card against the committed JAX goldens, and times
-the forward render of each at its benchmark configuration. Each phase
+checks each against its plain PyTorch twin, renders the Cornell box (on
+the small tier and on the kd-tree), the killeroo-class mesh scene (on the
+cluster tier and on the BVH tier) and the instanced field (a .pbrt file
+through the port's parser) on the card against the committed JAX goldens,
+renders the golden scene file conductor.pbrt against the pbrt-v4 C++
+golden, and times the forward render of each timed configuration. Each phase
 prints one JSON line; any failure raises, so the script exits non-zero and
 never prints the final line. Without a CUDA device it exits non-zero at
 once. It never imports JAX.
 
 Phases:
   a   device: name, nvidia-smi name and power limit, torch/CUDA versions
-  b   build: nvcc builds of K1 (csrc/smallscene.cu), K2 (csrc/cluster.cu)
-      and K3 (csrc/sweep.cu), started together, with their ptxas summaries
+  b   build: nvcc builds of K1 (csrc/smallscene.cu), K2 (csrc/cluster.cu),
+      K3 (csrc/sweep.cu) and K4 (csrc/traverse.cu), started together, with
+      their ptxas summaries
   c   K1 vs its twin on 4,194,304 rays (the Cornell pass's query shape):
       camera rays, random rays inside the box, dead lanes (tmax = 0),
       axis-parallel rays and NEE shadow segments; closest and any-hit
@@ -36,6 +39,11 @@ Phases:
       scene, bit-equal; then K3 and its twin at the main path's shape (the
       1,048,576 camera rays of one instanced-field pass and their shadow
       rays), bit-equal key by key, timed
+  c4  K4 vs its twin on the killeroo-class scene's BVH (depth 15): 65,536
+      rays of each kind of c2, unsorted, in closest and any-hit modes,
+      bit-equal key by key; then at the main path's shape (the 1,048,576
+      camera rays of one pass and their shadow rays, unsorted, as the BVH
+      tier sends them), bit-equal, timed
   d   Cornell 32x32, 16 spp, 32 lanes, depth 5 (default Russian roulette)
       against tests/data/torch_port/cornell32_spp16.npy: >= 99% of pixel
       values within rtol 1e-3 / atol 1e-5, and 11 K1 launches per pass
@@ -45,6 +53,17 @@ Phases:
   d3  the instanced field, 64x64, 4 spp, 8 lanes, the file's integrator
       against tests/data/torch_port/instanced64_spp4.npy: the same gate, 11
       K3 and no K1 or K2 launches per pass
+  d4  the killeroo-class scene on the BVH tier alone, 64x64, 4 spp, 8
+      lanes, against the killeroo golden of d2: the same gate, 11 K4 and no
+      K1, K2 or K3 launches per pass
+  d5  tests/goldens/conductor.pbrt through the port's parser (two analytic
+      conductor spheres, K1 for its four triangles), 384 spp in passes of
+      8, independent sampler, against the pbrt-v4 C++ golden
+      tests/goldens/conductor_ref.pfm (4096 spp): relative mean error <
+      0.05, MSE < 2e-3 and 95th percentile of the 4x4-cell relative error
+      < 0.2, the bounds tests/test_reference_parity.py gives this scene
+  d6  the Cornell box with only the kd-tree attached, 32x32, 16 spp, 32
+      lanes, against the Cornell golden of d: the same gate, no K1 launch
   e   timed Cornell forward at its benchmark configuration (256x256, 128
       spp in passes of 64, depth 5, no Russian roulette) at 8 and 32 lanes
   e2  timed killeroo-class forward at its benchmark configuration (512x512,
@@ -54,6 +73,9 @@ Phases:
       of 4, depth 5, no Russian roulette, 8 lanes): Mrays/s, peak memory,
       K3's launches and share, and the first image's seconds from the parse
       on (PLY reads, sweep build and upload included)
+  e4  timed killeroo-class forward on the BVH tier at e2's configuration:
+      Mrays/s, first-pass seconds from build_bvh on (upload included),
+      peak memory, K4's launches and share
   f   the kernels line, the nvidia-smi line and the final result line
 """
 
@@ -75,6 +97,10 @@ K2_SOURCE = "pbrt_tpu_torch/csrc/cluster.cu"
 K2_REPLACES = "pbrt_tpu/ops/cluster.py:177"
 K3_SOURCE = "pbrt_tpu_torch/csrc/sweep.cu"
 K3_REPLACES = "pbrt_tpu/ops/sweep.py:308"
+K4_SOURCE = "pbrt_tpu_torch/csrc/traverse.cu"
+K4_REPLACES = "pbrt_tpu/ops/traverse.py:65"
+CONDUCTOR = os.path.join(ROOT, "tests", "goldens", "conductor.pbrt")
+CONDUCTOR_REF = os.path.join(ROOT, "tests", "goldens", "conductor_ref.pfm")
 GOLDEN_INSTANCED = os.path.join(ROOT, "tests", "data", "torch_port",
                                 "instanced64_spp4.npy")
 MAIN_PATH_RAYS = 256 * 256 * 64  # one forward pass of the bench config
@@ -94,6 +120,13 @@ FP32_OPS_PER_S = 33.5e12
 # + 6 (u) + 9 (q = tv x e1) + 6 (v) + 6 (t) + 7 (the hit and best-t
 # comparisons, with u + v).
 MT_OPS = 53
+# FP32 operations of K4's slab test of a popped node: 6 (box - o) + 6
+# (times 1/d) + 6 (per-axis min and max) + 4 (largest entry, smallest exit)
+# + 1 (max(tmin, 0)) + 2 (the two comparisons); and of a child's entry
+# distance: 6 + 6 + 3 (per-axis min) + 2 (largest) + 1 (clamp) + 1 (the
+# near/far comparison).
+BOX_OPS = 25
+ENTRY_OPS = 19
 
 
 def emit(phase: str, **fields) -> None:
@@ -155,7 +188,7 @@ def phase_build():
 
     from pbrt_tpu_torch.ops import nvcc_build
 
-    names = ("smallscene", "cluster", "sweep")
+    names = ("smallscene", "cluster", "sweep", "traverse")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(nvcc_build.load_library, names))
@@ -346,6 +379,27 @@ def _k2_ray_kinds(scene, camera, dev, n):
     return {k: tuple(x.contiguous() for x in v) for k, v in kinds.items()}
 
 
+def _per_kind(label, got, want, names, kind_of) -> dict:
+    """Mismatches of a kernel's outputs against its twin's and the twin's
+    hits, per ray kind (kind_of[i] is the index in names of ray i); raises
+    on any mismatch or on differing keys."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: keys {set(got)} vs {set(want)}")
+    per_kind = {}
+    for i, name in enumerate(names):
+        sel = kind_of == i
+        per_kind[name] = {
+            "mismatches": {k: int((got[k][sel] != want[k][sel]).sum())
+                           for k in want},
+            "hits": int((want["prim"][sel] >= 0).sum()),
+        }
+    bad = {n: pk["mismatches"] for n, pk in per_kind.items()
+           if any(pk["mismatches"].values())}
+    if bad:
+        raise AssertionError(f"{label} differs from its twin: {bad}")
+    return per_kind
+
+
 def phase_k2_vs_twin(dev, killeroo):
     """K2 against its twin on every ray kind, then timed at the main path's
     shape (1,048,576 sorted rays)."""
@@ -379,35 +433,23 @@ def phase_k2_vs_twin(dev, killeroo):
         want = cluster_intersect_ref(acc, o, d, tmax, counts=counts, **kw)
         torch.cuda.synchronize()
         twin_s = time.perf_counter() - t0
-        if set(got) != set(want):
-            raise AssertionError(f"K2 {mode}: keys {set(got)} vs {set(want)}")
-        per_kind = {}
-        for i, name in enumerate(names):
-            sel = kind_of == i
-            per_kind[name] = {
-                "mismatches": {k: int((got[k][sel] != want[k][sel]).sum())
-                               for k in want},
-                "hits": int((want["prim"][sel] >= 0).sum()),
-            }
-        bad = {n: pk["mismatches"] for n, pk in per_kind.items()
-               if any(pk["mismatches"].values())}
+        per_kind = _per_kind("K2 " + mode, got, want, names, kind_of)
         err = max(err, max_abs_err(got, want))
         result[mode] = {"rays": int(o.shape[0]), "per_kind": per_kind,
                         "twin_seconds": twin_s, "pairs": counts["pairs"]}
-        if bad:
-            raise AssertionError(f"K2 {mode} differs from its twin: {bad}")
     emit("c2_k2_vs_twin", scene_build_seconds=build_s,
          n_clusters=acc.n_clusters, n_supers=acc.n_supers, max_abs_err=err,
          **result)
     return _k2_timed(scene, camera, dev)
 
 
-def _pass_batches(scene, camera, dev):
+def _pass_batches(scene, camera, dev, sort: bool = True):
     """The query batches of one 512x512, 4 spp pass at the main path's
     shape: its 1,048,576 camera rays (closest) and their NEE shadow rays
     (any-hit, with the path's dead lanes: origin 1e8, tmax 0), each sorted
-    as the path sorts them. Returns ({mode: (o, d, tmax)}, the unsorted
-    camera (o, d, tmax), the camera rays' hit prims)."""
+    as the K2 / K3 path sorts them (sort=False: as the BVH tier sends them,
+    unsorted). Returns ({mode: (o, d, tmax)}, the unsorted camera (o, d,
+    tmax), the camera rays' hit prims)."""
     import torch
 
     from pbrt_tpu_torch.accel.api import closest, ray_sort_perm
@@ -420,8 +462,9 @@ def _pass_batches(scene, camera, dev):
     sample = torch.arange(PASS_SPP, device=dev).repeat_interleave(npix)
     o, d, _, _ = camera_rays_full(camera, pixel, sample, 0)
     tmax = torch.full((n,), float("inf"), device=dev)
-    perm, _ = ray_sort_perm(o, d, tmax)
-    rays = {"closest": (o[perm], d[perm], tmax[perm])}
+    perm = ray_sort_perm(o, d, tmax)[0] if sort else slice(None)
+    rays = {"closest": (o[perm].contiguous(), d[perm].contiguous(),
+                        tmax[perm].contiguous())}
     isect = closest(scene, o, d, tmax)
     gen = torch.Generator(device=dev).manual_seed(0)
     ls = scene.lights.sample_li(
@@ -432,24 +475,24 @@ def _pass_batches(scene, camera, dev):
     so, wi, smax = shadow_segment(isect.p, isect.n, ls.wi, ls.dist)
     smax = torch.where(isect.valid, smax, 0.0)  # dead lanes, as the path sends
     so = torch.where(isect.valid[:, None], so, 1e8)
-    perm_s, _ = ray_sort_perm(so, wi, smax)
-    rays["any_hit"] = (so[perm_s], wi[perm_s], smax[perm_s])
+    perm_s = ray_sort_perm(so, wi, smax)[0] if sort else slice(None)
+    rays["any_hit"] = (so[perm_s].contiguous(), wi[perm_s].contiguous(),
+                       smax[perm_s].contiguous())
     return rays, (o, d, tmax), isect.prim
 
 
-def _timed_vs_twin(name, module, acc, rays, cost) -> dict:
-    """Time the kernel of `module` (its intersect function is `name`) and
-    its twin on each batch of `rays`; the kernel must equal the twin on
-    every output. cost(counts) gives the batch's (operations, bytes) from
-    the twin's work counts, for the bound."""
+def _timed_vs_twin(intersect, intersect_ref, stats, acc, rays, cost) -> dict:
+    """Time a kernel's wrapper `intersect` and its twin `intersect_ref`
+    (both returning dicts of outputs) on each batch of `rays`; the kernel
+    must equal the twin on every output. `stats` is the kernel's launch
+    counter; cost(counts) gives the batch's (operations, bytes, fields to
+    report) from the twin's work counts, for the bound."""
     import torch
 
-    intersect = getattr(module, name)
-    intersect_ref = getattr(module, name + "_ref")
     out = {}
     for mode, (ro, rd, rt) in rays.items():
         any_hit = mode == "any_hit"
-        module.STATS.reset()
+        stats.reset()
         ms = cuda_ms(lambda: intersect(acc, ro, rd, rt, any_hit=any_hit),
                      reps=10)
         got = intersect(acc, ro, rd, rt, any_hit=any_hit)
@@ -461,17 +504,16 @@ def _timed_vs_twin(name, module, acc, rays, cost) -> dict:
         plain_ms = (time.perf_counter() - t0) * 1e3
         bad = [k for k in want if not torch.equal(got[k], want[k])]
         if set(got) != set(want) or bad:
-            raise AssertionError(f"{name} {mode} at {ro.shape[0]} rays differs "
-                                 f"from its twin in "
-                                 f"{bad or sorted(set(got) ^ set(want))}")
-        ops, nbytes = cost(counts)
-        out[mode] = {"ms": ms, "plain_ms": plain_ms, **counts,
-                     "tests": counts["pairs"] * 128,
+            raise AssertionError(f"{intersect.__name__} {mode} at "
+                                 f"{ro.shape[0]} rays differs from its twin "
+                                 f"in {bad or sorted(set(got) ^ set(want))}")
+        ops, nbytes, fields = cost(counts)
+        out[mode] = {"ms": ms, "plain_ms": plain_ms, **counts, **fields,
                      "hits": int((want["prim"] >= 0).sum()),
                      "live": int((rt > 0).sum()), "mismatched_keys": bad,
                      "max_abs_err": max_abs_err(got, want),
                      **_bound(ops, nbytes)}
-    module.STATS.reset()
+    stats.reset()
     return out
 
 
@@ -494,9 +536,12 @@ def _k2_timed(scene, camera, dev):
         # triangle planes and the boxes read once.
         return (counts["pairs"] * 128 * MT_OPS,
                 PASS_RAYS * (28 + 8) + acc.n_clusters * 128 * 10 * 4
-                + (acc.n_clusters + acc.n_supers) * 32)
+                + (acc.n_clusters + acc.n_supers) * 32,
+                {"tests": counts["pairs"] * 128})
 
-    out.update(_timed_vs_twin("cluster_intersect", cluster, acc, rays, cost))
+    out.update(_timed_vs_twin(cluster.cluster_intersect,
+                              cluster.cluster_intersect_ref, cluster.STATS,
+                              acc, rays, cost))
     emit("c2_k2_timed", **out)
     return out
 
@@ -611,12 +656,114 @@ def _k3_timed(scene, camera, dev):
         # planes, the boxes and the instance rows read once.
         return (counts["pairs"] * 128 * MT_OPS + counts["instances"] * XFORM_OPS,
                 PASS_RAYS * (28 + 12) + acc.n_clusters * (128 * 10 * 4 + 32)
-                + acc.n_instances * (12 + 8 + 2) * 4)
+                + acc.n_instances * (12 + 8 + 2) * 4,
+                {"tests": counts["pairs"] * 128})
 
     out = {"rays": PASS_RAYS,
-           **_timed_vs_twin("sweep_intersect", sweep, acc, rays, cost)}
+           **_timed_vs_twin(sweep.sweep_intersect, sweep.sweep_intersect_ref,
+                            sweep.STATS, acc, rays, cost)}
     emit("c3_k3_timed", **out)
     return out
+
+
+def bvh_scene_of(killeroo, dev):
+    """The killeroo-class scene on the BVH tier alone, on the card (the
+    reference's attachment: the other tiers dropped, build_bvh over the
+    triangles), and the seconds of build_bvh and the upload."""
+    import torch
+
+    from pbrt_tpu_torch.accel.bvh import build_bvh
+
+    scene = killeroo[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bvh = build_bvh(scene.geom.tri_verts.cpu().numpy())
+    scene = scene.replace(small=None, clusters=None, bvh=bvh).to(dev)
+    torch.cuda.synchronize()
+    return scene, time.perf_counter() - t0
+
+
+_K4_KEYS = ("t", "prim", "u", "v")
+
+
+def _k4_as_dict(fn):
+    """A K4 entry point (returning (t, prim, u, v)) returning a dict."""
+    def call(bvh, o, d, tmax, **kwargs):
+        return dict(zip(_K4_KEYS, fn(bvh, o, d, tmax, **kwargs)))
+    call.__name__ = fn.__name__
+    return call
+
+
+def phase_k4_vs_twin(dev, killeroo):
+    """K4 against its twin on every ray kind of c2, unsorted as the BVH
+    tier sends them, then timed at the main path's shape."""
+    import torch
+
+    from pbrt_tpu_torch.ops import traverse
+
+    scene, build_s = bvh_scene_of(killeroo, dev)
+    bvh, camera = scene.bvh, killeroo[1]
+    kinds = _k2_ray_kinds(scene, camera, dev, K2_SAMPLE)
+    names = list(kinds)
+    o, d, tmax = (torch.cat([kinds[k][i] for k in names]) for i in range(3))
+    kind_of = torch.arange(len(names), device=dev).repeat_interleave(K2_SAMPLE)
+    intersect = _k4_as_dict(traverse.bvh_intersect)
+    intersect_ref = _k4_as_dict(traverse.bvh_intersect_ref)
+    result, err = {}, 0.0
+    for mode in ("closest", "any_hit"):
+        any_hit = mode == "any_hit"
+        got = intersect(bvh, o, d, tmax, any_hit=any_hit)
+        torch.cuda.synchronize()
+        counts = {}
+        t0 = time.perf_counter()
+        want = intersect_ref(bvh, o, d, tmax, any_hit=any_hit, counts=counts)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        per_kind = _per_kind("K4 " + mode, got, want, names, kind_of)
+        err = max(err, max_abs_err(got, want))
+        result[mode] = {"rays": int(o.shape[0]), "per_kind": per_kind,
+                        "twin_seconds": twin_s, **counts}
+    emit("c4_k4_vs_twin", bvh_build_seconds=build_s, depth=bvh.depth,
+         nodes=int(bvh.node_lo.shape[0]), slots=int(bvh.prim_id.shape[0]),
+         max_abs_err=err, **result)
+
+    # The 1,048,576 camera rays of one pass and their shadow rays.
+    rays, _, _ = _pass_batches(scene, camera, dev, sort=False)
+    n_nodes, n_slots = bvh.node_lo.shape[0], bvh.prim_id.shape[0]
+
+    def cost(counts):
+        # The slab tests of popped nodes, the children's entry distances
+        # and the leaf triangle tests the twin counts; 28 B of ray in, 16 B
+        # of (t, prim, u, v) out, the node boxes and leaf rows read once.
+        return (counts["nodes"] * BOX_OPS + counts["entries"] * ENTRY_OPS
+                + counts["tris"] * MT_OPS,
+                PASS_RAYS * (28 + 16) + n_nodes * 24 + n_slots * 40, {})
+
+    out = _timed_vs_twin(intersect, intersect_ref, traverse.STATS, bvh, rays,
+                         cost)
+    for res in out.values():
+        res["nodes_per_live_ray"] = res["nodes"] / max(res["live"], 1)
+        res["tris_per_live_ray"] = res["tris"] / max(res["live"], 1)
+    out["rays"] = PASS_RAYS
+    emit("c4_k4_timed", **out)
+    return out
+
+
+def _golden_gate(img, golden):
+    """d's gate: the share of pixel values within rtol 1e-3 / atol 1e-5."""
+    import numpy as np
+
+    if img.shape != golden.shape or not np.all(np.isfinite(img)):
+        raise AssertionError(f"bad render: shape {img.shape}, finite "
+                             f"{bool(np.all(np.isfinite(img)))}")
+    diff = np.abs(img - golden)
+    ok = diff <= 1e-5 + 1e-3 * np.abs(golden)
+    share = float(np.mean(ok))
+    return share, {"share_within": share, "outliers": int(np.sum(~ok)),
+                   "values": int(ok.size),
+                   "largest_abs_diff": sorted(diff.ravel().tolist())[-5:],
+                   "mean": float(img.mean()),
+                   "golden_mean": float(golden.mean())}
 
 
 def phase_golden(dev):
@@ -637,17 +784,8 @@ def phase_golden(dev):
                  device=dev)
     torch.cuda.synchronize()
     launches = STATS.launches
-    img = img.cpu().numpy()
-    if img.shape != golden.shape or not np.all(np.isfinite(img)):
-        raise AssertionError(f"bad render: shape {img.shape}, finite "
-                             f"{bool(np.all(np.isfinite(img)))}")
-    diff = np.abs(img - golden)
-    ok = diff <= 1e-5 + 1e-3 * np.abs(golden)
-    share = float(np.mean(ok))
-    emit("d_golden", share_within=share, outliers=int(np.sum(~ok)),
-         largest_abs_diff=sorted(diff.ravel().tolist())[-5:],
-         mean=float(img.mean()), golden_mean=float(golden.mean()),
-         launches=launches, passes=spp // per_pass)
+    share, fields = _golden_gate(img.cpu().numpy(), golden)
+    emit("d_golden", **fields, launches=launches, passes=spp // per_pass)
     if share < 0.99:
         raise AssertionError(f"only {share:.4f} of pixel values match the golden")
     if launches != 11 * (spp // per_pass):
@@ -672,17 +810,9 @@ def phase_golden_killeroo(dev, killeroo):
                  samples_per_pass=per_pass, n_spectrum=8, device=dev)
     torch.cuda.synchronize()
     k1, k2 = smallscene.STATS.launches, cluster.STATS.launches
-    img = img.cpu().numpy()
-    if img.shape != golden.shape or not np.all(np.isfinite(img)):
-        raise AssertionError(f"bad render: shape {img.shape}, finite "
-                             f"{bool(np.all(np.isfinite(img)))}")
-    diff = np.abs(img - golden)
-    ok = diff <= 1e-5 + 1e-3 * np.abs(golden)
-    share = float(np.mean(ok))
-    emit("d2_golden_killeroo", share_within=share, outliers=int(np.sum(~ok)),
-         values=int(ok.size), largest_abs_diff=sorted(diff.ravel().tolist())[-5:],
-         mean=float(img.mean()), golden_mean=float(golden.mean()),
-         k2_launches=k2, k1_launches=k1, passes=spp // per_pass)
+    share, fields = _golden_gate(img.cpu().numpy(), golden)
+    emit("d2_golden_killeroo", **fields, k2_launches=k2, k1_launches=k1,
+         passes=spp // per_pass)
     if share < 0.99:
         raise AssertionError(f"only {share:.4f} of pixel values match the golden")
     if k2 != 11 * (spp // per_pass) or k1 != 0:
@@ -707,23 +837,128 @@ def phase_golden_instanced(dev, field):
                  samples_per_pass=per_pass, n_spectrum=8, device=dev)
     torch.cuda.synchronize()
     k1, k2, k3 = (c.STATS.launches for c in (smallscene, cluster, sweep))
-    img = img.cpu().numpy()
-    if img.shape != golden.shape or not np.all(np.isfinite(img)):
-        raise AssertionError(f"bad render: shape {img.shape}, finite "
-                             f"{bool(np.all(np.isfinite(img)))}")
-    diff = np.abs(img - golden)
-    ok = diff <= 1e-5 + 1e-3 * np.abs(golden)
-    share = float(np.mean(ok))
-    emit("d3_golden_instanced", share_within=share, outliers=int(np.sum(~ok)),
-         values=int(ok.size), largest_abs_diff=sorted(diff.ravel().tolist())[-5:],
-         mean=float(img.mean()), golden_mean=float(golden.mean()),
-         k3_launches=k3, k2_launches=k2, k1_launches=k1,
-         passes=spp // per_pass)
+    share, fields = _golden_gate(img.cpu().numpy(), golden)
+    emit("d3_golden_instanced", **fields, k3_launches=k3, k2_launches=k2,
+         k1_launches=k1, passes=spp // per_pass)
     if share < 0.99:
         raise AssertionError(f"only {share:.4f} of pixel values match the golden")
     if k3 != 11 * (spp // per_pass) or k1 or k2:
         raise AssertionError(f"{k3} K3, {k2} K2 and {k1} K1 launches for "
                              f"{spp // per_pass} passes")
+
+
+def phase_golden_bvh(dev, killeroo):
+    """The killeroo-class scene on the BVH tier alone against the killeroo
+    golden: the closest hits are the same surfaces whichever tier finds
+    them."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.ops import cluster, smallscene, sweep, traverse
+    from pbrt_tpu_torch.render import render
+
+    golden = np.load(GOLDEN_KILLEROO)
+    scene, _ = bvh_scene_of(killeroo, dev)
+    spp = per_pass = 4
+    counters = (smallscene.STATS, cluster.STATS, sweep.STATS, traverse.STATS)
+    for counter in counters:
+        counter.reset()
+    img = render(scene, killeroo[1].replace(resolution=(64, 64)),
+                 PathIntegrator(max_depth=5), spp=spp, seed=0,
+                 samples_per_pass=per_pass, n_spectrum=8, device=dev)
+    torch.cuda.synchronize()
+    k1, k2, k3, k4 = (c.launches for c in counters)
+    share, fields = _golden_gate(img.cpu().numpy(), golden)
+    emit("d4_golden_bvh", **fields, k4_launches=k4, k3_launches=k3,
+         k2_launches=k2, k1_launches=k1, passes=spp // per_pass)
+    if share < 0.99:
+        raise AssertionError(f"only {share:.4f} of pixel values match the golden")
+    if k4 != 11 * (spp // per_pass) or k1 or k2 or k3:
+        raise AssertionError(f"{k4} K4, {k3} K3, {k2} K2 and {k1} K1 launches "
+                             f"for {spp // per_pass} passes")
+
+
+def _downsample(img, f=4):
+    h, w, c = img.shape
+    return img[: h // f * f, : w // f * f].reshape(
+        h // f, f, w // f, f, c).mean(axis=(1, 3))
+
+
+def phase_golden_conductor(dev):
+    """conductor.pbrt through the port's parser on the card against the
+    pbrt-v4 C++ golden, with tests/test_reference_parity.py's gate and
+    bounds for this scene (copied, not imported)."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.io.image import read_pfm
+    from pbrt_tpu_torch.io.parser import load_pbrt
+    from pbrt_tpu_torch.ops import smallscene
+    from pbrt_tpu_torch.render import render
+
+    spp, per_pass = 384, 8
+    rel_tol, mse_tol, q95_tol = 0.05, 2e-3, 0.2
+    scene, camera, settings = load_pbrt(CONDUCTOR, device=dev)
+    smallscene.STATS.reset()
+    t0 = time.perf_counter()
+    img = render(scene, camera, settings["integrator"], spp=spp,
+                 samples_per_pass=per_pass, sampler_kind="independent",
+                 device=dev)
+    img = img.cpu().numpy()
+    seconds = time.perf_counter() - t0
+    ref = read_pfm(CONDUCTOR_REF)
+    if img.shape != ref.shape or not np.isfinite(img).all():
+        raise AssertionError(f"bad render: shape {img.shape}, finite "
+                             f"{bool(np.isfinite(img).all())}")
+    rel = float(abs(img.mean() - ref.mean()) / ref.mean())
+    mse = float(np.mean((img - ref) ** 2))
+    a, b = _downsample(img), _downsample(ref)
+    q95 = float(np.quantile(np.abs(a - b) / (np.abs(b) + 0.05 * ref.mean()),
+                            0.95))
+    emit("d5_golden_conductor", spheres=scene.geom.num_spheres,
+         triangles=scene.geom.num_triangles, spp=spp,
+         samples_per_pass=per_pass, seconds=seconds, rel_mean_err=rel,
+         mse=mse, q95_cell_rel_err=q95, mean=float(img.mean()),
+         golden_mean=float(ref.mean()), k1_launches=smallscene.STATS.launches,
+         bounds={"rel_mean_err": rel_tol, "mse": mse_tol,
+                 "q95_cell_rel_err": q95_tol})
+    torch.cuda.synchronize()
+    if not (rel < rel_tol and mse < mse_tol and q95 < q95_tol):
+        raise AssertionError(f"conductor.pbrt off the C++ golden: rel {rel}, "
+                             f"MSE {mse}, q95 {q95}")
+    if smallscene.STATS.launches == 0:
+        raise AssertionError("conductor.pbrt launched no K1")
+
+
+def phase_golden_kdtree(dev):
+    """The Cornell box with only the kd-tree attached against the Cornell
+    golden (32x32, 16 spp, 32 lanes)."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.ops import smallscene
+    from pbrt_tpu_torch.render import render
+    from pbrt_tpu_torch.scenes.cornell import cornell_box
+
+    golden = np.load(GOLDEN)
+    scene, camera = cornell_box(resolution=(32, 32))
+    scene = scene.replace(small=None).with_kdtree()
+    spp, per_pass = 16, 4
+    smallscene.STATS.reset()
+    t0 = time.perf_counter()
+    img = render(scene, camera, PathIntegrator(max_depth=5), spp=spp, seed=0,
+                 samples_per_pass=per_pass, n_spectrum=32, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    share, fields = _golden_gate(img.cpu().numpy(), golden)
+    emit("d6_golden_kdtree", **fields, kd_nodes=scene.kdtree.n_nodes,
+         seconds=seconds, k1_launches=smallscene.STATS.launches)
+    if share < 0.99:
+        raise AssertionError(f"only {share:.4f} of pixel values match the golden")
+    if smallscene.STATS.launches:
+        raise AssertionError("the kd-tree render launched K1")
 
 
 def make_pass(scene, camera, res: int, k: int, lanes: int, depth: int = 5):
@@ -890,6 +1125,41 @@ def phase_timed_instanced(dev, mesh_seconds: float):
     return k3
 
 
+def phase_timed_bvh(dev):
+    """The killeroo-class forward render on the BVH tier alone at e2's
+    configuration, timed on the card; the first pass's seconds from
+    build_bvh on (upload included; K4 was built in phase b)."""
+    import torch
+
+    from pbrt_tpu_torch.ops import cluster, smallscene, sweep, traverse
+    from pbrt_tpu_torch.scenes.meshes import killeroo_class_scene
+
+    res, spp, k, lanes = PASS_RES, 8, PASS_SPP, 8
+    t0 = time.perf_counter()
+    killeroo = killeroo_class_scene(resolution=(res, res))
+    scene_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene, bvh_s = bvh_scene_of(killeroo, dev)
+    render_pass = make_pass(scene, killeroo[1].to(dev), res, k, lanes)
+    render_pass(0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    out = timed_forward(render_pass, spp // k,
+                        {"k1": smallscene.STATS, "k2": cluster.STATS,
+                         "k3": sweep.STATS, "k4": traverse.STATS})
+    k1, k2, k3, k4 = (out[f"k{i}_launches"] for i in (1, 2, 3, 4))
+    if k4 == 0 or k1 or k2 or k3:
+        raise AssertionError(f"timed BVH tier: K4 launches={k4} K3={k3} "
+                             f"K2={k2} K1={k1}")
+    emit("e4_timed_bvh", lanes=lanes, resolution=res, spp=spp,
+         samples_per_pass=k, max_depth=5, **out,
+         first_pass_seconds=first_s, bvh_build_seconds=bvh_s,
+         scene_build_seconds=scene_s,
+         k4_ms_per_launch=out["k4_ms"] / k4, depth=scene.bvh.depth)
+    return k4
+
+
 def phase_timed(dev, lanes: int):
     """The Cornell forward render at its benchmark configuration (bench.py
     cornell_fwd: 256x256, 128 spp in passes of 64, depth 5, no Russian
@@ -937,20 +1207,25 @@ def main() -> int:
     k2 = phase_k2_vs_twin(dev, killeroo)
     field = field_on(dev)
     k3 = phase_k3_vs_twin(dev, field, killeroo)
+    k4 = phase_k4_vs_twin(dev, killeroo)
     phase_golden(dev)
     phase_golden_killeroo(dev, killeroo)
     phase_golden_instanced(dev, field)
+    phase_golden_bvh(dev, killeroo)
+    phase_golden_conductor(dev)
+    phase_golden_kdtree(dev)
     k1_launches = phase_timed(dev, 8)
     phase_timed(dev, 32)
     k2_launches = phase_timed_killeroo(dev, builds["cluster"]["seconds"])
     k3_launches = phase_timed_instanced(dev, field[3])
+    k4_launches = phase_timed_bvh(dev)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     # No single PyTorch call computes a ray/triangle intersection, so no
-    # kernel has a library yardstick. K2's and K3's errors are those of the
-    # 1,048,576-ray comparisons, both modes.
+    # kernel has a library yardstick. K2's, K3's and K4's errors are those
+    # of the 1,048,576-ray comparisons, both modes.
     lines = {}
-    for name, res in (("cluster", k2), ("sweep", k3)):
+    for name, res in (("cluster", k2), ("sweep", k3), ("traverse", k4)):
         lines[name] = {**res["closest"], "max_abs_err": max(
             res["closest"]["max_abs_err"], res["any_hit"]["max_abs_err"])}
     print(json.dumps({"kernels": [
@@ -959,6 +1234,8 @@ def main() -> int:
                       lines["cluster"]),
         _kernel_entry("sweep", K3_SOURCE, K3_REPLACES, k3_launches,
                       lines["sweep"]),
+        _kernel_entry("traverse", K4_SOURCE, K4_REPLACES, k4_launches,
+                      lines["traverse"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,27 +7,30 @@ is). Module paths and public names mirror the reference: a reader finds
 
 What is ported (the forward spectral path trace of the diffuse Cornell
 box, of the killeroo-class mesh scene and of pbrt-v4 scene files with
-instanced meshes):
+instanced meshes and analytic spheres):
   core/      tensor dataclasses, pcg4d RNG, CIE/sRGB colour, rgb2spec,
-             vector maths, sampling warps, transforms
+             vector maths, sampling warps, transforms, ULP stepping and
+             interval arithmetic
   samplers/  the independent sampler
   cameras/   perspective camera ray generation
-  shapes/    triangle geometry buffers + Interaction
+  shapes/    triangle and sphere geometry buffers + Interaction
   materials/ material table, the GGX and Fresnel terms, and the diffuse and
              conductor BxDFs of the select chain
   lights/    area lights and the uniform infinite light (uniform / power
              selection)
   ops/       K1, the small-scene intersection kernel (csrc/smallscene.cu),
-             K2, the Morton cluster kernel (csrc/cluster.cu), and K3, the
-             instanced sweep kernel (csrc/sweep.cu), each with its plain
+             K2, the Morton cluster kernel (csrc/cluster.cu), K3, the
+             instanced sweep kernel (csrc/sweep.cu), and K4, the BVH
+             traversal kernel (csrc/traverse.cu), each with its plain
              PyTorch twin
-  accel/     closest / any-hit queries on the small-scene, cluster and
-             sweep tiers, the ray sort, instanced attribute resolution and
-             the Morton order
+  accel/     closest / any-hit queries on the small-scene, cluster, sweep,
+             kd-tree and BVH tiers with the analytic sphere test merged,
+             the BVH and kd-tree builds, the ray sort, instanced attribute
+             resolution and the Morton order
   models/    the path integrator (NEE + MIS + RR), primal only
   films/     spectrum -> sRGB film
-  io/        the .pbrt parser's subset (load_pbrt) and PLY reading and
-             writing
+  io/        the .pbrt parser's subset (load_pbrt), PLY reading and
+             writing, and PFM reading
   scenes/    the Cornell box (diffuse variant) and the procedural meshes
 
 Anything outside that slice raises NotImplementedError at parse, build or

@@ -1,16 +1,25 @@
 """Acceleration dispatch (port of pbrt_tpu/accel/api.py).
 
-Every closest-hit and any-hit query goes through the one accelerator the
-scene carries: K1 (ops/smallscene.py) for scenes of up to 1024 triangles,
-K2 (ops/cluster.py) above that, or K3 (ops/sweep.py) for instanced scenes
-from the parser and `with_accel(kind="sweep")`. K2 and K3 answer on rays
-permuted by `ray_sort_perm`, and their closest-hit queries defer the
-hit's attributes to `resolve_tri_attrs` (`resolve_tri_attrs_inst` for
-instances), as the reference does. The BVH and kd-tree, and the dense
-watertight tester (ROADMAP Queue 1 item 8) are not ported.
+Triangle queries go through one accelerator of the scene: K1
+(ops/smallscene.py) for scenes of up to 1024 triangles, K2
+(ops/cluster.py) above that, K3 (ops/sweep.py) for instanced scenes from
+the parser and `with_accel(kind="sweep")`, the kd-tree (accel/kdtree.py)
+or the BVH (K4, ops/traverse.py). When a scene carries several, the
+reference's precedence picks one: closest hits take the sweep, then the
+small tier, the clusters, the kd-tree and the BVH; any-hit queries take
+the sweep, then the kd-tree, the small tier, the clusters and the BVH.
+K2 and K3 answer on rays permuted by `ray_sort_perm`, and their
+closest-hit queries defer the hit's attributes to `resolve_tri_attrs`
+(`resolve_tri_attrs_inst` for instances); the kd-tree and the BVH return
+u, v, and the attributes are gathered by prim, as the reference does.
+Analytic spheres are tested densely after the triangle tier and merged,
+closest wins. The dense watertight triangle tester (ROADMAP Queue 1 item
+8) is not ported.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -18,7 +27,10 @@ from ..core.vecmath import cross, normalize
 from ..ops.cluster import cluster_intersect
 from ..ops.smallscene import smallscene_intersect
 from ..ops.sweep import sweep_intersect
+from ..ops.traverse import bvh_intersect
 from ..shapes.geometry import Interaction
+from .dense import sphere_any, sphere_best
+from .kdtree import kdtree_intersect
 
 
 def _spread8(x):
@@ -135,18 +147,17 @@ def interp_tri_uv(geom, prim, u, v):
     )
 
 
+def _prim_attrs(geom, prim):
+    """Unit geometric normal, material and light of triangle `prim` (misses
+    read triangle 0): the kd-tree's and the BVH's attributes."""
+    tri_idx = torch.clamp(prim, 0, max(geom.num_triangles - 1, 0)).long()
+    tv = geom.tri_verts[tri_idx]
+    ng = normalize(cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]))
+    return ng, geom.tri_mat[tri_idx], geom.tri_light[tri_idx]
+
+
 def _tri_closest(scene, o, d, tmax):
     """(t, prim, u, v, ng, mat, light) of the closest triangle hit."""
-    if scene.small is not None:
-        res = smallscene_intersect(scene.small, o, d, tmax, any_hit=False)
-        return (res["t"], res["prim"], res["u"], res["v"], res["n"],
-                res["mat"], res["light"])
-    if scene.clusters is not None:
-        perm, inv = ray_sort_perm(o, d, tmax)
-        res = cluster_intersect(scene.clusters, o[perm], d[perm], tmax[perm],
-                                any_hit=False, defer_attrs=True)
-        t, prim = res["t"][inv], res["prim"][inv]
-        return (t, prim, *resolve_tri_attrs(scene.geom, o, d, prim))
     if scene.sweep is not None:
         perm, inv = ray_sort_perm(o, d, tmax)
         res = sweep_intersect(scene.sweep, o[perm], d[perm], tmax[perm],
@@ -158,7 +169,45 @@ def _tri_closest(scene, o, d, tmax):
         else:
             attrs = resolve_tri_attrs(scene.geom, o, d, prim)
         return (t, prim, *attrs)
+    if scene.small is not None:
+        res = smallscene_intersect(scene.small, o, d, tmax, any_hit=False)
+        return (res["t"], res["prim"], res["u"], res["v"], res["n"],
+                res["mat"], res["light"])
+    if scene.clusters is not None:
+        perm, inv = ray_sort_perm(o, d, tmax)
+        res = cluster_intersect(scene.clusters, o[perm], d[perm], tmax[perm],
+                                any_hit=False, defer_attrs=True)
+        t, prim = res["t"][inv], res["prim"][inv]
+        return (t, prim, *resolve_tri_attrs(scene.geom, o, d, prim))
+    if scene.kdtree is not None or scene.bvh is not None:
+        if scene.kdtree is not None:
+            t, prim, u, v = kdtree_intersect(scene.kdtree, o, d, tmax)
+        else:
+            t, prim, u, v = bvh_intersect(scene.bvh, o, d, tmax)
+        t = torch.where(prim >= 0, t, float("inf"))
+        return (t, prim, u, v, *_prim_attrs(scene.geom, prim))
     raise _no_accel()
+
+
+def _merge_spheres(geom, o, d, tmax, t, prim, u, v, ng, mat, light):
+    """Fold the nearest sphere hit into the triangle hit where it is
+    closer: prim becomes num_triangles + sphere index, uv the spherical
+    (phi / 2pi, 1 - theta / pi) of the outward normal (world axes; the
+    parser takes spheres under translations and uniform scales only)."""
+    t_s, s_idx = sphere_best(geom, o, d, tmax)
+    better = t_s < t
+    safe = torch.clamp(s_idx, 0, geom.num_spheres - 1).long()
+    sc = geom.sph[safe]
+    n_s = normalize(o + t_s[:, None] * d - sc[:, :3])
+    phi = torch.atan2(n_s[:, 1], n_s[:, 0])
+    u_s = torch.where(phi < 0, phi + 2 * math.pi, phi) / (2 * math.pi)
+    v_s = 1.0 - torch.arccos(torch.clamp(n_s[:, 2], -1.0, 1.0)) / math.pi
+    return (torch.where(better, t_s, t),
+            torch.where(better, geom.num_triangles + s_idx, prim),
+            torch.where(better, u_s, u), torch.where(better, v_s, v),
+            torch.where(better[:, None], n_s, ng),
+            torch.where(better, geom.sph_mat[safe], mat),
+            torch.where(better, geom.sph_light[safe], light))
 
 
 def closest(scene, o, d, tmax=None) -> Interaction:
@@ -167,7 +216,11 @@ def closest(scene, o, d, tmax=None) -> Interaction:
         tmax = torch.full((o.shape[0],), float("inf"), dtype=o.dtype,
                           device=o.device)
     t, prim, u, v, ng, mat, light = _tri_closest(scene, o, d, tmax)
+    # Barycentrics -> declared mesh uv first; sphere hits carry their own.
     u, v = interp_tri_uv(scene.geom, prim, u, v)
+    if scene.geom.num_spheres > 0:
+        t, prim, u, v, ng, mat, light = _merge_spheres(
+            scene.geom, o, d, tmax, t, prim, u, v, ng, mat, light)
     valid = prim >= 0
     p = torch.where(valid[:, None], o + t[:, None] * d, 0.0)
     return Interaction(
@@ -184,8 +237,14 @@ def closest(scene, o, d, tmax=None) -> Interaction:
     )
 
 
-def any_hit(scene, o, d, tmax) -> torch.Tensor:
-    """Occlusion: True where any hit with 0 < t < tmax."""
+def _tri_any(scene, o, d, tmax):
+    if scene.sweep is not None:
+        perm, inv = ray_sort_perm(o, d, tmax)
+        res = sweep_intersect(scene.sweep, o[perm], d[perm], tmax[perm],
+                              any_hit=True)
+        return (res["prim"] >= 0)[inv]
+    if scene.kdtree is not None:
+        return kdtree_intersect(scene.kdtree, o, d, tmax, any_hit=True)
     if scene.small is not None:
         res = smallscene_intersect(scene.small, o, d, tmax, any_hit=True)
         return res["prim"] >= 0
@@ -194,9 +253,14 @@ def any_hit(scene, o, d, tmax) -> torch.Tensor:
         res = cluster_intersect(scene.clusters, o[perm], d[perm], tmax[perm],
                                 any_hit=True)
         return (res["prim"] >= 0)[inv]
-    if scene.sweep is not None:
-        perm, inv = ray_sort_perm(o, d, tmax)
-        res = sweep_intersect(scene.sweep, o[perm], d[perm], tmax[perm],
-                              any_hit=True)
-        return (res["prim"] >= 0)[inv]
+    if scene.bvh is not None:
+        return bvh_intersect(scene.bvh, o, d, tmax, any_hit=True)[1] >= 0
     raise _no_accel()
+
+
+def any_hit(scene, o, d, tmax) -> torch.Tensor:
+    """Occlusion: True where any hit with 0 < t < tmax."""
+    occ = _tri_any(scene, o, d, tmax)
+    if scene.geom.num_spheres > 0:
+        occ = occ | sphere_any(scene.geom, o, d, tmax)
+    return occ

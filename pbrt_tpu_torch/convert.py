@@ -3,9 +3,9 @@
 `scene_from_arrays(arrays, static)` builds the port's Scene from the
 reference scene's fields. `arrays` maps dataclass field paths to numpy
 arrays ("geom.tri_verts", "materials.albedo_coeffs", "lights.area_scale",
-"small.table", "clusters.boxes", ...); `static` maps the paths of static
-(non-array) fields to their values ("small.n_tris", "lights.sampler",
-"geom.has_alpha", ...).
+"small.table", "clusters.boxes", "bvh.node_lo", ...); `static` maps the
+paths of static (non-array) fields to their values ("small.n_tris",
+"lights.sampler", "geom.has_alpha", "bvh.depth", ...).
 A field the port does not carry raises NotImplementedError when it holds
 data (a non-empty, non-zero array, or a static value other than the one
 the port implies), naming the ROADMAP Queue 1 item that will port it.
@@ -18,6 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .accel.bvh import BVH
+from .accel.kdtree import KdTree
 from .cameras.perspective import PerspectiveCamera
 from .core.transform import Transform
 from .lights.buffers import LightBuffers
@@ -30,8 +32,7 @@ from .shapes.geometry import UNPORTED_SHAPES, GeometryBuffers
 
 # Scene members the port does not carry -> ROADMAP Queue 1 item.
 _UNPORTED_MEMBERS = {
-    "medium": 12, "media_stack": 12, "textures": 10, "bvh": 8,
-    "kdtree": 8, "anim": 7,
+    "medium": 12, "media_stack": 12, "textures": 10, "anim": 7,
 }
 # Static fields the port does not carry, with the only value it accepts.
 _IMPLIED_STATIC = {
@@ -92,7 +93,7 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
             if path in arrays or static[path] is not None:
                 raise _unported(path, _UNPORTED_MEMBERS[member])
         elif member not in ("geom", "materials", "lights", "small",
-                            "clusters", "sweep"):
+                            "clusters", "sweep", "bvh", "kdtree"):
             raise ValueError(f"unknown scene field {path!r}")
     geom = _section(GeometryBuffers, "geom", arrays, static,
                     lambda n: UNPORTED_SHAPES.get(n, 8))
@@ -102,7 +103,8 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
                       lambda n: _LIGHT_ITEM)
     accels = {}
     for member, cls in (("small", SmallTriAccel), ("clusters", ClusterAccel),
-                        ("sweep", SweepAccel)):
+                        ("sweep", SweepAccel), ("bvh", BVH),
+                        ("kdtree", KdTree)):
         if any(p.startswith(member + ".") for p in list(arrays) + list(static)):
             accels[member] = _section(cls, member, arrays, static, lambda n: 6)
     return Scene(geom=geom, materials=materials, lights=lights, **accels)

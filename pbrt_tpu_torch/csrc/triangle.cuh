@@ -1,7 +1,9 @@
 // Shared device code of the cluster kernels K2 (cluster.cu) and K3
-// (sweep.cu): the reference's ray/box slab test and its Moller-Trumbore
-// row test, in the operation order of the plain twins
-// (pbrt_tpu_torch/ops/cluster.py::slab, inv_dir, mt_rows). Built with
+// (sweep.cu) and of the BVH kernel K4 (traverse.cu): the reference's
+// ray/box slab test of the clusters and its Moller-Trumbore triangle test,
+// in the operation order of the plain twins
+// (pbrt_tpu_torch/ops/cluster.py::slab, inv_dir, mt_rows;
+// pbrt_tpu_torch/accel/bvh.py::bvh_intersect_ref). Built with
 // --fmad=false and IEEE division, so every operation rounds once.
 
 #pragma once
@@ -38,18 +40,16 @@ __device__ __forceinline__ bool slab(const float* __restrict__ box,
   return tmx >= tmin && tmin < t_best;
 }
 
-// Moller-Trumbore of the ray (o, d) against row j of a staged cluster
-// (planes v0x v0y v0z e1x e1y e1z e2x e2y e2z, each [128]). The row hits
-// when |det| > 1e-12, u >= 0, v >= 0, u + v <= 1 and 0 < t < tb; t, u and
-// v are written either way.
-__device__ __forceinline__ bool mt_row(const float (*tri)[128], int j,
-                                       float ox, float oy, float oz,
-                                       float dx, float dy, float dz,
-                                       float tb, float& t, float& u,
-                                       float& v) {
-  const float v0x = tri[0][j], v0y = tri[1][j], v0z = tri[2][j];
-  const float e1x = tri[3][j], e1y = tri[4][j], e1z = tri[5][j];
-  const float e2x = tri[6][j], e2y = tri[7][j], e2z = tri[8][j];
+// Moller-Trumbore of the ray (o, d) against the triangle (v0, e1, e2). It
+// hits when |det| > 1e-12, u >= 0, v >= 0, u + v <= 1 and 0 < t < tb; t, u
+// and v are written either way.
+__device__ __forceinline__ bool mt_test(float v0x, float v0y, float v0z,
+                                        float e1x, float e1y, float e1z,
+                                        float e2x, float e2y, float e2z,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float tb, float& t, float& u,
+                                        float& v) {
   const float px = dy * e2z - dz * e2y;
   const float py = dz * e2x - dx * e2z;
   const float pz = dx * e2y - dy * e2x;
@@ -66,6 +66,18 @@ __device__ __forceinline__ bool mt_row(const float (*tri)[128], int j,
   v = (dx * qx + dy * qy + dz * qz) * inv_det;
   t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
   return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f && t < tb;
+}
+
+// mt_test against row j of a staged cluster (planes v0x v0y v0z e1x e1y
+// e1z e2x e2y e2z, each [128]).
+__device__ __forceinline__ bool mt_row(const float (*tri)[128], int j,
+                                       float ox, float oy, float oz,
+                                       float dx, float dy, float dz,
+                                       float tb, float& t, float& u,
+                                       float& v) {
+  return mt_test(tri[0][j], tri[1][j], tri[2][j], tri[3][j], tri[4][j],
+                 tri[5][j], tri[6][j], tri[7][j], tri[8][j], ox, oy, oz, dx,
+                 dy, dz, tb, t, u, v);
 }
 
 }  // namespace isect

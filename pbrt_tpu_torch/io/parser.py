@@ -13,9 +13,10 @@ reference. The directive subset:
               Integrator path/simplepath; Filter, Accelerator, Option and
               ColorSpace are consumed
   scene:      Material / MakeNamedMaterial / NamedMaterial (diffuse and the
-              names the reference maps to it, conductor), Shape trianglemesh
-              and plymesh, AreaLightSource "diffuse", LightSource "infinite"
-              with a uniform "rgb L"
+              names the reference maps to it, conductor), Shape trianglemesh,
+              plymesh and sphere (analytic, not emissive, outside objects),
+              AreaLightSource "diffuse", LightSource "infinite" with a
+              uniform "rgb L"
 
 A feature the port lacks (another camera, sampler or integrator, textures,
 other materials, shapes, lights, alpha, media, animated instances) raises
@@ -119,8 +120,7 @@ _UNPORTED_MATERIALS = {
     "dielectric", "glass", "thindielectric", "hair",
 }
 # Shapes the reference builds that the port does not (item 8).
-_UNPORTED_SHAPES = {"sphere", "disk", "cylinder", "bilinearmesh",
-                    "loopsubdiv", "curve"}
+_UNPORTED_SHAPES = {"disk", "cylinder", "bilinearmesh", "loopsubdiv", "curve"}
 _UNPORTED_LIGHTS = {"point", "spot", "distant", "projection", "goniometric"}
 
 
@@ -202,6 +202,8 @@ class PbrtParser:
         self.tri_uv = []
         self.n_tris = 0
         self._pending_uv = None  # (n, 3, 2) for the shape being emitted
+        self.spheres = []  # [cx, cy, cz, r] in world space
+        self.sph_mat = []
         self.area_lights = []
         self.infinite = None
         # camera / settings
@@ -535,6 +537,9 @@ class PbrtParser:
         elif stype == "plymesh":
             verts, faces = read_ply(os.path.join(self.base_dir, _get(p, "filename")))
             tris = self._pts(verts)[faces]
+        elif stype == "sphere":
+            self._sphere(p)
+            return
         else:
             self.warnings.append(f"shape {stype} unknown; skipped")
             return
@@ -547,6 +552,24 @@ class PbrtParser:
             )
         else:
             self._emit_triangles(tris)
+
+    def _sphere(self, p):
+        """An analytic sphere: the centre through the CTM and the radius
+        times the norm of the CTM's first column (uniform scale assumed, as
+        pbrt requires), as the reference builds it."""
+        if self.cur_area_light is not None:
+            raise _unported('an emissive Shape "sphere" (sphere area '
+                            "lights, and the icosphere of reversed or "
+                            "instanced emitters)", 11)
+        if self.cur_object is not None:
+            # The reference stores such a sphere in world space under the
+            # ObjectBegin CTM, outside the object (ROADMAP Queue 3).
+            raise _unported('a Shape "sphere" inside ObjectBegin', 7)
+        r = float(_get(p, "radius", 1.0))
+        center = self._pts(np.zeros((1, 3)))[0]
+        sc = np.linalg.norm(self.ctm[:3, 0])
+        self.spheres.append([*center, r * sc])
+        self.sph_mat.append(self.cur_material)
 
     # -- instancing ----------------------------------------------------------
 
@@ -647,6 +670,10 @@ class PbrtParser:
             tri_light=cat(self.tri_light, (), np.int32),
             tri_face=cat(self.tri_face, (), np.int32),
             tri_uv=cat(self.tri_uv, (3, 2), np.float32),
+            spheres=np.asarray(self.spheres, np.float32).reshape(-1, 4)
+            if self.spheres else None,
+            sph_mat=np.asarray(self.sph_mat, np.int32)
+            if self.spheres else None,
         )
         scene = Scene(
             geom=geom,

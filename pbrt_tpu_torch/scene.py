@@ -1,12 +1,16 @@
 """Scene container (port of pbrt_tpu/scene.py).
 
-Geometry, materials and lights as flat tensors, plus the one triangle
+Geometry, materials and lights as flat tensors, plus the triangle
 accelerator the scene carries: the small-scene table (K1) or the Morton
-clusters (K2), which `with_accel()` attaches, or the instanced sweep
-tables (K3), which the parser attaches to scenes with object instances and
-`with_accel(kind="sweep")` to any scene. The reference's other optional
-members (media, textures, BVH, kd-tree, animated instances) are not
-ported; convert.py refuses scenes that carry them.
+clusters (K2), which `with_accel()` attaches, the instanced sweep tables
+(K3), which the parser attaches to scenes with object instances and
+`with_accel(kind="sweep")` to any scene, the implicit-heap BVH (K4),
+attached as in the reference with
+`scene.replace(small=None, clusters=None, bvh=build_bvh(tri_verts))`, or
+the SAH kd-tree (`with_kdtree()`). accel/api.py states which tier answers
+when several are attached. The reference's other optional members (media,
+textures, animated instances) are not ported; convert.py refuses scenes
+that carry them.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from typing import FrozenSet, Optional
 
 import torch
 
+from .accel.bvh import BVH
+from .accel.kdtree import KdTree, build_kdtree
 from .core.tensorclass import static_field, tensorclass
 from .lights.buffers import LightBuffers
 from .materials.buffers import MAT_CONDUCTOR, MAT_DIFFUSE, MaterialBuffers
@@ -39,6 +45,10 @@ class Scene:
     # Instanced cluster sweep (ops/sweep.py, kernel K3); the only tier
     # that holds object instances.
     sweep: Optional[SweepAccel] = None
+    # Implicit-heap BVH (accel/bvh.py, kernel K4).
+    bvh: Optional[BVH] = None
+    # SAH kd-tree (accel/kdtree.py); plain PyTorch on both devices.
+    kdtree: Optional[KdTree] = None
     # Material kinds the geometry references; the BxDF select chain runs
     # only their links (materials/bxdf.py). Derived, never passed.
     shaded_kinds: FrozenSet[int] = static_field(init=False, default=frozenset())
@@ -47,7 +57,8 @@ class Scene:
         # Only the diffuse and conductor families are shaded yet; materials
         # nothing references (e.g. the Cornell list's glass and copper rows)
         # are carried as data.
-        used = torch.unique(self.geom.tri_mat.detach().cpu().long())
+        used = torch.unique(torch.cat([self.geom.tri_mat, self.geom.sph_mat])
+                            .detach().cpu().long())
         kinds = self.materials.kind.detach().cpu().long()
         referenced = frozenset(int(kinds[m]) for m in used.tolist())
         object.__setattr__(self, "shaded_kinds", referenced)
@@ -83,7 +94,8 @@ class Scene:
             self.geom.tri_light.detach().cpu().numpy(),
         )
         dev = self.geom.tri_verts.device
-        tiers = dict(small=None, clusters=None, sweep=None)
+        tiers = dict(small=None, clusters=None, sweep=None, bvh=None,
+                     kdtree=None)
         if kind == "auto" and n_tri <= threshold:
             return self.replace(**{**tiers,
                                    "small": build_smallscene(*args).to(dev)})
@@ -93,7 +105,17 @@ class Scene:
         if kind == "sweep":
             return self.replace(**{**tiers,
                                    "sweep": build_sweep(tri_verts).to(dev)})
-        raise NotImplementedError(
-            f"accelerator kind {kind!r} is not ported yet: the BVH and "
-            "kd-tree tiers are ROADMAP Queue 1 item 8"
+        raise ValueError(
+            f"unknown accelerator kind {kind!r}: with_accel takes 'auto', "
+            "'cluster' or 'sweep' (attach a BVH with "
+            "scene.replace(bvh=build_bvh(...)), a kd-tree with with_kdtree())"
         )
+
+    def with_kdtree(self, max_prims: int = 4) -> "Scene":
+        """Attach the SAH kd-tree (KdTreeAggregate analogue), keeping any
+        other tier, as the reference does."""
+        if self.geom.num_triangles == 0:
+            return self
+        return self.replace(kdtree=build_kdtree(
+            self.geom.tri_verts.detach().cpu().numpy(), max_prims=max_prims,
+        ).to(self.geom.tri_verts.device))

@@ -1,8 +1,9 @@
 """Flat triangle geometry buffers and surface-interaction records.
 
-Port of pbrt_tpu/shapes/geometry.py, triangle fields only. Spheres,
-curves, disks, cylinders, bilinear patches and alpha masks are not ported
-yet: `GeometryBuffers.build` raises NotImplementedError when handed any.
+Port of pbrt_tpu/shapes/geometry.py: triangles and analytic spheres.
+Emissive spheres (sphere area lights), curves, disks, cylinders, bilinear
+patches and alpha masks are not ported yet: `GeometryBuffers.build` raises
+NotImplementedError when handed any.
 """
 
 from __future__ import annotations
@@ -15,9 +16,8 @@ from ..core.tensorclass import tensorclass
 # Non-triangle shape families (build arguments and reference field names)
 # and the ROADMAP Queue 1 item porting them.
 UNPORTED_SHAPES = {
-    "spheres": 8, "sph": 8, "sph_mat": 8, "sph_light": 8, "crv": 8, "crv_u": 8,
-    "crv_mat": 8, "disk": 8, "disk_mat": 8, "cyl": 8, "cyl_mat": 8,
-    "blp": 8, "blp_mat": 8,
+    "crv": 8, "crv_u": 8, "crv_mat": 8, "disk": 8, "disk_mat": 8, "cyl": 8,
+    "cyl_mat": 8, "blp": 8, "blp_mat": 8,
 }
 
 
@@ -32,6 +32,10 @@ class GeometryBuffers:
     tri_alpha:     (T,)      float32 constant alpha (all 1: opaque)
     tri_alpha_tex: (T,)      int32   alpha texture id (all -1: none)
     tri_uv:        (T, 3, 2) float32 per-vertex texture coordinates
+    sph:           (S, 4)    float32 sphere center + radius (world space)
+    sph_mat:       (S,)      int32   material index
+    sph_light:     (S,)      int32   sphere-light index, all -1 (emissive
+                                     spheres are not ported)
     """
 
     tri_verts: torch.Tensor
@@ -41,10 +45,14 @@ class GeometryBuffers:
     tri_alpha: torch.Tensor
     tri_alpha_tex: torch.Tensor
     tri_uv: torch.Tensor
+    sph: torch.Tensor
+    sph_mat: torch.Tensor
+    sph_light: torch.Tensor
 
     @staticmethod
     def build(tri_verts=None, tri_mat=None, tri_light=None, tri_face=None,
-              tri_alpha=None, tri_alpha_tex=None, tri_uv=None,
+              tri_alpha=None, tri_alpha_tex=None, tri_uv=None, spheres=None,
+              sph_mat=None, sph_light=None,
               **other_shapes) -> "GeometryBuffers":
         for name, value in other_shapes.items():
             if name not in UNPORTED_SHAPES:
@@ -52,7 +60,7 @@ class GeometryBuffers:
             if value is not None and len(value):
                 raise NotImplementedError(
                     f"geometry {name!r} is not ported yet (ROADMAP Queue 1 "
-                    f"item {UNPORTED_SHAPES[name]}); only triangles are"
+                    f"item {UNPORTED_SHAPES[name]}); only triangles and spheres are"
                 )
         if (tri_alpha is not None and np.any(np.asarray(tri_alpha) < 1.0)) or (
             tri_alpha_tex is not None and np.any(np.asarray(tri_alpha_tex) >= 0)
@@ -61,7 +69,13 @@ class GeometryBuffers:
                 "alpha-masked triangles are not ported yet (ROADMAP Queue 1 "
                 "item 7)"
             )
+        if sph_light is not None and np.any(np.asarray(sph_light) >= 0):
+            raise NotImplementedError(
+                "emissive spheres (sphere area lights) are not ported yet "
+                "(ROADMAP Queue 1 item 11)"
+            )
         t = 0 if tri_verts is None else len(tri_verts)
+        s = 0 if spheres is None else len(spheres)
 
         def arr(x, default, dtype):
             x = default if x is None else x
@@ -82,11 +96,18 @@ class GeometryBuffers:
                 ),
                 torch.float32,
             ),
+            sph=arr(spheres, np.zeros((s, 4)), torch.float32).reshape(s, 4),
+            sph_mat=arr(sph_mat, np.zeros((s,)), torch.int32),
+            sph_light=arr(sph_light, np.full((s,), -1), torch.int32),
         )
 
     @property
     def num_triangles(self) -> int:
         return self.tri_verts.shape[0]
+
+    @property
+    def num_spheres(self) -> int:
+        return self.sph.shape[0]
 
 
 @tensorclass

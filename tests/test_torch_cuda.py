@@ -1,5 +1,5 @@
-"""K1, K2 and K3 on the card: each CUDA kernel against its plain twin, and
-renders on the card against the same renders on the CPU.
+"""K1, K2, K3 and K4 on the card: each CUDA kernel against its plain twin,
+and renders on the card against the same renders on the CPU.
 
 These tests need a CUDA device and skip without one. They import neither
 jax nor pbrt_tpu, so they run on a machine that has only the port's
@@ -16,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from pbrt_tpu_torch.accel import api
 from pbrt_tpu_torch.accel.api import ray_sort_perm
+from pbrt_tpu_torch.accel.bvh import build_bvh
 from pbrt_tpu_torch.models.path import PathIntegrator
 from pbrt_tpu_torch.io.parser import load_pbrt_string
-from pbrt_tpu_torch.ops import cluster, sweep
+from pbrt_tpu_torch.ops import cluster, nvcc_build, sweep, traverse
 from pbrt_tpu_torch.ops.smallscene import (
     STATS,
     build_smallscene,
@@ -40,7 +42,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1, K2 and K3 kernels run "
+        pytest.skip("needs a CUDA device: the K1, K2, K3 and K4 kernels run "
                     "only on the card")
     return torch.device("cuda", 0)
 
@@ -287,3 +289,79 @@ def test_instanced_render_on_card_matches_cpu(card):
     assert np.all(np.isfinite(got))
     ok = np.abs(got - want) <= 1e-5 + 1e-3 * np.abs(want)
     assert np.mean(ok) >= 0.99, int(np.sum(~ok))
+
+
+def _killeroo_bvh(card):
+    scene, camera = killeroo_class_scene(resolution=(128, 128))
+    bvh = build_bvh(scene.geom.tri_verts.numpy())
+    return scene.replace(clusters=None, bvh=bvh).to(card), camera.to(card)
+
+
+def test_k4_matches_twin_on_killeroo(card):
+    """Both modes on the full killeroo-class BVH (depth 15), on rays from
+    the scene's box (random, axis-parallel, dead, finite segments) and the
+    camera's, in their own order (the BVH tier sorts no rays)."""
+    scene, camera = _killeroo_bvh(card)
+    assert scene.bvh.depth == 15
+    lo = scene.geom.tri_verts.reshape(-1, 3).amin(0)
+    hi = scene.geom.tri_verts.reshape(-1, 3).amax(0)
+    o_box, d_box, t_box = _box_rays(1 << 16, 3, card)
+    pixel = torch.arange(128 * 128, device=card)
+    o_cam, d_cam, _, _ = camera_rays_full(camera, pixel, 0, 0)
+    o = torch.cat([lo + (hi - lo) * o_box, o_cam])
+    d = torch.cat([d_box, d_cam])
+    tmax = torch.cat([t_box * 3.0, torch.full((pixel.shape[0],), float("inf"),
+                                              device=card)])
+    for any_hit in (False, True):
+        traverse.STATS.reset()
+        got = traverse.bvh_intersect(scene.bvh, o, d, tmax, any_hit=any_hit)
+        torch.cuda.synchronize()
+        assert traverse.STATS.launches == 1
+        want = traverse.bvh_intersect_ref(scene.bvh, o, d, tmax,
+                                          any_hit=any_hit)
+        assert 0 < int((want[1] >= 0).sum()) < o.shape[0]
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            assert torch.equal(g, w), any_hit
+
+
+def test_bvh_tier_launches_k4_without_the_twin(card, monkeypatch):
+    """closest / any_hit on card tensors through the BVH tier: one K4
+    launch each, the twin never called."""
+    scene, camera = _killeroo_bvh(card)
+    pixel = torch.arange(64 * 64, device=card)
+    o, d, _, _ = camera_rays_full(camera, pixel, 0, 0)
+    tmax = torch.full((o.shape[0],), float("inf"), device=card)
+    want = traverse.bvh_intersect_ref(scene.bvh, o, d, tmax)
+
+    def no_twin(*args, **kwargs):
+        raise AssertionError("the twin ran on card tensors")
+
+    monkeypatch.setattr(traverse, "bvh_intersect_ref", no_twin)
+    traverse.STATS.reset()
+    cluster.STATS.reset()
+    isect = api.closest(scene, o, d, tmax)
+    occ = api.any_hit(scene, o, d, tmax)
+    torch.cuda.synchronize()
+    assert traverse.STATS.launches == 2 and cluster.STATS.launches == 0
+    assert torch.equal(isect.prim, want[1])
+    assert torch.equal(occ, want[1] >= 0)
+
+
+def test_k4_build_failure_raises(card, monkeypatch, tmp_path):
+    """A source nvcc refuses raises at the launch; nothing falls back."""
+    scene, _ = small_killeroo_class_scene("pbrt_tpu_torch", (8, 8))
+    bvh = build_bvh(scene.geom.tri_verts.numpy()).to(card)
+    o, d, tmax = _box_rays(64, 1, card)
+    for header in nvcc_build.CSRC_DIR.glob("*.cuh"):
+        (tmp_path / header.name).write_bytes(header.read_bytes())
+    (tmp_path / "traverse.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(nvcc_build, "CSRC_DIR", tmp_path)
+    nvcc_build.load_library.cache_clear()
+    traverse.STATS.reset()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            traverse.bvh_intersect(bvh, o, d, tmax)
+    finally:
+        nvcc_build.load_library.cache_clear()
+    assert traverse.STATS.launches == 0

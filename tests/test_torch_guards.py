@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from pbrt_tpu_torch.accel.bvh import build_bvh
+from pbrt_tpu_torch.convert import scene_from_arrays
 from pbrt_tpu_torch.lights.buffers import LightBuffers
 from pbrt_tpu_torch.materials.buffers import (
     MAT_COATEDCONDUCTOR,
@@ -66,7 +68,7 @@ def _quad_geom(mat=0):
 @pytest.mark.parametrize("build", [
     lambda: cornell_box(variant="specular"),
     lambda: GeometryBuffers.build(**_quad_geom(),
-                                  spheres=np.array([[0.5, 0.5, 0.5, 0.1]])),
+                                  disk=np.array([[0, 0, 0, 0, 1, 0, 1, 0]])),
     lambda: GeometryBuffers.build(**_quad_geom(), tri_alpha=np.array([0.5, 1.0])),
     lambda: LightBuffers.build(points=[{"p": (0, 1, 0), "rgb": (1, 1, 1)}]),
     # The image-based infinite light (an environment map) is not ported;
@@ -80,12 +82,12 @@ def _quad_geom(mat=0):
                       [{"kind": MAT_DIFFUSE}, {"kind": MAT_COATEDCONDUCTOR}]),
                   lights=LightBuffers.build()),
     lambda: Sampler(kind="sobol"),
-    # The BVH and kd-tree tiers are not ported.
-    lambda: cornell_box()[0].with_accel(kind="bvh"),
+    # Animated instances are not ported.
+    lambda: scene_from_arrays({"anim.o2w_start": np.ones((1, 12))}, {}),
     lambda: mesh_gallery_scene(resolution=(8, 8), subdiv=1),  # glass torus
-], ids=["specular_variant", "sphere", "alpha", "point_light", "infinite_light",
+], ids=["specular_variant", "disk", "alpha", "point_light", "infinite_light",
         "light_bvh", "texture", "referenced_conductor", "sobol_sampler",
-        "explicit_accel", "mesh_gallery_dielectric"])
+        "animated_instance", "mesh_gallery_dielectric"])
 def test_unsupported_features_raise(build):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         build()
@@ -103,6 +105,17 @@ def test_accelerator_tiers():
         assert attached.clusters.n_clusters == 1  # 38 triangles
     back = small.with_accel(kind="cluster").with_accel()
     assert back.small is not None and back.clusters is None
+    # The BVH is attached as in the reference; with_accel drops it again.
+    tri_verts = scene.geom.tri_verts.numpy()
+    bvh = small.replace(small=None, bvh=build_bvh(tri_verts))
+    assert bvh.bvh.depth == 4 and bvh.bvh.prim_id.shape == (64,)
+    assert bvh.with_accel().bvh is None
+    # with_kdtree keeps the other tiers, as in the reference.
+    kd = small.with_kdtree()
+    assert kd.kdtree is not None and kd.small is not None
+    assert kd.with_accel(kind="cluster").kdtree is None
+    with pytest.raises(ValueError, match="unknown accelerator kind"):
+        scene.with_accel(kind="bvh")
     conductor = Scene(geom=GeometryBuffers.build(**_quad_geom(mat=1)),
                       materials=MaterialBuffers.build(
                           [{"kind": MAT_DIFFUSE}, {"kind": MAT_CONDUCTOR}]),

@@ -8,8 +8,11 @@ scene without an accelerator: jit-compiling its path integrator around
 the Pallas cluster kernel in interpret mode took most of this file's time,
 and the twin is held against that kernel in tests/test_torch_cluster.py.
 
+The same samples also go through the BVH tier (K4's twin, the cluster
+tier dropped), against the same reference answers.
+
 The full 122,244-triangle scene is rendered against the committed JAX
-golden on the card only (chip_smoke.py phase d2).
+golden on the card only (chip_smoke.py phases d2 and d4).
 """
 
 import jax
@@ -22,8 +25,9 @@ from pbrt_tpu.core.spectrum import N_SPECTRUM
 from pbrt_tpu.films.rgb import spectrum_to_rgb as jax_spectrum_to_rgb
 from pbrt_tpu.models.path import PathIntegrator as JPathIntegrator
 from pbrt_tpu.render import camera_rays_full as jax_camera_rays
+from pbrt_tpu_torch.accel.bvh import build_bvh
 from pbrt_tpu_torch.models.path import PathIntegrator
-from pbrt_tpu_torch.ops import cluster
+from pbrt_tpu_torch.ops import cluster, traverse
 from pbrt_tpu_torch.render import camera_rays_full, render
 
 from .torch_port_helpers import share_close
@@ -63,8 +67,13 @@ def traced():
     return (np.asarray(jL), float(jstats["rays"]), jrgb), (pL, float(pstats["rays"])), (ps, pc)
 
 
-def test_trace_with_stats_per_sample(traced):
-    (jL, j_rays, _), (pL, p_rays), _ = traced
+def _pixels_and_samples():
+    npix = RES * RES
+    return (torch.arange(npix).repeat(SPP),
+            torch.arange(SPP).repeat_interleave(npix))
+
+
+def _assert_samples_match(pL, p_rays, jL, j_rays):
     assert pL.shape == (SPP * RES * RES, N_SPECTRUM)
     assert torch.isfinite(pL).all()
     assert abs(p_rays - j_rays) <= 0.005 * j_rays, (p_rays, j_rays)
@@ -74,6 +83,28 @@ def test_trace_with_stats_per_sample(traced):
     assert np.mean(sample_ok) >= 0.99, n_bad
     # The scene's escaped rays see the infinite light: radiance everywhere.
     assert np.mean(jL.max(axis=-1) > 0.0) > 0.9
+
+
+def test_trace_with_stats_per_sample(traced):
+    (jL, j_rays, _), (pL, p_rays), _ = traced
+    _assert_samples_match(pL, p_rays, jL, j_rays)
+
+
+def test_bvh_tier_trace_per_sample(traced):
+    """The BVH tier answers every query of the pass (K4's twin on the
+    CPU): the same closest surfaces, so the same samples."""
+    (jL, j_rays, _), _, (ps, pc) = traced
+    scene = ps.replace(clusters=None,
+                       bvh=build_bvh(ps.geom.tri_verts.numpy()))
+    assert scene.bvh.depth == 10  # 2,724 triangles in 681 leaves
+    tpix, tsam = _pixels_and_samples()
+    po, pd, pwl, _ = camera_rays_full(pc, tpix, tsam, 0, n_spectrum=N_SPECTRUM)
+    traverse.STATS.reset()
+    cluster.STATS.reset()
+    pL, pstats = PathIntegrator(max_depth=5).trace_with_stats(
+        scene, po, pd, pwl, tpix, tsam, 0)
+    assert traverse.STATS.launches == 0 and cluster.STATS.launches == 0
+    _assert_samples_match(pL, float(pstats["rays"]), jL, j_rays)
 
 
 def test_render_image(traced):

@@ -83,21 +83,32 @@ def test_camera_rays_match(jax_cornell):
 
 
 def test_convert_refuses_unported_members(jax_cornell):
+    from pbrt_tpu.io.parser import load_pbrt_string as jax_load_pbrt_string
     from pbrt_tpu_torch.convert import scene_from_arrays
 
     js = jax_cornell[0]
-    # The clusters convert (tests/test_torch_meshes.py); the kd-tree
-    # aggregate does not.
-    with pytest.raises(NotImplementedError, match="item 8"):
-        scene_from_arrays(*flatten_jax(js.replace(small=None).with_kdtree()))
+    # The clusters (tests/test_torch_meshes.py), the BVH and the kd-tree
+    # convert (tests/test_torch_bvh.py, tests/test_torch_kdtree.py); the
+    # texture tables do not.
+    textured, _, _ = jax_load_pbrt_string(
+        'Texture "t" "spectrum" "checkerboard" '
+        'Material "diffuse" "texture reflectance" "t" '
+        'Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
+        '"integer indices" [0 1 2]')
+    assert textured.textures is not None
+    with pytest.raises(NotImplementedError, match="item 10"):
+        scene_from_arrays(*flatten_jax(textured))
     sampler_bvh = js.replace(lights=js.lights.replace(sampler="bvh"))
     with pytest.raises(NotImplementedError, match="item 11"):
         scene_from_arrays(*flatten_jax(sampler_bvh))
 
 
 def test_convert_refuses_unported_shapes():
+    from pbrt_tpu.io.parser import load_pbrt_string as jax_load_pbrt_string
     from pbrt_tpu_torch.convert import scene_from_arrays
 
-    js, _ = jax_cornell_box(resolution=(8, 8), variant="specular")
+    # Analytic spheres convert (tests/test_torch_spheres.py); disks do not.
+    js, _, _ = jax_load_pbrt_string('Shape "disk" "float radius" 0.5')
+    assert js.geom.num_disks == 1
     with pytest.raises(NotImplementedError, match="item 8"):
         scene_from_arrays(*flatten_jax(js))
