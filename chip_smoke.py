@@ -20,7 +20,8 @@ Phases:
   a   device: name, nvidia-smi name and power limit, torch/CUDA versions
   b   build: nvcc builds of K1 (csrc/smallscene.cu), K2 (csrc/cluster.cu),
       K3 (csrc/sweep.cu) and K4 (csrc/traverse.cu), started together, with
-      their ptxas summaries
+      their ptxas summaries (registers, shared memory and spills of every
+      template instance)
   c   K1 vs its twin on 4,194,304 rays (the Cornell pass's query shape):
       camera rays, random rays inside the box, dead lanes (tmax = 0),
       axis-parallel rays and NEE shadow segments; closest and any-hit
@@ -30,7 +31,10 @@ Phases:
       mesh, axis-parallel, dead lanes, area-light and infinite-light shadow
       rays) in closest, any-hit and non-deferred closest modes, bit-equal;
       K2, its twin, ray_sort_perm and resolve_tri_attrs timed at the main
-      path's shape (1,048,576 sorted rays)
+      path's shape (1,048,576 sorted rays), with the twin's visit counts
+      (pairs; 128-ray block, 32-ray warp and lone, triangle-parallel, warp
+      visits), the bound and the share of it reached; any-hit also in
+      live-lane order (live_lane_order, a diagnostic off the path)
   c3  K3 vs its twin on every query of a 32x32, 4 spp pass (camera, four
       bounces and the terminal query in closest mode, five shadow queries
       with the path's dead lanes in any-hit mode), for the instanced field
@@ -38,7 +42,7 @@ Phases:
       entries) and for with_accel(kind="sweep") on the killeroo-class
       scene, bit-equal; then K3 and its twin at the main path's shape (the
       1,048,576 camera rays of one instanced-field pass and their shadow
-      rays), bit-equal key by key, timed
+      rays), bit-equal key by key, timed, with c2's counts and diagnostic
   c4  K4 vs its twin on the killeroo-class scene's BVH (depth 15): 65,536
       rays of each kind of c2, unsorted, in closest and any-hit modes,
       bit-equal key by key; then at the main path's shape (the 1,048,576
@@ -197,7 +201,7 @@ def phase_build():
     for name in names:
         seconds, log = nvcc_build.BUILD_LOG.get(name, (0.0, ""))
         ptxas = [ln.strip() for ln in log.splitlines()
-                 if "Used" in ln or "spill" in ln]
+                 if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
         result[name] = {"seconds": seconds, "ptxas": ptxas, "cached": not log}
     emit("b_build", wall_seconds=wall, **result)
     return result
@@ -436,7 +440,7 @@ def phase_k2_vs_twin(dev, killeroo):
         per_kind = _per_kind("K2 " + mode, got, want, names, kind_of)
         err = max(err, max_abs_err(got, want))
         result[mode] = {"rays": int(o.shape[0]), "per_kind": per_kind,
-                        "twin_seconds": twin_s, "pairs": counts["pairs"]}
+                        "twin_seconds": twin_s, **counts}
     emit("c2_k2_vs_twin", scene_build_seconds=build_s,
          n_clusters=acc.n_clusters, n_supers=acc.n_supers, max_abs_err=err,
          **result)
@@ -481,12 +485,31 @@ def _pass_batches(scene, camera, dev, sort: bool = True):
     return rays, (o, d, tmax), isect.prim
 
 
+def live_lane_order(o, d, tmax):
+    """The batch keyed by ray_sort_perm over its live lanes only (tmax >
+    0), the dead lanes after them in their order: (o, d, tmax, perm). Not
+    the path's order (its key spans the dead lanes' origins too): a
+    diagnostic of what that sort costs the kernels."""
+    import torch
+
+    from pbrt_tpu_torch.accel.api import ray_sort_perm
+
+    live = torch.nonzero(tmax > 0).squeeze(1)
+    dead = torch.nonzero(tmax <= 0).squeeze(1)
+    perm = torch.cat([live[ray_sort_perm(o[live], d[live], tmax[live])[0]],
+                      dead])
+    return (o[perm].contiguous(), d[perm].contiguous(),
+            tmax[perm].contiguous(), perm)
+
+
 def _timed_vs_twin(intersect, intersect_ref, stats, acc, rays, cost) -> dict:
     """Time a kernel's wrapper `intersect` and its twin `intersect_ref`
     (both returning dicts of outputs) on each batch of `rays`; the kernel
     must equal the twin on every output. `stats` is the kernel's launch
     counter; cost(counts) gives the batch's (operations, bytes, fields to
-    report) from the twin's work counts, for the bound."""
+    report) from the twin's work counts, for the bound. The any-hit batch
+    is also timed in live_lane_order, where the kernel's answers must be
+    the same answers permuted."""
     import torch
 
     out = {}
@@ -508,11 +531,21 @@ def _timed_vs_twin(intersect, intersect_ref, stats, acc, rays, cost) -> dict:
                                  f"{ro.shape[0]} rays differs from its twin "
                                  f"in {bad or sorted(set(got) ^ set(want))}")
         ops, nbytes, fields = cost(counts)
+        bound = _bound(ops, nbytes)
         out[mode] = {"ms": ms, "plain_ms": plain_ms, **counts, **fields,
                      "hits": int((want["prim"] >= 0).sum()),
                      "live": int((rt > 0).sum()), "mismatched_keys": bad,
-                     "max_abs_err": max_abs_err(got, want),
-                     **_bound(ops, nbytes)}
+                     "max_abs_err": max_abs_err(got, want), **bound,
+                     "share_reached": bound["bound_ms"] / ms}
+        if any_hit:
+            lo, ld, lt, perm = live_lane_order(ro, rd, rt)
+            out[mode]["live_order_ms"] = cuda_ms(
+                lambda: intersect(acc, lo, ld, lt, any_hit=True), reps=10)
+            got_live = intersect(acc, lo, ld, lt, any_hit=True)
+            bad = [k for k in want if not torch.equal(got_live[k], got[k][perm])]
+            if bad:
+                raise AssertionError(f"{intersect.__name__} any-hit in live-lane "
+                                     f"order differs in {bad}")
     stats.reset()
     return out
 
@@ -634,7 +667,7 @@ def phase_k3_vs_twin(dev, field, killeroo):
             per_query[name] = {"rays": int(o.shape[0]),
                                "live": int((tmax > 0).sum()),
                                "hits": int((want["prim"] >= 0).sum()),
-                               "pairs": counts["pairs"]}
+                               **counts}
         result[label] = {"instances": acc.n_instances,
                          "entries": acc.n_entries, "queries": per_query}
     emit("c3_k3_vs_twin", max_abs_err=err, **result)

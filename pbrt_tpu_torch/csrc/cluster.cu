@@ -26,44 +26,39 @@
 // 28 B read and 8 B written per ray. On the killeroo-class scene a ray
 // needs tens of clusters of 128 triangles, thousands of flops per byte, so
 // the kernel is bound by operations; the whole triangle set (~7.3 MB at
-// 122k triangles) stays in the 50 MB L2.
+// 122k triangles) stays in the 50 MB L2. What it loses against that bound
+// is lanes that issue tests no ray needs: a (warp, cluster) visit that one
+// ray needs costs 128 serial rows in ray-parallel form.
 //
-// Design (simple and right first): one thread per ray, 128 rays per block,
-// on rays that the caller has permuted with accel.api.ray_sort_perm so that
-// a block is a compact beam. Each thread keeps its own super and cluster
-// masks; __syncthreads_or skips a super or cluster no ray of the block
-// needs. A cluster some ray needs is staged into shared memory once per
-// block (128 triangles x 10 floats, one coalesced load per plane and
-// thread); every live ray then tests the 128 rows in order, reading the
-// same shared word across the warp (a broadcast). Only (t, pid, u, v, slot)
-// of the best hit ride in registers; the normal and ids of the hit are read
-// once after the walk.
+// Design: the warp-level walk of cluster_walk.cuh, on rays that the caller
+// has permuted with accel.api.ray_sort_perm. Each warp of 32 rays walks the
+// supers in order on its own (__any_sync over the lanes' super tests; a
+// warp whose lanes are all finished leaves), and within a super the
+// clusters its lanes pass, staged per warp and tested ray-parallel when
+// many lanes need them and triangle-parallel (4 rows a lane, a butterfly
+// reduction) when few do. Only (t, pid, u, v, slot) of the best hit ride
+// in registers; the normal and ids of the hit are read once after the
+// walk.
 //
 // Numerics: built with --fmad=false and IEEE division, so every operation
 // rounds once, in the twin's order.
 
 #include <cuda_runtime.h>
 
+#include "cluster_walk.cuh"
 #include "triangle.cuh"
 
 namespace {
 
-using isect::Ray;
 using isect::inv_dir;
-using isect::slab;
+using walk::kThreads;
 
-constexpr int kCluster = 128;
-constexpr int kSuper = 32;
-constexpr int kThreads = 128;  // one ray per thread; == kCluster for staging
-constexpr int kTriPlanes = 10;  // v0x v0y v0z e1x e1y e1z e2x e2y e2z pid
-constexpr float kBig = 3e38f;
-
-static_assert(kThreads == kCluster, "staging loads one triangle per thread");
+constexpr int kSuper = 32;  // clusters per super
 
 struct Tables {
   const float* sboxes;
   const float* boxes;
-  const float* tri[kTriPlanes];
+  walk::Planes tri;
   const float* nx;
   const float* ny;
   const float* nz;
@@ -80,16 +75,17 @@ cluster_kernel(Tables tab, int n_clusters, int n_supers,
                float* __restrict__ u_out, float* __restrict__ v_out,
                float* __restrict__ n_out, int* __restrict__ mat_out,
                int* __restrict__ light_out) {
-  __shared__ float tri[kTriPlanes][kCluster];
+  __shared__ __align__(16) walk::Slot slots[2 * walk::kWarps];
 
+  const int lane = threadIdx.x % walk::kWarp;
   const long long r = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
   const bool in_range = r < n;
-  // Lanes past the end carry t_best = -1: every slab gate fails for them,
-  // but they still take part in the block's barriers.
+  // Lanes past the end carry t_best = -1: every gate fails for them, but
+  // they still take part in the warp's votes.
   float dx = 1.0f, dy = 1.0f, dz = 1.0f;
-  float t_best = -1.0f;
-  Ray ray{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  walk::Best best{-1.0f, 0.0f, 0.0f, 0.0f, -1, 0};
+  isect::Ray ray{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (in_range) {
     ray.ox = o[3 * r];
     ray.oy = o[3 * r + 1];
@@ -97,74 +93,33 @@ cluster_kernel(Tables tab, int n_clusters, int n_supers,
     dx = d[3 * r];
     dy = d[3 * r + 1];
     dz = d[3 * r + 2];
-    t_best = tmax[r];
+    best.t = tmax[r];
   }
   ray.ix = inv_dir(dx);
   ray.iy = inv_dir(dy);
   ray.iz = inv_dir(dz);
-  float prim_f = 0.0f;  // pid + 1 of the best hit, 0 = none
-  float ub = 0.0f, vb = 0.0f;
-  int slot = -1;  // cluster * 128 + row of the best hit
+  const walk::ObjRay mt_ray{ray.ox, ray.oy, ray.oz, dx, dy, dz};
+  walk::Slot* const own = slots + 2 * (threadIdx.x / walk::kWarp);
 
   for (int s = 0; s < n_supers; ++s) {
-    const bool live_s = slab(tab.sboxes + 8 * s, ray, t_best);
-    if (!__syncthreads_or(live_s)) continue;
-    const int hi = min((s + 1) * kSuper, n_clusters);
-    for (int c = s * kSuper; c < hi; ++c) {
-      const bool live_c = live_s && slab(tab.boxes + 8 * c, ray, t_best);
-      // The barrier also ends every read of the previous staged cluster.
-      if (!__syncthreads_or(live_c)) continue;
-      const int src = c * kCluster + threadIdx.x;
-#pragma unroll
-      for (int k = 0; k < kTriPlanes; ++k) tri[k][threadIdx.x] = tab.tri[k][src];
-      __syncthreads();
-      if (!live_c) continue;
-
-      const float tb = t_best;  // t_best at cluster entry gates every row
-      float bt = kBig, bp = 0.0f, bu = 0.0f, bv = 0.0f;
-      int bj = -1;
-      bool got = false;
-      for (int j = 0; j < kCluster; ++j) {
-        float tk, u, v;
-        const bool hit = isect::mt_row(tri, j, ray.ox, ray.oy, ray.oz, dx, dy,
-                                       dz, tb, tk, u, v);
-        const float pid = tri[9][j];
-        if (!hit) continue;
-        if (kAnyHit) {
-          got = true;
-          bp = fmaxf(bp, pid);
-        } else if (tk < bt || (tk == bt && pid > bp)) {
-          bt = tk;
-          bp = pid;
-          bu = u;
-          bv = v;
-          bj = j;
-        }
-      }
-      if (kAnyHit) {
-        if (got) {
-          t_best = 0.0f;
-          prim_f = bp;
-        }
-      } else if (bt < t_best) {
-        t_best = bt;
-        prim_f = bp;
-        ub = bu;
-        vb = bv;
-        slot = bj < 0 ? -1 : c * kCluster + bj;
-      }
-    }
+    // Dead, finished (any-hit) and past-the-end lanes have t_best <= 0.
+    if (!__any_sync(walk::kFull, best.t > 0.0f)) break;
+    const bool live_s = isect::slab(tab.sboxes + 8 * s, ray, best.t);
+    if (!__any_sync(walk::kFull, live_s)) continue;
+    walk::walk_clusters<kAnyHit, kAttrs>(
+        tab.tri, tab.boxes, own, lane, s * kSuper,
+        min((s + 1) * kSuper, n_clusters), live_s, ray, mt_ray, 0, best);
   }
 
   if (!in_range) return;
-  const bool found = prim_f > 0.0f;
+  const bool found = best.prim > 0.0f;
   const float inf = __int_as_float(0x7f800000);
-  prim_out[r] = found ? static_cast<int>(prim_f) - 1 : -1;
-  t_out[r] = found ? t_best : inf;
+  prim_out[r] = found ? static_cast<int>(best.prim) - 1 : -1;
+  t_out[r] = found ? best.t : inf;
   if (!kAttrs) return;
-  u_out[r] = found ? ub : 0.0f;
-  v_out[r] = found ? vb : 0.0f;
-  const int at = found ? slot : 0;
+  u_out[r] = found ? best.u : 0.0f;
+  v_out[r] = found ? best.v : 0.0f;
+  const int at = found ? best.slot : 0;
   n_out[3 * r] = found ? tab.nx[at] : 0.0f;
   n_out[3 * r + 1] = found ? tab.ny[at] : 0.0f;
   n_out[3 * r + 2] = found ? tab.nz[at] : 0.0f;
@@ -189,7 +144,8 @@ cudaError_t launch(const Tables& tab, int n_clusters, int n_supers,
 
 // Plain C entry point, bound with ctypes. Pointers are device pointers; the
 // 17 tables come in the order sboxes, boxes, v0x v0y v0z e1x e1y e1z e2x
-// e2y e2z pid, nx ny nz matf lightf. u, v, nrm, mat and light are written
+// e2y e2z pid, nx ny nz matf lightf (the ten triangle planes 16-B aligned,
+// for the staging copies). u, v, nrm, mat and light are written
 // only in closest mode with defer_attrs == 0 (may be null otherwise).
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int cluster_launch(

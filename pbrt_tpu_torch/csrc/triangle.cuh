@@ -1,10 +1,10 @@
 // Shared device code of the cluster kernels K2 (cluster.cu) and K3
-// (sweep.cu) and of the BVH kernel K4 (traverse.cu): the reference's
-// ray/box slab test of the clusters and its Moller-Trumbore triangle test,
-// in the operation order of the plain twins
-// (pbrt_tpu_torch/ops/cluster.py::slab, inv_dir, mt_rows;
-// pbrt_tpu_torch/accel/bvh.py::bvh_intersect_ref). Built with
-// --fmad=false and IEEE division, so every operation rounds once.
+// (sweep.cu, both through cluster_walk.cuh) and of the BVH kernel K4
+// (traverse.cu): the reference's ray/box slab test of the clusters and
+// its Moller-Trumbore triangle test, in the operation order of the plain
+// twins (pbrt_tpu_torch/ops/cluster.py::slab, inv_dir, mt_rows;
+// pbrt_tpu_torch/accel/bvh.py::bvh_intersect_ref). Built with --fmad=false
+// and IEEE division, so every operation rounds once.
 
 #pragma once
 
@@ -66,18 +66,6 @@ __device__ __forceinline__ bool mt_test(float v0x, float v0y, float v0z,
   v = (dx * qx + dy * qy + dz * qz) * inv_det;
   t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
   return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f && t < tb;
-}
-
-// mt_test against row j of a staged cluster (planes v0x v0y v0z e1x e1y
-// e1z e2x e2y e2z, each [128]).
-__device__ __forceinline__ bool mt_row(const float (*tri)[128], int j,
-                                       float ox, float oy, float oz,
-                                       float dx, float dy, float dz,
-                                       float tb, float& t, float& u,
-                                       float& v) {
-  return mt_test(tri[0][j], tri[1][j], tri[2][j], tri[3][j], tri[4][j],
-                 tri[5][j], tri[6][j], tri[7][j], tri[8][j], ox, oy, oz, dx,
-                 dy, dz, tb, t, u, v);
 }
 
 }  // namespace isect

@@ -22,7 +22,10 @@ Contract (read per ray from the reference kernel, `_cluster_kernel`):
     later gate passes.
 The reference gates per tile of 1024 rays instead of per ray; the two
 differ only where a slab test's rounding and the triangle test disagree
-at a box face (tests/test_torch_cluster.py counts it).
+at a box face (tests/test_torch_cluster.py counts it). The kernel walks
+per warp of 32 rays (csrc/cluster_walk.cuh): the twin's `counts` say how
+its work falls into 128-ray blocks, 32-ray warps and the warp visits it
+tests triangle-parallel (LONE_MAX).
 
 Dispatch is by the device of the rays: CPU tensors take the twin; CUDA
 tensors launch the kernel, and a failed build or launch raises. Nothing
@@ -49,6 +52,12 @@ _SUPER = 32  # clusters per super-cluster (4096 triangles)
 _BIG = 3e38
 _EPS = 1e-12
 _INF = float("inf")
+_WARP = 32  # rays per warp of the kernel's walk
+_BLOCK = 128  # rays per block: the unit of the block-staged walk it replaced
+# The kernel's switch-over: a (warp, cluster) visit with at most this many
+# needing rays is tested triangle-parallel (kLoneMax in
+# csrc/cluster_walk.cuh; tests/test_torch_cluster.py holds the two equal).
+LONE_MAX = 16
 # Triangle rows the test reads, in the kernel's staging order.
 _TRI_KEYS = ("v0x", "v0y", "v0z", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z",
              "pid")
@@ -218,14 +227,34 @@ def closest_of_rows(hit, tk, pid):
     return tmin, eq, torch.amax(torch.where(eq, pid, 0.0), dim=1)
 
 
+VISIT_KEYS = ("pairs", "block_visits", "warp_visits", "lone_visits")
+
+
+def count_visits(counts: dict | None, idx) -> None:
+    """Add one cluster's tested rays (sorted indices `idx` into the batch
+    the kernel sees) to `counts`: "pairs" (ray, cluster) tests, the work
+    for the kernel's bound; "block_visits" and "warp_visits", the distinct
+    128-ray and 32-ray groups among them; "lone_visits", the warp visits
+    with at most LONE_MAX rays, which the kernel tests triangle-parallel."""
+    if counts is None:
+        return
+    _, per_warp = torch.unique_consecutive(idx // _WARP, return_counts=True)
+    add = {"pairs": idx.numel(),
+           "block_visits": torch.unique_consecutive(idx // _BLOCK).numel(),
+           "warp_visits": per_warp.numel(),
+           "lone_visits": int((per_warp <= LONE_MAX).sum())}
+    for key, value in add.items():
+        counts[key] += value
+
+
 def cluster_intersect_ref(accel: ClusterAccel, o, d, tmax,
                           any_hit: bool = False, defer_attrs: bool = True,
                           counts: dict | None = None):
     """Plain PyTorch twin of K2: the supers and clusters in order, each
     cluster's Moller-Trumbore test vectorised over the rays whose own slab
     tests pass, (k rays x 128 triangles). Its cost follows the passing
-    (ray, cluster) pairs; `counts`, when given, accumulates them under
-    "pairs" (the work the kernel does, for its bound)."""
+    (ray, cluster) pairs; `counts`, when given, accumulates them and the
+    kernel's block and warp visits (count_visits)."""
     n = o.shape[0]
     dev = o.device
     ox, oy, oz = (o[:, i].contiguous() for i in range(3))
@@ -241,7 +270,8 @@ def cluster_intersect_ref(accel: ClusterAccel, o, d, tmax,
     sboxes = accel.sboxes.detach().cpu().tolist()
     boxes = accel.boxes.detach().cpu().tolist()
     tri = {k: getattr(accel, k) for k in _TRI_KEYS}
-    pairs = 0
+    for key in VISIT_KEYS if counts is not None else ():
+        counts.setdefault(key, 0)
     for s in range(accel.n_supers):
         live_s = slab(sboxes[s], ox, oy, oz, ix, iy, iz, t_best)
         idx_s = torch.nonzero(live_s).squeeze(1)
@@ -254,7 +284,7 @@ def cluster_intersect_ref(accel: ClusterAccel, o, d, tmax,
             k = idx.numel()
             if k == 0:
                 continue
-            pairs += k
+            count_visits(counts, idx)
             rox, roy, roz, rdx, rdy, rdz = (
                 x[idx][:, None] for x in (ox, oy, oz, dx, dy, dz))
             tb = t_best[idx]
@@ -280,8 +310,6 @@ def cluster_intersect_ref(accel: ClusterAccel, o, d, tmax,
                 ub[idx] = torch.where(better, u_sel, ub[idx])
                 vb[idx] = torch.where(better, v_sel, vb[idx])
                 slot[idx] = torch.where(better, s_sel, slot[idx])
-    if counts is not None:
-        counts["pairs"] = counts.get("pairs", 0) + pairs
     miss = prim_f <= 0.0
     out = {
         "t": torch.where(miss, _INF, t_best),
@@ -306,24 +334,29 @@ def cluster_intersect_ref(accel: ClusterAccel, o, d, tmax,
 STATS = LaunchStats()
 
 
-def _library():
-    from .nvcc_build import load_library
-
-    lib = load_library("cluster")
-    if not getattr(lib, "_argtypes_set", False):
-        p = ctypes.c_void_p
-        lib.cluster_launch.argtypes = (
-            [p] * 17 + [ctypes.c_int, ctypes.c_int, p, p, p, ctypes.c_longlong,
-                        ctypes.c_int, ctypes.c_int] + [p] * 7 + [p]
-        )
-        lib.cluster_launch.restype = ctypes.c_int
-        lib.cluster_error_string.argtypes = [ctypes.c_int]
-        lib.cluster_error_string.restype = ctypes.c_char_p
-        lib._argtypes_set = True
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a built cluster.cu library (once)."""
+    if getattr(lib, "_argtypes_set", False):
+        return lib
+    p = ctypes.c_void_p
+    lib.cluster_launch.argtypes = (
+        [p] * 17 + [ctypes.c_int, ctypes.c_int, p, p, p, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_int] + [p] * 7 + [p]
+    )
+    lib.cluster_launch.restype = ctypes.c_int
+    lib.cluster_error_string.argtypes = [ctypes.c_int]
+    lib.cluster_error_string.restype = ctypes.c_char_p
+    lib._argtypes_set = True
     return lib
 
 
-def _check(name, x, shape, dtype, device):
+def _library():
+    from .nvcc_build import load_library
+
+    return bind(load_library("cluster"))
+
+
+def _check(name, x, shape, dtype, device, align: int = 1):
     if x.dtype != dtype or tuple(x.shape) != shape or x.device != device:
         raise ValueError(
             f"cluster_intersect: {name} must be {dtype} {shape} on "
@@ -331,6 +364,9 @@ def _check(name, x, shape, dtype, device):
         )
     if not x.is_contiguous():
         raise ValueError(f"cluster_intersect: {name} must be contiguous")
+    if x.data_ptr() % align:
+        raise ValueError(f"cluster_intersect: {name} must be {align}-byte "
+                         "aligned")
 
 
 def _launch(accel: ClusterAccel, o, d, tmax, any_hit: bool, defer_attrs: bool):
@@ -340,7 +376,9 @@ def _launch(accel: ClusterAccel, o, d, tmax, any_hit: bool, defer_attrs: bool):
     c, s = accel.n_clusters, accel.n_supers
     tables = [getattr(accel, k) for k in _TRI_KEYS + _ATTR_KEYS]
     for key, x in zip(_TRI_KEYS + _ATTR_KEYS, tables):
-        _check(key, x, (c, _CLUSTER), torch.float32, dev)
+        # The kernel stages triangle rows 16 B per lane (cp.async).
+        _check(key, x, (c, _CLUSTER), torch.float32, dev,
+               align=16 if key in _TRI_KEYS else 1)
     _check("boxes", accel.boxes, (c, 8), torch.float32, dev)
     _check("sboxes", accel.sboxes, (s, 8), torch.float32, dev)
     _check("o", o, (n, 3), torch.float32, dev)

@@ -36,7 +36,11 @@ The reference walks per tile of 1024 rays, in the tile's order of entry t,
 testing every ray of a 64-ray block some ray needs; the two differ only
 where a slab test's rounding and the triangle test disagree at a box face,
 or on an exact t tie between two clusters (tests/test_torch_sweep.py
-counts such rays).
+counts such rays). The kernel walks per warp of 32 rays
+(csrc/cluster_walk.cuh) and also gates each group of 32 of a prototype's
+clusters on the group's box (`SweepAccel.gbox`, derived); a lane that
+fails a group box fails each of its clusters' tests, so the twin, which
+has no groups, gives the same answers.
 
 Dispatch is by the device of the rays: CPU tensors take the twin; CUDA
 tensors launch the kernel, and a failed build or launch raises. Nothing
@@ -55,11 +59,13 @@ import numpy as np
 import torch
 
 from ..core.tensorclass import static_field, tensorclass
-from .cluster import _TRI_KEYS, closest_of_rows, inv_dir, mt_rows, slab
+from .cluster import (_TRI_KEYS, VISIT_KEYS, closest_of_rows, count_visits,
+                      inv_dir, mt_rows, slab)
 from .detach import detached_query
 from .smallscene import LaunchStats
 
 _CLUSTER = 128  # triangles per cluster
+_GROUP = 32  # clusters per group box (kGroup in csrc/sweep.cu)
 _INF = float("inf")
 # Rays x clusters of one slab-matrix chunk in the twin's pre-filter.
 _PREFILTER_CHUNK = 1 << 22
@@ -96,13 +102,23 @@ class SweepAccel:
     # cluster range (I, 2) int32 = [first cluster, cluster count].
     ibox: Optional[torch.Tensor] = None
     irange: Optional[torch.Tensor] = None
+    # Derived for the kernel's group gate when not given: (C, 8), where row
+    # first + 32k of each prototype's range [first, first + count) holds
+    # the union of the boxes of its clusters first + 32k .. first + 32k +
+    # 31 (the other rows are zero and never read).
+    gbox: Optional[torch.Tensor] = None
     n_clusters: int = static_field(default=0)
     n_entries: int = static_field(default=0)
     instanced: bool = static_field(default=False)
 
     def __post_init__(self):
-        if self.ibox is not None and self.irange is not None:
-            return
+        if self.ibox is None or self.irange is None:
+            self._derive_instances()
+        if self.gbox is None:
+            object.__setattr__(self, "gbox", _group_boxes(self.boxes,
+                                                          self.irange))
+
+    def _derive_instances(self):
         n_inst = self.w2o.shape[0]
         einst = self.einst.long()
         first = torch.full((n_inst,), self.n_clusters, dtype=torch.int64,
@@ -127,6 +143,18 @@ class SweepAccel:
     @property
     def n_instances(self) -> int:
         return self.w2o.shape[0]
+
+
+def _group_boxes(boxes, irange):
+    """The group boxes of SweepAccel.gbox from the cluster boxes and the
+    instances' cluster ranges."""
+    gbox = torch.zeros_like(boxes)
+    for first, count in sorted({tuple(r) for r in irange.tolist()}):
+        for g in range(first, first + count, _GROUP):
+            rows = boxes[g:min(g + _GROUP, first + count)]
+            gbox[g, 0:3] = rows[:, 0:3].amin(0)
+            gbox[g, 3:6] = rows[:, 3:6].amax(0)
+    return gbox
 
 
 def _affine_rows(m):
@@ -282,9 +310,10 @@ def sweep_intersect_ref(accel: SweepAccel, o, d, tmax, any_hit: bool = False,
     test no ray passes at instance entry is passed by none later: a slab
     matrix over (rays, clusters) at instance entry picks the clusters to
     walk. Its cost follows the passing pairs; `counts`, when given,
-    accumulates the (ray, cluster) pairs under "pairs" and the (ray,
-    instance) entries under "instances" (the kernel's work, for its
-    bound)."""
+    accumulates the (ray, instance) entries under "instances" and, per
+    (instance, cluster), the (ray, cluster) pairs and the kernel's block
+    and warp visits (cluster.count_visits): the kernel's work, for its
+    bound, and how its lanes share it."""
     n = o.shape[0]
     dev = o.device
     ox, oy, oz = (o[:, i].contiguous() for i in range(3))
@@ -298,7 +327,9 @@ def sweep_intersect_ref(accel: SweepAccel, o, d, tmax, any_hit: bool = False,
     w2o = accel.w2o.detach().cpu().tolist()
     box_list = accel.boxes.detach().cpu().tolist()
     tri = {k: getattr(accel, k) for k in _TRI_KEYS}
-    pairs = entered = 0
+    for key in VISIT_KEYS if counts is not None else ():
+        counts.setdefault(key, 0)
+    entered = 0
     for i in range(accel.n_instances):
         live_i = slab(ibox[i], ox, oy, oz, wix, wiy, wiz, t_best)
         idx_i = torch.nonzero(live_i).squeeze(1)
@@ -331,8 +362,8 @@ def sweep_intersect_ref(accel: SweepAccel, o, d, tmax, any_hit: bool = False,
             k = sel.numel()
             if k == 0:
                 continue
-            pairs += k
             idx = idx_i[sel]
+            count_visits(counts, idx)
             rox, roy, roz, rdx, rdy, rdz = (
                 x[sel][:, None] for x in (*lo, *ld))
             tb = t_best[idx]
@@ -351,7 +382,6 @@ def sweep_intersect_ref(accel: SweepAccel, o, d, tmax, any_hit: bool = False,
             prim_f[idx] = torch.where(better, pid_sel, prim_f[idx])
             inst_f[idx] = torch.where(better, float(i + 1), inst_f[idx])
     if counts is not None:
-        counts["pairs"] = counts.get("pairs", 0) + pairs
         counts["instances"] = counts.get("instances", 0) + entered
     miss = prim_f <= 0.0
     return {
@@ -364,24 +394,29 @@ def sweep_intersect_ref(accel: SweepAccel, o, d, tmax, any_hit: bool = False,
 STATS = LaunchStats()
 
 
-def _library():
-    from .nvcc_build import load_library
-
-    lib = load_library("sweep")
-    if not getattr(lib, "_argtypes_set", False):
-        p = ctypes.c_void_p
-        lib.sweep_launch.argtypes = (
-            [p] * 14 + [ctypes.c_int, ctypes.c_int, p, p, p, ctypes.c_longlong,
-                        ctypes.c_int, p, p, p, p]
-        )
-        lib.sweep_launch.restype = ctypes.c_int
-        lib.sweep_error_string.argtypes = [ctypes.c_int]
-        lib.sweep_error_string.restype = ctypes.c_char_p
-        lib._argtypes_set = True
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a built sweep.cu library (once)."""
+    if getattr(lib, "_argtypes_set", False):
+        return lib
+    p = ctypes.c_void_p
+    lib.sweep_launch.argtypes = (
+        [p] * 15 + [ctypes.c_int, ctypes.c_int, p, p, p, ctypes.c_longlong,
+                    ctypes.c_int, p, p, p, p]
+    )
+    lib.sweep_launch.restype = ctypes.c_int
+    lib.sweep_error_string.argtypes = [ctypes.c_int]
+    lib.sweep_error_string.restype = ctypes.c_char_p
+    lib._argtypes_set = True
     return lib
 
 
-def _check(name, x, shape, dtype, device):
+def _library():
+    from .nvcc_build import load_library
+
+    return bind(load_library("sweep"))
+
+
+def _check(name, x, shape, dtype, device, align: int = 1):
     if x.dtype != dtype or tuple(x.shape) != shape or x.device != device:
         raise ValueError(
             f"sweep_intersect: {name} must be {dtype} {shape} on {device}, "
@@ -389,6 +424,9 @@ def _check(name, x, shape, dtype, device):
         )
     if not x.is_contiguous():
         raise ValueError(f"sweep_intersect: {name} must be contiguous")
+    if x.data_ptr() % align:
+        raise ValueError(f"sweep_intersect: {name} must be {align}-byte "
+                         "aligned")
 
 
 def _launch(accel: SweepAccel, o, d, tmax, any_hit: bool):
@@ -398,8 +436,10 @@ def _launch(accel: SweepAccel, o, d, tmax, any_hit: bool):
     c, n_inst = accel.n_clusters, accel.n_instances
     tables = [getattr(accel, k) for k in _TRI_KEYS]
     for key, x in zip(_TRI_KEYS, tables):
-        _check(key, x, (c, _CLUSTER), torch.float32, dev)
+        # The kernel stages triangle rows 16 B per lane (cp.async).
+        _check(key, x, (c, _CLUSTER), torch.float32, dev, align=16)
     _check("boxes", accel.boxes, (c, 8), torch.float32, dev)
+    _check("gbox", accel.gbox, (c, 8), torch.float32, dev)
     _check("ibox", accel.ibox, (n_inst, 8), torch.float32, dev)
     _check("irange", accel.irange, (n_inst, 2), torch.int32, dev)
     _check("w2o", accel.w2o, (n_inst, 12), torch.float32, dev)
@@ -424,7 +464,8 @@ def _launch(accel: SweepAccel, o, d, tmax, any_hit: bool):
         err = lib.sweep_launch(
             accel.boxes.data_ptr(), accel.ibox.data_ptr(),
             accel.irange.data_ptr(), accel.w2o.data_ptr(),
-            *(x.data_ptr() for x in tables), n_inst, int(accel.instanced),
+            accel.gbox.data_ptr(), *(x.data_ptr() for x in tables), n_inst,
+            int(accel.instanced),
             o.data_ptr(), d.data_ptr(), tmax.data_ptr(), n, int(any_hit),
             out["t"].data_ptr(), out["prim"].data_ptr(), out["inst"].data_ptr(),
             stream.cuda_stream,

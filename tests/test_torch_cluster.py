@@ -1,7 +1,10 @@
 """K2's builders and plain twin against the reference on the CPU: the Morton
 order and cluster tables bit for bit, the twin against the Pallas kernel in
 interpret mode, and the ray sort and attribute resolution of the cluster
-path. The kernel itself is held against the twin on a card by
+path; and the premises of the kernel's warp-level walk (csrc/
+cluster_walk.cuh), in plain PyTorch: answers that follow their rays
+through any permutation, and a model of its triangle-parallel reduction.
+The kernel itself is held against the twin on a card by
 tests/test_torch_cuda.py.
 
 The reference gates clusters per tile of 1024 rays and the port per ray;
@@ -9,6 +12,8 @@ the two can differ only where a slab test's rounding and the triangle test
 disagree at a box face. The gates below count such rays (>= 99.9% must
 agree; none did when they were written).
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,9 +28,12 @@ from pbrt_tpu.ops.cluster import build_clusters as jax_build_clusters
 from pbrt_tpu.shapes.geometry import GeometryBuffers as JGeometryBuffers
 from pbrt_tpu_torch.accel.api import ray_sort_perm, resolve_tri_attrs
 from pbrt_tpu_torch.accel.bvh import morton_order
+from pbrt_tpu_torch.ops import nvcc_build
 from pbrt_tpu_torch.ops.cluster import (
+    LONE_MAX,
     STATS,
     build_clusters,
+    closest_of_rows,
     cluster_intersect,
     cluster_intersect_ref,
 )
@@ -34,6 +42,8 @@ from pbrt_tpu_torch.shapes.geometry import GeometryBuffers
 
 torch.set_num_threads(2)
 N_KIND = 256  # rays of each kind; 4 kinds -> 1024 rays
+MODES = {"closest": {}, "any_hit": {"any_hit": True},
+         "closest_attrs": {"defer_attrs": False}}
 
 
 @pytest.fixture(scope="module")
@@ -199,10 +209,120 @@ def test_cpu_tensors_take_the_twin_and_count_no_launch(accels):
 
 def test_twin_counts_its_work(accels):
     """The passing (ray, cluster) pairs the twin counts are the kernel's
-    work for its bound: culling leaves a small share of all pairs."""
+    work for its bound: culling leaves a small share of all pairs. Its
+    visits nest: a 128-ray block holds four warps, a warp visit at least
+    one pair, and the lone (triangle-parallel) visits are warp visits."""
     _, acc = accels
     o, d, tmax = (torch.from_numpy(x) for x in _rays())
     counts = {}
     cluster_intersect_ref(acc, o, d, tmax, counts=counts)
     live = int((tmax > 0).sum())
-    assert 0 < counts["pairs"] < 0.25 * live * acc.n_clusters
+    pairs = counts["pairs"]
+    assert 0 < pairs < 0.25 * live * acc.n_clusters
+    assert pairs / 128 <= counts["block_visits"] <= counts["warp_visits"] <= pairs
+    assert 0 < counts["lone_visits"] <= counts["warp_visits"]
+
+
+def test_switch_over_is_a_source_constant():
+    """The twin counts lone visits with the kernel's own switch-over: the
+    constexpr of csrc/cluster_walk.cuh, read by no flag or environment."""
+    src = (nvcc_build.CSRC_DIR / "cluster_walk.cuh").read_text()
+    found = re.findall(r"constexpr int kLoneMax = (\d+);", src)
+    assert found == [str(LONE_MAX)]
+    for path in nvcc_build.CSRC_DIR.iterdir():
+        assert "getenv" not in path.read_text(), path.name
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_permuted_rays_permute_the_answers(accels, mode):
+    """Each ray's answer depends on that ray alone: the twin on permuted
+    rays gives the permuted answers and the same pairs, so the kernel's
+    grouping of rays into warps cannot change a result."""
+    _, acc = accels
+    o, d, tmax = (torch.from_numpy(x) for x in _rays())
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(len(o)))
+    counts, counts_p = {}, {}
+    want = cluster_intersect_ref(acc, o, d, tmax, counts=counts, **MODES[mode])
+    got = cluster_intersect_ref(acc, o[perm], d[perm], tmax[perm],
+                                counts=counts_p, **MODES[mode])
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k][perm]), k
+    assert counts_p["pairs"] == counts["pairs"]
+
+
+def _triangle_parallel(hit, tk, pid):
+    """Plain model of the kernel's triangle-parallel mapping of k rays x
+    128 rows: row j on lane j % 32; each lane scans its 4 rows from (3e38,
+    0, -1) keeping the lexicographic minimum of (t ascending, pid
+    descending, row ascending) among hits, then a 5-step butterfly keeps
+    the preferred of each lane pair. Any-hit: OR of the lanes' hits and the
+    largest pid. Returns (t, pid, row) of closest and (got, pid) of
+    any-hit, as lane 0 holds them."""
+    k = hit.shape[0]
+    big = torch.tensor(3e38, dtype=torch.float32)
+    rows = torch.arange(128).reshape(4, 32)  # [slot, lane] -> row
+    bt = big.expand(k, 32).clone()
+    bp = torch.zeros((k, 32))
+    bj = torch.full((k, 32), -1)
+
+    def before(ta, pa, ja, tb, pb, jb):
+        return (ta < tb) | ((ta == tb) & ((pa > pb) | ((pa == pb) & (ja < jb))))
+
+    for m in range(4):
+        j = rows[m]
+        ct, cp, cj = tk[:, j], pid[:, j], j.expand(k, 32)
+        take = hit[:, j] & before(ct, cp, cj, bt, bp, bj)
+        bt, bp, bj = (torch.where(take, a, b) for a, b in
+                      ((ct, bt), (cp, bp), (cj, bj)))
+    lane_got = hit[:, rows.T].any(dim=2)
+    lane_pid = torch.where(hit, pid, 0.0)[:, rows.T].amax(dim=2)
+    got, pmax = lane_got, lane_pid
+    for off in (16, 8, 4, 2, 1):
+        partner = torch.arange(32) ^ off
+        ot, op, oj = bt[:, partner], bp[:, partner], bj[:, partner]
+        take = before(ot, op, oj, bt, bp, bj)
+        bt, bp, bj = (torch.where(take, a, b) for a, b in
+                      ((ot, bt), (op, bp), (oj, bj)))
+        got = got | got[:, partner]
+        pmax = torch.maximum(pmax, pmax[:, partner])
+    assert all(torch.equal(x, x[:, :1].expand(-1, 32))
+               for x in (bt, bp, bj, got, pmax))  # every lane agrees
+    return (bt[:, 0], bp[:, 0], bj[:, 0]), (got[:, 0], pmax[:, 0])
+
+
+@pytest.mark.parametrize("rows", ["random", "ties"])
+def test_triangle_parallel_reduction_is_the_scan(rows):
+    """The triangle-parallel reduction gives the twin's closest_of_rows
+    (smallest t, largest pid among exact ties, the first such row for u
+    and v) and its any-hit rule (any hit, largest pid), on random rows and
+    on rows whose t and pid repeat (t = 3e38 included)."""
+    r = np.random.default_rng(7)
+    k = 512
+    if rows == "random":
+        tk = r.uniform(0.1, 10.0, (k, 128))
+        pid = np.stack([r.permutation(128) + 1.0 for _ in range(k)])
+        pid[:, ::17] = 0.0  # pad slots
+        hit = (r.random((k, 128)) < 0.05) & (pid > 0)
+    else:
+        tk = r.choice([0.5, 1.0, 3e38], (k, 128))
+        pid = r.integers(1, 9, (k, 128)).astype(np.float64)
+        hit = r.random((k, 128)) < r.choice([0.0, 0.02, 0.5], (k, 1))
+    tk, pid = (torch.tensor(x, dtype=torch.float32) for x in (tk, pid))
+    hit = torch.from_numpy(hit)
+    (t, p, j), (got, pmax) = _triangle_parallel(hit, tk, pid)
+    # closest_of_rows takes one pid row for every ray; here each ray has
+    # its own, so it runs ray by ray.
+    row_ties = 0
+    for i in range(k):
+        tmin, eq, pid_sel = closest_of_rows(hit[i:i + 1], tk[i:i + 1],
+                                            pid[i:i + 1])
+        one = eq[0] & (pid[i] == pid_sel[0])
+        row_ties += int(one.sum()) > 1
+        row = int(torch.nonzero(one)[0]) if bool(one.any()) else -1
+        assert (float(t[i]), float(p[i]), int(j[i])) == (
+            float(tmin[0]), float(pid_sel[0]), row), i
+    assert torch.equal(got, hit.any(dim=1))
+    assert torch.equal(pmax, torch.where(hit, pid, 0.0).amax(dim=1))
+    if rows == "ties":  # hits at 3e38 win, and (t, pid) repeat in rows
+        assert bool(((t == 3e38) & (p > 0)).any()) and row_ties > 0

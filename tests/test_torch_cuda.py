@@ -22,6 +22,8 @@ from pbrt_tpu_torch.accel.bvh import build_bvh
 from pbrt_tpu_torch.models.path import PathIntegrator
 from pbrt_tpu_torch.io.parser import load_pbrt_string
 from pbrt_tpu_torch.ops import cluster, nvcc_build, sweep, traverse
+from pbrt_tpu_torch.ops.cluster import build_clusters
+from pbrt_tpu_torch.ops.sweep import build_sweep
 from pbrt_tpu_torch.ops.smallscene import (
     STATS,
     build_smallscene,
@@ -211,13 +213,14 @@ def _field(size, dev, resolution):
     return scene, camera.replace(resolution=resolution), settings
 
 
-def _assert_k3_equals_twin(acc, scene, camera, dev):
-    """Both modes on rays from the scene's box (random, axis-parallel,
-    dead, finite segments) and the camera's, sorted as the path sorts."""
-    lo = scene.geom.tri_verts.reshape(-1, 3).amin(0)
-    hi = scene.geom.tri_verts.reshape(-1, 3).amax(0)
-    if acc.instanced:
-        lo, hi = acc.ibox[:, :3].amin(0), acc.ibox[:, 3:6].amax(0)
+def _scene_rays(scene, camera, dev, sweep_acc=None):
+    """Rays from the scene's box (random, axis-parallel, dead, finite
+    segments) and the camera's; the box of an instanced sweep is that of
+    its instances."""
+    lo = scene.geom.tri_verts.reshape(-1, 3).amin(0).to(dev)
+    hi = scene.geom.tri_verts.reshape(-1, 3).amax(0).to(dev)
+    if sweep_acc is not None and sweep_acc.instanced:
+        lo, hi = sweep_acc.ibox[:, :3].amin(0), sweep_acc.ibox[:, 3:6].amax(0)
     o_box, d_box, t_box = _box_rays(1 << 16, 3, dev)
     nx, ny = camera.resolution
     pixel = torch.arange(nx * ny, device=dev)
@@ -226,6 +229,12 @@ def _assert_k3_equals_twin(acc, scene, camera, dev):
     d = torch.cat([d_box, d_cam])
     tmax = torch.cat([t_box * 3.0, torch.full((pixel.shape[0],), float("inf"),
                                               device=dev)])
+    return o, d, tmax
+
+
+def _assert_k3_equals_twin(acc, scene, camera, dev):
+    """Both modes on _scene_rays, sorted as the path sorts."""
+    o, d, tmax = _scene_rays(scene, camera, dev, acc)
     perm, _ = ray_sort_perm(o, d, tmax)
     o, d, tmax = o[perm], d[perm], tmax[perm]
     for any_hit in (False, True):
@@ -289,6 +298,112 @@ def test_instanced_render_on_card_matches_cpu(card):
     assert np.all(np.isfinite(got))
     ok = np.abs(got - want) <= 1e-5 + 1e-3 * np.abs(want)
     assert np.mean(ok) >= 0.99, int(np.sum(~ok))
+
+
+def _one_live_lane_per_warp(o, d, tmax):
+    """The same rays with every lane but one of each 32-ray warp dead
+    (tmax = 0, origin 1e8, as the path masks shadow rays): the lane
+    w % 32 of warp w stays."""
+    n = o.shape[0]
+    keep = torch.arange(n, device=o.device)
+    keep = (keep % 32) == (keep // 32) % 32
+    return (torch.where(keep[:, None], o, 1e8).contiguous(), d,
+            torch.where(keep, tmax, 0.0).contiguous())
+
+
+def _assert_equal(got, want, label):
+    assert set(got) == set(want), label
+    for k in want:
+        assert got[k].dtype == want[k].dtype, (label, k)
+        assert torch.equal(got[k], want[k]), (label, k)
+
+
+def _walk_batches(o, d, tmax):
+    """A sorted batch and its one-live-lane-per-warp form, whose every
+    (warp, cluster) visit the kernels test triangle-parallel."""
+    perm, _ = ray_sort_perm(o, d, tmax)
+    o, d, tmax = o[perm].contiguous(), d[perm].contiguous(), tmax[perm]
+    return {"sorted": (o, d, tmax.contiguous()),
+            "one_lane": _one_live_lane_per_warp(o, d, tmax)}
+
+
+def _check_k2(acc, batches):
+    for label, (o, d, tmax) in batches.items():
+        for kw in ({}, {"any_hit": True}, {"defer_attrs": False}):
+            counts = {}
+            got = cluster.cluster_intersect(acc, o, d, tmax, **kw)
+            want = cluster.cluster_intersect_ref(acc, o, d, tmax,
+                                                 counts=counts, **kw)
+            _assert_equal(got, want, ("K2", label, kw))
+            assert counts["pairs"] > 0, (label, kw)
+            if label == "one_lane":
+                assert counts["lone_visits"] == counts["warp_visits"]
+
+
+def _check_k3(acc, batches):
+    for label, (o, d, tmax) in batches.items():
+        for any_hit in (False, True):
+            counts = {}
+            got = sweep.sweep_intersect(acc, o, d, tmax, any_hit=any_hit)
+            want = sweep.sweep_intersect_ref(acc, o, d, tmax, any_hit=any_hit,
+                                             counts=counts)
+            _assert_equal(got, want, ("K3", label, any_hit))
+            assert counts["pairs"] > 0, (label, any_hit)
+            if label == "one_lane":
+                assert counts["lone_visits"] == counts["warp_visits"]
+
+
+def test_k2_k3_one_live_lane_per_warp(card):
+    """K2 on the killeroo-class scene and K3 on the small instanced field,
+    both modes (and K2's attributes), on camera and box rays with one live
+    lane per warp: the triangle-parallel mapping alone."""
+    scene, camera = killeroo_class_scene(resolution=(128, 128))
+    o, d, tmax = _scene_rays(scene, camera.to(card), card)
+    _check_k2(scene.clusters.to(card), _walk_batches(o, d, tmax))
+    scene, camera, _ = _field(SMALL, card, (128, 128))
+    o, d, tmax = _scene_rays(scene, camera, card, scene.sweep)
+    _check_k3(scene.sweep, _walk_batches(o, d, tmax))
+
+
+def test_k2_k3_exact_ties_in_both_mappings(card):
+    """Two coplanar copies of every triangle (pids 2i and 2i + 1, other
+    materials), hit at bit-equal t: the larger pid wins in both mappings
+    (sorted coherent rays: mostly ray-parallel; one live lane per warp:
+    triangle-parallel), for K2 with its attributes and for K3."""
+    r = np.random.default_rng(12)
+    g = np.linspace(-1.0, 1.0, 17, dtype=np.float32)
+    x0, y0 = np.meshgrid(g[:-1], g[:-1])
+    x0, y0 = x0.ravel(), y0.ravel()
+    h = g[1] - g[0]
+    z = r.uniform(-0.05, 0.05, x0.shape)
+    quad = [np.stack([x0, y0, z], 1), np.stack([x0 + h, y0, z], 1),
+            np.stack([x0 + h, y0 + h, z], 1), np.stack([x0, y0 + h, z], 1)]
+    tris = np.concatenate([np.stack([quad[0], quad[1], quad[2]], 1),
+                           np.stack([quad[0], quad[2], quad[3]], 1)])
+    tris = np.repeat(tris, 2, axis=0).astype(np.float32)  # pairs 2i, 2i + 1
+    mat = np.tile([1, 2], len(tris) // 2).astype(np.int32)
+    n = 1 << 15
+    o = np.concatenate([r.uniform(-0.95, 0.95, (n, 2)), np.full((n, 1), -2.0)], 1)
+    d = np.concatenate([r.normal(scale=0.05, size=(n, 2)), np.ones((n, 1))], 1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = [torch.tensor(a, dtype=torch.float32, device=card) for a in (o, d)]
+    tmax = torch.full((n,), float("inf"), device=card)
+    batches = _walk_batches(*rays, tmax)
+    acc2 = build_clusters(tris, mat).to(card)
+    acc3 = build_sweep(tris).to(card)
+    _check_k2(acc2, batches)
+    _check_k3(acc3, batches)
+    counts = {}
+    cluster.cluster_intersect_ref(acc2, *batches["sorted"], counts=counts)
+    assert counts["lone_visits"] < counts["warp_visits"] // 2  # ray-parallel
+    for label, (o, d, tmax) in batches.items():
+        hit = cluster.cluster_intersect(acc2, o, d, tmax, defer_attrs=False)
+        found = hit["prim"] >= 0
+        assert int(found.sum()) > 0.5 * int((tmax > 0).sum()), label
+        assert bool((hit["prim"][found] % 2 == 1).all()), label
+        assert bool((hit["mat"][found] == 2).all()), label
+        prim3 = sweep.sweep_intersect(acc3, o, d, tmax)["prim"]
+        assert torch.equal(prim3, hit["prim"]), label
 
 
 def _killeroo_bvh(card):

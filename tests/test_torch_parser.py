@@ -94,7 +94,7 @@ def _assert_same_build(jax_built, port_built):
     want, want_static = flatten_jax(js)
     got, got_static = flatten_jax(ps)
     for path, value in got.items():
-        if path in ("sweep.ibox", "sweep.irange"):  # derived by the port
+        if path in ("sweep.ibox", "sweep.irange", "sweep.gbox"):  # derived
             continue
         np.testing.assert_array_equal(value, want[path], err_msg=path)
     for path in set(want) - set(got):

@@ -1,7 +1,8 @@
 """K3's builder and plain twin against the reference on the CPU: the sweep
 tables bit for bit, the twin against the Pallas kernel in interpret mode
-(instanced and not, closest and any-hit, dead lanes included), and the
-instanced attribute resolution. The kernel itself is held against the twin
+(instanced and not, closest and any-hit, dead lanes included), the
+instanced attribute resolution, and answers that follow their rays through
+any permutation (the premise of the kernel's warp-level walk). The kernel itself is held against the twin
 on a card by tests/test_torch_cuda.py.
 
 The reference walks (cluster, instance) entries per tile of 1024 rays in
@@ -11,6 +12,8 @@ rounding and the triangle test disagree at a box face, or on an exact t
 tie between two clusters: the gates count such rays (none, when they were
 written).
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +26,9 @@ from pbrt_tpu.ops.sweep import build_sweep as jax_build_sweep
 from pbrt_tpu.shapes.geometry import GeometryBuffers as JGeometryBuffers
 from pbrt_tpu_torch.accel.api import resolve_tri_attrs_inst
 from pbrt_tpu_torch.core import transform as tfm
+from pbrt_tpu_torch.ops import nvcc_build
 from pbrt_tpu_torch.ops.sweep import (
+    _GROUP,
     STATS,
     build_sweep,
     sweep_intersect,
@@ -214,11 +219,57 @@ def test_cpu_tensors_take_the_twin_and_count_no_launch(builds):
 
 def test_twin_counts_its_work(builds):
     """The (ray, cluster) pairs and (ray, instance) entries the twin counts
-    are the kernel's work for its bound: culling leaves a small share."""
+    are the kernel's work for its bound: culling leaves a small share. Its
+    visits nest: a 128-ray block holds four warps, a warp visit at least
+    one pair, and the lone (triangle-parallel) visits are warp visits."""
     _, _, acc = builds["instanced"]
     o, d, tmax = (torch.from_numpy(x) for x in _rays())
     counts = {}
     sweep_intersect_ref(acc, o, d, tmax, counts=counts)
     live = int((tmax > 0).sum())
+    pairs = counts["pairs"]
     assert 0 < counts["instances"] < live * acc.n_instances
-    assert 0 < counts["pairs"] < 0.5 * live * acc.n_entries
+    assert 0 < pairs < 0.5 * live * acc.n_entries
+    assert pairs / 128 <= counts["block_visits"] <= counts["warp_visits"] <= pairs
+    assert 0 < counts["lone_visits"] <= counts["warp_visits"]
+
+
+@pytest.mark.parametrize("kind", ["instanced", "flat"])
+def test_group_boxes_cover_their_clusters(builds, kind):
+    """The kernel's group gate reads gbox at each 32-cluster group's first
+    row of a prototype's range: the tight union of the group's cluster
+    boxes. A box that holds another passes every ray the other passes (the
+    slab test's rounding is monotone), so the gate changes no result."""
+    _, _, acc = builds[kind]
+    src = (nvcc_build.CSRC_DIR / "sweep.cu").read_text()
+    assert re.findall(r"constexpr int kGroup = (\d+);", src) == [str(_GROUP)]
+    read = set()
+    for first, count in acc.irange.tolist():
+        for g in range(first, first + count, _GROUP):
+            rows = acc.boxes[g:min(g + _GROUP, first + count)]
+            assert torch.equal(acc.gbox[g, :3], rows[:, :3].amin(0))
+            assert torch.equal(acc.gbox[g, 3:6], rows[:, 3:6].amax(0))
+            read.add(g)
+    assert read and not bool(acc.gbox[[g for g in range(acc.n_clusters)
+                                       if g not in read]].any())
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kind", ["instanced", "flat"])
+def test_permuted_rays_permute_the_answers(builds, kind, any_hit):
+    """Each ray's answer depends on that ray alone: the twin on permuted
+    rays gives the permuted answers, pairs and instance entries, so the
+    kernel's grouping of rays into warps cannot change a result."""
+    _, _, acc = builds[kind]
+    o, d, tmax = (torch.from_numpy(x) for x in _rays())
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(len(o)))
+    counts, counts_p = {}, {}
+    want = sweep_intersect_ref(acc, o, d, tmax, any_hit=any_hit,
+                               counts=counts)
+    got = sweep_intersect_ref(acc, o[perm], d[perm], tmax[perm],
+                              any_hit=any_hit, counts=counts_p)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k][perm]), k
+    for k in ("pairs", "instances"):
+        assert counts_p[k] == counts[k], k
