@@ -45,9 +45,11 @@ Phases:
       rays), bit-equal key by key, timed, with c2's counts and diagnostic
   c4  K4 vs its twin on the killeroo-class scene's BVH (depth 15): 65,536
       rays of each kind of c2, unsorted, in closest and any-hit modes,
-      bit-equal key by key; then at the main path's shape (the 1,048,576
-      camera rays of one pass and their shadow rays, unsorted, as the BVH
-      tier sends them), bit-equal, timed
+      bit-equal key by key, with the built kernel's design constants and
+      stack entries; then at the main path's shape (the 1,048,576 camera
+      rays of one pass and their shadow rays, unsorted, as the BVH tier
+      sends them), bit-equal, timed, against the bound of K4's own walk
+      and, beside it, that of the twin's walk
   d   Cornell 32x32, 16 spp, 32 lanes, depth 5 (default Russian roulette)
       against tests/data/torch_port/cornell32_spp16.npy: >= 99% of pixel
       values within rtol 1e-3 / atol 1e-5, and 11 K1 launches per pass
@@ -78,8 +80,9 @@ Phases:
       K3's launches and share, and the first image's seconds from the parse
       on (PLY reads, sweep build and upload included)
   e4  timed killeroo-class forward on the BVH tier at e2's configuration:
-      Mrays/s, first-pass seconds from build_bvh on (upload included),
-      peak memory, K4's launches and share
+      Mrays/s, first-pass seconds from build_bvh on (K4's packed rows and
+      the upload included; the packing's own seconds beside them), peak
+      memory, K4's launches and share
   f   the kernels line, the nvidia-smi line and the final result line
 """
 
@@ -124,13 +127,20 @@ FP32_OPS_PER_S = 33.5e12
 # + 6 (u) + 9 (q = tv x e1) + 6 (v) + 6 (t) + 7 (the hit and best-t
 # comparisons, with u + v).
 MT_OPS = 53
-# FP32 operations of K4's slab test of a popped node: 6 (box - o) + 6
-# (times 1/d) + 6 (per-axis min and max) + 4 (largest entry, smallest exit)
-# + 1 (max(tmin, 0)) + 2 (the two comparisons); and of a child's entry
-# distance: 6 + 6 + 3 (per-axis min) + 2 (largest) + 1 (clamp) + 1 (the
-# near/far comparison).
+# FP32 operations of a slab test (the twin's, of a popped node): 6 (box -
+# o) + 6 (times 1/d) + 6 (per-axis min and max) + 4 (largest entry,
+# smallest exit) + 1 (max(tmin, 0)) + 2 (the two comparisons); and of the
+# twin's entry distance of a child: 6 + 6 + 3 (per-axis min) + 2
+# (largest) + 1 (clamp) + 1 (the near/far comparison).
 BOX_OPS = 25
 ENTRY_OPS = 19
+# K4's walk culls children when it pushes them: one slab test (BOX_OPS,
+# its t_best part made at push) for each ray's root and for each child of
+# an inner visit (the twin's "entries"), and one near/far comparison per
+# sibling pair. A pop's tmin < t_best comparison is left out, so the bound
+# stays a lower bound. The twin's walk (BOX_OPS per popped node, ENTRY_OPS
+# per child, which K4 did before it culled at push) is reported beside it.
+PAIR_OPS = 1
 
 
 def emit(phase: str, **fields) -> None:
@@ -702,7 +712,8 @@ def _k3_timed(scene, camera, dev):
 def bvh_scene_of(killeroo, dev):
     """The killeroo-class scene on the BVH tier alone, on the card (the
     reference's attachment: the other tiers dropped, build_bvh over the
-    triangles), and the seconds of build_bvh and the upload."""
+    triangles), and the seconds of build_bvh (K4's packed rows included)
+    and the upload."""
     import torch
 
     from pbrt_tpu_torch.accel.bvh import build_bvh
@@ -714,6 +725,17 @@ def bvh_scene_of(killeroo, dev):
     scene = scene.replace(small=None, clusters=None, bvh=bvh).to(dev)
     torch.cuda.synchronize()
     return scene, time.perf_counter() - t0
+
+
+def pack_seconds(bvh) -> float:
+    """Seconds of packing K4's rows once more from `bvh`'s tables on the
+    host, as build_bvh does (a report of that share of the build)."""
+    from pbrt_tpu_torch.accel.bvh import pack_rows
+
+    cpu = bvh.to("cpu")
+    t0 = time.perf_counter()
+    pack_rows(cpu)
+    return time.perf_counter() - t0
 
 
 _K4_KEYS = ("t", "prim", "u", "v")
@@ -758,23 +780,31 @@ def phase_k4_vs_twin(dev, killeroo):
                         "twin_seconds": twin_s, **counts}
     emit("c4_k4_vs_twin", bvh_build_seconds=build_s, depth=bvh.depth,
          nodes=int(bvh.node_lo.shape[0]), slots=int(bvh.prim_id.shape[0]),
-         max_abs_err=err, **result)
+         constants=traverse.constants(bvh.depth), max_abs_err=err, **result)
 
     # The 1,048,576 camera rays of one pass and their shadow rays.
     rays, _, _ = _pass_batches(scene, camera, dev, sort=False)
     n_nodes, n_slots = bvh.node_lo.shape[0], bvh.prim_id.shape[0]
 
     def cost(counts):
-        # The slab tests of popped nodes, the children's entry distances
-        # and the leaf triangle tests the twin counts; 28 B of ray in, 16 B
-        # of (t, prim, u, v) out, the node boxes and leaf rows read once.
-        return (counts["nodes"] * BOX_OPS + counts["entries"] * ENTRY_OPS
-                + counts["tris"] * MT_OPS,
-                PASS_RAYS * (28 + 16) + n_nodes * 24 + n_slots * 40, {})
+        # K4's slab tests (each ray's root, each child of an inner visit),
+        # its near/far comparisons and the leaf triangle tests, from the
+        # twin's counts (the walks visit the same nodes and leaves); 28 B of
+        # ray in, 16 B of (t, prim, u, v) out, the packed node and triangle
+        # rows read once.
+        nbytes = PASS_RAYS * (28 + 16) + n_nodes * 32 + n_slots * 48
+        ops = ((PASS_RAYS + counts["entries"]) * BOX_OPS
+               + counts["entries"] // 2 * PAIR_OPS + counts["tris"] * MT_OPS)
+        twin_ops = (counts["nodes"] * BOX_OPS + counts["entries"] * ENTRY_OPS
+                    + counts["tris"] * MT_OPS)
+        twin = _bound(twin_ops, nbytes)
+        return ops, nbytes, {"ops": ops, "twin_walk_ops": twin_ops,
+                             "twin_walk_bound_ms": twin["bound_ms"]}
 
     out = _timed_vs_twin(intersect, intersect_ref, traverse.STATS, bvh, rays,
                          cost)
     for res in out.values():
+        res["twin_walk_share_reached"] = res["twin_walk_bound_ms"] / res["ms"]
         res["nodes_per_live_ray"] = res["nodes"] / max(res["live"], 1)
         res["tris_per_live_ray"] = res["tris"] / max(res["live"], 1)
     out["rays"] = PASS_RAYS
@@ -1188,6 +1218,7 @@ def phase_timed_bvh(dev):
     emit("e4_timed_bvh", lanes=lanes, resolution=res, spp=spp,
          samples_per_pass=k, max_depth=5, **out,
          first_pass_seconds=first_s, bvh_build_seconds=bvh_s,
+         bvh_pack_seconds=pack_seconds(scene.bvh),
          scene_build_seconds=scene_s,
          k4_ms_per_launch=out["k4_ms"] / k4, depth=scene.bvh.depth)
     return k4

@@ -33,6 +33,8 @@ removes that work and changes no result (tests/test_torch_bvh.py).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -78,10 +80,35 @@ class BVH:
     prim_id: torch.Tensor  # (P,) int32 original triangle index or -1
     depth: int = static_field(default=0)
     leaf_size: int = static_field(default=4)
+    # K4's packed rows, derived from the tables above whenever a BVH is
+    # made (built, replaced or moved; the twin reads the tables): nodes
+    # (n_nodes, 8) f32 [lo.xyz, 0, hi.xyz, 0], 32 B a node; tris (P, 12)
+    # f32 [v0, e1, e2, prim-id bits, 0, 0], 48 B a triangle, the prim id's
+    # int32 bits stored as a float. Never passed in, so they cannot
+    # disagree with the tables.
+    nodes: torch.Tensor = dataclasses.field(init=False, repr=False)
+    tris: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        nodes, tris = pack_rows(self)
+        object.__setattr__(self, "nodes", nodes)
+        object.__setattr__(self, "tris", tris)
 
     @property
     def first_leaf(self) -> int:
         return (1 << self.depth) - 1
+
+
+def pack_rows(bvh: BVH) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's (n_nodes, 8) node rows and (P, 12) triangle rows from the
+    reference tables, bit for bit (BVH.nodes, BVH.tris)."""
+    lo, hi = bvh.node_lo, bvh.node_hi
+    zn = torch.zeros((lo.shape[0], 1), dtype=torch.float32, device=lo.device)
+    nodes = torch.cat([lo, zn, hi, zn], dim=1)
+    pid = bvh.prim_id.contiguous().view(torch.float32)[:, None]
+    zt = torch.zeros((pid.shape[0], 2), dtype=torch.float32, device=pid.device)
+    tris = torch.cat([bvh.v0, bvh.e1, bvh.e2, pid, zt], dim=1)
+    return nodes.contiguous(), tris.contiguous()
 
 
 def build_bvh(tri_verts, leaf_size: int = 4) -> BVH:

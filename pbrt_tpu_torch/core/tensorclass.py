@@ -5,7 +5,10 @@ tensorclasses, or None). `.replace(**updates)` returns a copy with fields
 swapped; `.to(device)` moves every tensor field, recursing into nested
 tensorclasses. Fields declared with `static_field()` are plain Python
 values (counts, flags, shapes) that `.to` leaves alone — the role JAX's
-pytree aux data plays in the reference.
+pytree aux data plays in the reference. Fields declared with `init=False`
+are derived in `__post_init__` from the others, so `.replace` and `.to`
+rebuild them and never set them. A `.to` that moves nothing returns the
+same object.
 """
 
 from __future__ import annotations
@@ -42,8 +45,10 @@ def tensorclass(cls: type) -> type:
         updates = {
             f.name: _move(getattr(self, f.name), device)
             for f in dataclasses.fields(self)
-            if not f.metadata.get("static", False)
+            if f.init and not f.metadata.get("static", False)
         }
+        if all(v is getattr(self, k) for k, v in updates.items()):
+            return self
         return dataclasses.replace(self, **updates)
 
     cls.replace = replace

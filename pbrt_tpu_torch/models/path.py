@@ -5,7 +5,9 @@ record/replay/remat, subsurface, sorted shading or animated instances).
 The reference's lax.scan over bounces is a Python loop here; all rays
 advance in lockstep and terminated rays are masked, not compacted, so
 every bounce issues the same queries as the reference: one closest-hit and
-one any-hit per bounce, plus the terminal closest-hit.
+one any-hit per bounce, plus the terminal closest-hit. With autograd on,
+a scene tensor, o, d or the wavelengths that requires grad raises
+NotImplementedError (ROADMAP Queue 1 item 5): no gradient is ported yet.
 
 RNG dimension layout (per ray; stateless pcg4d streams, core/rng.py):
   dims 0-7            camera: pixel jitter (0,1), lens (2,3), wavelength (4)
@@ -18,6 +20,8 @@ RNG dimension layout (per ray; stateless pcg4d streams, core/rng.py):
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..accel import api as accel_api
@@ -29,6 +33,32 @@ from ..materials import bxdf
 
 _CAM_DIMS = 8
 _BOUNCE_DIMS = 8
+
+
+def _tensors(value, name: str):
+    """(path, tensor) of every tensor in a nest of tensorclasses."""
+    if isinstance(value, torch.Tensor):
+        yield name, value
+    elif dataclasses.is_dataclass(value):
+        for f in dataclasses.fields(value):
+            yield from _tensors(getattr(value, f.name), f"{name}.{f.name}")
+
+
+def _refuse_gradients(scene, o, d, wl) -> None:
+    """Raise when autograd would trace the pass through a floating tensor
+    that requires grad: the backward pass (the reference's remat path) is
+    not ported, and eager autograd would keep every bounce's activations
+    and return gradients nothing holds against the reference."""
+    if not torch.is_grad_enabled():
+        return
+    for name, x in [("o", o), ("d", d), *_tensors(wl, "wl"),
+                    *_tensors(scene, "scene")]:
+        if x.is_floating_point() and x.requires_grad:
+            raise NotImplementedError(
+                f"{name} requires grad: gradients of a render are not "
+                "ported yet (ROADMAP Queue 1 item 5); trace under "
+                "torch.no_grad() or without a grad request"
+            )
 
 
 @tensorclass
@@ -59,6 +89,7 @@ class PathIntegrator:
                          as_sampler(sampler))
 
     def _run(self, scene, o, d, wl, pixel, sample_idx, sampler):
+        _refuse_gradients(scene, o, d, wl)
         n = o.shape[0]
         s = wl.lam.shape[-1]
         lam = wl.lam

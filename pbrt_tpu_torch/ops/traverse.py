@@ -2,7 +2,9 @@
 
 Port of pbrt_tpu/ops/traverse.py, whose Pallas kernel states its contract
 as that of pbrt_tpu/accel/bvh.py::bvh_intersect. The Hopper kernel is
-`pbrt_tpu_torch/csrc/traverse.cu`, one thread and one stack per ray;
+`pbrt_tpu_torch/csrc/traverse.cu`, one thread and one (node, tmin) stack
+per ray, which culls children when it pushes them and reads the packed
+rows `BVH.nodes` and `BVH.tris`;
 `accel/bvh.py::bvh_intersect_ref` is its plain PyTorch twin, with the
 kernel's operation order, so the two agree bit for bit (the traversal
 rules are stated there).
@@ -30,24 +32,33 @@ from .smallscene import LaunchStats
 STATS = LaunchStats()
 
 
-def _library():
-    from .nvcc_build import load_library
-
-    lib = load_library("traverse")
-    if not getattr(lib, "_argtypes_set", False):
-        p = ctypes.c_void_p
-        lib.traverse_launch.argtypes = (
-            [p] * 6 + [ctypes.c_int, ctypes.c_int, p, p, p, ctypes.c_longlong,
-                       ctypes.c_int] + [p] * 4 + [p]
-        )
-        lib.traverse_launch.restype = ctypes.c_int
-        lib.traverse_error_string.argtypes = [ctypes.c_int]
-        lib.traverse_error_string.restype = ctypes.c_char_p
-        lib._argtypes_set = True
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a built traverse.cu library (once)."""
+    if getattr(lib, "_argtypes_set", False):
+        return lib
+    p = ctypes.c_void_p
+    lib.traverse_launch.argtypes = (
+        [p] * 2 + [ctypes.c_int, ctypes.c_int, p, p, p, ctypes.c_longlong,
+                   ctypes.c_int] + [p] * 4 + [p]
+    )
+    lib.traverse_launch.restype = ctypes.c_int
+    lib.traverse_constants.argtypes = [ctypes.c_int, p]
+    lib.traverse_constants.restype = None
+    lib.traverse_error_string.argtypes = [ctypes.c_int]
+    lib.traverse_error_string.restype = ctypes.c_char_p
+    lib._argtypes_set = True
     return lib
 
 
-def _check(name, x, shape, dtype, device):
+def _library():
+    from .nvcc_build import load_library
+
+    return bind(load_library("traverse"))
+
+
+def _check(name, x, shape, dtype, device, align: int = 4):
+    if x is None:
+        raise ValueError(f"bvh_intersect: the BVH has no {name} table")
     if x.dtype != dtype or tuple(x.shape) != shape or x.device != device:
         raise ValueError(
             f"bvh_intersect: {name} must be {dtype} {shape} on {device}, got "
@@ -55,23 +66,36 @@ def _check(name, x, shape, dtype, device):
         )
     if not x.is_contiguous():
         raise ValueError(f"bvh_intersect: {name} must be contiguous")
+    if x.data_ptr() % align:
+        raise ValueError(f"bvh_intersect: {name} must be {align}-B aligned")
 
 
-def _launch(bvh: BVH, o, d, tmax, any_hit: bool):
-    """Run K4 on the rays' CUDA device; raises on any build/launch error."""
+def constants(depth: int, lib: ctypes.CDLL | None = None) -> dict:
+    """The design constants of the built K4 (or of `lib`, another build of
+    traverse.cu) and the stack entries of a launch on a tree of `depth`."""
+    lib = bind(lib) if lib is not None else _library()
+    keys = ("threads", "max_depth", "stack_entries")
+    out = (ctypes.c_longlong * len(keys))()
+    lib.traverse_constants(depth, out)
+    return dict(zip(keys, out))
+
+
+def _launch(bvh: BVH, o, d, tmax, any_hit: bool,
+            lib: ctypes.CDLL | None = None):
+    """Run K4 (or `lib`, another build of traverse.cu) on the rays' CUDA
+    device; raises on any build/launch error."""
     n = o.shape[0]
     dev = o.device
     n_nodes = (2 << bvh.depth) - 1
     n_slots = (1 << bvh.depth) * bvh.leaf_size
-    for key in ("node_lo", "node_hi"):
-        _check(key, getattr(bvh, key), (n_nodes, 3), torch.float32, dev)
-    for key in ("v0", "e1", "e2"):
-        _check(key, getattr(bvh, key), (n_slots, 3), torch.float32, dev)
-    _check("prim_id", bvh.prim_id, (n_slots,), torch.int32, dev)
+    # The packed rows BVH derives once (never packed per launch), read as
+    # float4.
+    _check("nodes", bvh.nodes, (n_nodes, 8), torch.float32, dev, align=16)
+    _check("tris", bvh.tris, (n_slots, 12), torch.float32, dev, align=16)
     _check("o", o, (n, 3), torch.float32, dev)
     _check("d", d, (n, 3), torch.float32, dev)
     _check("tmax", tmax, (n,), torch.float32, dev)
-    lib = _library()
+    lib = bind(lib) if lib is not None else _library()
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     u = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -86,9 +110,8 @@ def _launch(bvh: BVH, o, d, tmax, any_hit: bool):
                       torch.cuda.Event(enable_timing=True))
             events[0].record(stream)
         err = lib.traverse_launch(
-            bvh.node_lo.data_ptr(), bvh.node_hi.data_ptr(),
-            bvh.v0.data_ptr(), bvh.e1.data_ptr(), bvh.e2.data_ptr(),
-            bvh.prim_id.data_ptr(), bvh.depth, bvh.leaf_size,
+            bvh.nodes.data_ptr(), bvh.tris.data_ptr(), bvh.depth,
+            bvh.leaf_size,
             o.data_ptr(), d.data_ptr(), tmax.data_ptr(), n, int(any_hit),
             t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
             stream.cuda_stream,

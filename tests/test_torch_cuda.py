@@ -34,6 +34,7 @@ from pbrt_tpu_torch.render import camera_rays_full, render
 from pbrt_tpu_torch.scenes.cornell import cornell_box
 from pbrt_tpu_torch.scenes.meshes import killeroo_class_scene
 
+from .torch_port_bvh_walk import CASES, stack_entries, walk_case
 from .torch_port_instanced import FULL, SMALL, field_text, write_field_meshes
 from .torch_port_killeroo import small_killeroo_class_scene
 
@@ -480,3 +481,34 @@ def test_k4_build_failure_raises(card, monkeypatch, tmp_path):
     finally:
         nvcc_build.load_library.cache_clear()
     assert traverse.STATS.launches == 0
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_k4_matches_twin_on_walk_cases(card, name):
+    """Both modes on trees of depth 0, 1, 4 and 5, on bit-equal coplanar
+    copies straddling leaves (exact t ties: the order decides prim), on
+    rays lying in box faces and on dead lanes: K4 equals the twin in t,
+    prim, u and v (tests/torch_port_bvh_walk.py builds the cases)."""
+    tris, rays = walk_case(name)
+    bvh = build_bvh(tris).to(card)
+    o, d, tmax = (torch.tensor(np.asarray(x), dtype=torch.float32,
+                               device=card) for x in rays)
+    for any_hit in (False, True):
+        traverse.STATS.reset()
+        got = traverse.bvh_intersect(bvh, o, d, tmax, any_hit=any_hit)
+        torch.cuda.synchronize()
+        assert traverse.STATS.launches == 1
+        want = traverse.bvh_intersect_ref(bvh, o, d, tmax, any_hit=any_hit)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            assert torch.equal(g, w), (name, any_hit)
+
+
+def test_k4_stack_is_sized_for_its_walk(card):
+    """The built kernel sizes its stack as the CPU model bounds the walk
+    (tests/test_torch_bvh_walk.py checks the model's occupancy against
+    it), for every depth it takes."""
+    for depth in range(31):
+        c = traverse.constants(depth)
+        assert c["max_depth"] == 30
+        assert c["stack_entries"] == stack_entries(depth)

@@ -1,0 +1,60 @@
+"""A gradient request through PathIntegrator raises until the backward pass
+is ported (ROADMAP Queue 1 item 5): with autograd on, a scene buffer, the
+ray origins or directions, or the wavelengths that require grad raise
+NotImplementedError at entry. Under torch.no_grad(), or with no grad
+request, the render is what it was."""
+
+import pytest
+import torch
+
+from pbrt_tpu_torch.models.path import PathIntegrator
+from pbrt_tpu_torch.render import camera_rays_full, render
+from pbrt_tpu_torch.scenes.cornell import cornell_box
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def cornell8():
+    scene, camera = cornell_box(resolution=(8, 8))
+    return scene.with_accel(), camera
+
+
+def _with_grad(scene, member, field):
+    part = getattr(scene, member)
+    x = getattr(part, field).clone().requires_grad_(True)
+    return scene.replace(**{member: part.replace(**{field: x})})
+
+
+def test_render_with_a_scene_grad_request_raises(cornell8):
+    scene, camera = cornell8
+    scene = _with_grad(scene, "materials", "albedo_coeffs")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        render(scene, camera, PathIntegrator(max_depth=5), spp=1,
+               device="cpu")
+
+
+@pytest.mark.parametrize("which", ["area_scale", "o", "d", "wl"])
+def test_trace_with_a_grad_request_raises(cornell8, which):
+    scene, camera = cornell8
+    pixel = torch.arange(64)
+    o, d, wl, _ = camera_rays_full(camera, pixel, 0, 0)
+    if which == "area_scale":
+        scene = _with_grad(scene, "lights", "area_scale")
+    elif which == "wl":
+        wl = wl.replace(lam=wl.lam.clone().requires_grad_(True))
+    else:
+        o, d = (x.clone().requires_grad_(k == which)
+                for k, x in (("o", o), ("d", d)))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        PathIntegrator(max_depth=5).trace(scene, o, d, wl, pixel, 0, 0)
+
+
+def test_no_grad_renders_as_without_a_request(cornell8):
+    scene, camera = cornell8
+    kw = dict(spp=2, samples_per_pass=2, device="cpu")
+    want = render(scene, camera, PathIntegrator(max_depth=5), **kw)
+    asked = _with_grad(scene, "materials", "albedo_coeffs")
+    with torch.no_grad():
+        got = render(asked, camera, PathIntegrator(max_depth=5), **kw)
+    assert torch.equal(got, want) and not got.requires_grad
