@@ -11,7 +11,10 @@ the small tier and on the kd-tree), the killeroo-class mesh scene (on the
 cluster tier and on the BVH tier) and the instanced field (a .pbrt file
 through the port's parser) on the card against the committed JAX goldens,
 renders the golden scene file conductor.pbrt against the pbrt-v4 C++
-golden, and times the forward render of each timed configuration. Each phase
+golden, holds the backward pass's image-loss gradients against the JAX
+gradient golden and across tiers, times the forward render of each timed
+configuration and the Cornell forward+backward pass, and takes three
+training steps. Each phase
 prints one JSON line; any failure raises, so the script exits non-zero and
 never prints the final line. Without a CUDA device it exits non-zero at
 once. It never imports JAX.
@@ -70,6 +73,19 @@ Phases:
       < 0.2, the bounds tests/test_reference_parity.py gives this scene
   d6  the Cornell box with only the kd-tree attached, 32x32, 16 spp, 32
       lanes, against the Cornell golden of d: the same gate, no K1 launch
+  g   the gradient golden: Cornell 32x32, 4 spp in passes of 2, depth 5
+      without Russian roulette, 8 lanes, bench.py's loss (the MSE of
+      spectrum_to_rgb against 0.25) and its gradients with respect to
+      materials.albedo_coeffs and lights.area_scale, on the card, against
+      tests/data/torch_port/cornell32_grad.npz (the JAX reference's, from
+      scripts/make_torch_port_golden_grad.py) and against the port's own
+      CPU pass: each gradient within 1e-3 of its tensor's largest
+      magnitude, the loss within 1e-4, exact zeros kept; 11 K1 launches per
+      forward+backward pass
+  g2  the same loss and gradients on the killeroo-class scene, 64x64, 2
+      spp in one pass, 8 lanes, on the cluster tier and on the BVH tier:
+      finite, the tiers within 1e-3 of each gradient's largest magnitude,
+      11 K2 (resp. K4) launches per forward+backward pass and no other
   e   timed Cornell forward at its benchmark configuration (256x256, 128
       spp in passes of 64, depth 5, no Russian roulette) at 8 and 32 lanes
   e2  timed killeroo-class forward at its benchmark configuration (512x512,
@@ -83,6 +99,14 @@ Phases:
       Mrays/s, first-pass seconds from build_bvh on (K4's packed rows and
       the upload included; the packing's own seconds beside them), peak
       memory, K4's launches and share
+  e5  e_timed_fwdbwd, bench.py's cornell_fwdbwd_8lane (256x256, 64 spp in
+      passes of 2, depth 5, no Russian roulette, 8 lanes, value and
+      gradient with respect to both parameters): Mrays/s as bench.py counts
+      it (a forward pass's rays per pass over the forward+backward wall),
+      the forward alone at the same shape, the backward's share of the
+      wall, K1 launches per pass, peak memory, the card and its power limit
+  t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
+      spp, 8 lanes: each loss, every parameter finite, moved and on the card
   f   the kernels line, the nvidia-smi line and the final result line
 """
 
@@ -110,6 +134,8 @@ CONDUCTOR = os.path.join(ROOT, "tests", "goldens", "conductor.pbrt")
 CONDUCTOR_REF = os.path.join(ROOT, "tests", "goldens", "conductor_ref.pfm")
 GOLDEN_INSTANCED = os.path.join(ROOT, "tests", "data", "torch_port",
                                 "instanced64_spp4.npy")
+GOLDEN_GRAD = os.path.join(ROOT, "tests", "data", "torch_port",
+                           "cornell32_grad.npz")
 MAIN_PATH_RAYS = 256 * 256 * 64  # one forward pass of the bench config
 # The killeroo and instanced-field passes: 512x512 at 4 samples per pixel.
 PASS_RES, PASS_SPP = 512, 4
@@ -1244,6 +1270,322 @@ def phase_timed(dev, lanes: int):
     return out["k1_launches"]
 
 
+def grad_passes(scene, camera, res: int, k: int, lanes: int, passes: int,
+                depth: int = 5, target: float = 0.25):
+    """bench.py's cornell_fwdbwd loss (the mean squared error of
+    spectrum_to_rgb against `target`) and its gradients with respect to
+    the default trainable set, through parallel.train.render_loss_and_grad,
+    one call per pass of k samples per pixel over res x res, depth `depth`
+    without Russian roulette. Returns (mean loss, {path: mean gradient})."""
+    import torch
+
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.parallel.train import render_loss_and_grad
+
+    dev = scene.geom.tri_verts.device
+    integrator = PathIntegrator(max_depth=depth, rr_start_depth=depth)
+    npix = res * res
+    pixel_b = torch.arange(npix, device=dev).repeat(k)
+    tgt = torch.full((npix * k, 3), target, device=dev)
+    camera = camera.replace(resolution=(res, res)).to(dev)
+    loss, grads = 0.0, {}
+    for p in range(passes):
+        sample_b = torch.arange(p * k, (p + 1) * k,
+                                device=dev).repeat_interleave(npix)
+        pl, pg = render_loss_and_grad(scene, camera, integrator, pixel_b, tgt,
+                                      sample_b, 0, n_spectrum=lanes)
+        loss = loss + pl
+        for name, g in pg.items():
+            grads[name] = grads.get(name, 0.0) + g
+    return (float(loss) / passes,
+            {name: (g / passes).cpu().double().numpy()
+             for name, g in grads.items()})
+
+
+# Phase g's tolerance: each gradient within 1e-3 of its tensor's largest
+# magnitude, and the loss within a relative 1e-4.
+GRAD_RTOL_OF_MAX = 1e-3
+LOSS_RTOL = 1e-4
+
+
+def _grad_compare(loss, grads, want_loss, want) -> dict:
+    """Errors of (loss, grads) against (want_loss, want), gated at phase
+    g's tolerance; rows of `want` that are exactly 0 must be 0."""
+    import numpy as np
+
+    out = {"loss_rel_err": abs(loss - want_loss) / abs(want_loss)}
+    ok = out["loss_rel_err"] <= LOSS_RTOL
+    for name, g in grads.items():
+        w = np.asarray(want[name], np.float64)
+        scale = float(np.max(np.abs(w)))
+        err = np.abs(g - w)
+        out[name] = {"max_abs_err": float(err.max()),
+                     "max_rel_err_of_max": float(err.max()) / scale,
+                     "exact_zeros_kept": bool(np.all(g[w == 0.0] == 0.0))}
+        ok &= bool(np.all(np.isfinite(g))) and float(err.max()) <= \
+            GRAD_RTOL_OF_MAX * scale and out[name]["exact_zeros_kept"]
+    out["ok"] = bool(ok)
+    return out
+
+
+def phase_grad_golden(dev):
+    """g: the Cornell gradient golden. The bench's loss and its gradients
+    on the card against the JAX reference's
+    (tests/data/torch_port/cornell32_grad.npz, scripts/
+    make_torch_port_golden_grad.py) and against the port's own CPU pass,
+    with 11 K1 launches per forward+backward pass."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import STATS
+    from pbrt_tpu_torch.scenes.cornell import cornell_box
+
+    z = np.load(GOLDEN_GRAD)
+    res, k, lanes = int(z["resolution"]), int(z["samples_per_pass"]), \
+        int(z["n_spectrum"])
+    passes, depth = int(z["spp"]) // k, int(z["max_depth"])
+    if int(z["rr_start_depth"]) != depth:
+        raise AssertionError("the golden's Russian roulette is not off")
+    want = {"materials.albedo_coeffs": z["grad_albedo_coeffs"],
+            "lights.area_scale": z["grad_area_scale"]}
+    scene, camera = cornell_box(resolution=(res, res))
+    scene = scene.with_accel()
+    STATS.reset()
+    loss, grads = grad_passes(scene.to(dev), camera, res, k, lanes, passes,
+                              depth)
+    torch.cuda.synchronize()
+    launches = STATS.launches
+    cpu_loss, cpu_grads = grad_passes(scene, camera, res, k, lanes, passes,
+                                      depth)
+    vs_jax = _grad_compare(loss, grads, float(z["loss"]), want)
+    vs_cpu = _grad_compare(loss, grads, cpu_loss, cpu_grads)
+    emit("g_grad_golden", resolution=res, spp=int(z["spp"]),
+         samples_per_pass=k, lanes=lanes, loss=loss,
+         golden_loss=float(z["loss"]), cpu_loss=cpu_loss,
+         grad_area_scale=grads["lights.area_scale"].tolist(),
+         vs_jax=vs_jax, vs_cpu=vs_cpu, k1_launches=launches, passes=passes,
+         tolerance={"grad_of_max": GRAD_RTOL_OF_MAX, "loss_rel": LOSS_RTOL})
+    if not (vs_jax["ok"] and vs_cpu["ok"]):
+        raise AssertionError("card gradients disagree with the golden or "
+                             "the CPU pass")
+    if launches != 11 * passes:
+        raise AssertionError(f"{launches} K1 launches for {passes} "
+                             "forward+backward passes")
+
+
+# Phase g2's tolerance between the cluster and the BVH tier: the same
+# surfaces, found by another walk (t and u, v within a few ulps).
+TIER_RTOL_OF_MAX = 1e-3
+
+
+def phase_grad_killeroo(dev, killeroo):
+    """g2: the bench's loss and gradients on the killeroo-class scene,
+    64x64, 2 spp in one pass, 8 lanes, on the cluster tier (K2) and on the
+    BVH tier (K4): finite on each, the tiers in agreement, and 11 launches
+    of the tier's kernel per forward+backward pass."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.ops import cluster, smallscene, sweep, traverse
+
+    counters = {"k1": smallscene.STATS, "k2": cluster.STATS,
+                "k3": sweep.STATS, "k4": traverse.STATS}
+    res, k, lanes = 64, 2, 8
+    out = {}
+    for tier, scene, kernel in (
+            ("cluster", killeroo[0], "k2"),
+            ("bvh", bvh_scene_of(killeroo, dev)[0], "k4")):
+        for c in counters.values():
+            c.reset()
+        loss, grads = grad_passes(scene, killeroo[1], res, k, lanes, 1)
+        torch.cuda.synchronize()
+        launches = {name: c.launches for name, c in counters.items()}
+        out[tier] = (loss, grads)
+        finite = bool(np.isfinite(loss)) and all(
+            bool(np.all(np.isfinite(g))) for g in grads.values())
+        emit("g2_grad_killeroo", tier=tier, resolution=res, spp=k,
+             lanes=lanes, loss=loss, finite=finite,
+             grads={name: g.tolist() for name, g in grads.items()},
+             launches=launches)
+        if not finite:
+            raise AssertionError(f"killeroo gradients on the {tier} tier are "
+                                 "not finite")
+        if launches[kernel] != 11 or sum(launches.values()) != 11:
+            raise AssertionError(f"{tier} tier: launches {launches}, want 11 "
+                                 f"of {kernel} alone")
+    (la, ga), (lb, gb) = out["cluster"], out["bvh"]
+    errs = {name: float(np.max(np.abs(ga[name] - gb[name])))
+            / float(np.max(np.abs(ga[name]))) for name in ga}
+    loss_err = abs(la - lb) / abs(la)
+    emit("g2_tiers_agree", loss_rel_err=loss_err, grad_err_of_max=errs,
+         tolerance=TIER_RTOL_OF_MAX)
+    if loss_err > TIER_RTOL_OF_MAX or max(errs.values()) > TIER_RTOL_OF_MAX:
+        raise AssertionError("the cluster and BVH tiers' gradients disagree")
+
+
+def make_grad_pass(scene, camera, res: int, k: int, lanes: int,
+                   depth: int = 5, target: float = 0.25):
+    """bench.py's cornell_fwdbwd pass on the scene's device: k samples per
+    pixel over res x res, `lanes` wavelengths, depth `depth` without
+    Russian roulette. Returns (grad_pass, forward_pass):
+    grad_pass(pass_idx, events=None) -> (loss, grads), the loss's value
+    and gradient with respect to albedo_coeffs and area_scale, appending
+    CUDA events (start, forward done, backward done) to `events` if given;
+    forward_pass(pass_idx) -> (rgb, traced rays) under torch.no_grad()."""
+    import torch
+
+    from pbrt_tpu_torch.films.rgb import spectrum_to_rgb
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.parallel.train import _set_paths
+    from pbrt_tpu_torch.render import camera_rays
+
+    dev = scene.geom.tri_verts.device
+    integrator = PathIntegrator(max_depth=depth, rr_start_depth=depth)
+    npix = res * res
+    pixel_b = torch.arange(npix, device=dev).repeat(k)
+    tgt = torch.full((npix * k, 3), target, device=dev)
+    leaves = (scene.materials.albedo_coeffs, scene.lights.area_scale)
+
+    def samples(p):
+        return torch.arange(p * k, (p + 1) * k,
+                            device=dev).repeat_interleave(npix)
+
+    def grad_pass(p, events=None):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        params = [x.detach().requires_grad_(True) for x in leaves]
+        s = _set_paths(scene, {"materials.albedo_coeffs": params[0],
+                               "lights.area_scale": params[1]})
+        sb = samples(p)
+        o, d, wl = camera_rays(camera, pixel_b, sb, 0, n_spectrum=lanes)
+        with torch.profiler.record_function("forward"):
+            rgb = spectrum_to_rgb(
+                integrator.trace(s, o, d, wl, pixel_b, sb, 0), wl)
+            loss = torch.mean((rgb - tgt) ** 2)
+        ev[1].record()
+        with torch.profiler.record_function("backward"):
+            grads = torch.autograd.grad(loss, params)
+        ev[2].record()
+        if events is not None:
+            events.append(ev)
+        return loss.detach(), grads
+
+    def forward_pass(p):
+        with torch.no_grad():
+            sb = samples(p)
+            o, d, wl = camera_rays(camera, pixel_b, sb, 0, n_spectrum=lanes)
+            radiance, stats = integrator.trace_with_stats(
+                scene, o, d, wl, pixel_b, sb, 0)
+            return spectrum_to_rgb(radiance, wl), stats["rays"]
+
+    return grad_pass, forward_pass
+
+
+def phase_timed_fwdbwd(dev, smi: str):
+    """e_timed_fwdbwd: bench.py's cornell_fwdbwd_8lane (256x256, 64 spp in
+    passes of 2, depth 5, no Russian roulette, 8 lanes, the loss's value
+    and gradient with respect to albedo_coeffs and area_scale), timed on
+    the card. Mrays/s as bench.py counts it: a forward pass's traced rays
+    per pass over the forward+backward wall time; beside it the forward
+    alone at the same shape, the backward's share of the wall (CUDA
+    events around the backward calls), K1 launches per pass and peak
+    memory."""
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import STATS
+    from pbrt_tpu_torch.scenes.cornell import cornell_box
+
+    res, spp, k, lanes = 256, 64, 2, 8
+    passes = spp // k
+    scene, camera = cornell_box(resolution=(res, res))
+    grad_pass, forward_pass = make_grad_pass(
+        scene.with_accel().to(dev), camera.to(dev), res, k, lanes)
+    rays_pass = float(forward_pass(0)[1])  # bench.py's count_pass; warm-up
+    grad_pass(0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    STATS.reset()
+    events = []
+    t0 = time.perf_counter()
+    acc = None
+    for p in range(passes):
+        loss, grads = grad_pass(p, events)
+        acc = loss if acc is None else acc + loss
+    acc = float(acc)  # synchronizes
+    seconds = time.perf_counter() - t0
+    launches = STATS.launches
+    peak = torch.cuda.max_memory_allocated()
+    bwd_ms = sum(b.elapsed_time(c) for _, b, c in events)
+    if launches != 11 * passes:
+        raise AssertionError(f"{launches} K1 launches in {passes} "
+                             "forward+backward passes")
+    if not all(bool(torch.isfinite(g).all()) for g in grads) or acc != acc:
+        raise AssertionError("timed forward+backward: non-finite loss or "
+                             "gradient")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rays = None
+    for p in range(passes):
+        _, r = forward_pass(p)
+        rays = r if rays is None else rays + r
+    fwd_rays = float(rays)  # synchronizes
+    fwd_seconds = time.perf_counter() - t0
+    emit("e_timed_fwdbwd", lanes=lanes, resolution=res, spp=spp,
+         samples_per_pass=k, max_depth=5, passes=passes,
+         rays_per_pass=rays_pass, seconds=seconds,
+         mrays_per_s=rays_pass * passes / seconds / 1e6,
+         forward_seconds=fwd_seconds,
+         forward_mrays_per_s=fwd_rays / fwd_seconds / 1e6,
+         forward_peak_bytes=torch.cuda.max_memory_allocated(),
+         backward_ms=bwd_ms, backward_share=bwd_ms / (seconds * 1e3),
+         k1_launches=launches, k1_launches_per_pass=launches / passes,
+         peak_bytes=peak, mean_loss=acc / passes, nvidia_smi=smi)
+    return launches
+
+
+def phase_train(dev):
+    """t_train: three training_steps (lr 1e-2) of the default trainable set
+    on the Cornell box, 64x64, 2 spp, 8 lanes, against a flat 0.25 target:
+    each step's loss finite, and every parameter finite and moved."""
+    import torch
+
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.parallel.train import (
+        DEFAULT_TRAINABLE,
+        _get_path,
+        training_step,
+    )
+    from pbrt_tpu_torch.scenes.cornell import cornell_box
+
+    res, k, lanes, lr = 64, 2, 8, 1e-2
+    scene, camera = cornell_box(resolution=(res, res))
+    scene = scene.with_accel().to(dev)
+    npix = res * res
+    pixel_b = torch.arange(npix, device=dev).repeat(k)
+    sample_b = torch.arange(k, device=dev).repeat_interleave(npix)
+    target = torch.full((npix * k, 3), 0.25, device=dev)
+    integrator = PathIntegrator(max_depth=5, rr_start_depth=5)
+    start = {p: _get_path(scene, p).clone() for p in DEFAULT_TRAINABLE}
+    losses = []
+    for _ in range(3):
+        loss, scene = training_step(scene, camera, integrator, pixel_b,
+                                    target, sample_b, 0, lr=lr,
+                                    n_spectrum=lanes)
+        losses.append(float(loss))
+    moved = {p: float(torch.max(torch.abs(_get_path(scene, p) - x)))
+             for p, x in start.items()}
+    finite = all(bool(torch.isfinite(_get_path(scene, p)).all())
+                 for p in start) and all(x == x for x in losses)
+    on_card = all(_get_path(scene, p).device.type == "cuda" for p in start)
+    emit("t_train", resolution=res, spp=k, lanes=lanes, lr=lr, losses=losses,
+         max_move=moved, finite=finite, on_card=on_card)
+    if not finite or min(moved.values()) <= 0.0 or not on_card:
+        raise AssertionError("training steps: non-finite, unmoved or moved "
+                             "off the card")
+
+
 def _kernel_entry(name, source, replaces, launches, k):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source,
@@ -1278,8 +1620,12 @@ def main() -> int:
     phase_golden_bvh(dev, killeroo)
     phase_golden_conductor(dev)
     phase_golden_kdtree(dev)
+    phase_grad_golden(dev)
+    phase_grad_killeroo(dev, killeroo)
     k1_launches = phase_timed(dev, 8)
     phase_timed(dev, 32)
+    phase_timed_fwdbwd(dev, smi)
+    phase_train(dev)
     k2_launches = phase_timed_killeroo(dev, builds["cluster"]["seconds"])
     k3_launches = phase_timed_instanced(dev, field[3])
     k4_launches = phase_timed_bvh(dev)

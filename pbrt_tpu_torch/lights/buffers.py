@@ -23,6 +23,7 @@ from ..core.sampling import (
     sample_uniform_sphere,
     sample_uniform_triangle,
 )
+from ..core.take import take
 from ..core.tensorclass import static_field, tensorclass
 from ..core.vecmath import cross, dot, normalize
 
@@ -202,7 +203,8 @@ class LightBuffers:
         i = torch.clamp(light_idx, 0, na - 1)
         vis = front | self.area_two_sided[i]
         L_a = eval_emission(
-            self.area_coeffs[i], self.area_scale[i], self.area_illum[i], lam
+            take(self.area_coeffs, i), take(self.area_scale, i),
+            self.area_illum[i], lam
         )
         use = (light_idx >= 0) & (light_idx < na) & vis
         return torch.where(use[..., None], L_a, 0.0)
@@ -260,7 +262,8 @@ class LightBuffers:
             emit_ok = (cos_l > _EPS) | (two & (torch.abs(cos_l) > _EPS))
             area = torch.clamp(self.area_area[ai], min=_EPS)
             pdf_a = d2 / (torch.abs(cos_l) * area + _EPS)
-            L_a = eval_emission(self.area_coeffs[ai], self.area_scale[ai],
+            L_a = eval_emission(take(self.area_coeffs, ai),
+                                take(self.area_scale, ai),
                                 self.area_illum[ai], lam)
             L_a = torch.where(emit_ok[..., None], L_a, 0.0)
             use = idx < na

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..core import rgb2spec
+from ..core.take import take
 from ..core.tensorclass import static_field, tensorclass
 
 MAT_DIFFUSE = 0
@@ -161,7 +162,7 @@ class MaterialBuffers:
     def gather(self, mat_idx):
         """Per-ray material parameters: a dict of (N, ...) rows."""
         out = {
-            name: getattr(self, name)[mat_idx]
+            name: take(getattr(self, name), mat_idx)
             for name in (
                 "kind", "albedo_coeffs", "roughness", "eta",
                 "cond_eta_coeffs", "cond_eta_scale", "cond_k_coeffs",

@@ -43,6 +43,14 @@ def camera_rays_full(camera, pixel, sample_idx, sampler, jitter: bool = True,
     return o, d, wl, torch.ones_like(px)
 
 
+def camera_rays(camera, pixel, sample_idx, sampler, jitter: bool = True,
+                n_spectrum: int = spectrum.N_SPECTRUM_DEFAULT):
+    """camera_rays_full without the camera weight: (o, d, wl)."""
+    o, d, wl, _ = camera_rays_full(camera, pixel, sample_idx, sampler, jitter,
+                                   None, n_spectrum)
+    return o, d, wl
+
+
 def render(scene, camera, integrator, spp: int = 16, seed: int = 0,
            samples_per_pass: int = 1, jitter: bool = True,
            sampler_kind: str = "independent", sample_offset: int = 0,

@@ -512,3 +512,67 @@ def test_k4_stack_is_sized_for_its_walk(card):
         c = traverse.constants(depth)
         assert c["max_depth"] == 30
         assert c["stack_entries"] == stack_entries(depth)
+
+
+def _cornell_loss_and_grad(dev, res=16, k=2, lanes=8):
+    """The bench's loss and its gradients on Cornell res x res, k spp,
+    depth 5 without Russian roulette, through render_loss_and_grad."""
+    from pbrt_tpu_torch.parallel.train import render_loss_and_grad
+
+    scene, camera = cornell_box(resolution=(res, res))
+    scene = scene.with_accel().to(dev)
+    npix = res * res
+    pixel = torch.arange(npix, device=dev).repeat(k)
+    sample = torch.arange(k, device=dev).repeat_interleave(npix)
+    target = torch.full((npix * k, 3), 0.25, device=dev)
+    return render_loss_and_grad(
+        scene, camera.to(dev), PathIntegrator(max_depth=5, rr_start_depth=5),
+        pixel, target, sample, 0, n_spectrum=lanes)
+
+
+def test_gradient_on_card_matches_cpu(card):
+    """Cornell 16x16: the card's loss and gradients against the same pass
+    on the CPU, each gradient within 1e-3 of its tensor's largest
+    magnitude; the unhit materials' rows exactly 0 on both."""
+    loss, grads = _cornell_loss_and_grad(card)
+    want_loss, want = _cornell_loss_and_grad("cpu")
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-4)
+    for name, g in grads.items():
+        assert g.device.type == "cuda"
+        g, w = g.cpu().numpy(), want[name].numpy()
+        assert np.all(np.isfinite(g))
+        assert np.max(np.abs(g - w)) <= 1e-3 * np.max(np.abs(w)), name
+        assert np.all(g[w == 0.0] == 0.0), name
+
+
+def test_gradient_lands_on_a_cpu_leaf(card):
+    """A leaf made on the CPU and moved with Scene.to receives its
+    gradient on the CPU, through the card's pass."""
+    scene, camera = cornell_box(resolution=(8, 8))
+    x = scene.materials.albedo_coeffs.clone().requires_grad_(True)
+    scene = scene.replace(materials=scene.materials.replace(albedo_coeffs=x))
+    scene = scene.with_accel().to(card)
+    pixel = torch.arange(64, device=card)
+    o, d, wl, _ = camera_rays_full(camera.to(card), pixel, 0, 0,
+                                   n_spectrum=8)
+    L = PathIntegrator(max_depth=3).trace(scene, o, d, wl, pixel, 0, 0)
+    torch.mean(L).backward()
+    assert x.grad is not None and x.grad.device.type == "cpu"
+    assert torch.isfinite(x.grad).all() and bool((x.grad != 0).any())
+
+
+def test_backward_pass_launches_no_k1(card):
+    """A forward+backward pass makes 11 K1 launches, as a forward does:
+    the backward recomputes shading only."""
+    STATS.reset()
+    loss, grads = _cornell_loss_and_grad(card)
+    torch.cuda.synchronize()
+    assert STATS.launches == 11
+    STATS.reset()
+    with torch.no_grad():
+        scene, camera = cornell_box(resolution=(16, 16))
+        render(scene.with_accel(), camera,
+               PathIntegrator(max_depth=5, rr_start_depth=5), spp=2,
+               samples_per_pass=2, n_spectrum=8, device=card)
+    torch.cuda.synchronize()
+    assert STATS.launches == 11

@@ -1,13 +1,15 @@
-"""A gradient request through PathIntegrator raises until the backward pass
-is ported (ROADMAP Queue 1 item 5): with autograd on, a scene buffer, the
-ray origins or directions, or the wavelengths that require grad raise
-NotImplementedError at entry. Under torch.no_grad(), or with no grad
-request, the render is what it was."""
+"""Gradient requests that the port does not answer raise (ROADMAP Queue 1
+item 5): with autograd on, a scene tensor outside the default trainable
+set (materials.albedo_coeffs, lights.area_scale), the ray origins or
+directions, or the wavelengths that require grad raise NotImplementedError
+at entry, and so does a gradient asked through an unported gradient mode.
+Under torch.no_grad() the render is what it was without a request."""
 
 import pytest
 import torch
 
 from pbrt_tpu_torch.models.path import PathIntegrator
+from pbrt_tpu_torch.parallel.train import training_step
 from pbrt_tpu_torch.render import camera_rays_full, render
 from pbrt_tpu_torch.scenes.cornell import cornell_box
 
@@ -27,20 +29,22 @@ def _with_grad(scene, member, field):
 
 
 def test_render_with_a_scene_grad_request_raises(cornell8):
+    """Roughness is outside the trainable set: the reference's gradient
+    of it is not finite on a conductor."""
     scene, camera = cornell8
-    scene = _with_grad(scene, "materials", "albedo_coeffs")
+    scene = _with_grad(scene, "materials", "roughness")
     with pytest.raises(NotImplementedError, match="item 5"):
         render(scene, camera, PathIntegrator(max_depth=5), spp=1,
                device="cpu")
 
 
-@pytest.mark.parametrize("which", ["area_scale", "o", "d", "wl"])
+@pytest.mark.parametrize("which", ["tri_verts", "o", "d", "wl"])
 def test_trace_with_a_grad_request_raises(cornell8, which):
     scene, camera = cornell8
     pixel = torch.arange(64)
     o, d, wl, _ = camera_rays_full(camera, pixel, 0, 0)
-    if which == "area_scale":
-        scene = _with_grad(scene, "lights", "area_scale")
+    if which == "tri_verts":
+        scene = _with_grad(scene, "geom", "tri_verts")
     elif which == "wl":
         wl = wl.replace(lam=wl.lam.clone().requires_grad_(True))
     else:
@@ -48,6 +52,31 @@ def test_trace_with_a_grad_request_raises(cornell8, which):
                 for k, x in (("o", o), ("d", d)))
     with pytest.raises(NotImplementedError, match="item 5"):
         PathIntegrator(max_depth=5).trace(scene, o, d, wl, pixel, 0, 0)
+
+
+@pytest.mark.parametrize("mode", [
+    {"grad_mode": "cvjp"}, {"replay_grad": False}, {"replay_remat": "dots"},
+])
+def test_unported_grad_mode_raises(cornell8, mode):
+    scene, camera = cornell8
+    pixel = torch.arange(64)
+    o, d, wl, _ = camera_rays_full(camera, pixel, 0, 0)
+    integ = PathIntegrator(max_depth=5, **mode)
+    asked = _with_grad(scene, "materials", "albedo_coeffs")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        integ.trace(asked, o, d, wl, pixel, 0, 0)
+    # Without a gradient request the mode changes nothing.
+    got = integ.trace(scene, o, d, wl, pixel, 0, 0)
+    want = PathIntegrator(max_depth=5).trace(scene, o, d, wl, pixel, 0, 0)
+    assert torch.equal(got, want)
+
+
+def test_training_step_over_a_mesh_raises(cornell8):
+    scene, camera = cornell8
+    pixel = torch.arange(64)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        training_step(scene, camera, PathIntegrator(max_depth=5), pixel,
+                      torch.zeros((64, 3)), mesh=object())
 
 
 def test_no_grad_renders_as_without_a_request(cornell8):

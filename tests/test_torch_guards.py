@@ -35,7 +35,8 @@ def test_import_loads_no_jax():
         "import sys, pbrt_tpu_torch.render, pbrt_tpu_torch.convert, "
         "pbrt_tpu_torch.scenes.cornell, pbrt_tpu_torch.scenes.meshes, "
         "pbrt_tpu_torch.ops.cluster, pbrt_tpu_torch.ops.sweep, "
-        "pbrt_tpu_torch.io.ply, pbrt_tpu_torch.io.parser; "
+        "pbrt_tpu_torch.io.ply, pbrt_tpu_torch.io.parser, "
+        "pbrt_tpu_torch.parallel.train; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pbrt_tpu' or m.startswith('pbrt_tpu.')]; "
         "sys.exit(1 if bad else 0)"
