@@ -8,13 +8,16 @@ Run from the repository root on a machine with an NVIDIA H100:
 It builds every CUDA kernel of the port from the sources in the checkout,
 checks each against its plain PyTorch twin, renders the Cornell box (on
 the small tier and on the kd-tree), the killeroo-class mesh scene (on the
-cluster tier and on the BVH tier) and the instanced field (a .pbrt file
-through the port's parser) on the card against the committed JAX goldens,
-renders the golden scene file conductor.pbrt against the pbrt-v4 C++
-golden, holds the backward pass's image-loss gradients against the JAX
-gradient golden and across tiers, times the forward render of each timed
-configuration and the Cornell forward+backward pass, and takes three
-training steps. Each phase
+cluster tier and on the BVH tier), the instanced field (a .pbrt file
+through the port's parser) and the golden scene files spot.pbrt,
+envmap.pbrt and plymesh.pbrt on the card against the committed JAX
+goldens, renders the golden scene files conductor.pbrt, plymesh.pbrt,
+spot.pbrt, envmap.pbrt and box.pbrt against the pbrt-v4 C++ goldens and
+the furnace scene against its closed form, holds the backward pass's
+image-loss gradients against the JAX gradient golden, across tiers and,
+through a spot light, against the CPU, times the forward render of each
+timed configuration and the Cornell forward+backward pass, and takes
+three training steps. Each phase
 prints one JSON line; any failure raises, so the script exits non-zero and
 never prints the final line. Without a CUDA device it exits non-zero at
 once. It never imports JAX.
@@ -73,6 +76,23 @@ Phases:
       < 0.2, the bounds tests/test_reference_parity.py gives this scene
   d6  the Cornell box with only the kd-tree attached, 32x32, 16 spp, 32
       lanes, against the Cornell golden of d: the same gate, no K1 launch
+  d7-d10
+      the golden scene files plymesh.pbrt (a point and an infinite light,
+      1,282 triangles: K2), spot.pbrt (a spot light), envmap.pbrt (an
+      image infinite light over sky.pfm) and box.pbrt (an area light; K1
+      for the last three) through the port's parser at their 64x64 and
+      depth, at tests/test_reference_parity.py's spp (256, 256, 256, 512)
+      in passes of 32, against the pbrt-v4 C++ goldens with that file's
+      gate and bounds (as d5); each prints its kernel's launches and the
+      render's seconds
+  d11 the furnace (scenes/analytic.py: a point light at the centre of a
+      diffuse unit sphere, no triangles), 64x64, 4 spp, depth 16 without
+      Russian roulette, 32 lanes: the mean spectral radiance within 1 +-
+      0.025, the reference's own gate, and no triangle kernel launched
+  d12 spot.pbrt, envmap.pbrt and plymesh.pbrt at 32x32, 4 spp, 8 lanes,
+      the file's integrator, against the JAX goldens of
+      scripts/make_torch_port_golden_lights.py: d's gate, 9 K1 (K2 for
+      plymesh) launches per pass
   g   the gradient golden: Cornell 32x32, 4 spp in passes of 2, depth 5
       without Russian roulette, 8 lanes, bench.py's loss (the MSE of
       spectrum_to_rgb against 0.25) and its gradients with respect to
@@ -86,6 +106,11 @@ Phases:
       spp in one pass, 8 lanes, on the cluster tier and on the BVH tier:
       finite, the tiers within 1e-3 of each gradient's largest magnitude,
       11 K2 (resp. K4) launches per forward+backward pass and no other
+  g3  the same loss on spot.pbrt (a spot light, no area light: the
+      area-scale gradient is empty), 16x16, 2 spp, 8 lanes, the file's
+      depth 4 without Russian roulette: the albedo gradient on the card
+      within 1e-5 of its largest entry of the port's CPU pass, 9 K1
+      launches per forward+backward pass
   e   timed Cornell forward at its benchmark configuration (256x256, 128
       spp in passes of 64, depth 5, no Russian roulette) at 8 and 32 lanes
   e2  timed killeroo-class forward at its benchmark configuration (512x512,
@@ -99,12 +124,18 @@ Phases:
       Mrays/s, first-pass seconds from build_bvh on (K4's packed rows and
       the upload included; the packing's own seconds beside them), peak
       memory, K4's launches and share
-  e5  e_timed_fwdbwd, bench.py's cornell_fwdbwd_8lane (256x256, 64 spp in
+  e_timed_fwdbwd
+      bench.py's cornell_fwdbwd_8lane (256x256, 64 spp in
       passes of 2, depth 5, no Russian roulette, 8 lanes, value and
       gradient with respect to both parameters): Mrays/s as bench.py counts
       it (a forward pass's rays per pass over the forward+backward wall),
       the forward alone at the same shape, the backward's share of the
       wall, K1 launches per pass, peak memory, the card and its power limit
+  e5  plymesh.pbrt timed (512x512, 8 spp in passes of 4, 8 lanes, the
+      file's depth 4 without Russian roulette, seed 0): Mrays/s, K2
+      launches per pass, peak memory, and the layers' device ms of one
+      pass (CUDA events around each layer's calls, as
+      scripts/profile_torch_pass.py takes them): lights against BxDF
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
   f   the kernels line, the nvidia-smi line and the final result line
@@ -130,8 +161,22 @@ K3_SOURCE = "pbrt_tpu_torch/csrc/sweep.cu"
 K3_REPLACES = "pbrt_tpu/ops/sweep.py:308"
 K4_SOURCE = "pbrt_tpu_torch/csrc/traverse.cu"
 K4_REPLACES = "pbrt_tpu/ops/traverse.py:65"
-CONDUCTOR = os.path.join(ROOT, "tests", "goldens", "conductor.pbrt")
-CONDUCTOR_REF = os.path.join(ROOT, "tests", "goldens", "conductor_ref.pfm")
+GOLDEN_FILES = os.path.join(ROOT, "tests", "goldens")
+# The C++-golden phases: (phase, scene file, spp, samples per pass, bounds
+# on relative mean error, MSE and q95 cell error, the triangle kernel that
+# must launch). spp and bounds are tests/test_reference_parity.py's CASES
+# rows for the file, copied, not imported.
+CXX_GOLDENS = (
+    ("d5_golden_conductor", "conductor", 384, 8, (0.05, 2e-3, 0.2), "k1"),
+    ("d7_golden_plymesh", "plymesh", 256, 32, (0.04, 1e-3, 0.15), "k2"),
+    ("d8_golden_spot", "spot", 256, 32, (0.035, 5e-4, 0.15), "k1"),
+    ("d9_golden_envmap", "envmap", 256, 32, (0.05, 2e-3, 0.35), "k1"),
+    ("d10_golden_box", "box", 512, 32, (0.04, 0.035, 0.6), "k1"),
+)
+# d12: the golden files against the JAX goldens of
+# scripts/make_torch_port_golden_lights.py (32x32, 4 spp, 8 lanes, seed 0),
+# with the triangle kernel each launches.
+JAX_LIGHT_GOLDENS = (("spot", "k1"), ("envmap", "k1"), ("plymesh", "k2"))
 GOLDEN_INSTANCED = os.path.join(ROOT, "tests", "data", "torch_port",
                                 "instanced64_spp4.npy")
 GOLDEN_GRAD = os.path.join(ROOT, "tests", "data", "torch_port",
@@ -974,29 +1019,32 @@ def _downsample(img, f=4):
         h // f, f, w // f, f, c).mean(axis=(1, 3))
 
 
-def phase_golden_conductor(dev):
-    """conductor.pbrt through the port's parser on the card against the
-    pbrt-v4 C++ golden, with tests/test_reference_parity.py's gate and
-    bounds for this scene (copied, not imported)."""
+def phase_golden_cxx(dev, phase, name, spp, per_pass, bounds, kernel):
+    """A golden scene file through the port's parser on the card against
+    the pbrt-v4 C++ golden (4096 spp), with
+    tests/test_reference_parity.py's gate and this file's bounds there:
+    relative mean error, MSE and the 95th percentile of the 4x4-cell
+    relative error. `kernel` ("k1" or "k2") must launch."""
     import numpy as np
     import torch
 
     from pbrt_tpu_torch.io.image import read_pfm
     from pbrt_tpu_torch.io.parser import load_pbrt
-    from pbrt_tpu_torch.ops import smallscene
+    from pbrt_tpu_torch.ops import cluster, smallscene
     from pbrt_tpu_torch.render import render
 
-    spp, per_pass = 384, 8
-    rel_tol, mse_tol, q95_tol = 0.05, 2e-3, 0.2
-    scene, camera, settings = load_pbrt(CONDUCTOR, device=dev)
-    smallscene.STATS.reset()
+    rel_tol, mse_tol, q95_tol = bounds
+    counter = {"k1": smallscene.STATS, "k2": cluster.STATS}[kernel]
+    scene, camera, settings = load_pbrt(
+        os.path.join(GOLDEN_FILES, name + ".pbrt"), device=dev)
+    counter.reset()
     t0 = time.perf_counter()
     img = render(scene, camera, settings["integrator"], spp=spp,
                  samples_per_pass=per_pass, sampler_kind="independent",
                  device=dev)
     img = img.cpu().numpy()
     seconds = time.perf_counter() - t0
-    ref = read_pfm(CONDUCTOR_REF)
+    ref = read_pfm(os.path.join(GOLDEN_FILES, name + "_ref.pfm"))
     if img.shape != ref.shape or not np.isfinite(img).all():
         raise AssertionError(f"bad render: shape {img.shape}, finite "
                              f"{bool(np.isfinite(img).all())}")
@@ -1005,19 +1053,93 @@ def phase_golden_conductor(dev):
     a, b = _downsample(img), _downsample(ref)
     q95 = float(np.quantile(np.abs(a - b) / (np.abs(b) + 0.05 * ref.mean()),
                             0.95))
-    emit("d5_golden_conductor", spheres=scene.geom.num_spheres,
-         triangles=scene.geom.num_triangles, spp=spp,
-         samples_per_pass=per_pass, seconds=seconds, rel_mean_err=rel,
-         mse=mse, q95_cell_rel_err=q95, mean=float(img.mean()),
-         golden_mean=float(ref.mean()), k1_launches=smallscene.STATS.launches,
+    emit(phase, spheres=scene.geom.num_spheres,
+         triangles=scene.geom.num_triangles, lights=scene.lights.n_lights,
+         spp=spp, samples_per_pass=per_pass, seconds=seconds,
+         rel_mean_err=rel, mse=mse, q95_cell_rel_err=q95,
+         mean=float(img.mean()), golden_mean=float(ref.mean()),
+         **{f"{kernel}_launches": counter.launches},
          bounds={"rel_mean_err": rel_tol, "mse": mse_tol,
                  "q95_cell_rel_err": q95_tol})
     torch.cuda.synchronize()
     if not (rel < rel_tol and mse < mse_tol and q95 < q95_tol):
-        raise AssertionError(f"conductor.pbrt off the C++ golden: rel {rel}, "
+        raise AssertionError(f"{name}.pbrt off the C++ golden: rel {rel}, "
                              f"MSE {mse}, q95 {q95}")
-    if smallscene.STATS.launches == 0:
-        raise AssertionError("conductor.pbrt launched no K1")
+    if counter.launches == 0:
+        raise AssertionError(f"{name}.pbrt launched no {kernel.upper()}")
+
+
+def phase_furnace(dev):
+    """d11: the furnace on the card against its closed form, as the
+    reference's tests/test_integrator.py gates it: a point light I = pi
+    at the centre of a diffuse unit sphere of albedo 0.5 gives radiance 1
+    at every wavelength. The scene has no triangles; the sphere block
+    answers every query and no triangle kernel launches."""
+    import torch
+
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.ops import cluster, smallscene
+    from pbrt_tpu_torch.render import camera_rays
+    from pbrt_tpu_torch.scenes.analytic import furnace_sphere_scene
+
+    res, spp, depth, lanes = 64, 4, 16, 32
+    scene, camera = furnace_sphere_scene(resolution=(res, res))
+    scene, camera = scene.to(dev), camera.to(dev)
+    integrator = PathIntegrator(max_depth=depth, rr_start_depth=100)
+    pixel = torch.arange(res * res, device=dev)
+    smallscene.STATS.reset()
+    cluster.STATS.reset()
+    total = 0.0
+    for s in range(spp):
+        o, d, wl = camera_rays(camera, pixel, s, 0, n_spectrum=lanes)
+        L = integrator.trace(scene, o, d, wl, pixel, s, 0)
+        if not bool(torch.isfinite(L).all()):
+            raise AssertionError("furnace: non-finite radiance")
+        total += float(L.mean())
+    mean = total / spp
+    launches = smallscene.STATS.launches + cluster.STATS.launches
+    emit("d11_furnace", resolution=res, spp=spp, max_depth=depth,
+         lanes=lanes, mean_radiance=mean, expected=1.0, tolerance=0.025,
+         triangle_kernel_launches=launches)
+    if abs(mean - 1.0) >= 0.025 or launches:
+        raise AssertionError(f"furnace mean {mean}, {launches} launches")
+
+
+def phase_golden_lights_jax(dev):
+    """d12: spot.pbrt, envmap.pbrt and plymesh.pbrt on the card against
+    the JAX goldens, with d's gate; each pass makes 2 x depth + 1 queries,
+    all on the file's triangle kernel."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.io.parser import load_pbrt
+    from pbrt_tpu_torch.ops import cluster, smallscene
+    from pbrt_tpu_torch.render import render
+
+    counters = {"k1": smallscene.STATS, "k2": cluster.STATS}
+    for name, kernel in JAX_LIGHT_GOLDENS:
+        golden = np.load(os.path.join(ROOT, "tests", "data", "torch_port",
+                                      f"{name}32_spp4.npy"))
+        scene, camera, settings = load_pbrt(
+            os.path.join(GOLDEN_FILES, name + ".pbrt"), device=dev)
+        for counter in counters.values():
+            counter.reset()
+        img = render(scene, camera.replace(resolution=(32, 32)),
+                     settings["integrator"], spp=4, samples_per_pass=4,
+                     seed=0, n_spectrum=8, device=dev)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        share, fields = _golden_gate(img.cpu().numpy(), golden)
+        want = 2 * settings["integrator"].max_depth + 1
+        emit("d12_golden_lights_jax", file=name + ".pbrt", **fields,
+             **{f"{k}_launches": n for k, n in launches.items()},
+             expected_launches={kernel: want})
+        if share < 0.99:
+            raise AssertionError(f"{name}: only {share:.4f} of pixel values "
+                                 "match the JAX golden")
+        if launches != {k: (want if k == kernel else 0) for k in counters}:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want} {kernel.upper()}")
 
 
 def phase_golden_kdtree(dev):
@@ -1250,6 +1372,43 @@ def phase_timed_bvh(dev):
     return k4
 
 
+def phase_timed_plymesh(dev, smi: str):
+    """e5: plymesh.pbrt (a point and a uniform infinite light, K2) timed on
+    the card at 512x512, 8 spp in passes of 4, 8 lanes, the file's depth 4
+    without Russian roulette, seed 0; then one more pass with CUDA events
+    around each layer's top-level calls (scripts/profile_torch_pass.py's
+    wrappers; intersect_* are accel.api's closest and any_hit)."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.io.parser import load_pbrt
+    from pbrt_tpu_torch.ops import cluster, smallscene
+
+    res, spp, k, lanes = PASS_RES, 8, PASS_SPP, 8
+    scene, camera, settings = load_pbrt(
+        os.path.join(GOLDEN_FILES, "plymesh.pbrt"), device=dev)
+    depth = settings["integrator"].max_depth
+    render_pass = make_pass(scene, camera.replace(resolution=(res, res)), res,
+                            k, lanes, depth=depth)
+    render_pass(0)  # warm-up
+    passes = spp // k
+    out = timed_forward(render_pass, passes,
+                        {"k1": smallscene.STATS, "k2": cluster.STATS})
+    if out["k2_launches"] != passes * (2 * depth + 1) or out["k1_launches"]:
+        raise AssertionError(f"timed plymesh: {out['k2_launches']} K2 and "
+                             f"{out['k1_launches']} K1 launches")
+    view = ptp.layer_view(lanes, render_pass)
+    layers = {key.replace("k1_", "intersect_"): ms
+              for key, ms in view["layers_ms"].items()}
+    emit("e5_timed_plymesh", lanes=lanes, resolution=res, spp=spp,
+         samples_per_pass=k, max_depth=depth, **out,
+         k2_launches_per_pass=out["k2_launches"] / passes,
+         layer_pass_wall_ms=view["wall_ms"], layers_ms=layers,
+         lights_ms=layers["lights"], bxdf_ms=layers["bxdf"],
+         lights_over_bxdf=layers["lights"] / layers["bxdf"],
+         nvidia_smi=smi)
+
+
 def phase_timed(dev, lanes: int):
     """The Cornell forward render at its benchmark configuration (bench.py
     cornell_fwd: 256x256, 128 spp in passes of 64, depth 5, no Russian
@@ -1421,6 +1580,50 @@ def phase_grad_killeroo(dev, killeroo):
          tolerance=TIER_RTOL_OF_MAX)
     if loss_err > TIER_RTOL_OF_MAX or max(errs.values()) > TIER_RTOL_OF_MAX:
         raise AssertionError("the cluster and BVH tiers' gradients disagree")
+
+
+# g3's tolerance: the card's gradient within 1e-5 of the largest entry of
+# the CPU pass's.
+SPOT_GRAD_RTOL_OF_MAX = 1e-5
+
+
+def phase_grad_spot(dev):
+    """g3: the bench loss's gradient through a delta light. spot.pbrt has
+    no area light, so lights.area_scale is empty and its gradient too; the
+    spot light's sample_li branch runs inside the checkpointed segments.
+    The card's albedo gradient against the port's CPU pass."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.io.parser import load_pbrt
+    from pbrt_tpu_torch.ops.smallscene import STATS
+
+    scene, camera, settings = load_pbrt(
+        os.path.join(GOLDEN_FILES, "spot.pbrt"), device="cpu")
+    res, k, lanes = 16, 2, 8
+    depth = settings["integrator"].max_depth
+    STATS.reset()
+    loss, grads = grad_passes(scene.to(dev), camera, res, k, lanes, 1, depth)
+    torch.cuda.synchronize()
+    launches = STATS.launches
+    cpu_loss, cpu_grads = grad_passes(scene, camera, res, k, lanes, 1, depth)
+    g = grads["materials.albedo_coeffs"]
+    w = cpu_grads["materials.albedo_coeffs"]
+    scale = float(np.max(np.abs(w)))
+    err = float(np.max(np.abs(g - w)))
+    area = grads["lights.area_scale"]
+    emit("g3_grad_spot", resolution=res, spp=k, lanes=lanes, max_depth=depth,
+         loss=loss, cpu_loss=cpu_loss, grad_albedo_max=scale,
+         max_abs_err=err, max_rel_err_of_max=err / scale if scale else None,
+         area_scale_grad_shape=list(area.shape), k1_launches=launches,
+         tolerance={"grad_of_max": SPOT_GRAD_RTOL_OF_MAX})
+    if not (np.all(np.isfinite(g)) and scale > 0.0
+            and err <= SPOT_GRAD_RTOL_OF_MAX * scale):
+        raise AssertionError(f"spot.pbrt gradients: error {err} of the "
+                             f"largest {scale}")
+    if area.shape != (0,) or launches != 2 * depth + 1:
+        raise AssertionError(f"spot.pbrt: area-scale gradient {area.shape}, "
+                             f"{launches} K1 launches")
 
 
 def make_grad_pass(scene, camera, res: int, k: int, lanes: int,
@@ -1618,10 +1821,16 @@ def main() -> int:
     phase_golden_killeroo(dev, killeroo)
     phase_golden_instanced(dev, field)
     phase_golden_bvh(dev, killeroo)
-    phase_golden_conductor(dev)
+    for phase, name, spp, per_pass, bounds, kernel in CXX_GOLDENS[:1]:
+        phase_golden_cxx(dev, phase, name, spp, per_pass, bounds, kernel)
     phase_golden_kdtree(dev)
+    for phase, name, spp, per_pass, bounds, kernel in CXX_GOLDENS[1:]:
+        phase_golden_cxx(dev, phase, name, spp, per_pass, bounds, kernel)
+    phase_furnace(dev)
+    phase_golden_lights_jax(dev)
     phase_grad_golden(dev)
     phase_grad_killeroo(dev, killeroo)
+    phase_grad_spot(dev)
     k1_launches = phase_timed(dev, 8)
     phase_timed(dev, 32)
     phase_timed_fwdbwd(dev, smi)
@@ -1629,6 +1838,7 @@ def main() -> int:
     k2_launches = phase_timed_killeroo(dev, builds["cluster"]["seconds"])
     k3_launches = phase_timed_instanced(dev, field[3])
     k4_launches = phase_timed_bvh(dev)
+    phase_timed_plymesh(dev, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     # No single PyTorch call computes a ray/triangle intersection, so no

@@ -6,8 +6,9 @@ is). Module paths and public names mirror the reference: a reader finds
 `pbrt_tpu_torch/lights/buffers.py::LightBuffers.sample_li`.
 
 What is ported (the forward spectral path trace of the diffuse Cornell
-box, of the killeroo-class mesh scene and of pbrt-v4 scene files with
-instanced meshes and analytic spheres):
+box, of the killeroo-class mesh scene, of the furnace and of pbrt-v4
+scene files with instanced meshes, analytic spheres and the scene-file
+lights, and the default gradient path):
   core/      tensor dataclasses, pcg4d RNG, CIE/sRGB colour, rgb2spec,
              vector maths, sampling warps, transforms, ULP stepping and
              interval arithmetic
@@ -16,8 +17,10 @@ instanced meshes and analytic spheres):
   shapes/    triangle and sphere geometry buffers + Interaction
   materials/ material table, the GGX and Fresnel terms, and the diffuse and
              conductor BxDFs of the select chain
-  lights/    area lights and the uniform infinite light (uniform / power
-             selection)
+  lights/    area, sphere, point, spot, projection, goniometric and
+             distant lights, the uniform infinite light, the image infinite
+             light (envmap.py) and the portal light (portal.py), with
+             uniform or power selection
   ops/       K1, the small-scene intersection kernel (csrc/smallscene.cu),
              K2, the Morton cluster kernel (csrc/cluster.cu), K3, the
              instanced sweep kernel (csrc/sweep.cu), and K4, the BVH
@@ -27,11 +30,13 @@ instanced meshes and analytic spheres):
              kd-tree and BVH tiers with the analytic sphere test merged,
              the BVH and kd-tree builds, the ray sort, instanced attribute
              resolution and the Morton order
-  models/    the path integrator (NEE + MIS + RR), primal only
+  models/    the path integrator (NEE + MIS + RR) and its remat gradient
   films/     spectrum -> sRGB film
   io/        the .pbrt parser's subset (load_pbrt), PLY reading and
-             writing, and PFM reading
-  scenes/    the Cornell box (diffuse variant) and the procedural meshes
+             writing, and PFM reading (images of lights too)
+  parallel/  the single-device training step
+  scenes/    the Cornell box (diffuse variant), the procedural meshes and
+             the furnace (analytic.py)
 
 Anything outside that slice raises NotImplementedError at parse, build or
 convert time, naming the ROADMAP Queue 1 item that will port it.

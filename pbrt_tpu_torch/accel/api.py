@@ -13,8 +13,9 @@ closest-hit queries defer the hit's attributes to `resolve_tri_attrs`
 (`resolve_tri_attrs_inst` for instances); the kd-tree and the BVH return
 u, v, and the attributes are gathered by prim, as the reference does.
 Analytic spheres are tested densely after the triangle tier and merged,
-closest wins. The dense watertight triangle tester (ROADMAP Queue 1 item
-8) is not ported.
+closest wins. A scene with no triangles (the furnace) needs no tier: its
+triangle queries miss and the spheres answer. The dense watertight
+triangle tester (ROADMAP Queue 1 item 8) is not ported.
 """
 
 from __future__ import annotations
@@ -156,8 +157,19 @@ def _prim_attrs(geom, prim):
     return ng, geom.tri_mat[tri_idx], geom.tri_light[tri_idx]
 
 
+def _no_triangles(o):
+    """The closest-hit record of a scene without triangles: all misses."""
+    n = o.shape[0]
+    miss = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    zero = torch.zeros((n,), dtype=o.dtype, device=o.device)
+    return (torch.full_like(zero, float("inf")), miss, zero, zero,
+            torch.zeros_like(o), torch.zeros_like(miss), miss)
+
+
 def _tri_closest(scene, o, d, tmax):
     """(t, prim, u, v, ng, mat, light) of the closest triangle hit."""
+    if scene.geom.num_triangles == 0:
+        return _no_triangles(o)
     if scene.sweep is not None:
         perm, inv = ray_sort_perm(o, d, tmax)
         res = sweep_intersect(scene.sweep, o[perm], d[perm], tmax[perm],
@@ -238,6 +250,8 @@ def closest(scene, o, d, tmax=None) -> Interaction:
 
 
 def _tri_any(scene, o, d, tmax):
+    if scene.geom.num_triangles == 0:
+        return torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
     if scene.sweep is not None:
         perm, inv = ray_sort_perm(o, d, tmax)
         res = sweep_intersect(scene.sweep, o[perm], d[perm], tmax[perm],

@@ -8,12 +8,16 @@ paths of static (non-array) fields to their values ("small.n_tris",
 "lights.sampler", "geom.has_alpha", "bvh.depth", ...).
 A field the port does not carry raises NotImplementedError when it holds
 data (a non-empty, non-zero array, or a static value other than the one
-the port implies), naming the ROADMAP Queue 1 item that will port it.
+the port implies), naming the ROADMAP Queue 1 item that will port it. An
+image-based infinite light ("lights.env.*") is carried as the port's
+EnvironmentMap or, when it has portal corners, PortalLight, with its
+distribution's tables.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import typing
 
 import numpy as np
 import torch
@@ -23,6 +27,8 @@ from .accel.kdtree import KdTree
 from .cameras.perspective import PerspectiveCamera
 from .core.transform import Transform
 from .lights.buffers import LightBuffers
+from .lights.envmap import EnvironmentMap
+from .lights.portal import PortalLight
 from .materials.buffers import MaterialBuffers
 from .ops.cluster import ClusterAccel
 from .ops.smallscene import SmallTriAccel
@@ -39,7 +45,10 @@ _IMPLIED_STATIC = {
     "geom.has_alpha": False,
     "camera.motion": None,
 }
-_LIGHT_ITEM = 11  # ROADMAP Queue 1 item of the unported lights
+# ROADMAP Queue 1 item of what the light tables do not carry yet: the
+# light BVH ("lights.bvh") and the exhaustive sampler's records
+# ("lights.exh_recs").
+_LIGHT_ITEM = 11
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -85,6 +94,37 @@ def _section(cls, prefix: str, arrays: dict, static: dict, item_of,
     return cls(**kwargs, **extra)
 
 
+def _nested(cls, prefix: str, arrays: dict):
+    """Build a nest of port dataclasses from the `prefix`-ed entries, field
+    by field; floats (a distribution's range) stay Python floats."""
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        path = prefix + f.name
+        kind = hints[f.name]
+        if dataclasses.is_dataclass(kind):
+            kwargs[f.name] = _nested(kind, path + ".", arrays)
+        elif kind is float:
+            kwargs[f.name] = float(arrays.pop(path))
+        else:
+            kwargs[f.name] = _tensor(arrays.pop(path))
+    return cls(**kwargs)
+
+
+def _env_from_arrays(arrays: dict):
+    """The image or portal light of the "lights.env." entries (removed
+    from `arrays`), or None."""
+    env = {p: arrays.pop(p) for p in list(arrays)
+           if p.startswith("lights.env.")}
+    if not env:
+        return None
+    cls = PortalLight if "lights.env.corners" in env else EnvironmentMap
+    out = _nested(cls, "lights.env.", env)
+    if env:
+        raise ValueError(f"unknown environment light fields {sorted(env)}")
+    return out
+
+
 def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
     """Build the port's Scene from a reference scene's flattened fields."""
     for path in list(arrays) + list(static):
@@ -99,8 +139,12 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
                     lambda n: UNPORTED_SHAPES.get(n, 8))
     materials = _section(MaterialBuffers, "materials", arrays, static,
                          lambda n: 10)
+    arrays = dict(arrays)
+    env = _env_from_arrays(arrays)
+    static = {p: v for p, v in static.items()
+              if not (p == "lights.env" and v is None)}
     lights = _section(LightBuffers, "lights", arrays, static,
-                      lambda n: _LIGHT_ITEM)
+                      lambda n: _LIGHT_ITEM, env=env)
     accels = {}
     for member, cls in (("small", SmallTriAccel), ("clusters", ClusterAccel),
                         ("sweep", SweepAccel), ("bvh", BVH),

@@ -1,11 +1,13 @@
 """Vector geometry on batched (..., 3) tensors (port of core/vecmath.py,
-the pieces the path integrator uses).
+the pieces the path integrator and the lights use).
 
 Frame conventions match the reference exactly (branchless Duff et al.
 basis with the same signs), so sampled directions agree lane for lane.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -69,3 +71,52 @@ def to_local(v, t1, t2, n):
 def from_local(v, t1, t2, n):
     """Shading-local -> world coordinates."""
     return v[..., 0:1] * t1 + v[..., 1:2] * t2 + v[..., 2:3] * n
+
+
+def _safe_sqrt(x):
+    return torch.sqrt(torch.clamp(x, min=0.0))
+
+
+def equal_area_square_to_sphere(p):
+    """Low-distortion [0,1]^2 -> unit sphere map (Clarberg 2008;
+    vecmath.h EqualAreaSquareToSphere), the octahedral layout of
+    environment maps and goniometric images."""
+    u = 2.0 * p[..., 0] - 1.0
+    v = 2.0 * p[..., 1] - 1.0
+    up = torch.abs(u)
+    vp = torch.abs(v)
+    sd = 1.0 - (up + vp)
+    d = torch.abs(sd)
+    r = 1.0 - d
+    phi = torch.where(
+        r == 0.0, 1.0, (vp - up) / torch.where(r == 0.0, 1.0, r) + 1.0
+    ) * (math.pi / 4.0)
+    z = torch.sign(sd) * (1.0 - r * r)
+    cos_phi = torch.sign(u) * torch.cos(phi)
+    sin_phi = torch.sign(v) * torch.sin(phi)
+    s = r * _safe_sqrt(2.0 - r * r)
+    return torch.stack([cos_phi * s, sin_phi * s, z], dim=-1)
+
+
+def equal_area_sphere_to_square(d):
+    """Inverse of equal_area_square_to_sphere."""
+    x = torch.abs(d[..., 0])
+    y = torch.abs(d[..., 1])
+    z = torch.abs(d[..., 2])
+    r = _safe_sqrt(1.0 - z)
+    a = torch.maximum(x, y)
+    b = torch.minimum(x, y)
+    b = torch.where(a == 0.0, 0.0, b / torch.where(a == 0.0, 1.0, a))
+    phi = torch.atan(b) * (2.0 / math.pi)  # atan on [0, 1] -> [0, 1/2]
+    phi = torch.where(x < y, 1.0 - phi, phi)
+    v_ = phi * r
+    u_ = r - v_
+    # The southern hemisphere folds over the square's corners.
+    south = d[..., 2] < 0.0
+    u2 = torch.where(south, 1.0 - v_, u_)
+    v2 = torch.where(south, 1.0 - u_, v_)
+    # +0 counts as positive (sign(0) == 0 would collapse the -z pole onto
+    # the +z centre).
+    u2 = torch.where(d[..., 0] >= 0.0, u2, -u2)
+    v2 = torch.where(d[..., 1] >= 0.0, v2, -v2)
+    return torch.stack([0.5 * (u2 + 1.0), 0.5 * (v2 + 1.0)], dim=-1)

@@ -14,17 +14,23 @@ reference. The directive subset:
               ColorSpace are consumed
   scene:      Material / MakeNamedMaterial / NamedMaterial (diffuse and the
               names the reference maps to it, conductor), Shape trianglemesh,
-              plymesh and sphere (analytic, not emissive, outside objects),
-              AreaLightSource "diffuse", LightSource "infinite" with a
-              uniform "rgb L"
+              plymesh and sphere (analytic outside objects; an emissive one
+              is a sphere light, or an icosphere when reversed or inside an
+              object, as in the reference), AreaLightSource "diffuse"
+  lights:     LightSource point, spot, distant, projection, goniometric and
+              infinite (uniform "rgb L", an image "string filename", a
+              "point3 portal" over either); light images are PFM
 
 A feature the port lacks (another camera, sampler or integrator, textures,
-other materials, shapes, lights, alpha, media, animated instances) raises
-NotImplementedError naming its ROADMAP Queue 1 item, at parse or build
-time; nothing renders without it. Where the reference approximates and
-warns ("material X approximated as diffuse", unknown directives, shapes
-and lights), the port does the same, since that is the reference's
-behaviour.
+other materials, shapes, alpha, media, animated instances, image formats
+other than PFM) raises NotImplementedError naming its ROADMAP Queue 1
+item, at parse or build time; nothing renders without it. Where the
+reference approximates and warns ("material X approximated as diffuse",
+unknown directives and shapes), the port does the same, since that is
+the reference's behaviour. Two departures raise where the reference warns
+and renders without the light: an unknown light type (pbrt-v4 stops on
+one too), and a light image that cannot be read (the reference renders
+the light with its constant I or L).
 
 Instancing is true instancing: an instanced prototype's triangles are
 stored once in object space and the sweep accelerator (ops/sweep.py, K3)
@@ -44,9 +50,13 @@ from ..core import transform as tfm
 from ..lights.buffers import LightBuffers
 from ..materials.buffers import MAT_CONDUCTOR, MAT_DIFFUSE, MaterialBuffers
 from ..models.path import PathIntegrator
+from ..lights.envmap import EnvironmentMap
+from ..lights.portal import PortalLight
 from ..ops.sweep import build_sweep
 from ..scene import Scene
+from ..scenes.meshes import icosphere
 from ..shapes.geometry import GeometryBuffers
+from .image import read_image_rgb
 from .ply import read_ply
 
 
@@ -121,7 +131,6 @@ _UNPORTED_MATERIALS = {
 }
 # Shapes the reference builds that the port does not (item 8).
 _UNPORTED_SHAPES = {"disk", "cylinder", "bilinearmesh", "loopsubdiv", "curve"}
-_UNPORTED_LIGHTS = {"point", "spot", "distant", "projection", "goniometric"}
 
 
 def _parse_params(ts: _TokenStream):
@@ -204,8 +213,16 @@ class PbrtParser:
         self._pending_uv = None  # (n, 3, 2) for the shape being emitted
         self.spheres = []  # [cx, cy, cz, r] in world space
         self.sph_mat = []
+        self.sph_light = []  # per sphere: index into sphere_lights, or -1
+        self.sphere_lights = []  # emissive analytic spheres: c, r, rgb, ...
         self.area_lights = []
+        self.points = []
+        self.spots = []
+        self.distants = []
+        self.projections = []
+        self.gonios = []
         self.infinite = None
+        self.envmap = None  # EnvironmentMap or PortalLight
         # camera / settings
         self.camera_params = {}
         self.world_to_camera = np.eye(4)
@@ -466,21 +483,94 @@ class PbrtParser:
         }
 
     def _d_LightSource(self, ts):
+        """The reference's light directives, through the CTM as it applies
+        it (lights.cpp Light::Create)."""
         ltype = ts.next()[1:-1]
         p = _parse_params(ts)
         scale = float(_get(p, "scale", 1.0) or 1.0)
-        if ltype in _UNPORTED_LIGHTS:
-            raise _unported(f"LightSource {ltype!r}", 11)
-        if ltype == "infinite":
-            if _get(p, "filename") or _get_vec(p, "portal") is not None:
-                raise _unported("image-based or portal infinite light", 11)
+
+        def rgb(name):
+            v = _get_vec(p, name)
+            return tuple(v) if v is not None else (1, 1, 1)
+
+        if ltype == "point":
+            frm = _get_vec(p, "from", np.zeros(3))
+            self.points.append({"p": tuple(self._pts(frm[None])[0]),
+                                "rgb": rgb("I"), "scale": scale})
+        elif ltype == "spot":
+            frm = _get_vec(p, "from", np.zeros(3))
+            to = _get_vec(p, "to", np.asarray([0.0, 0.0, 1.0]))
+            self.spots.append(
+                {"p": tuple(self._pts(frm[None])[0]),
+                 "to": tuple(self._pts(to[None])[0]),
+                 "rgb": rgb("I"), "scale": scale,
+                 "coneangle": float(_get(p, "coneangle", 30.0)),
+                 "conedelta": float(_get(p, "conedeltaangle", 5.0))})
+        elif ltype == "distant":
+            frm = _get_vec(p, "from", np.zeros(3))
+            to = _get_vec(p, "to", np.asarray([0.0, 0.0, 1.0]))
+            dw = self._pts(to[None])[0] - self._pts(frm[None])[0]
+            self.distants.append({"dir": tuple(dw), "rgb": rgb("L"),
+                                  "scale": scale})
+        elif ltype == "projection":
+            # An image projected through a perspective window; the CTM
+            # places and orients the light (lights.h:482).
+            self.projections.append(
+                {"p": tuple(self._pts(np.zeros((1, 3)))[0]),
+                 "to": tuple(self._pts(np.asarray([[0.0, 0.0, 1.0]]))[0]),
+                 "fov": float(_get(p, "fov", 90.0)), "rgb": rgb("I"),
+                 "rgb_image": self._light_image(p), "scale": scale})
+        elif ltype == "goniometric":
+            # An equal-area octahedral intensity image over direction
+            # (lights.h:584).
+            pos = self._pts(_get_vec(p, "from", np.zeros(3))[None])[0]
+            self.gonios.append(
+                {"p": tuple(pos), "to": tuple(pos + np.asarray([0.0, 0.0, 1.0])),
+                 "rgb": rgb("I"), "rgb_image": self._light_image(p),
+                 "scale": scale})
+        elif ltype == "infinite":
             L = _get_vec(p, "L")
             self.infinite = {
                 "rgb": tuple(L) if L is not None else (1.0, 1.0, 1.0),
                 "scale": scale,
             }
+            img = self._light_image(p)
+            portal = _get_vec(p, "portal")
+            if portal is not None:
+                # PortalImageInfiniteLight (lights.h:738): the image, or the
+                # constant L, seen through a rectangular portal.
+                corners = self._pts(np.asarray(portal, np.float64).reshape(4, 3))
+                if img is None:
+                    img = np.ones((8, 16, 3), np.float32) * np.asarray(
+                        self.infinite["rgb"], np.float32)
+                self.envmap = PortalLight.build(np.asarray(img) * scale,
+                                                corners)
+                self.infinite = None
+            elif img is not None:
+                img = np.asarray(img) * scale
+                # A square image is an equal-area octahedral map (pbrt-v4
+                # requires it, lights.cpp ImageInfiniteLight); a 2:1 one is
+                # taken as lat-long and resampled (imgtool makeequiarea).
+                self.envmap = (EnvironmentMap.build(img)
+                               if img.shape[0] == img.shape[1]
+                               else EnvironmentMap.from_latlong(img))
+                self.infinite = None
         else:
-            self.warnings.append(f"light {ltype} unsupported; skipped")
+            # The reference warns and renders without it; pbrt-v4 itself
+            # stops on an unknown light type, and so does the port.
+            raise ValueError(f"LightSource {ltype!r}: unknown light type")
+
+    def _light_image(self, p):
+        """The light's "string filename" image, or None without one. An
+        image that cannot be read raises (the reference warns and renders
+        the light with its constant I or L)."""
+        fname = _get(p, "filename")
+        if not fname:
+            return None
+        try:
+            return read_image_rgb(os.path.join(self.base_dir, fname))
+        except (OSError, ValueError) as e:
+            raise ValueError(f"light image {fname!r} cannot be read: {e}") from e
 
     # -- shapes --------------------------------------------------------------
 
@@ -556,18 +646,26 @@ class PbrtParser:
     def _sphere(self, p):
         """An analytic sphere: the centre through the CTM and the radius
         times the norm of the CTM's first column (uniform scale assumed, as
-        pbrt requires), as the reference builds it."""
-        if self.cur_area_light is not None:
-            raise _unported('an emissive Shape "sphere" (sphere area '
-                            "lights, and the icosphere of reversed or "
-                            "instanced emitters)", 11)
-        if self.cur_object is not None:
-            # The reference stores such a sphere in world space under the
-            # ObjectBegin CTM, outside the object (ROADMAP Queue 3).
-            raise _unported('a Shape "sphere" inside ObjectBegin', 7)
+        pbrt requires), as the reference builds it. An emissive sphere is a
+        sphere light (exact geometry, cone-sampled NEE), or, reversed or
+        inside an object, an emissive icosphere in world space, as in the
+        reference."""
         r = float(_get(p, "radius", 1.0))
         center = self._pts(np.zeros((1, 3)))[0]
         sc = np.linalg.norm(self.ctm[:3, 0])
+        if self.cur_area_light is not None:
+            if self.reverse or self.cur_object is not None:
+                self._emit_triangles(icosphere(2, r * sc, center))
+                return
+            self.sph_light.append(len(self.sphere_lights))
+            self.sphere_lights.append(
+                {"c": center, "r": r * sc, **self.cur_area_light})
+        elif self.cur_object is not None:
+            # The reference stores such a sphere in world space under the
+            # ObjectBegin CTM, outside the object (ROADMAP Queue 3).
+            raise _unported('a Shape "sphere" inside ObjectBegin', 7)
+        else:
+            self.sph_light.append(-1)
         self.spheres.append([*center, r * sc])
         self.sph_mat.append(self.cur_material)
 
@@ -674,13 +772,22 @@ class PbrtParser:
             if self.spheres else None,
             sph_mat=np.asarray(self.sph_mat, np.int32)
             if self.spheres else None,
+            # Sphere-light ids follow the area triangles in the light list.
+            sph_light=np.asarray(
+                [len(self.area_lights) + q if q >= 0 else -1
+                 for q in self.sph_light], np.int32)
+            if self.spheres else None,
         )
-        scene = Scene(
-            geom=geom,
-            materials=MaterialBuffers.build(self.materials),
-            lights=LightBuffers.build(area_tris=self.area_lights,
-                                      infinite=self.infinite),
+        lights = LightBuffers.build(
+            area_tris=self.area_lights, sphere_lights=self.sphere_lights,
+            points=self.points, spots=self.spots,
+            projections=self.projections, gonios=self.gonios,
+            distants=self.distants, infinite=self.infinite,
+            envmap=self.envmap,
         )
+        scene = Scene(geom=geom,
+                      materials=MaterialBuffers.build(self.materials),
+                      lights=lights)
         if inst_tables is not None:
             proto_ranges, pid, o2w, o2w_end = inst_tables
             if (np.abs(o2w - o2w_end).max(axis=(1, 2)) > 1e-7).any():

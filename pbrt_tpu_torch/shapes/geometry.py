@@ -1,9 +1,9 @@
 """Flat triangle geometry buffers and surface-interaction records.
 
-Port of pbrt_tpu/shapes/geometry.py: triangles and analytic spheres.
-Emissive spheres (sphere area lights), curves, disks, cylinders, bilinear
-patches and alpha masks are not ported yet: `GeometryBuffers.build` raises
-NotImplementedError when handed any.
+Port of pbrt_tpu/shapes/geometry.py: triangles and analytic spheres,
+emissive ones (sphere area lights) included. Curves, disks, cylinders,
+bilinear patches and alpha masks are not ported yet:
+`GeometryBuffers.build` raises NotImplementedError when handed any.
 """
 
 from __future__ import annotations
@@ -34,8 +34,9 @@ class GeometryBuffers:
     tri_uv:        (T, 3, 2) float32 per-vertex texture coordinates
     sph:           (S, 4)    float32 sphere center + radius (world space)
     sph_mat:       (S,)      int32   material index
-    sph_light:     (S,)      int32   sphere-light index, all -1 (emissive
-                                     spheres are not ported)
+    sph_light:     (S,)      int32   light id of an emissive sphere (after
+                                     the area triangles in the light list),
+                                     -1 if not emissive
     """
 
     tri_verts: torch.Tensor
@@ -68,11 +69,6 @@ class GeometryBuffers:
             raise NotImplementedError(
                 "alpha-masked triangles are not ported yet (ROADMAP Queue 1 "
                 "item 7)"
-            )
-        if sph_light is not None and np.any(np.asarray(sph_light) >= 0):
-            raise NotImplementedError(
-                "emissive spheres (sphere area lights) are not ported yet "
-                "(ROADMAP Queue 1 item 11)"
             )
         t = 0 if tri_verts is None else len(tri_verts)
         s = 0 if spheres is None else len(spheres)

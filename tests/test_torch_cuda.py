@@ -20,7 +20,7 @@ from pbrt_tpu_torch.accel import api
 from pbrt_tpu_torch.accel.api import ray_sort_perm
 from pbrt_tpu_torch.accel.bvh import build_bvh
 from pbrt_tpu_torch.models.path import PathIntegrator
-from pbrt_tpu_torch.io.parser import load_pbrt_string
+from pbrt_tpu_torch.io.parser import load_pbrt, load_pbrt_string
 from pbrt_tpu_torch.ops import cluster, nvcc_build, sweep, traverse
 from pbrt_tpu_torch.ops.cluster import build_clusters
 from pbrt_tpu_torch.ops.sweep import build_sweep
@@ -576,3 +576,90 @@ def test_backward_pass_launches_no_k1(card):
                samples_per_pass=2, n_spectrum=8, device=card)
     torch.cuda.synchronize()
     assert STATS.launches == 11
+
+
+# Every light type of the port in one small scene: point, spot, distant,
+# projection, goniometric, an emissive sphere and the uniform infinite
+# light over a floor and a conductor sphere.
+_LIGHTS_TEXT = """
+LookAt 0 2 -5  0 0.5 0  0 1 0
+Camera "perspective" "float fov" 40
+Film "rgb" "integer xresolution" [16] "integer yresolution" [16]
+Integrator "path" "integer maxdepth" 4
+WorldBegin
+LightSource "point" "point3 from" [2 4 -3] "rgb I" [10 10 10]
+LightSource "spot" "point3 from" [0 4 -1] "point3 to" [0 0 0]
+  "rgb I" [30 28 25] "float coneangle" 35 "float conedeltaangle" 10
+LightSource "distant" "point3 from" [-1 2 -1] "point3 to" [0 0 0]
+  "rgb L" [0.8 0.8 0.7]
+LightSource "projection" "float fov" 50 "rgb I" [3 3 3]
+LightSource "goniometric" "point3 from" [1 3 1] "rgb I" [2 2 2]
+LightSource "infinite" "rgb L" [0.1 0.1 0.12]
+Material "diffuse" "rgb reflectance" [0.6 0.6 0.6]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point3 P" [-6 0 -6  6 0 -6  6 0 6  -6 0 6]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [4 3 2]
+  Translate -1 1.5 0.5
+  Shape "sphere" "float radius" 0.3
+AttributeEnd
+AttributeBegin
+  Material "conductor" "float roughness" 0.15
+  Translate 0 0.5 0
+  Shape "sphere" "float radius" 0.5
+AttributeEnd
+"""
+
+
+@pytest.mark.parametrize("source", ["spot.pbrt", "every_light"])
+def test_light_file_render_on_card_matches_cpu(card, source):
+    """tests/goldens/spot.pbrt, and a scene holding every light type, at
+    16x16 on the card (K1) against the same render on the CPU."""
+    if source == "every_light":
+        scene, camera, settings = load_pbrt_string(_LIGHTS_TEXT, device="cpu")
+    else:
+        scene, camera, settings = load_pbrt("tests/goldens/" + source,
+                                            device="cpu")
+        camera = camera.replace(resolution=(16, 16))
+    kw = dict(spp=4, seed=1, samples_per_pass=2, n_spectrum=8)
+    STATS.reset()
+    got = render(scene, camera, settings["integrator"], device=card, **kw)
+    torch.cuda.synchronize()
+    assert STATS.launches == 9 * 2
+    want = render(scene, camera, settings["integrator"], device="cpu", **kw)
+    got = got.cpu().numpy()
+    want = want.numpy()
+    assert np.all(np.isfinite(got)) and want.mean() > 0.01
+    ok = np.abs(got - want) <= 1e-5 + 1e-3 * np.abs(want)
+    assert np.mean(ok) >= 0.99, int(np.sum(~ok))
+
+
+def test_any_hit_accepts_infinite_tmax(card):
+    """A shadow ray toward a distant or infinite light may carry an
+    infinite tmax into any-hit: K1 (Cornell), K2, K3 and K4 (the small
+    killeroo-class scene) answer it as their twins do on the CPU."""
+    cornell, cam_c = cornell_box(resolution=(32, 32))
+    killeroo, cam_k = small_killeroo_class_scene("pbrt_tpu_torch", (32, 32))
+    cases = [
+        (cornell.with_accel(), cam_c, STATS),
+        (killeroo, cam_k, cluster.STATS),
+        (killeroo.with_accel(kind="sweep"), cam_k, sweep.STATS),
+        (killeroo.replace(clusters=None, bvh=build_bvh(
+            killeroo.geom.tri_verts.numpy())), cam_k, traverse.STATS),
+    ]
+    for scene, camera, counter in cases:
+        pixel = torch.arange(32 * 32)
+        o, d, _, _ = camera_rays_full(camera, pixel, 0, 0, n_spectrum=8)
+        # From the first hits, straight up and along the camera ray.
+        hit = api.closest(scene, o, d)
+        p = torch.where(hit.valid[:, None], hit.p + 1e-3 * hit.n, o)
+        dirs = torch.where(torch.arange(32 * 32)[:, None] % 2 == 0,
+                           torch.tensor([0.0, 1.0, 0.0]), d)
+        tmax = torch.full((32 * 32,), float("inf"))
+        want = api.any_hit(scene, p, dirs, tmax)
+        counter.reset()
+        got = api.any_hit(scene.to(card), p.to(card), dirs.to(card),
+                          tmax.to(card))
+        torch.cuda.synchronize()
+        assert counter.launches == 1
+        assert torch.equal(got.cpu(), want) and 0 < int(want.sum()) < len(want)

@@ -11,6 +11,7 @@ import torch
 
 from pbrt_tpu_torch.accel.bvh import build_bvh
 from pbrt_tpu_torch.convert import scene_from_arrays
+from pbrt_tpu_torch.io.image import read_image_rgb
 from pbrt_tpu_torch.lights.buffers import LightBuffers
 from pbrt_tpu_torch.materials.buffers import (
     MAT_COATEDCONDUCTOR,
@@ -71,10 +72,11 @@ def _quad_geom(mat=0):
     lambda: GeometryBuffers.build(**_quad_geom(),
                                   disk=np.array([[0, 0, 0, 0, 1, 0, 1, 0]])),
     lambda: GeometryBuffers.build(**_quad_geom(), tri_alpha=np.array([0.5, 1.0])),
-    lambda: LightBuffers.build(points=[{"p": (0, 1, 0), "rgb": (1, 1, 1)}]),
-    # The image-based infinite light (an environment map) is not ported;
-    # the uniform one is.
-    lambda: LightBuffers.build(infinite={"rgb": (1, 1, 1)}, envmap=object()),
+    # Every light type is ported; the exhaustive light sampler is not.
+    lambda: LightBuffers.build(points=[{"p": (0, 1, 0), "rgb": (1, 1, 1)}],
+                               sampler="exhaustive"),
+    # The image-based infinite light reads PFM only.
+    lambda: read_image_rgb("sky.exr"),
     lambda: LightBuffers.build(sampler="bvh"),
     lambda: MaterialBuffers.build([{"kind": MAT_DIFFUSE, "albedo_texture": 2}]),
     # Of the conductor families only the plain conductor is ported.
