@@ -10,14 +10,17 @@ checks each against its plain PyTorch twin, renders the Cornell box (on
 the small tier and on the kd-tree), the killeroo-class mesh scene (on the
 cluster tier and on the BVH tier), the instanced field (a .pbrt file
 through the port's parser) and the golden scene files spot.pbrt,
-envmap.pbrt and plymesh.pbrt on the card against the committed JAX
-goldens, renders the golden scene files conductor.pbrt, plymesh.pbrt,
-spot.pbrt, envmap.pbrt and box.pbrt against the pbrt-v4 C++ goldens and
-the furnace scene against its closed form, holds the backward pass's
-image-loss gradients against the JAX gradient golden, across tiers and,
-through a spot light, against the CPU, times the forward render of each
-timed configuration and the Cornell forward+backward pass, and takes
-three training steps. Each phase
+envmap.pbrt, plymesh.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt
+and imagetex.pbrt on the card against the committed JAX goldens, renders
+the golden scene files conductor.pbrt, plymesh.pbrt, spot.pbrt,
+envmap.pbrt, box.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt and
+imagetex.pbrt against the pbrt-v4 C++ goldens and the furnace scene
+against its closed form, holds the backward pass's image-loss gradients
+against the JAX gradient golden, across tiers and, through delta lights
+(and a glass sphere), against the CPU, times the forward render of each
+timed configuration (the mesh gallery's glass torus and texture.pbrt
+among them) and the Cornell forward+backward pass, and takes three
+training steps. Each phase
 prints one JSON line; any failure raises, so the script exits non-zero and
 never prints the final line. Without a CUDA device it exits non-zero at
 once. It never imports JAX.
@@ -85,6 +88,13 @@ Phases:
       in passes of 32, against the pbrt-v4 C++ goldens with that file's
       gate and bounds (as d5); each prints its kernel's launches and the
       render's seconds
+  d13-d16
+      the golden scene files dielectric.pbrt (a rough glass and a thin
+      dielectric sphere), spheres.pbrt (a smooth glass sphere),
+      texture.pbrt (procedural checkerboard and scale textures) and
+      imagetex.pbrt (a PFM image texture), K1 for each, at their CASES spp
+      (384, 384, 256, 256) in passes of 32 against the C++ goldens, as
+      d7-d10
   d11 the furnace (scenes/analytic.py: a point light at the centre of a
       diffuse unit sphere, no triangles), 64x64, 4 spp, depth 16 without
       Russian roulette, 32 lanes: the mean spectral radiance within 1 +-
@@ -93,6 +103,10 @@ Phases:
       the file's integrator, against the JAX goldens of
       scripts/make_torch_port_golden_lights.py: d's gate, 9 K1 (K2 for
       plymesh) launches per pass
+  d17 dielectric.pbrt, spheres.pbrt, texture.pbrt and imagetex.pbrt at
+      32x32, 4 spp, 8 lanes, the file's integrator, against the JAX goldens
+      of scripts/make_torch_port_golden_materials.py: d's gate, 2 x depth +
+      1 K1 launches per pass
   g   the gradient golden: Cornell 32x32, 4 spp in passes of 2, depth 5
       without Russian roulette, 8 lanes, bench.py's loss (the MSE of
       spectrum_to_rgb against 0.25) and its gradients with respect to
@@ -111,6 +125,9 @@ Phases:
       depth 4 without Russian roulette: the albedo gradient on the card
       within 1e-5 of its largest entry of the port's CPU pass, 9 K1
       launches per forward+backward pass
+  g4  g3 on spheres.pbrt (a point and a distant light; diffuse rows seen
+      through the smooth glass sphere), depth 5: within 1e-6 of the
+      largest entry, 11 K1 launches per forward+backward pass
   e   timed Cornell forward at its benchmark configuration (256x256, 128
       spp in passes of 64, depth 5, no Russian roulette) at 8 and 32 lanes
   e2  timed killeroo-class forward at its benchmark configuration (512x512,
@@ -136,6 +153,16 @@ Phases:
       launches per pass, peak memory, and the layers' device ms of one
       pass (CUDA events around each layer's calls, as
       scripts/profile_torch_pass.py takes them): lights against BxDF
+  e6  the mesh gallery timed (scenes/meshes.py mesh_gallery_scene at
+      512x512, subdiv 4: 15,620 triangles, K2; 8 spp in passes of 4, depth
+      5 without Russian roulette, 8 lanes, seed 0): Mrays/s, K2 launches
+      per pass, peak memory and e5's layers, the BxDF's with the
+      dielectric branch
+  e7  texture.pbrt timed (512x512, 8 spp in passes of 4, the file's depth
+      4 without Russian roulette, 8 lanes, seed 0): Mrays/s, K1 launches
+      per pass, peak memory, the texture layer's device ms
+      (evaluate_albedo_coeffs with its per-ray fit) and kernel launches in
+      one pass, and e5's layers
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
   f   the kernels line, the nvidia-smi line and the final result line
@@ -172,11 +199,18 @@ CXX_GOLDENS = (
     ("d8_golden_spot", "spot", 256, 32, (0.035, 5e-4, 0.15), "k1"),
     ("d9_golden_envmap", "envmap", 256, 32, (0.05, 2e-3, 0.35), "k1"),
     ("d10_golden_box", "box", 512, 32, (0.04, 0.035, 0.6), "k1"),
+    ("d13_golden_dielectric", "dielectric", 384, 32, (0.05, 2e-3, 0.25), "k1"),
+    ("d14_golden_spheres", "spheres", 384, 32, (0.035, 1e-4, 0.15), "k1"),
+    ("d15_golden_texture", "texture", 256, 32, (0.04, 1e-3, 0.15), "k1"),
+    ("d16_golden_imagetex", "imagetex", 256, 32, (0.04, 1e-3, 0.15), "k1"),
 )
-# d12: the golden files against the JAX goldens of
-# scripts/make_torch_port_golden_lights.py (32x32, 4 spp, 8 lanes, seed 0),
-# with the triangle kernel each launches.
+# d12 and d17: golden files against the JAX goldens of
+# scripts/make_torch_port_golden_lights.py and
+# scripts/make_torch_port_golden_materials.py (32x32, 4 spp, 8 lanes, seed
+# 0), with the triangle kernel each launches.
 JAX_LIGHT_GOLDENS = (("spot", "k1"), ("envmap", "k1"), ("plymesh", "k2"))
+JAX_MATERIAL_GOLDENS = (("dielectric", "k1"), ("spheres", "k1"),
+                        ("texture", "k1"), ("imagetex", "k1"))
 GOLDEN_INSTANCED = os.path.join(ROOT, "tests", "data", "torch_port",
                                 "instanced64_spp4.npy")
 GOLDEN_GRAD = os.path.join(ROOT, "tests", "data", "torch_port",
@@ -1105,10 +1139,10 @@ def phase_furnace(dev):
         raise AssertionError(f"furnace mean {mean}, {launches} launches")
 
 
-def phase_golden_lights_jax(dev):
-    """d12: spot.pbrt, envmap.pbrt and plymesh.pbrt on the card against
-    the JAX goldens, with d's gate; each pass makes 2 x depth + 1 queries,
-    all on the file's triangle kernel."""
+def phase_golden_files_jax(dev, phase, files):
+    """d12 and d17: golden files (name, kernel) on the card against the
+    JAX goldens, with d's gate; each pass makes 2 x depth + 1 queries, all
+    on the file's triangle kernel."""
     import numpy as np
     import torch
 
@@ -1117,7 +1151,7 @@ def phase_golden_lights_jax(dev):
     from pbrt_tpu_torch.render import render
 
     counters = {"k1": smallscene.STATS, "k2": cluster.STATS}
-    for name, kernel in JAX_LIGHT_GOLDENS:
+    for name, kernel in files:
         golden = np.load(os.path.join(ROOT, "tests", "data", "torch_port",
                                       f"{name}32_spp4.npy"))
         scene, camera, settings = load_pbrt(
@@ -1131,7 +1165,7 @@ def phase_golden_lights_jax(dev):
         launches = {k: c.launches for k, c in counters.items()}
         share, fields = _golden_gate(img.cpu().numpy(), golden)
         want = 2 * settings["integrator"].max_depth + 1
-        emit("d12_golden_lights_jax", file=name + ".pbrt", **fields,
+        emit(phase, file=name + ".pbrt", **fields,
              **{f"{k}_launches": n for k, n in launches.items()},
              expected_launches={kernel: want})
         if share < 0.99:
@@ -1409,6 +1443,130 @@ def phase_timed_plymesh(dev, smi: str):
          nvidia_smi=smi)
 
 
+def phase_timed_gallery(dev, smi: str):
+    """e6: the mesh gallery (a copper icosphere, a smooth glass torus, a
+    diffuse icosphere, a floor, a quad area light and a uniform infinite
+    light; 15,620 triangles at subdiv 4: K2) timed on the card at 512x512,
+    8 spp in passes of 4, depth 5 without Russian roulette, 8 lanes, seed
+    0; then one pass with the layers' CUDA events (e5's), the BxDF layer
+    carrying the dielectric branch."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.ops import cluster, smallscene
+    from pbrt_tpu_torch.scenes.meshes import mesh_gallery_scene
+
+    res, spp, k, lanes, depth = PASS_RES, 8, PASS_SPP, 8, 5
+    scene, camera = mesh_gallery_scene(resolution=(res, res), subdiv=4)
+    scene, camera = scene.to(dev), camera.to(dev)
+    if scene.clusters is None or 2 not in scene.shaded_kinds:
+        raise AssertionError("mesh gallery: no cluster tier or no glass")
+    render_pass = make_pass(scene, camera, res, k, lanes, depth=depth)
+    render_pass(0)  # warm-up
+    passes = spp // k
+    out = timed_forward(render_pass, passes,
+                        {"k1": smallscene.STATS, "k2": cluster.STATS})
+    if out["k2_launches"] != passes * (2 * depth + 1) or out["k1_launches"]:
+        raise AssertionError(f"timed mesh gallery: {out['k2_launches']} K2 "
+                             f"and {out['k1_launches']} K1 launches")
+    view = ptp.layer_view(lanes, render_pass)
+    layers = {key.replace("k1_", "intersect_"): ms
+              for key, ms in view["layers_ms"].items()}
+    emit("e6_timed_gallery", lanes=lanes, resolution=res, spp=spp,
+         samples_per_pass=k, max_depth=depth, **out,
+         triangles=scene.geom.num_triangles,
+         k2_launches_per_pass=out["k2_launches"] / passes,
+         layer_pass_wall_ms=view["wall_ms"], layers_ms=layers,
+         bxdf_ms=layers["bxdf"], lights_ms=layers["lights"], nvidia_smi=smi)
+
+
+def _texture_layer(render_pass):
+    """The texture layer of one pass: CUDA-event milliseconds around each
+    call of textures.buffers.evaluate_albedo_coeffs (the per-ray fit
+    included), and the CUDA kernel launches made inside those calls,
+    counted from a torch.profiler trace of a second pass ("not measured"
+    where the trace holds no launch)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.textures import buffers as tex
+
+    fn = tex.evaluate_albedo_coeffs
+    timer = ptp.LayerTimer()
+    tex.evaluate_albedo_coeffs = timer.wrap("textures", fn)
+    try:
+        render_pass()
+        torch.cuda.synchronize()
+    finally:
+        tex.evaluate_albedo_coeffs = fn
+    ms = timer.totals_ms().get("textures", 0.0)
+    calls = len(timer.events["textures"])
+
+    def marked(*args, **kwargs):
+        with record_function("texture_layer"):
+            return fn(*args, **kwargs)
+
+    tex.evaluate_albedo_coeffs = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            render_pass()
+            torch.cuda.synchronize()
+    finally:
+        tex.evaluate_albedo_coeffs = fn
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == "texture_layer"]
+    launches = sum(
+        1 for e in events
+        if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                      "cuLaunchKernel", "cuLaunchKernelEx")
+        and any(a <= e.time_range.start <= b for a, b in spans))
+    return {"texture_ms": ms, "texture_calls": calls,
+            "texture_launches": launches if launches else "not measured"}
+
+
+def phase_timed_texture(dev, smi: str):
+    """e7: tests/goldens/texture.pbrt (a checkerboard floor, a scaled
+    checkerboard sphere, a point and a distant light; K1) through the
+    port's parser, its resolution raised from 64x64 to 512x512, timed on
+    the card: 8 spp in passes of 4, the file's depth 4 without Russian
+    roulette, 8 lanes, seed 0; then the texture layer of one pass (its
+    milliseconds and kernel launches) and e5's layers."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.io.parser import load_pbrt
+    from pbrt_tpu_torch.ops import cluster, smallscene
+
+    res, spp, k, lanes = PASS_RES, 8, PASS_SPP, 8
+    scene, camera, settings = load_pbrt(
+        os.path.join(GOLDEN_FILES, "texture.pbrt"), device=dev)
+    depth = settings["integrator"].max_depth
+    if scene.textures is None or scene.small is None:
+        raise AssertionError("texture.pbrt: no textures or no K1 table")
+    render_pass = make_pass(scene, camera.replace(resolution=(res, res)), res,
+                            k, lanes, depth=depth)
+    render_pass(0)  # warm-up
+    passes = spp // k
+    out = timed_forward(render_pass, passes,
+                        {"k1": smallscene.STATS, "k2": cluster.STATS})
+    if out["k1_launches"] != passes * (2 * depth + 1) or out["k2_launches"]:
+        raise AssertionError(f"timed texture.pbrt: {out['k1_launches']} K1 "
+                             f"and {out['k2_launches']} K2 launches")
+    layer = _texture_layer(render_pass)
+    view = ptp.layer_view(lanes, render_pass)
+    emit("e7_timed_texture", lanes=lanes, resolution=res, spp=spp,
+         samples_per_pass=k, max_depth=depth, **out,
+         k1_launches_per_pass=out["k1_launches"] / passes, **layer,
+         texture_share_of_pass=layer["texture_ms"] / view["wall_ms"],
+         layer_pass_wall_ms=view["wall_ms"], layers_ms=view["layers_ms"],
+         nvidia_smi=smi)
+
+
 def phase_timed(dev, lanes: int):
     """The Cornell forward render at its benchmark configuration (bench.py
     cornell_fwd: 256x256, 128 spp in passes of 64, depth 5, no Russian
@@ -1585,13 +1743,18 @@ def phase_grad_killeroo(dev, killeroo):
 # g3's tolerance: the card's gradient within 1e-5 of the largest entry of
 # the CPU pass's.
 SPOT_GRAD_RTOL_OF_MAX = 1e-5
+# g4's: 1e-6 of the largest entry.
+SPHERES_GRAD_RTOL_OF_MAX = 1e-6
 
 
-def phase_grad_spot(dev):
-    """g3: the bench loss's gradient through a delta light. spot.pbrt has
-    no area light, so lights.area_scale is empty and its gradient too; the
-    spot light's sample_li branch runs inside the checkpointed segments.
-    The card's albedo gradient against the port's CPU pass."""
+def phase_grad_file(dev, phase, name, tol):
+    """g3, g4: the bench loss's gradient through delta lights. spot.pbrt
+    and spheres.pbrt have no area light, so lights.area_scale is empty and
+    its gradient too; the lights' sample_li branches run inside the
+    checkpointed segments, and in spheres.pbrt the diffuse rows are also
+    seen through the smooth glass sphere's delta lobes. The card's albedo
+    gradient against the port's CPU pass, within `tol` of its largest
+    entry."""
     import numpy as np
     import torch
 
@@ -1599,7 +1762,7 @@ def phase_grad_spot(dev):
     from pbrt_tpu_torch.ops.smallscene import STATS
 
     scene, camera, settings = load_pbrt(
-        os.path.join(GOLDEN_FILES, "spot.pbrt"), device="cpu")
+        os.path.join(GOLDEN_FILES, name + ".pbrt"), device="cpu")
     res, k, lanes = 16, 2, 8
     depth = settings["integrator"].max_depth
     STATS.reset()
@@ -1612,18 +1775,18 @@ def phase_grad_spot(dev):
     scale = float(np.max(np.abs(w)))
     err = float(np.max(np.abs(g - w)))
     area = grads["lights.area_scale"]
-    emit("g3_grad_spot", resolution=res, spp=k, lanes=lanes, max_depth=depth,
-         loss=loss, cpu_loss=cpu_loss, grad_albedo_max=scale,
-         max_abs_err=err, max_rel_err_of_max=err / scale if scale else None,
+    emit(phase, file=name + ".pbrt", resolution=res, spp=k, lanes=lanes,
+         max_depth=depth, loss=loss, cpu_loss=cpu_loss,
+         grad_albedo_max=scale, max_abs_err=err,
+         max_rel_err_of_max=err / scale if scale else None,
          area_scale_grad_shape=list(area.shape), k1_launches=launches,
-         tolerance={"grad_of_max": SPOT_GRAD_RTOL_OF_MAX})
-    if not (np.all(np.isfinite(g)) and scale > 0.0
-            and err <= SPOT_GRAD_RTOL_OF_MAX * scale):
-        raise AssertionError(f"spot.pbrt gradients: error {err} of the "
+         tolerance={"grad_of_max": tol})
+    if not (np.all(np.isfinite(g)) and scale > 0.0 and err <= tol * scale):
+        raise AssertionError(f"{name}.pbrt gradients: error {err} of the "
                              f"largest {scale}")
     if area.shape != (0,) or launches != 2 * depth + 1:
-        raise AssertionError(f"spot.pbrt: area-scale gradient {area.shape}, "
-                             f"{launches} K1 launches")
+        raise AssertionError(f"{name}.pbrt: area-scale gradient "
+                             f"{area.shape}, {launches} K1 launches")
 
 
 def make_grad_pass(scene, camera, res: int, k: int, lanes: int,
@@ -1827,10 +1990,14 @@ def main() -> int:
     for phase, name, spp, per_pass, bounds, kernel in CXX_GOLDENS[1:]:
         phase_golden_cxx(dev, phase, name, spp, per_pass, bounds, kernel)
     phase_furnace(dev)
-    phase_golden_lights_jax(dev)
+    phase_golden_files_jax(dev, "d12_golden_lights_jax", JAX_LIGHT_GOLDENS)
+    phase_golden_files_jax(dev, "d17_golden_materials_jax",
+                           JAX_MATERIAL_GOLDENS)
     phase_grad_golden(dev)
     phase_grad_killeroo(dev, killeroo)
-    phase_grad_spot(dev)
+    phase_grad_file(dev, "g3_grad_spot", "spot", SPOT_GRAD_RTOL_OF_MAX)
+    phase_grad_file(dev, "g4_grad_spheres", "spheres",
+                    SPHERES_GRAD_RTOL_OF_MAX)
     k1_launches = phase_timed(dev, 8)
     phase_timed(dev, 32)
     phase_timed_fwdbwd(dev, smi)
@@ -1839,6 +2006,8 @@ def main() -> int:
     k3_launches = phase_timed_instanced(dev, field[3])
     k4_launches = phase_timed_bvh(dev)
     phase_timed_plymesh(dev, smi)
+    phase_timed_gallery(dev, smi)
+    phase_timed_texture(dev, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     # No single PyTorch call computes a ray/triangle intersection, so no

@@ -11,7 +11,9 @@ data (a non-empty, non-zero array, or a static value other than the one
 the port implies), naming the ROADMAP Queue 1 item that will port it. An
 image-based infinite light ("lights.env.*") is carried as the port's
 EnvironmentMap or, when it has portal corners, PortalLight, with its
-distribution's tables.
+distribution's tables. The texture tables ("textures.*", the flat texel
+table included) are carried as the port's TextureBuffers; one with a Ptex
+row raises (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -35,10 +37,11 @@ from .ops.smallscene import SmallTriAccel
 from .ops.sweep import SweepAccel
 from .scene import Scene
 from .shapes.geometry import UNPORTED_SHAPES, GeometryBuffers
+from .textures.buffers import TextureBuffers
 
 # Scene members the port does not carry -> ROADMAP Queue 1 item.
 _UNPORTED_MEMBERS = {
-    "medium": 12, "media_stack": 12, "textures": 10, "anim": 7,
+    "medium": 12, "media_stack": 12, "anim": 7,
 }
 # Static fields the port does not carry, with the only value it accepts.
 _IMPLIED_STATIC = {
@@ -132,8 +135,8 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
         if member in _UNPORTED_MEMBERS:
             if path in arrays or static[path] is not None:
                 raise _unported(path, _UNPORTED_MEMBERS[member])
-        elif member not in ("geom", "materials", "lights", "small",
-                            "clusters", "sweep", "bvh", "kdtree"):
+        elif member not in ("geom", "materials", "lights", "textures",
+                            "small", "clusters", "sweep", "bvh", "kdtree"):
             raise ValueError(f"unknown scene field {path!r}")
     geom = _section(GeometryBuffers, "geom", arrays, static,
                     lambda n: UNPORTED_SHAPES.get(n, 8))
@@ -145,13 +148,16 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
               if not (p == "lights.env" and v is None)}
     lights = _section(LightBuffers, "lights", arrays, static,
                       lambda n: _LIGHT_ITEM, env=env)
-    accels = {}
+    optional = {}
+    if any(p.startswith("textures.") for p in list(arrays) + list(static)):
+        optional["textures"] = _section(TextureBuffers, "textures", arrays,
+                                      static, lambda n: 15)
     for member, cls in (("small", SmallTriAccel), ("clusters", ClusterAccel),
                         ("sweep", SweepAccel), ("bvh", BVH),
                         ("kdtree", KdTree)):
         if any(p.startswith(member + ".") for p in list(arrays) + list(static)):
-            accels[member] = _section(cls, member, arrays, static, lambda n: 6)
-    return Scene(geom=geom, materials=materials, lights=lights, **accels)
+            optional[member] = _section(cls, member, arrays, static, lambda n: 6)
+    return Scene(geom=geom, materials=materials, lights=lights, **optional)
 
 
 def camera_from_arrays(arrays: dict[str, np.ndarray],

@@ -3,7 +3,9 @@
 Port of pbrt_tpu/core/rgb2spec.py. Coefficients are fitted at scene-build
 time on the host by the reference's own float32 numpy damped-Newton solve
 (`_fit_albedo_np`), so a port scene carries the same coefficients as the
-JAX scene; evaluation at sampled wavelengths is tensor arithmetic.
+JAX scene; evaluation at sampled wavelengths is tensor arithmetic. Texture
+values are fitted per ray on the rays' device (`fit_albedo_rays`, the
+reference's traced `_fit_albedo_jnp`).
 
 A fitted spectrum is s(lam) = sigmoid(c0 x^2 + c1 x + c2) with x the
 wavelength normalized to the visible range and
@@ -118,6 +120,68 @@ def fit_albedo(rgb, cs_name: str = "srgb", iters: int = 40) -> torch.Tensor:
     return torch.from_numpy(
         np.ascontiguousarray(_fit_albedo_np(rgb, cs_name, iters), np.float32)
     )
+
+
+def _solve3(m, b):
+    """Closed-form (adjugate) batched 3x3 solve of tensors, singular -> 0."""
+    c00 = m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1]
+    c01 = m[..., 1, 2] * m[..., 2, 0] - m[..., 1, 0] * m[..., 2, 2]
+    c02 = m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0]
+    det = m[..., 0, 0] * c00 + m[..., 0, 1] * c01 + m[..., 0, 2] * c02
+    inv_det = torch.where(torch.abs(det) > 1e-20, 1.0 / det, 0.0)
+    c10 = m[..., 0, 2] * m[..., 2, 1] - m[..., 0, 1] * m[..., 2, 2]
+    c11 = m[..., 0, 0] * m[..., 2, 2] - m[..., 0, 2] * m[..., 2, 0]
+    c12 = m[..., 0, 1] * m[..., 2, 0] - m[..., 0, 0] * m[..., 2, 1]
+    c20 = m[..., 0, 1] * m[..., 1, 2] - m[..., 0, 2] * m[..., 1, 1]
+    c21 = m[..., 0, 2] * m[..., 1, 0] - m[..., 0, 0] * m[..., 1, 2]
+    c22 = m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0]
+    x0 = c00 * b[..., 0] + c10 * b[..., 1] + c20 * b[..., 2]
+    x1 = c01 * b[..., 0] + c11 * b[..., 1] + c21 * b[..., 2]
+    x2 = c02 * b[..., 0] + c12 * b[..., 1] + c22 * b[..., 2]
+    return torch.stack([x0, x1, x2], dim=-1) * inv_det[..., None]
+
+
+@functools.cache
+def _fit_tables(cs_name: str, device: torch.device):
+    """The per-ray fit's constants on `device`, made once per device: a
+    copy from pageable host memory would synchronize the stream at every
+    call. Returns (basis^T (3, K), rgb_from_s^T (K, 3), jac (K, 9)) with
+    jac[k, 3 i + j] = rgb_from_s[i, k] basis[k, j]."""
+    rgb_from_s, lam = _projection(cs_name)
+    x = _normalize_lambda(lam.astype(np.float32))
+    basis = np.stack([x * x, x, np.ones_like(x)], axis=-1)  # (K, 3)
+    jac = (rgb_from_s.T[:, :, None] * basis[:, None, :]).reshape(-1, 9)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+                 for a in (basis.T, rgb_from_s.T, jac))
+
+
+def fit_albedo_rays(rgb: torch.Tensor, cs_name: str = "srgb",
+                    iters: int = 12) -> torch.Tensor:
+    """The damped Newton fit of `fit_albedo` as tensor code on rgb's
+    device, for per-ray values (..., 3) -> (..., 3): the reference's
+    traced `_fit_albedo_jnp`. The Jacobian M diag(sigmoid'(z)) [x^2 x 1]
+    is one (N, K) x (K, 9) product; sums run in another order than XLA's
+    einsums, so coefficients agree with the reference's to a tolerance,
+    not bit for bit."""
+    dev = rgb.device
+    basis_t, proj_t, jac = _fit_tables(cs_name, dev)
+    shape = rgb.shape
+    target = torch.clamp(rgb.to(torch.float32), 1e-4, 0.9999).reshape(-1, 3)
+
+    # Start from the constant spectrum matching the channel mean.
+    m = torch.clamp(torch.mean(target, dim=-1, keepdim=True), 1e-3, 0.999)
+    z0 = (m - 0.5) / torch.sqrt(torch.clamp(m * (1.0 - m), min=1e-6))
+    c = torch.cat([torch.zeros_like(z0), torch.zeros_like(z0), z0], dim=-1)
+    damp = 1e-6 * torch.eye(3, dtype=torch.float32, device=dev)
+    for _ in range(iters):
+        z = c @ basis_t  # (N, K)
+        r = sigmoid(z) @ proj_t - target  # (N, 3)
+        ds = 0.5 * torch.rsqrt((1.0 + z * z) ** 3)  # sigmoid'(z)
+        J = (ds @ jac).reshape(-1, 3, 3)
+        JtJ = torch.sum(J[:, :, :, None] * J[:, :, None, :], dim=1) + damp
+        Jtr = torch.sum(J * r[:, :, None], dim=1)
+        c = c - torch.clamp(_solve3(JtJ, Jtr), -50.0, 50.0)
+    return c.reshape(shape)
 
 
 def fit_unbounded(rgb, cs_name: str = "srgb"):

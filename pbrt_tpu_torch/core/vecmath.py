@@ -1,5 +1,5 @@
 """Vector geometry on batched (..., 3) tensors (port of core/vecmath.py,
-the pieces the path integrator and the lights use).
+the pieces the path integrator, the lights and the dielectric BxDFs use).
 
 Frame conventions match the reference exactly (branchless Duff et al.
 basis with the same signs), so sampled directions agree lane for lane.
@@ -75,6 +75,29 @@ def from_local(v, t1, t2, n):
 
 def _safe_sqrt(x):
     return torch.sqrt(torch.clamp(x, min=0.0))
+
+
+def refract(wi, n, eta):
+    """Refract wi through the interface with normal n (pbrt's Refract,
+    util/scattering.h): eta is the relative IOR of the non-normal side over
+    the normal side; a wi below n flips both n and eta. eta broadcasts to
+    wi[..., 0].
+
+    Returns (valid, wt, eta_eff): valid is False under total internal
+    reflection; eta_eff is the relative IOR actually used.
+    """
+    cos_theta_i = dot(wi, n)
+    flip = cos_theta_i < 0.0
+    eta = torch.where(flip, 1.0 / eta, eta)
+    cos_theta_i = torch.abs(cos_theta_i)
+    n = torch.where(flip[..., None], -n, n)
+    sin2_theta_i = torch.clamp(1.0 - cos_theta_i * cos_theta_i, min=0.0)
+    sin2_theta_t = sin2_theta_i / (eta * eta)
+    valid = sin2_theta_t < 1.0
+    cos_theta_t = _safe_sqrt(1.0 - sin2_theta_t)
+    wt = (-wi / eta[..., None]
+          + (cos_theta_i / eta - cos_theta_t)[..., None] * n)
+    return valid, wt, eta
 
 
 def equal_area_square_to_sphere(p):

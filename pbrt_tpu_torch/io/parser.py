@@ -13,24 +13,31 @@ reference. The directive subset:
               Integrator path/simplepath; Filter, Accelerator, Option and
               ColorSpace are consumed
   scene:      Material / MakeNamedMaterial / NamedMaterial (diffuse and the
-              names the reference maps to it, conductor), Shape trianglemesh,
-              plymesh and sphere (analytic outside objects; an emissive one
-              is a sphere light, or an icosphere when reversed or inside an
-              object, as in the reference), AreaLightSource "diffuse"
+              names the reference maps to it, conductor, dielectric / glass,
+              thindielectric), a texture-typed "reflectance" or "albedo",
+              Texture (constant, checkerboard, scale, mix, directionmix,
+              bilerp, dots, fbm, wrinkled, windy, marble, imagemap), Shape
+              trianglemesh, plymesh and sphere (analytic outside objects; an
+              emissive one is a sphere light, or an icosphere when reversed
+              or inside an object, as in the reference), AreaLightSource
+              "diffuse"
   lights:     LightSource point, spot, distant, projection, goniometric and
               infinite (uniform "rgb L", an image "string filename", a
-              "point3 portal" over either); light images are PFM
+              "point3 portal" over either); light and texture images are PFM
 
-A feature the port lacks (another camera, sampler or integrator, textures,
-other materials, shapes, alpha, media, animated instances, image formats
-other than PFM) raises NotImplementedError naming its ROADMAP Queue 1
-item, at parse or build time; nothing renders without it. Where the
-reference approximates and warns ("material X approximated as diffuse",
-unknown directives and shapes), the port does the same, since that is
-the reference's behaviour. Two departures raise where the reference warns
-and renders without the light: an unknown light type (pbrt-v4 stops on
-one too), and a light image that cannot be read (the reference renders
-the light with its constant I or L).
+A feature the port lacks (another camera, sampler or integrator, other
+materials, other texture-typed parameters, Ptex, shapes, alpha, media,
+animated instances, image formats other than PFM) raises
+NotImplementedError naming its ROADMAP Queue 1 item, at parse or build
+time; nothing renders without it. Where the reference approximates and
+warns ("material X approximated as diffuse", unknown directives and
+shapes, a texture used before it is defined), the port does the same,
+since that is the reference's behaviour. Four departures raise where the
+reference warns and renders something else: an unknown light type
+(pbrt-v4 stops on one too), a light image that cannot be read (the
+reference renders the light with its constant I or L), an unknown Texture
+class (the reference binds 0.5 gray) and an imagemap whose image cannot be
+read (the reference binds a 0.5 gray image).
 
 Instancing is true instancing: an instanced prototype's triangles are
 stored once in object space and the sweep accelerator (ops/sweep.py, K3)
@@ -48,7 +55,13 @@ import torch
 from ..cameras.perspective import PerspectiveCamera
 from ..core import transform as tfm
 from ..lights.buffers import LightBuffers
-from ..materials.buffers import MAT_CONDUCTOR, MAT_DIFFUSE, MaterialBuffers
+from ..materials.buffers import (
+    MAT_CONDUCTOR,
+    MAT_DIELECTRIC,
+    MAT_DIFFUSE,
+    MAT_THINDIELECTRIC,
+    MaterialBuffers,
+)
 from ..models.path import PathIntegrator
 from ..lights.envmap import EnvironmentMap
 from ..lights.portal import PortalLight
@@ -56,6 +69,7 @@ from ..ops.sweep import build_sweep
 from ..scene import Scene
 from ..scenes.meshes import icosphere
 from ..shapes.geometry import GeometryBuffers
+from ..textures.buffers import TextureBuffers
 from .image import read_image_rgb
 from .ply import read_ply
 
@@ -127,8 +141,11 @@ _DIRECTIVES = {
 _UNPORTED_MATERIALS = {
     "subsurface", "none", "interface", "", "diffusetransmission",
     "retroreflective", "mix", "measured", "coateddiffuse", "coatedconductor",
-    "dielectric", "glass", "thindielectric", "hair",
+    "hair",
 }
+# Material parameters that may name a texture (the albedo overlay); any
+# other texture-typed parameter raises.
+_TEXTURED_PARAMS = ("reflectance", "albedo")
 # Shapes the reference builds that the port does not (item 8).
 _UNPORTED_SHAPES = {"disk", "cylinder", "bilinearmesh", "loopsubdiv", "curve"}
 
@@ -181,9 +198,9 @@ def _get_vec(params, name, default=None):
     return default
 
 
-def _no_textures(params, where: str):
+def _no_textures(params, where: str, allowed=()):
     for name, (ptype, _) in params.items():
-        if ptype == "texture":
+        if ptype == "texture" and name not in allowed:
             raise _unported(f"texture parameter {name!r} of {where}", 10)
 
 
@@ -204,6 +221,8 @@ class PbrtParser:
         # collected scene; per-shape arrays, concatenated at build
         self.materials = [{"kind": MAT_DIFFUSE, "albedo": (0.5, 0.5, 0.5)}]
         self.named_materials = {}
+        self.tex_specs = []  # TextureBuffers rows
+        self.named_tex = {}  # texture name -> row
         self.tris = []  # (n, 3, 3) float32 per emitted shape
         self.tri_mat = []
         self.tri_light = []
@@ -425,16 +444,30 @@ class PbrtParser:
     # -- materials, textures and media ---------------------------------------
 
     def _material_from_params(self, mtype, p):
-        _no_textures(p, f"material {mtype!r}")
+        _no_textures(p, f"material {mtype!r}", _TEXTURED_PARAMS)
         if mtype in _UNPORTED_MATERIALS:
             raise _unported(f"material {mtype!r}", 10)
         spec = {"kind": MAT_DIFFUSE, "albedo": (0.5, 0.5, 0.5)}
         refl = _get_vec(p, "reflectance")
         if refl is None:
             refl = _get_vec(p, "albedo")
+        # A texture-typed reflectance binds the named texture by id
+        # (TextureParameterDictionary::GetSpectrumTexture).
+        tex_id = self._tex_ref(p, "reflectance")
+        if tex_id < 0:
+            tex_id = self._tex_ref(p, "albedo")
+        if tex_id >= 0:
+            spec["albedo_texture"] = tex_id
         if mtype in ("conductor", "metal"):
             spec["kind"] = MAT_CONDUCTOR
             spec["roughness"] = float(_get(p, "roughness", 0.01) or 0.01)
+        elif mtype in ("dielectric", "glass"):
+            spec["kind"] = MAT_DIELECTRIC
+            spec["eta"] = float(_get(p, "eta", 1.5) or 1.5)
+            spec["roughness"] = float(_get(p, "roughness", 0.0) or 0.0)
+        elif mtype == "thindielectric":
+            spec["kind"] = MAT_THINDIELECTRIC
+            spec["eta"] = float(_get(p, "eta", 1.5) or 1.5)
         elif mtype != "diffuse":
             # "matte" and unknown families, as the reference renders them.
             self.warnings.append(f"material {mtype} approximated as diffuse")
@@ -460,7 +493,143 @@ class PbrtParser:
         self.cur_material = self.named_materials.get(name, 0)
 
     def _d_Texture(self, ts):
-        raise _unported(f"Texture {ts.next()}", 10)
+        """Texture "name" "type" "class" params: one TextureBuffers row,
+        bound by materials through its id. An unknown class raises (the
+        reference binds 0.5 gray and warns)."""
+        name = ts.next()[1:-1]
+        ts.next()  # "spectrum" or "float": one row layout for both
+        tclass = ts.next()[1:-1]
+        p = _parse_params(ts)
+        spec = self._texture_spec(tclass, p)
+        if spec is None:
+            raise ValueError(f"Texture {name!r}: unknown texture class "
+                             f"{tclass!r}")
+        self.named_tex[name] = len(self.tex_specs)
+        self.tex_specs.append(spec)
+
+    def _tex_ref(self, p, key):
+        """The texture id of a parameter declared `"texture key" "name"`,
+        or -1 when absent or not texture-typed. A texture used before its
+        definition is ignored with a warning, as in the reference."""
+        if key in p and p[key][0] == "texture":
+            tname = p[key][1][0]
+            if tname in self.named_tex:
+                return self.named_tex[tname]
+            self.warnings.append(f"texture '{tname}' referenced before "
+                                 "definition; ignored")
+        return -1
+
+    def _texture_spec(self, tclass, p):
+        """One Texture directive as a TextureBuffers spec (the reference's
+        CreateTexture dispatch, textures.cpp), or None for an unknown
+        class."""
+
+        def rgb(key, default):
+            v = _get_vec(p, key)
+            if v is None:
+                return default
+            v = np.atleast_1d(np.asarray(v, np.float64))
+            return tuple(v) if v.size == 3 else (float(v[0]),) * 3
+
+        def amount(key, default):
+            # A texture-typed scale or amount is bound through sub2 and
+            # keeps the default; the reference takes float() of the
+            # texture's name and raises (ROADMAP Queue 3).
+            if key in p and p[key][0] == "texture":
+                return default
+            return float(_get(p, key, default))
+
+        spec = {
+            "uscale": float(_get(p, "uscale", 1.0)),
+            "vscale": float(_get(p, "vscale", 1.0)),
+            "udelta": float(_get(p, "udelta", 0.0)),
+            "vdelta": float(_get(p, "vdelta", 0.0)),
+            "mapping": _get(p, "mapping", "uv"),
+        }
+        v1 = _get_vec(p, "v1")
+        v2 = _get_vec(p, "v2")
+        if v1 is not None:
+            spec["aux0"] = tuple(v1)
+        if v2 is not None:
+            spec["aux1"] = tuple(v2)
+        if tclass == "constant":
+            spec.update(kind="constant", rgb0=rgb("value", (1.0, 1.0, 1.0)))
+        elif tclass in ("checkerboard", "checker"):
+            spec.update(
+                kind="checker",
+                rgb0=rgb("tex1", (1.0, 1.0, 1.0)),
+                rgb1=rgb("tex2", (0.0, 0.0, 0.0)),
+                sub0=self._tex_ref(p, "tex1"),
+                sub1=self._tex_ref(p, "tex2"),
+            )
+        elif tclass == "scale":
+            spec.update(
+                kind="scale",
+                rgb0=rgb("tex", (1.0, 1.0, 1.0)),
+                sub0=self._tex_ref(p, "tex"),
+                f0=amount("scale", 1.0),
+                sub2=self._tex_ref(p, "scale"),
+            )
+        elif tclass == "mix":
+            spec.update(
+                kind="mix",
+                rgb0=rgb("tex1", (0.0, 0.0, 0.0)),
+                rgb1=rgb("tex2", (1.0, 1.0, 1.0)),
+                sub0=self._tex_ref(p, "tex1"),
+                sub1=self._tex_ref(p, "tex2"),
+                f0=amount("amount", 0.5),
+                sub2=self._tex_ref(p, "amount"),
+            )
+        elif tclass == "directionmix":
+            d = _get_vec(p, "dir")
+            spec.update(
+                kind="directionmix",
+                rgb0=rgb("tex1", (0.0, 0.0, 0.0)),
+                rgb1=rgb("tex2", (1.0, 1.0, 1.0)),
+                sub0=self._tex_ref(p, "tex1"),
+                sub1=self._tex_ref(p, "tex2"),
+                aux0=tuple(d) if d is not None else (0.0, 1.0, 0.0),
+            )
+        elif tclass == "bilerp":
+            spec.update(
+                kind="bilerp",
+                rgb0=rgb("v00", (0.0, 0.0, 0.0)),
+                rgb1=rgb("v01", (1.0, 1.0, 1.0)),
+                rgb2=rgb("v10", (0.0, 0.0, 0.0)),
+                rgb3=rgb("v11", (1.0, 1.0, 1.0)),
+            )
+        elif tclass == "dots":
+            spec.update(
+                kind="dots",
+                rgb0=rgb("inside", (1.0, 1.0, 1.0)),
+                rgb1=rgb("outside", (0.0, 0.0, 0.0)),
+            )
+        elif tclass in ("fbm", "wrinkled", "windy", "marble"):
+            spec.update(kind=tclass)
+            if tclass == "marble":
+                spec.update(
+                    rgb0=(0.08, 0.06, 0.06), rgb1=(0.9, 0.87, 0.83),
+                    uscale=float(_get(p, "scale", 1.0)),
+                )
+        elif tclass == "imagemap":
+            img = self._texture_image(_get(p, "filename"))
+            spec.update(kind="image",
+                        rgb_image=img * float(_get(p, "scale", 1.0)))
+        elif tclass == "ptex":
+            raise _unported("Texture \"ptex\"", 15)
+        else:
+            return None
+        return spec
+
+    def _texture_image(self, fname):
+        """An imagemap's image. One that cannot be read raises (the
+        reference binds a 0.5 gray image and warns)."""
+        if not fname:
+            raise ValueError("imagemap texture without a \"filename\"")
+        try:
+            return read_image_rgb(os.path.join(self.base_dir, fname))
+        except (OSError, ValueError) as e:
+            raise ValueError(f"texture image {fname!r} cannot be read: {e}") from e
 
     def _d_MakeNamedMedium(self, ts):
         raise _unported(f"MakeNamedMedium {ts.next()}", 12)
@@ -787,7 +956,9 @@ class PbrtParser:
         )
         scene = Scene(geom=geom,
                       materials=MaterialBuffers.build(self.materials),
-                      lights=lights)
+                      lights=lights,
+                      textures=TextureBuffers.build(self.tex_specs)
+                      if self.tex_specs else None)
         if inst_tables is not None:
             proto_ranges, pid, o2w, o2w_end = inst_tables
             if (np.abs(o2w - o2w_end).max(axis=(1, 2)) > 1e-7).any():

@@ -1,10 +1,12 @@
 """Flat material parameter tables (port of pbrt_tpu/materials/buffers.py).
 
 Every field of the reference is carried, so a converted JAX scene maps 1:1
-and a scene may list materials the port cannot shade yet. The diffuse and
-conductor families are shaded (materials/bxdf.py); `Scene` refuses
-geometry that references any other kind. RGB parameters are stored as
-sigmoid-polynomial coefficients fitted on the host (core/rgb2spec.py).
+and a scene may list materials the port cannot shade yet. The diffuse,
+conductor, dielectric and thin-dielectric families are shaded
+(materials/bxdf.py); `Scene` refuses geometry that references any other
+kind. RGB parameters are stored as sigmoid-polynomial coefficients fitted
+on the host (core/rgb2spec.py); a row's `albedo_tex` binds a texture
+(textures/buffers.py) that overrides them per ray.
 """
 
 from __future__ import annotations
@@ -87,11 +89,6 @@ class MaterialBuffers:
         """materials: list of dicts with keys kind, albedo (rgb), roughness,
         eta, conductor ("Cu"/"Au"/"Ag"/"Al" or (eta_rgb, k_rgb) pair)."""
         for m in materials:
-            if m.get("albedo_texture", -1) != -1:
-                raise NotImplementedError(
-                    "textured materials are not ported yet (ROADMAP Queue 1 "
-                    "item 10)"
-                )
             if m.get("measured_table") is not None:
                 raise NotImplementedError(
                     "measured BRDF tables are not ported yet (ROADMAP Queue "
@@ -175,4 +172,6 @@ class MaterialBuffers:
         out["measured_coeffs"] = self.measured_coeffs
         out["measured_scale"] = self.measured_scale
         out["any_conductor"] = self.any_conductor
+        out["any_dielectric"] = self.any_dielectric
+        out["any_thin"] = self.any_thin
         return out

@@ -1,18 +1,21 @@
 """Branchless BxDF evaluation/sampling over ray batches.
 
-Port of pbrt_tpu/materials/bxdf.py: the diffuse and conductor families.
-Directions are in the shading-local frame (z = shading normal); spectral
-values are (N, S).
+Port of pbrt_tpu/materials/bxdf.py: the diffuse, conductor, dielectric
+and thin-dielectric families, and the textured-albedo overlay of
+`surface_params`. Directions are in the shading-local frame (z = shading
+normal); spectral values are (N, S). The dielectric families return a
+scalar f of shape (N,), broadcast to (N, S) by the select chain.
 
 Dispatch keeps the reference's select chain: each family is evaluated for
 every ray and the material `kind` tag selects per ray with torch.where; a
 family's link runs only when the scene's geometry references that family
-(`params["any_conductor"]`, from `Scene.shaded_kinds`). The reference
-keys the link on the material list instead; an unreferenced row selects
-no live lane, so the image is the same, and a list with a spare copper
-row (Cornell's) skips the link. The other families (ROADMAP Queue 1 item
-10) slot in as further selects. `Scene` refuses geometry that references
-them, so no lane ever needs a missing link.
+(`params["any_conductor"]`, `["any_dielectric"]`, `["any_thin"]`, from
+`Scene.shaded_kinds`). The reference keys the links on the material list
+instead; an unreferenced row selects no live lane, so the image is the
+same, and a list with spare copper and glass rows (Cornell's) skips their
+links. The other families (ROADMAP Queue 1 item 10) slot in as further
+selects. `Scene` refuses geometry that references them, so no lane ever
+needs a missing link.
 """
 
 from __future__ import annotations
@@ -25,11 +28,20 @@ from ..core.sampling import (
     cosine_hemisphere_pdf,
     sample_cosine_hemisphere,
 )
-from ..core.vecmath import normalize
+from ..core.vecmath import normalize, refract
 from . import scattering as sc
-from .buffers import MAT_CONDUCTOR, MAT_DIFFUSE
+from .buffers import (
+    MAT_CONDUCTOR,
+    MAT_DIELECTRIC,
+    MAT_DIFFUSE,
+    MAT_THINDIELECTRIC,
+)
 
 _EPS = 1e-8
+
+
+def _cos(w):
+    return w[..., 2]
 
 
 def _abscos(w):
@@ -42,6 +54,11 @@ def _same_hemisphere(a, b):
 
 def _dot(a, b):
     return torch.sum(a * b, dim=-1)
+
+
+def _mirror(wo):
+    """Specular reflection about the local normal."""
+    return torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], dim=-1)
 
 
 # --- Diffuse (Lambertian) ---------------------------------------------------
@@ -101,7 +118,7 @@ def conductor_pdf(alpha, wo, wi):
 def conductor_sample(eta, k, alpha, wo, u2):
     """Returns (wi, f, pdf, specular). Smooth -> perfect mirror delta."""
     smooth = sc.effectively_smooth(alpha)
-    wi_s = torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], dim=-1)
+    wi_s = _mirror(wo)
     f_s = sc.fr_complex(_abscos(wi_s)[..., None], eta, k) / torch.clamp(
         _abscos(wi_s), min=_EPS
     )[..., None]
@@ -118,6 +135,129 @@ def conductor_sample(eta, k, alpha, wo, u2):
     return wi, f, p, smooth
 
 
+# --- Dielectric (bxdfs.h DielectricBxDF) ------------------------------------
+
+
+def _dielectric_eta_p(eta, wo_z, reflect):
+    """Effective relative IOR of the generalized half-vector."""
+    eta_side = torch.where(wo_z > 0.0, eta, 1.0 / eta)
+    return torch.where(reflect, 1.0, eta_side)
+
+
+def _dielectric_half(eta, wo, wi):
+    """The generalized half-vector of (wo, wi) and what both dielectric_f
+    and dielectric_pdf derive from it."""
+    cos_o = _cos(wo)
+    cos_i = _cos(wi)
+    reflect = cos_o * cos_i > 0.0
+    eta_p = _dielectric_eta_p(eta, cos_o, reflect)
+    wm_raw = wi * eta_p[..., None] + wo
+    wm_ok = (
+        (torch.abs(cos_o) > 1e-8)
+        & (torch.abs(cos_i) > 1e-8)
+        & (torch.sum(wm_raw * wm_raw, dim=-1) > 1e-16)
+    )
+    wm = normalize(wm_raw)
+    wm = torch.where((wm[..., 2] < 0.0)[..., None], -wm, wm)
+    backface = (_dot(wm, wi) * cos_i < 0.0) | (_dot(wm, wo) * cos_o < 0.0)
+    fr = sc.fr_dielectric(_dot(wo, wm), eta)
+    denom = (_dot(wi, wm) + _dot(wo, wm) / torch.clamp(eta_p, min=_EPS)) ** 2
+    return cos_o, cos_i, reflect, eta_p, wm, wm_ok & ~backface, fr, denom
+
+
+def dielectric_f(eta, alpha, wo, wi):
+    """Rough dielectric BSDF (radiance transport). eta: (N,) scalar IOR.
+    Returns a scalar (N,) density; the caller broadcasts it to (N, S)
+    (no dispersion)."""
+    rough = ~sc.effectively_smooth(alpha)
+    cos_o, cos_i, reflect, eta_p, wm, ok, fr, denom = _dielectric_half(
+        eta, wo, wi)
+    d = sc.ggx_d(wm, alpha)
+    g = sc.ggx_g(wo, wi, alpha)
+    f_refl = d * g * fr / torch.clamp(torch.abs(4.0 * cos_o * cos_i), min=_EPS)
+    # Transmission (radiance mode: the extra 1 / eta_p^2).
+    f_trans = (
+        d
+        * (1.0 - fr)
+        * g
+        * torch.abs(
+            _dot(wi, wm)
+            * _dot(wo, wm)
+            / torch.clamp(torch.abs(cos_i * cos_o) * denom, min=_EPS)
+        )
+        / torch.clamp(eta_p * eta_p, min=_EPS)
+    )
+    f = torch.where(reflect, f_refl, f_trans)
+    return torch.where(rough & ok, f, 0.0)
+
+
+def dielectric_pdf(eta, alpha, wo, wi):
+    rough = ~sc.effectively_smooth(alpha)
+    _, _, reflect, _, wm, ok, fr, denom = _dielectric_half(eta, wo, wi)
+    pdf_wm = sc.ggx_pdf_wm(wo, wm, alpha)
+    pdf_refl = pdf_wm / torch.clamp(4.0 * torch.abs(_dot(wo, wm)), min=_EPS) * fr
+    dwm_dwi = torch.abs(_dot(wi, wm)) / torch.clamp(denom, min=_EPS)
+    pdf_trans = pdf_wm * dwm_dwi * (1.0 - fr)
+    p = torch.where(reflect, pdf_refl, pdf_trans)
+    return torch.where(rough & ok, p, 0.0)
+
+
+def dielectric_sample(eta, alpha, wo, u2, uc):
+    """Returns (wi, f, pdf, specular), f a scalar (N,). uc picks reflection
+    or transmission; the smooth case is a delta lobe (specular)."""
+    smooth = sc.effectively_smooth(alpha)
+
+    # Smooth: Fresnel-weighted reflection and refraction deltas.
+    fr_s = sc.fr_dielectric(_cos(wo), eta)
+    refl_s = uc < fr_s
+    wi_refl = _mirror(wo)
+    n_local = torch.zeros_like(wo)
+    n_local[..., 2] = 1.0
+    valid_t, wi_trans, eta_eff = refract(wo, n_local, eta)
+    f_refl_s = fr_s / torch.clamp(_abscos(wi_refl), min=_EPS)
+    f_trans_s = (
+        (1.0 - fr_s)
+        / torch.clamp(_abscos(wi_trans), min=_EPS)
+        / torch.clamp(eta_eff * eta_eff, min=_EPS)
+    )
+    wi_sm = torch.where(refl_s[..., None], wi_refl, wi_trans)
+    f_sm = torch.where(refl_s, f_refl_s, torch.where(valid_t, f_trans_s, 0.0))
+    pdf_sm = torch.where(refl_s, fr_s, torch.where(valid_t, 1.0 - fr_s, 0.0))
+
+    # Rough: microfacet reflection or transmission.
+    wm = sc.ggx_sample_wm(wo, u2, torch.clamp(alpha, min=1e-3))
+    fr_r = sc.fr_dielectric(_dot(wo, wm), eta)
+    refl_r = uc < fr_r
+    wi_r_refl = -wo + 2.0 * _dot(wo, wm)[..., None] * wm
+    valid_rt, wi_r_trans, _ = refract(wo, wm, eta)
+    wi_r = torch.where(refl_r[..., None], wi_r_refl, wi_r_trans)
+    f_r = dielectric_f(eta, alpha, wo, wi_r)
+    pdf_r = dielectric_pdf(eta, alpha, wo, wi_r)
+    ok_r = torch.where(refl_r, _same_hemisphere(wo, wi_r_refl), valid_rt)
+
+    wi = torch.where(smooth[..., None], wi_sm, wi_r)
+    f = torch.where(smooth, f_sm, torch.where(ok_r, f_r, 0.0))
+    p = torch.where(smooth, pdf_sm, torch.where(ok_r, pdf_r, 0.0))
+    return wi, f, p, smooth
+
+
+# --- Thin dielectric (bxdfs.h ThinDielectricBxDF) ---------------------------
+
+
+def thin_dielectric_sample(eta, wo, uc):
+    """Thin slab: the inter-reflection-summed R' and the straight-through
+    T'. Returns (wi, f, pdf), f a scalar (N,); always a delta lobe."""
+    r = sc.fr_dielectric(torch.abs(_cos(wo)), eta)
+    r = torch.where(
+        r < 1.0, r + (1.0 - r) ** 2 * r / torch.clamp(1.0 - r * r, min=_EPS), r
+    )
+    t = 1.0 - r
+    refl = uc < r
+    wi = torch.where(refl[..., None], _mirror(wo), -wo)
+    f = torch.where(refl, r, t) / torch.clamp(_abscos(wi), min=_EPS)
+    return wi, f, torch.where(refl, r, t)
+
+
 def _gather_spectral_eta_k(params, lam):
     eta = rgb2spec.eval_unbounded(
         params["cond_eta_coeffs"], params["cond_eta_scale"], lam
@@ -132,39 +272,72 @@ def _gather_spectral_eta_k(params, lam):
 
 
 def surface_params(scene, isect, lam=None):
-    """Per-ray material parameters at a surface interaction."""
+    """Per-ray material parameters at a surface interaction: the material
+    row, with textured albedo overlaid (textures/buffers.py) and, on a
+    dielectric, the IOR seen from the ray's side."""
+    kinds = scene.shaded_kinds
     params = scene.materials.gather(isect.mat)
-    params["any_conductor"] = MAT_CONDUCTOR in scene.shaded_kinds
+    params["any_conductor"] = MAT_CONDUCTOR in kinds
+    params["any_dielectric"] = MAT_DIELECTRIC in kinds
+    params["any_thin"] = MAT_THINDIELECTRIC in kinds
     if lam is not None:
         params["lam"] = lam
+    if scene.textures is not None:
+        from ..textures.buffers import evaluate_albedo_coeffs
+
+        params["albedo_coeffs"] = evaluate_albedo_coeffs(
+            scene.textures, params["albedo_tex"], isect.uv, isect.p,
+            params["albedo_coeffs"],
+        )
+    # The integrator shades in a frame flipped toward wo, which erases the
+    # inside/outside distinction the dielectric needs to pick eta or 1/eta.
+    # isect.n is canonical (outward for quadrics, by winding for meshes),
+    # so the side is recovered here: an exiting ray sees the inverted IOR,
+    # which in the flipped frame gives the true refraction geometry,
+    # Fresnel term, total internal reflection and 1/eta^2 scaling.
+    if params["any_dielectric"]:
+        entering = torch.sum(isect.n * isect.wo, dim=-1) >= 0.0
+        params["eta"] = torch.where(
+            (params["kind"] == MAT_DIELECTRIC) & ~entering,
+            1.0 / torch.clamp(params["eta"], min=1e-6),
+            params["eta"],
+        )
     return params
 
 
 def evaluate(params, wo, wi, lam):
     """f(wo, wi) for each ray given gathered material params; (N, S).
-    Delta lobes (smooth conductors) return 0 here: their contribution
-    arrives only through sampling."""
+    Delta lobes (smooth conductors and dielectrics, thin dielectrics)
+    return 0 here: their contribution arrives only through sampling."""
     kind = params["kind"]
     albedo = rgb2spec.eval_sigmoid(params["albedo_coeffs"], lam)
     f = torch.where(
         (kind == MAT_DIFFUSE)[..., None], diffuse_f(albedo, wo, wi), 0.0
     )
-    if params["any_conductor"]:
+    if params["any_conductor"] or params["any_dielectric"]:
         alpha = sc.roughness_to_alpha(params["roughness"])
+    if params["any_conductor"]:
         eta_c, k_c = _gather_spectral_eta_k(params, lam)
         f = torch.where(
             (kind == MAT_CONDUCTOR)[..., None],
             conductor_f(eta_c, k_c, alpha, wo, wi), f,
         )
+    if params["any_dielectric"]:
+        f_d = dielectric_f(params["eta"], alpha, wo, wi)
+        f = torch.where((kind == MAT_DIELECTRIC)[..., None], f_d[..., None], f)
     return f
 
 
 def pdf(params, wo, wi):
     kind = params["kind"]
     p = torch.where(kind == MAT_DIFFUSE, diffuse_pdf(wo, wi), 0.0)
-    if params["any_conductor"]:
+    if params["any_conductor"] or params["any_dielectric"]:
         alpha = sc.roughness_to_alpha(params["roughness"])
+    if params["any_conductor"]:
         p = torch.where(kind == MAT_CONDUCTOR, conductor_pdf(alpha, wo, wi), p)
+    if params["any_dielectric"]:
+        p = torch.where(kind == MAT_DIELECTRIC,
+                        dielectric_pdf(params["eta"], alpha, wo, wi), p)
     return p
 
 
@@ -174,8 +347,9 @@ def sample(params, wo, lam, u2, uc):
     albedo = rgb2spec.eval_sigmoid(params["albedo_coeffs"], lam)
     wi, f, p = diffuse_sample(albedo, wo, u2)
     specular = torch.zeros(wo.shape[:-1], dtype=torch.bool, device=wo.device)
-    if params["any_conductor"]:
+    if params["any_conductor"] or params["any_dielectric"]:
         alpha = sc.roughness_to_alpha(params["roughness"])
+    if params["any_conductor"]:
         eta_c, k_c = _gather_spectral_eta_k(params, lam)
         wi_c, f_c, p_c, spec_c = conductor_sample(eta_c, k_c, alpha, wo, u2)
         m = kind == MAT_CONDUCTOR
@@ -183,4 +357,19 @@ def sample(params, wo, lam, u2, uc):
         f = torch.where(m[..., None], f_c, f)
         p = torch.where(m, p_c, p)
         specular = torch.where(m, spec_c, specular)
+    if params["any_dielectric"]:
+        wi_d, f_d, p_d, spec_d = dielectric_sample(
+            params["eta"], alpha, wo, u2, uc)
+        m = kind == MAT_DIELECTRIC
+        wi = torch.where(m[..., None], wi_d, wi)
+        f = torch.where(m[..., None], f_d[..., None], f)
+        p = torch.where(m, p_d, p)
+        specular = torch.where(m, spec_d, specular)
+    if params["any_thin"]:
+        wi_t, f_t, p_t = thin_dielectric_sample(params["eta"], wo, uc)
+        m = kind == MAT_THINDIELECTRIC
+        wi = torch.where(m[..., None], wi_t, wi)
+        f = torch.where(m[..., None], f_t[..., None], f)
+        p = torch.where(m, p_t, p)
+        specular = specular | m
     return {"wi": wi, "f": f, "pdf": p, "specular": specular}

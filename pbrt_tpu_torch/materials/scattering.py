@@ -1,9 +1,11 @@
 """Microfacet distribution + Fresnel terms (port of
-pbrt_tpu/materials/scattering.py, the parts the conductor family uses).
+pbrt_tpu/materials/scattering.py, the parts the conductor and dielectric
+families use).
 
-Trowbridge-Reitz (GGX) with visible-normal sampling and the conductor
-Fresnel term FrComplex (reference util/scattering.h). All functions take
-batched local directions (z = shading normal) and are branch-free.
+Trowbridge-Reitz (GGX) with visible-normal sampling, the dielectric
+Fresnel term FrDielectric and the conductor's FrComplex (reference
+util/scattering.h). All functions take batched local directions (z =
+shading normal) and are branch-free.
 """
 
 from __future__ import annotations
@@ -35,6 +37,28 @@ def tan2_theta(w):
 
 
 # --- Fresnel ----------------------------------------------------------------
+
+
+def fr_dielectric(cos_theta_i, eta):
+    """Unpolarized Fresnel reflectance for a real IOR (scattering.h
+    FrDielectric). cos_theta_i may be negative (arriving from below); eta
+    is the transmission side's IOR over the incident side's before any
+    flip."""
+    cos_theta_i = torch.clamp(cos_theta_i, -1.0, 1.0)
+    flip = cos_theta_i < 0.0
+    eta = torch.where(flip, 1.0 / eta, eta)
+    cos_theta_i = torch.abs(cos_theta_i)
+    sin2_t = (1.0 - cos_theta_i * cos_theta_i) / (eta * eta)
+    tir = sin2_t >= 1.0
+    cos_theta_t = safe_sqrt(1.0 - sin2_t)
+    r_parl = (eta * cos_theta_i - cos_theta_t) / torch.clamp(
+        eta * cos_theta_i + cos_theta_t, min=_EPS
+    )
+    r_perp = (cos_theta_i - eta * cos_theta_t) / torch.clamp(
+        cos_theta_i + eta * cos_theta_t, min=_EPS
+    )
+    fr = 0.5 * (r_parl * r_parl + r_perp * r_perp)
+    return torch.where(tir, 1.0, fr)
 
 
 def fr_complex(cos_theta_i, eta, k):

@@ -8,9 +8,9 @@ clusters (K2), which `with_accel()` attaches, the instanced sweep tables
 attached as in the reference with
 `scene.replace(small=None, clusters=None, bvh=build_bvh(tri_verts))`, or
 the SAH kd-tree (`with_kdtree()`). accel/api.py states which tier answers
-when several are attached. The reference's other optional members (media,
-textures, animated instances) are not ported; convert.py refuses scenes
-that carry them.
+when several are attached. The texture tables (textures/buffers.py) ride
+along as in the reference. Its other optional members (media, animated
+instances) are not ported; convert.py refuses scenes that carry them.
 """
 
 from __future__ import annotations
@@ -23,14 +23,21 @@ from .accel.bvh import BVH
 from .accel.kdtree import KdTree, build_kdtree
 from .core.tensorclass import static_field, tensorclass
 from .lights.buffers import LightBuffers
-from .materials.buffers import MAT_CONDUCTOR, MAT_DIFFUSE, MaterialBuffers
+from .materials.buffers import (
+    MAT_CONDUCTOR,
+    MAT_DIELECTRIC,
+    MAT_DIFFUSE,
+    MAT_THINDIELECTRIC,
+    MaterialBuffers,
+)
 from .ops.cluster import ClusterAccel, build_clusters
 from .ops.smallscene import SmallTriAccel, build_smallscene
 from .ops.sweep import SweepAccel, build_sweep
 from .shapes.geometry import GeometryBuffers
+from .textures.buffers import TextureBuffers
 
 # Material families the BxDF select chain shades (materials/bxdf.py).
-SHADED_KINDS = {MAT_DIFFUSE, MAT_CONDUCTOR}
+SHADED_KINDS = {MAT_DIFFUSE, MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_THINDIELECTRIC}
 
 
 @tensorclass
@@ -38,6 +45,8 @@ class Scene:
     geom: GeometryBuffers
     materials: MaterialBuffers
     lights: LightBuffers
+    # Texture tables (textures/buffers.py); materials bind them by id.
+    textures: Optional[TextureBuffers] = None
     # Brute-force small-scene intersector (ops/smallscene.py, kernel K1).
     small: Optional[SmallTriAccel] = None
     # Morton cluster intersector (ops/cluster.py, kernel K2).
@@ -54,9 +63,9 @@ class Scene:
     shaded_kinds: FrozenSet[int] = static_field(init=False, default=frozenset())
 
     def __post_init__(self):
-        # Only the diffuse and conductor families are shaded yet; materials
-        # nothing references (e.g. the Cornell list's glass and copper rows)
-        # are carried as data.
+        # Only the families of SHADED_KINDS are shaded yet; a material
+        # nothing references (e.g. a coated row in a parsed list) is
+        # carried as data, and its kind's link is not traced.
         used = torch.unique(torch.cat([self.geom.tri_mat, self.geom.sph_mat])
                             .detach().cpu().long())
         kinds = self.materials.kind.detach().cpu().long()
@@ -66,9 +75,17 @@ class Scene:
         if bad:
             raise NotImplementedError(
                 f"geometry references material kind(s) {bad}; only diffuse "
-                "(kind 0) and conductor (kind 1) are ported yet (ROADMAP "
-                "Queue 1 item 10)"
+                "(kind 0), conductor (1), dielectric (2) and thin dielectric "
+                "(3) are ported yet (ROADMAP Queue 1 item 10)"
             )
+        # A referenced material's texture must exist: the overlay would
+        # otherwise skip it (no tables) or clamp its id to another texture.
+        tex = self.materials.albedo_tex.detach().cpu().long()
+        bound = sorted({int(tex[m]) for m in used.tolist()} - {-1})
+        n_tex = 0 if self.textures is None else self.textures.n_textures
+        if bound and bound[-1] >= n_tex:
+            raise ValueError(f"materials bind texture id(s) {bound}; the "
+                             f"scene holds {n_tex} texture(s)")
 
     def with_accel(self, threshold: int = 1024, kind: str = "auto") -> "Scene":
         """Attach the triangle intersector fitting the scene size.

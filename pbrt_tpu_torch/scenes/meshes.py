@@ -87,12 +87,11 @@ def torus(major=1.0, minor=0.35, nu=64, nv=32, center=(0, 0, 0)):
 
 
 def mesh_gallery_scene(resolution=(256, 256), subdiv=4):
-    """Dense-mesh benchmark: icosphere (copper) + torus (glass) + diffuse
-    icosphere on a floor under an area light. ~20k-80k triangles.
-
-    The glass torus needs the dielectric BxDF, which is not ported yet:
-    building the Scene raises NotImplementedError (ROADMAP Queue 1 item
-    10)."""
+    """Dense-mesh benchmark: a copper icosphere, a smooth glass torus (the
+    dielectric BxDF, its side taken from the triangles' winding) and a
+    diffuse icosphere on a floor, under a quad area light and a uniform
+    infinite light: 15,620 triangles at subdiv=4 and 9,320 at subdiv=1,
+    both on K2's cluster tier."""
     parts = []
     mats = []
 

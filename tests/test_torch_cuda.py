@@ -1,5 +1,6 @@
 """K1, K2, K3 and K4 on the card: each CUDA kernel against its plain twin,
-and renders on the card against the same renders on the CPU.
+and renders on the card (the lights, the dielectric BxDFs and the
+textures among them) against the same renders on the CPU.
 
 These tests need a CUDA device and skip without one. They import neither
 jax nor pbrt_tpu, so they run on a machine that has only the port's
@@ -626,6 +627,28 @@ def test_light_file_render_on_card_matches_cpu(card, source):
     got = render(scene, camera, settings["integrator"], device=card, **kw)
     torch.cuda.synchronize()
     assert STATS.launches == 9 * 2
+    want = render(scene, camera, settings["integrator"], device="cpu", **kw)
+    got = got.cpu().numpy()
+    want = want.numpy()
+    assert np.all(np.isfinite(got)) and want.mean() > 0.01
+    ok = np.abs(got - want) <= 1e-5 + 1e-3 * np.abs(want)
+    assert np.mean(ok) >= 0.99, int(np.sum(~ok))
+
+
+@pytest.mark.parametrize("name", ["dielectric.pbrt", "spheres.pbrt",
+                                  "texture.pbrt", "imagetex.pbrt"])
+def test_material_file_render_on_card_matches_cpu(card, name):
+    """The golden files of the dielectric BxDFs and the textures at 16x16
+    on the card (K1; the per-ray albedo fit on the card) against the same
+    render on the CPU."""
+    scene, camera, settings = load_pbrt("tests/goldens/" + name, device="cpu")
+    camera = camera.replace(resolution=(16, 16))
+    depth = settings["integrator"].max_depth
+    kw = dict(spp=4, seed=1, samples_per_pass=2, n_spectrum=8)
+    STATS.reset()
+    got = render(scene, camera, settings["integrator"], device=card, **kw)
+    torch.cuda.synchronize()
+    assert STATS.launches == (2 * depth + 1) * 2
     want = render(scene, camera, settings["integrator"], device="cpu", **kw)
     got = got.cpu().numpy()
     want = want.numpy()

@@ -2,14 +2,16 @@
 item 5): with autograd on, a scene tensor outside the default trainable
 set (materials.albedo_coeffs, lights.area_scale), the ray origins or
 directions, or the wavelengths that require grad raise NotImplementedError
-at entry, and so does a gradient asked through an unported gradient mode.
-Under torch.no_grad() the render is what it was without a request."""
+at entry, and so does a gradient asked through an unported gradient mode
+or of a texture table. Under torch.no_grad() the render is what it was
+without a request."""
 
 import pytest
 import torch
 
+from pbrt_tpu_torch.io.parser import load_pbrt
 from pbrt_tpu_torch.models.path import PathIntegrator
-from pbrt_tpu_torch.parallel.train import training_step
+from pbrt_tpu_torch.parallel.train import render_loss_and_grad, training_step
 from pbrt_tpu_torch.render import camera_rays_full, render
 from pbrt_tpu_torch.scenes.cornell import cornell_box
 
@@ -87,3 +89,37 @@ def test_no_grad_renders_as_without_a_request(cornell8):
     with torch.no_grad():
         got = render(asked, camera, PathIntegrator(max_depth=5), **kw)
     assert torch.equal(got, want) and not got.requires_grad
+
+
+@pytest.fixture(scope="module")
+def imagetex8():
+    """imagetex.pbrt at 8x8: an image-textured floor and a plain diffuse
+    sphere."""
+    scene, camera, settings = load_pbrt("tests/goldens/imagetex.pbrt",
+                                        device="cpu")
+    return scene, camera.replace(resolution=(8, 8)), settings["integrator"]
+
+
+@pytest.mark.parametrize("field", ["rgb0", "f0", "img_flat"])
+def test_texture_grad_request_raises(imagetex8, field):
+    """Texture tables are not trainable: a request raises (item 5)."""
+    scene, camera, integrator = imagetex8
+    scene = _with_grad(scene, "textures", field)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        render(scene, camera, integrator, spp=1, device="cpu")
+
+
+def test_textured_albedo_rows_get_no_gradient(imagetex8):
+    """The texture overwrites a textured row's albedo at every hit, so its
+    gradient is zero, as in the reference; the sphere's row has one."""
+    scene, camera, integrator = imagetex8
+    pixel = torch.arange(64).repeat(2)
+    sample = torch.arange(2).repeat_interleave(64)
+    _, grads = render_loss_and_grad(scene, camera, integrator, pixel,
+                                    torch.full((128, 3), 0.25), sample, 0,
+                                    n_spectrum=8)
+    g = grads["materials.albedo_coeffs"]
+    tex_rows = scene.materials.albedo_tex >= 0
+    assert tex_rows.tolist() == [False, True, False]
+    assert torch.all(g[tex_rows] == 0.0) and torch.all(torch.isfinite(g))
+    assert torch.any(g[2] != 0.0)

@@ -16,7 +16,9 @@ from pbrt_tpu_torch.lights.buffers import LightBuffers
 from pbrt_tpu_torch.materials.buffers import (
     MAT_COATEDCONDUCTOR,
     MAT_CONDUCTOR,
+    MAT_DIELECTRIC,
     MAT_DIFFUSE,
+    MAT_DIFFUSETRANS,
     MaterialBuffers,
 )
 from pbrt_tpu_torch.models.path import PathIntegrator
@@ -26,6 +28,7 @@ from pbrt_tpu_torch.scene import Scene
 from pbrt_tpu_torch.scenes.cornell import cornell_box
 from pbrt_tpu_torch.scenes.meshes import mesh_gallery_scene
 from pbrt_tpu_torch.shapes.geometry import GeometryBuffers, make_quad
+from pbrt_tpu_torch.textures.buffers import TextureBuffers
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,6 +70,14 @@ def _quad_geom(mat=0):
 
 
 
+def _gallery_with_torus_kind(kind):
+    scene, _ = mesh_gallery_scene(resolution=(8, 8), subdiv=1)
+    kinds = scene.materials.kind.clone()
+    assert kinds[2] == MAT_DIELECTRIC
+    kinds[2] = kind
+    return scene.replace(materials=scene.materials.replace(kind=kinds))
+
+
 @pytest.mark.parametrize("build", [
     lambda: cornell_box(variant="specular"),
     lambda: GeometryBuffers.build(**_quad_geom(),
@@ -78,7 +89,8 @@ def _quad_geom(mat=0):
     # The image-based infinite light reads PFM only.
     lambda: read_image_rgb("sky.exr"),
     lambda: LightBuffers.build(sampler="bvh"),
-    lambda: MaterialBuffers.build([{"kind": MAT_DIFFUSE, "albedo_texture": 2}]),
+    # Textures are ported but for Ptex.
+    lambda: TextureBuffers.build([{"kind": "ptex"}]),
     # Of the conductor families only the plain conductor is ported.
     lambda: Scene(geom=GeometryBuffers.build(**_quad_geom(mat=1)),
                   materials=MaterialBuffers.build(
@@ -87,13 +99,33 @@ def _quad_geom(mat=0):
     lambda: Sampler(kind="sobol"),
     # Animated instances are not ported.
     lambda: scene_from_arrays({"anim.o2w_start": np.ones((1, 12))}, {}),
-    lambda: mesh_gallery_scene(resolution=(8, 8), subdiv=1),  # glass torus
+    # The gallery's glass torus is shaded (tests/test_torch_dielectric.py);
+    # the same geometry with a diffuse-transmission torus is not.
+    lambda: _gallery_with_torus_kind(MAT_DIFFUSETRANS),
 ], ids=["specular_variant", "disk", "alpha", "point_light", "infinite_light",
         "light_bvh", "texture", "referenced_conductor", "sobol_sampler",
         "animated_instance", "mesh_gallery_dielectric"])
 def test_unsupported_features_raise(build):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         build()
+
+
+def test_a_missing_texture_raises():
+    """A material that binds a texture the scene does not hold raises; the
+    reference skips the overlay (no tables) or clamps the id."""
+    geom = GeometryBuffers.build(**_quad_geom(mat=1))
+    materials = MaterialBuffers.build([{"kind": MAT_DIFFUSE},
+                                       {"kind": MAT_DIFFUSE, "albedo_texture": 1}])
+    with pytest.raises(ValueError, match="texture id"):
+        Scene(geom=geom, materials=materials, lights=LightBuffers.build())
+    one = TextureBuffers.build([{"kind": "constant"}])
+    with pytest.raises(ValueError, match="texture id"):
+        Scene(geom=geom, materials=materials, lights=LightBuffers.build(),
+              textures=one)
+    two = TextureBuffers.build([{"kind": "constant"}, {"kind": "checker"}])
+    scene = Scene(geom=geom, materials=materials, lights=LightBuffers.build(),
+                  textures=two)
+    assert scene.textures.n_textures == 2
 
 
 def test_accelerator_tiers():

@@ -29,9 +29,10 @@ GOLDENS = sorted(os.path.basename(p) for p in
 # item (the first such feature in the file), or None when it builds.
 GOLDEN_ITEMS = {
     "bdpt.pbrt": 13, "box.pbrt": None, "conductor.pbrt": None,
-    "dielectric.pbrt": 10, "envmap.pbrt": None, "fog.pbrt": 13,
-    "imagetex.pbrt": 10, "mlt.pbrt": 13, "plymesh.pbrt": None,
-    "spheres.pbrt": 10, "spot.pbrt": None, "sppm.pbrt": 13, "texture.pbrt": 10,
+    "dielectric.pbrt": None, "envmap.pbrt": None, "fog.pbrt": 13,
+    "imagetex.pbrt": None, "mlt.pbrt": 13, "plymesh.pbrt": None,
+    "spheres.pbrt": None, "spot.pbrt": None, "sppm.pbrt": 13,
+    "texture.pbrt": None,
 }
 
 _BOX = """
@@ -168,9 +169,12 @@ _TRI = ('Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
     ('Film "gbuffer"', 14),
     ('Sampler "sobol"', 14),
     ('Integrator "volpath"', 13),
-    ('Texture "t" "spectrum" "checkerboard"', 10),
-    ('Material "diffuse" "texture reflectance" "t"', 10),
-    ('Material "dielectric"', 10),
+    ('Texture "t" "spectrum" "ptex" "string filename" "t.ptx"', 15),
+    # Of the texture-typed material parameters only the albedo is ported.
+    ('Texture "t" "float" "constant" "float value" 0.2 '
+     'Material "conductor" "texture roughness" "t"', 10),
+    ('Texture "t" "float" "fbm" '
+     'Material "dielectric" "texture roughness" "t"', 10),
     ('Material "coatedconductor"', 10),
     ('LightSource "infinite" "string filename" "sky.exr"', 15),
     ('MakeNamedMedium "fog" "string type" "homogeneous"', 12),
@@ -285,6 +289,108 @@ def test_reference_approximations_warn():
     assert settings["warnings"] == list(
         jax_load_pbrt_string(text)[2]["warnings"])
     assert "material wood approximated as diffuse" in settings["warnings"]
+
+
+# Every ported Texture class, each mapping, references two levels deep, a
+# reference before the texture's definition (ignored with a warning, as
+# in the reference) and the three glass material names.
+_TEXTURES = """
+LookAt 0 2 -6  0 0.5 0  0 1 0
+Camera "perspective" "float fov" 40
+WorldBegin
+Material "diffuse" "texture reflectance" "late"
+Texture "c" "spectrum" "constant" "rgb value" [0.2 0.4 0.6]
+Texture "k" "spectrum" "checkerboard" "rgb tex1" [0.9 0.1 0.1]
+  "rgb tex2" [0.1 0.1 0.9] "float uscale" 4 "float vscale" 3
+Texture "ks" "spectrum" "checker" "string mapping" "spherical"
+  "texture tex1" "k" "texture tex2" "c"
+Texture "kc" "spectrum" "checkerboard" "string mapping" "cylindrical"
+  "float udelta" 0.5
+Texture "kp" "spectrum" "checkerboard" "string mapping" "planar"
+  "vector3 v1" [1 0.5 0] "vector3 v2" [0 0.2 1]
+Texture "s" "spectrum" "scale" "texture tex" "ks" "float scale" 0.5
+Texture "sa" "spectrum" "scale" "rgb tex" [1 0.5 0.25] "float scale" 2
+Texture "m" "spectrum" "mix" "texture tex1" "s" "rgb tex2" [0 1 0]
+  "float amount" 0.25
+Texture "dm" "spectrum" "directionmix" "texture tex1" "c" "texture tex2" "k"
+  "vector3 dir" [0 1 0]
+Texture "b" "spectrum" "bilerp" "rgb v00" [1 0 0] "rgb v11" [0 0 1]
+Texture "d" "spectrum" "dots" "rgb inside" [1 1 0] "float uscale" 3
+Texture "f" "float" "fbm"
+Texture "w" "float" "wrinkled"
+Texture "y" "float" "windy"
+Texture "mb" "spectrum" "marble" "float scale" 2
+Texture "i" "spectrum" "imagemap" "string filename" "img.pfm" "float scale" 2
+Texture "late" "spectrum" "constant"
+Material "diffuse" "texture reflectance" "m"
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point3 P" [-6 0 -6  6 0 -6  6 0 6  -6 0 6] "point2 uv" [0 0 1 0 1 1 0 1]
+MakeNamedMaterial "img" "string type" "diffuse" "texture albedo" "i"
+NamedMaterial "img"
+Shape "sphere" "float radius" 0.3
+Material "dielectric" "float eta" 1.33 "float roughness" 0.1
+Shape "sphere" "float radius" 0.5
+Material "glass"
+Shape "sphere" "float radius" 0.7
+Material "thindielectric" "float eta" 1.4
+Shape "sphere" "float radius" 0.9
+"""
+
+
+def _write_pfm(path, img):
+    with open(path, "wb") as f:
+        f.write(f"PF\n{img.shape[1]} {img.shape[0]}\n-1\n".encode())
+        f.write(np.flipud(img).astype("<f4").tobytes())
+
+
+def test_texture_directives_match_jax(tmp_path):
+    """The texture rows, the flat texel table and the materials that bind
+    them, bit for bit with the reference's build; convert.py carries the
+    reference's tables to the same tensors."""
+    _write_pfm(tmp_path / "img.pfm",
+               np.random.default_rng(1).uniform(0, 1, (5, 9, 3)))
+    jax_built = jax_load_pbrt_string(_TEXTURES, str(tmp_path))
+    port_built = load_pbrt_string(_TEXTURES, str(tmp_path), device="cpu")
+    _assert_same_build(jax_built, port_built)
+    ps, _, pset = port_built
+    t = ps.textures
+    assert t.n_textures == 17 and t.has_refs and t.img_flat.shape[0] == 1
+    assert ps.materials.albedo_tex.tolist()[1:4] == [-1, 7, 15]
+    assert ps.shaded_kinds == {0, 2, 3}
+    assert "texture 'late' referenced before definition; ignored" in pset["warnings"]
+    conv = scene_from_arrays(*flatten_jax(jax_built[0]))
+    for path, value in flatten_jax(t)[0].items():
+        assert torch.equal(getattr(conv.textures, path),
+                           torch.as_tensor(value)), path
+
+
+def test_texture_typed_amounts_bind_sub_textures():
+    """A texture-typed scale or mix amount binds through sub2, as the
+    reference's tables mean it to; the reference's parser takes float() of
+    the texture's name and raises (ROADMAP Queue 3)."""
+    text = ('Texture "k" "spectrum" "checkerboard" '
+            'Texture "s" "spectrum" "scale" "rgb tex" [1 0.5 0.25] '
+            '"texture scale" "k" '
+            'Texture "m" "spectrum" "mix" "texture tex1" "s" '
+            '"texture amount" "k"')
+    with pytest.raises(ValueError, match="could not convert"):
+        jax_load_pbrt_string(text)
+    t = load_pbrt_string(text, device="cpu")[0].textures
+    assert t.sub2.tolist() == [-1, 0, 0] and t.sub0.tolist() == [-1, -1, 1]
+    assert t.f0.tolist() == [1.0, 1.0, 0.5]
+
+
+@pytest.mark.parametrize("text, error", [
+    # The reference binds 0.5 gray and warns.
+    ('Texture "t" "spectrum" "cloud"', "unknown texture class"),
+    # The reference binds a 0.5 gray image and warns.
+    ('Texture "t" "spectrum" "imagemap" "string filename" "missing.pfm"',
+     "missing.pfm"),
+    ('Texture "t" "spectrum" "imagemap"', "filename"),
+], ids=["unknown_class", "missing_image", "no_filename"])
+def test_texture_departures_raise(text, error):
+    with pytest.raises(ValueError, match=error):
+        load_pbrt_string(text, device="cpu")
 
 
 def test_cuda_device_does_not_fall_back():

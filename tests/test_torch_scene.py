@@ -87,17 +87,21 @@ def test_convert_refuses_unported_members(jax_cornell):
     from pbrt_tpu_torch.convert import scene_from_arrays
 
     js = jax_cornell[0]
-    # The clusters (tests/test_torch_meshes.py), the BVH and the kd-tree
-    # convert (tests/test_torch_bvh.py, tests/test_torch_kdtree.py); the
-    # texture tables do not.
+    # The clusters (tests/test_torch_meshes.py), the BVH, the kd-tree
+    # (tests/test_torch_bvh.py, tests/test_torch_kdtree.py) and the texture
+    # tables (tests/test_torch_parser.py) convert; a Ptex row does not.
+    tri = ('Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
+           '"integer indices" [0 1 2]')
     textured, _, _ = jax_load_pbrt_string(
         'Texture "t" "spectrum" "checkerboard" '
-        'Material "diffuse" "texture reflectance" "t" '
-        'Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
-        '"integer indices" [0 1 2]')
-    assert textured.textures is not None
-    with pytest.raises(NotImplementedError, match="item 10"):
-        scene_from_arrays(*flatten_jax(textured))
+        'Material "diffuse" "texture reflectance" "t" ' + tri)
+    assert scene_from_arrays(*flatten_jax(textured)).textures.n_textures == 1
+    ptex, _, _ = jax_load_pbrt_string(
+        'Texture "t" "spectrum" "ptex" "string filename" "missing.ptx" '
+        'Material "diffuse" "texture reflectance" "t" ' + tri)
+    assert ptex.textures.has_ptex
+    with pytest.raises(NotImplementedError, match="item 15"):
+        scene_from_arrays(*flatten_jax(ptex))
     sampler_bvh = js.replace(lights=js.lights.replace(sampler="bvh"))
     with pytest.raises(NotImplementedError, match="item 11"):
         scene_from_arrays(*flatten_jax(sampler_bvh))
