@@ -11,18 +11,20 @@ the small tier and on the kd-tree), the killeroo-class mesh scene (on the
 cluster tier and on the BVH tier), the instanced field (a .pbrt file
 through the port's parser) and the golden scene files spot.pbrt,
 envmap.pbrt, plymesh.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt
-and imagetex.pbrt on the card against the committed JAX goldens, renders
+and imagetex.pbrt and the many-light hall (power and light-BVH samplers)
+on the card against the committed JAX goldens, renders
 the golden scene files conductor.pbrt, plymesh.pbrt, spot.pbrt,
 envmap.pbrt, box.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt and
 imagetex.pbrt against the pbrt-v4 C++ goldens and the furnace scene
 against its closed form, holds the backward pass's image-loss gradients
 against the JAX gradient golden, across tiers and, through delta lights
-(and a glass sphere), against the CPU, times the forward render of each
-timed configuration (the mesh gallery's glass torus and texture.pbrt
-among them) and the Cornell forward+backward pass, and takes three
-training steps. Each phase
-prints one JSON line; any failure raises, so the script exits non-zero and
-never prints the final line. Without a CUDA device it exits non-zero at
+(and a glass sphere), against the CPU, and through the coated materials'
+layered walk against their JAX golden, times the forward render of each
+timed configuration (the mesh gallery's glass torus, texture.pbrt and
+bench's many-light hall among them) and the Cornell forward+backward
+pass, and takes three training steps. Each phase prints one JSON line;
+any failure raises, so the script exits non-zero and never prints the
+final line. Without a CUDA device it exits non-zero at
 once. It never imports JAX.
 
 Phases:
@@ -59,6 +61,13 @@ Phases:
       rays of one pass and their shadow rays, unsorted, as the BVH tier
       sends them), bit-equal, timed, against the bound of K4's own walk
       and, beside it, that of the twin's walk
+  c5  K2 vs its twin on the many-light hall (2,338 triangles, 2,048 of
+      them emitters): every K2 query of one e8 pass (256x256, 8 spp, depth
+      4, power sampler; camera, three bounces and the terminal query in
+      closest mode, four shadow queries with the path's dead lanes in
+      any-hit mode, 524,288 lanes each), the launches counted from zero
+      over that pass, each query bit-equal key by key, kernel and twin
+      timed, with c2's counts, bound and diagnostic
   d   Cornell 32x32, 16 spp, 32 lanes, depth 5 (default Russian roulette)
       against tests/data/torch_port/cornell32_spp16.npy: >= 99% of pixel
       values within rtol 1e-3 / atol 1e-5, and 11 K1 launches per pass
@@ -128,6 +137,21 @@ Phases:
   g4  g3 on spheres.pbrt (a point and a distant light; diffuse rows seen
       through the smooth glass sphere), depth 5: within 1e-6 of the
       largest entry, 11 K1 launches per forward+backward pass
+  d18 the many-light hall (scenes/manylight.py: 1,024 panels, 2,048 area
+      lights, a coated-diffuse floor, 2,338 triangles: K2) with the power
+      and the light-BVH sampler at 32x32, 4 spp, depth 4 without Russian
+      roulette, 8 lanes, against the JAX goldens of
+      scripts/make_torch_port_golden_manylight.py, the layered walk on
+      coarse keys as the goldens (tests/torch_port_coated.py): d's gate,
+      9 K2 launches per pass; the share and mean of the render on the
+      exact keys beside it (mean within EXACT_KEYS_MEAN_RTOL of the
+      golden's)
+  g5  the bench's loss and gradients on the coated Cornell box (coated
+      diffuse walls, a coated gold conductor; tests/torch_port_coated.py),
+      32x32, 4 spp in passes of 2, depth 5, 8 lanes, coarse walk keys,
+      against tests/data/torch_port/coated_cornell32_grad.npz and the
+      port's CPU pass with g's tolerance; 11 K1 launches per
+      forward+backward pass, a forward's
   e   timed Cornell forward at its benchmark configuration (256x256, 128
       spp in passes of 64, depth 5, no Russian roulette) at 8 and 32 lanes
   e2  timed killeroo-class forward at its benchmark configuration (512x512,
@@ -163,6 +187,16 @@ Phases:
       per pass, peak memory, the texture layer's device ms
       (evaluate_albedo_coeffs with its per-ray fit) and kernel launches in
       one pass, and e5's layers
+  e8  bench.py's manylight_fwd timed: the hall at 256x256, 16 spp in
+      passes of 8 (524,288 camera rays a pass), depth 4 without Russian
+      roulette, 8 lanes, the cluster tier, with the power sampler and with
+      the light BVH: Mrays/s as bench.py counts rays, K2 launches per pass
+      and K2's share of the wall, peak memory, the layers' device ms with
+      the coated walk split from the BxDF's and light selection from the
+      lights' (and the sorted dispatch's whole call), kernel launches per
+      pass and the device's busy share (torch.profiler); then the power
+      pass with sorted_shading=False against the sorted default, in turns,
+      the first pass's image of each bit-equal
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
   f   the kernels line, the nvidia-smi line and the final result line
@@ -678,20 +712,63 @@ def _k2_timed(scene, camera, dev):
            "resolve_tri_attrs_ms": cuda_ms(
                lambda: resolve_tri_attrs(scene.geom, o, d, prim), reps=10)}
 
+    out.update(_timed_vs_twin(cluster.cluster_intersect,
+                              cluster.cluster_intersect_ref, cluster.STATS,
+                              acc, rays, _k2_cost(acc, PASS_RAYS)))
+    emit("c2_k2_timed", **out)
+    return out
+
+
+def _k2_cost(acc, n_rays: int):
+    """K2's cost(counts) for _timed_vs_twin on a batch of n_rays."""
     def cost(counts):
         # 128 triangle tests per (ray, cluster) pair left after per-ray
         # culling; 28 B of ray in, 8 B of (t, prim) out, and the ten
         # triangle planes and the boxes read once.
         return (counts["pairs"] * 128 * MT_OPS,
-                PASS_RAYS * (28 + 8) + acc.n_clusters * 128 * 10 * 4
+                n_rays * (28 + 8) + acc.n_clusters * 128 * 10 * 4
                 + (acc.n_clusters + acc.n_supers) * 32,
                 {"tests": counts["pairs"] * 128})
 
-    out.update(_timed_vs_twin(cluster.cluster_intersect,
-                              cluster.cluster_intersect_ref, cluster.STATS,
-                              acc, rays, cost))
-    emit("c2_k2_timed", **out)
-    return out
+    return cost
+
+
+def phase_k2_hall_vs_twin(dev, hall):
+    """c5: K2 against its twin on every query of one pass of e8's
+    configuration (the hall at 256x256, 8 spp, depth 4, power sampler),
+    as the path sends them: bit-equal key by key, kernel and twin timed.
+    The launches are counted from zero over that pass."""
+    from pbrt_tpu_torch.ops import cluster
+
+    res, k, depth = 256, 8, 4
+    scene, camera, _ = hall["power"]
+    scene, camera = scene.to(dev), camera.to(dev)
+    acc = scene.clusters
+    cluster.STATS.reset()
+    queries = _pass_queries(scene, camera, res, k, "cluster_intersect",
+                            depth=depth)
+    launches = cluster.STATS.launches
+    if launches != 2 * depth + 1 or len(queries) != launches:
+        raise AssertionError(f"hall pass: {launches} K2 launches, "
+                             f"{len(queries)} queries captured")
+    per_query = {}
+    for name, (o, d, tmax, any_hit) in queries.items():
+        mode = "any_hit" if any_hit else "closest"
+        per_query[name] = {"mode": mode, "rays": int(o.shape[0]),
+                           **_timed_vs_twin(
+                               cluster.cluster_intersect,
+                               cluster.cluster_intersect_ref, cluster.STATS,
+                               acc, {mode: (o, d, tmax)},
+                               _k2_cost(acc, int(o.shape[0])))[mode]}
+    ms = sum(q["ms"] for q in per_query.values())
+    emit("c5_k2_hall_vs_twin", triangles=int(scene.geom.tri_verts.shape[0]),
+         n_clusters=acc.n_clusters, n_supers=acc.n_supers,
+         resolution=res, spp=k, max_depth=depth, launches=launches,
+         ms_per_pass=ms,
+         plain_ms_per_pass=sum(q["plain_ms"] for q in per_query.values()),
+         bound_ms_per_pass=sum(q["bound_ms"] for q in per_query.values()),
+         max_abs_err=max(q["max_abs_err"] for q in per_query.values()),
+         queries=per_query)
 
 
 # FP32 operations of K3's world-to-object move per (ray, entered instance):
@@ -723,24 +800,28 @@ def field_on(dev):
     return scene, camera, settings, t1 - t0, t2 - t1
 
 
-def _k3_queries(scene, camera, res: int, k: int):
-    """Every K3 query of one res x res, k spp forward pass (8 lanes), as the
-    path sends it: sorted rays, tmax and mode, in the order sent (camera,
-    then per bounce a shadow and a bounce query, then the terminal one)."""
+def _pass_queries(scene, camera, res: int, k: int, launcher: str,
+                  depth: int = 5):
+    """Every query that one res x res, k spp forward pass (8 lanes, depth
+    `depth`) sends to accel.api's `launcher` (sweep_intersect or
+    cluster_intersect), as the path sends it: sorted rays, tmax and mode,
+    in the order sent (camera, then per bounce a shadow and a bounce
+    query, then the terminal one). The queries still launch the kernel."""
     from pbrt_tpu_torch.accel import api
 
     queries = []
-    launch = api.sweep_intersect
+    launch = getattr(api, launcher)
 
-    def capture(acc, o, d, tmax, any_hit=False):
+    def capture(acc, o, d, tmax, any_hit=False, **kw):
         queries.append((o.clone(), d.clone(), tmax.clone(), any_hit))
-        return launch(acc, o, d, tmax, any_hit=any_hit)
+        return launch(acc, o, d, tmax, any_hit=any_hit, **kw)
 
-    api.sweep_intersect = capture
+    setattr(api, launcher, capture)
     try:
-        make_pass(scene, camera.replace(resolution=(res, res)), res, k, 8)(0)
+        make_pass(scene, camera.replace(resolution=(res, res)), res, k, 8,
+                  depth=depth)(0)
     finally:
-        api.sweep_intersect = launch
+        setattr(api, launcher, launch)
     names, bounce = [], 0
     for _, _, _, any_hit in queries:
         if any_hit:
@@ -767,8 +848,8 @@ def phase_k3_vs_twin(dev, field, killeroo):
     for label, (scene, camera) in scenes.items():
         acc = scene.sweep
         per_query = {}
-        for name, (o, d, tmax, any_hit) in _k3_queries(
-                scene, camera, K3_SAMPLE_RES, 4).items():
+        for name, (o, d, tmax, any_hit) in _pass_queries(
+                scene, camera, K3_SAMPLE_RES, 4, "sweep_intersect").items():
             got = sweep_intersect(acc, o, d, tmax, any_hit=any_hit)
             counts = {}
             want = sweep_intersect_ref(acc, o, d, tmax, any_hit=any_hit,
@@ -1206,10 +1287,12 @@ def phase_golden_kdtree(dev):
         raise AssertionError("the kd-tree render launched K1")
 
 
-def make_pass(scene, camera, res: int, k: int, lanes: int, depth: int = 5):
+def make_pass(scene, camera, res: int, k: int, lanes: int, depth: int = 5,
+              sorted_shading="auto"):
     """One forward pass at a bench configuration: k samples per pixel over
-    res x res, `lanes` wavelengths, depth `depth`, no Russian roulette.
-    Returns render_pass(pass_idx) -> (mean RGB image, traced rays)."""
+    res x res, `lanes` wavelengths, depth `depth`, no Russian roulette,
+    the integrator's sorted_shading. Returns render_pass(pass_idx) ->
+    (mean RGB image, traced rays)."""
     import torch
 
     # Module attributes are looked up at each call, so a profiler that
@@ -1219,7 +1302,8 @@ def make_pass(scene, camera, res: int, k: int, lanes: int, depth: int = 5):
     from pbrt_tpu_torch.models.path import PathIntegrator
 
     dev = scene.geom.tri_verts.device
-    integrator = PathIntegrator(max_depth=depth, rr_start_depth=depth)
+    integrator = PathIntegrator(max_depth=depth, rr_start_depth=depth,
+                                sorted_shading=sorted_shading)
     npix = res * res
     pixel_b = torch.arange(npix, device=dev).repeat(k)
 
@@ -1952,6 +2036,266 @@ def phase_train(dev):
                              "off the card")
 
 
+# The many-light hall (bench.py manylight_fwd: scenes/manylight.py, 1,024
+# panels, seed 7) and its goldens: scripts/make_torch_port_golden_manylight.py,
+# rendered with the walk on coarse keys (tests/torch_port_coated.py).
+HALL_SAMPLERS = ("power", "bvh")
+GOLDEN_COATED_GRAD = os.path.join(ROOT, "tests", "data", "torch_port",
+                                  "coated_cornell32_grad.npz")
+# d18's gate on the exact-keys render: its mean within 0.3% of the
+# golden's (the walk draws other numbers where the card's directions round
+# otherwise; the same estimator). Set from scripts/hall_exact_keys_mean.py:
+# the sound walk reads up to 1.5e-3, one whose under-coat estimate is 5%
+# low reads 5.4e-3 and more (PERF.md section 6).
+EXACT_KEYS_MEAN_RTOL = 3e-3
+
+
+def coarse_keys():
+    """The port's layered walk on coarse keys (tests/torch_port_coated.py)
+    within the block, as the goldens were made."""
+    from pbrt_tpu_torch.materials import layered
+    from tests.torch_port_coated import coarse_walk_keys
+
+    return coarse_walk_keys(layered)
+
+
+def hall_scenes():
+    """The hall with the power and with the light-BVH sampler, built on the
+    host, with each build's seconds."""
+    from pbrt_tpu_torch.scenes.manylight import manylight_scene
+
+    out = {}
+    for sampler in HALL_SAMPLERS:
+        t0 = time.perf_counter()
+        scene, camera = manylight_scene(resolution=(256, 256), sampler=sampler)
+        out[sampler] = (scene, camera, time.perf_counter() - t0)
+    return out
+
+
+def phase_golden_hall(dev, hall):
+    """d18: the hall at 32x32, 4 spp, depth 4 without Russian roulette, 8
+    lanes, seed 0, on the card against the JAX goldens of both samplers
+    with d's gate (walk on coarse keys, as the goldens), 2 x depth + 1 K2
+    launches per pass; and the render on the exact keys, its mean within
+    EXACT_KEYS_MEAN_RTOL of the golden's."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.ops import cluster, smallscene
+    from pbrt_tpu_torch.render import render
+
+    res, spp, depth, lanes = 32, 4, 4, 8
+    for sampler in HALL_SAMPLERS:
+        scene, camera, _ = hall[sampler]
+        golden = np.load(os.path.join(ROOT, "tests", "data", "torch_port",
+                                      f"manylight32_{sampler}_spp4.npy"))
+        camera = camera.replace(resolution=(res, res))
+        integ = PathIntegrator(max_depth=depth, rr_start_depth=depth)
+        kw = dict(spp=spp, samples_per_pass=spp, seed=0, n_spectrum=lanes,
+                  device=dev)
+        cluster.STATS.reset()
+        smallscene.STATS.reset()
+        with coarse_keys():
+            img = render(scene, camera, integ, **kw)
+        torch.cuda.synchronize()
+        k1, k2 = smallscene.STATS.launches, cluster.STATS.launches
+        share, fields = _golden_gate(img.cpu().numpy(), golden)
+        exact = render(scene, camera, integ, **kw).cpu().numpy()
+        exact_share = float(np.mean(
+            np.abs(exact - golden) <= 1e-5 + 1e-3 * np.abs(golden)))
+        exact_rel = abs(float(exact.mean()) / float(golden.mean()) - 1.0)
+        emit("d18_golden_hall_jax", sampler=sampler, resolution=res, spp=spp,
+             max_depth=depth, lanes=lanes, walk_keys="coarse", **fields,
+             k2_launches=k2, k1_launches=k1, expected_k2=2 * depth + 1,
+             exact_keys_share=exact_share, exact_keys_mean=float(exact.mean()),
+             exact_keys_mean_rel_err=exact_rel)
+        if share < 0.99:
+            raise AssertionError(f"hall ({sampler}): only {share:.4f} of "
+                                 "pixel values match the JAX golden")
+        if k2 != 2 * depth + 1 or k1:
+            raise AssertionError(f"hall ({sampler}): {k2} K2 and {k1} K1 "
+                                 "launches per pass")
+        if not np.all(np.isfinite(exact)) or exact_rel > EXACT_KEYS_MEAN_RTOL:
+            raise AssertionError(f"hall ({sampler}) on the exact keys: mean "
+                                 f"{exact.mean()} against {golden.mean()}")
+
+
+def phase_grad_coated(dev):
+    """g5: the bench's loss and gradients on the coated Cornell box
+    (tests/torch_port_coated.py: coated diffuse, coated gold conductor),
+    32x32, 4 spp in passes of 2, depth 5, 8 lanes, walk on coarse keys, on
+    the card against the JAX golden
+    (tests/data/torch_port/coated_cornell32_grad.npz) and against the
+    port's CPU pass, with phase g's tolerance; K1 launches per
+    forward+backward pass equal to a forward's (2 x depth + 1)."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import STATS
+    from tests.torch_port_coated import coated_cornell
+
+    z = np.load(GOLDEN_COATED_GRAD)
+    res, k, lanes = int(z["resolution"]), int(z["samples_per_pass"]), \
+        int(z["n_spectrum"])
+    passes, depth = int(z["spp"]) // k, int(z["max_depth"])
+    if int(z["rr_start_depth"]) != depth:
+        raise AssertionError("the golden's Russian roulette is not off")
+    want = {"materials.albedo_coeffs": z["grad_albedo_coeffs"],
+            "lights.area_scale": z["grad_area_scale"]}
+    scene, camera = coated_cornell("pbrt_tpu_torch", (res, res))
+    scene = scene.with_accel()
+    with coarse_keys():
+        STATS.reset()
+        t0 = time.perf_counter()
+        loss, grads = grad_passes(scene.to(dev), camera, res, k, lanes,
+                                  passes, depth)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = STATS.launches
+        cpu_loss, cpu_grads = grad_passes(scene, camera, res, k, lanes, passes,
+                                          depth)
+    vs_jax = _grad_compare(loss, grads, float(z["loss"]), want)
+    vs_cpu = _grad_compare(loss, grads, cpu_loss, cpu_grads)
+    emit("g5_grad_coated", resolution=res, spp=int(z["spp"]),
+         samples_per_pass=k, lanes=lanes, max_depth=depth, walk_keys="coarse",
+         loss=loss, golden_loss=float(z["loss"]), cpu_loss=cpu_loss,
+         vs_jax=vs_jax, vs_cpu=vs_cpu, k1_launches=launches, passes=passes,
+         k1_launches_per_pass=launches / passes,
+         expected_per_pass=2 * depth + 1, card_seconds=card_s,
+         tolerance={"grad_of_max": GRAD_RTOL_OF_MAX, "loss_rel": LOSS_RTOL})
+    if not (vs_jax["ok"] and vs_cpu["ok"]):
+        raise AssertionError("coated Cornell gradients disagree with the "
+                             "golden or the CPU pass")
+    if launches != (2 * depth + 1) * passes:
+        raise AssertionError(f"{launches} K1 launches for {passes} "
+                             "forward+backward passes")
+
+
+def _hall_layers(render_pass) -> dict:
+    """The layers' device ms of one pass (e5's CUDA events around each
+    layer's top-level calls), with two layers split from the inside by
+    events of their own: the layered walk (materials/layered.py) within
+    the BxDF's, light selection (LightBuffers.select and selection_pmf)
+    within the lights', and the sorted dispatch's whole call
+    (materials/sorted.py shade_sorted, its BxDF calls included)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.lights.buffers import LightBuffers
+    from pbrt_tpu_torch.materials import layered
+    from pbrt_tpu_torch.materials import sorted as sorted_mod
+
+    timer = ptp.LayerTimer()
+    inner = {"walk": ptp.LayerTimer(), "light_selection": ptp.LayerTimer(),
+             "sorted_dispatch": ptp.LayerTimer()}
+    targets = [(layered, "layered_walk", "walk"),
+               (LightBuffers, "select", "light_selection"),
+               (LightBuffers, "selection_pmf", "light_selection"),
+               (sorted_mod, "shade_sorted", "sorted_dispatch")]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
+    with ptp.wrapped_layers(timer):
+        for (owner, attr, fn), (_, _, name) in zip(saved, targets):
+            setattr(owner, attr, inner[name].wrap(name, fn))
+        try:
+            render_pass()  # warm-up
+            torch.cuda.synchronize()
+            for t in (timer, *inner.values()):
+                t.events.clear()
+            t0 = time.perf_counter()
+            render_pass()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for owner, attr, fn in saved:
+                setattr(owner, attr, fn)
+    layers = timer.totals_ms()
+    layers["other"] = wall_ms - sum(layers.values())
+    layers = {key.replace("k1_", "queries_"): ms for key, ms in layers.items()}
+    split = {name: t.totals_ms().get(name, 0.0) for name, t in inner.items()}
+    return {"wall_ms": wall_ms, "layers_ms": layers,
+            "bxdf_walk_ms": split["walk"],
+            "bxdf_rest_ms": layers.get("bxdf", 0.0) - split["walk"],
+            "lights_selection_ms": split["light_selection"],
+            "lights_rest_ms": layers.get("lights", 0.0)
+            - split["light_selection"],
+            "sorted_dispatch_ms": split["sorted_dispatch"]}
+
+
+def phase_timed_hall(dev, smi: str, hall):
+    """e8: bench.py's manylight_fwd on the card: the hall at 256x256, 16
+    spp in passes of 8 (524,288 camera rays a pass), depth 4 without
+    Russian roulette, 8 lanes, the cluster tier (K2), for the power and the
+    light-BVH sampler: Mrays/s as bench.py counts rays, K2 launches per
+    pass and K2's share of the wall, peak memory, the layers' device ms
+    (_hall_layers), the kernel launches of one pass and the device's busy
+    share (scripts/profile_torch_pass.py's torch.profiler view); then the
+    power pass with the lockstep chain (sorted_shading=False) against the
+    sorted default, in turns, in this call (the card's break-even), the
+    first pass's image of each mode bit-equal."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.ops import cluster, smallscene
+
+    res, spp, k, lanes, depth = 256, 16, 8, 8, 4
+    passes = spp // k
+    stats = {"k1": smallscene.STATS, "k2": cluster.STATS}
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    k2_launches = 0
+    for sampler in HALL_SAMPLERS:
+        scene, camera, build_s = hall[sampler]
+        scene, camera = scene.to(dev), camera.to(dev)
+        t0 = time.perf_counter()
+        render_pass = make_pass(scene, camera, res, k, lanes, depth=depth)
+        render_pass(0)  # warm-up
+        first_s = time.perf_counter() - t0
+        out = timed_forward(render_pass, passes, stats)
+        if out["k2_launches"] != passes * (2 * depth + 1) or out["k1_launches"]:
+            raise AssertionError(f"timed hall ({sampler}): "
+                                 f"{out['k2_launches']} K2 and "
+                                 f"{out['k1_launches']} K1 launches")
+        layers = _hall_layers(render_pass)
+        kern = ptp.kernel_view(lanes, render_pass, out_dir)
+        emit("e8_timed_hall", sampler=sampler, lanes=lanes, resolution=res,
+             spp=spp, samples_per_pass=k, max_depth=depth,
+             rays_per_pass_camera=res * res * k, **out,
+             k2_launches_per_pass=out["k2_launches"] / passes,
+             k2_ms_per_launch=out["k2_ms"] / out["k2_launches"],
+             scene_build_seconds=build_s, first_pass_seconds=first_s,
+             layers=layers, kernel_launches_per_pass=kern["kernel_launches"],
+             device_busy_share=kern["device_busy_share"],
+             device_kernel_ms=kern["device_kernel_ms"],
+             profiled_pass_wall_ms=kern["wall_ms"], top_kernels=kern["top"],
+             nvidia_smi=smi)
+        k2_launches += out["k2_launches"]
+        if sampler == "power":
+            runs, first = {True: [], False: []}, {}
+            for sort in ("auto", False, False, "auto"):
+                rp = make_pass(scene, camera, res, k, lanes, depth=depth,
+                               sorted_shading=sort)
+                # The warm-up pass; the first of each mode is kept.
+                first.setdefault(sort == "auto", rp(0))
+                runs[sort == "auto"].append(
+                    timed_forward(rp, passes, stats)["mrays_per_s"])
+            equal = (torch.equal(first[True][0], first[False][0])
+                     and bool(first[True][1] == first[False][1]))
+            emit("e8_sorted_vs_lockstep", sampler=sampler,
+                 sorted_mrays_per_s=runs[True],
+                 lockstep_mrays_per_s=runs[False],
+                 sorted_over_lockstep=sum(runs[True]) / sum(runs[False]),
+                 images_bit_equal=equal, nvidia_smi=smi)
+            if not equal:
+                raise AssertionError("hall: the sorted pass's image differs "
+                                     "from the lockstep pass's")
+    return k2_launches
+
+
 def _kernel_entry(name, source, replaces, launches, k):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source,
@@ -1993,11 +2337,15 @@ def main() -> int:
     phase_golden_files_jax(dev, "d12_golden_lights_jax", JAX_LIGHT_GOLDENS)
     phase_golden_files_jax(dev, "d17_golden_materials_jax",
                            JAX_MATERIAL_GOLDENS)
+    hall = hall_scenes()
+    phase_k2_hall_vs_twin(dev, hall)
+    phase_golden_hall(dev, hall)
     phase_grad_golden(dev)
     phase_grad_killeroo(dev, killeroo)
     phase_grad_file(dev, "g3_grad_spot", "spot", SPOT_GRAD_RTOL_OF_MAX)
     phase_grad_file(dev, "g4_grad_spheres", "spheres",
                     SPHERES_GRAD_RTOL_OF_MAX)
+    phase_grad_coated(dev)
     k1_launches = phase_timed(dev, 8)
     phase_timed(dev, 32)
     phase_timed_fwdbwd(dev, smi)
@@ -2008,6 +2356,7 @@ def main() -> int:
     phase_timed_plymesh(dev, smi)
     phase_timed_gallery(dev, smi)
     phase_timed_texture(dev, smi)
+    phase_timed_hall(dev, smi, hall)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     # No single PyTorch call computes a ray/triangle intersection, so no

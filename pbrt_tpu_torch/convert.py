@@ -11,9 +11,11 @@ data (a non-empty, non-zero array, or a static value other than the one
 the port implies), naming the ROADMAP Queue 1 item that will port it. An
 image-based infinite light ("lights.env.*") is carried as the port's
 EnvironmentMap or, when it has portal corners, PortalLight, with its
-distribution's tables. The texture tables ("textures.*", the flat texel
-table included) are carried as the port's TextureBuffers; one with a Ptex
-row raises (ROADMAP Queue 1 item 15).
+distribution's tables. The light BVH ("lights.bvh.*") is carried as the
+port's LightBVH, and the exhaustive sampler's records ("lights.exh_recs")
+as a tensor. The texture tables ("textures.*", the flat texel table
+included) are carried as the port's TextureBuffers; one with a Ptex row
+raises (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from .accel.kdtree import KdTree
 from .cameras.perspective import PerspectiveCamera
 from .core.transform import Transform
 from .lights.buffers import LightBuffers
+from .lights.bvh import LightBVH
 from .lights.envmap import EnvironmentMap
 from .lights.portal import PortalLight
 from .materials.buffers import MaterialBuffers
@@ -48,9 +51,7 @@ _IMPLIED_STATIC = {
     "geom.has_alpha": False,
     "camera.motion": None,
 }
-# ROADMAP Queue 1 item of what the light tables do not carry yet: the
-# light BVH ("lights.bvh") and the exhaustive sampler's records
-# ("lights.exh_recs").
+# ROADMAP Queue 1 item of a light field the port does not carry.
 _LIGHT_ITEM = 11
 
 
@@ -144,10 +145,21 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
                          lambda n: 10)
     arrays = dict(arrays)
     env = _env_from_arrays(arrays)
+    extra = {"env": env}
+    if any(p.startswith("lights.bvh.") for p in list(arrays) + list(static)):
+        extra["bvh"] = _section(LightBVH, "lights.bvh", arrays, static,
+                                lambda n: _LIGHT_ITEM)
+        arrays = {p: v for p, v in arrays.items()
+                  if not p.startswith("lights.bvh.")}
+        static = {p: v for p, v in static.items()
+                  if not p.startswith("lights.bvh.")}
+    if "lights.exh_recs" in arrays:
+        extra["exh_recs"] = _tensor(arrays.pop("lights.exh_recs"))
     static = {p: v for p, v in static.items()
-              if not (p == "lights.env" and v is None)}
+              if not (p in ("lights.env", "lights.bvh", "lights.exh_recs")
+                      and v is None)}
     lights = _section(LightBuffers, "lights", arrays, static,
-                      lambda n: _LIGHT_ITEM, env=env)
+                      lambda n: _LIGHT_ITEM, **extra)
     optional = {}
     if any(p.startswith("textures.") for p in list(arrays) + list(static)):
         optional["textures"] = _section(TextureBuffers, "textures", arrays,

@@ -14,7 +14,8 @@ reference. The directive subset:
               ColorSpace are consumed
   scene:      Material / MakeNamedMaterial / NamedMaterial (diffuse and the
               names the reference maps to it, conductor, dielectric / glass,
-              thindielectric), a texture-typed "reflectance" or "albedo",
+              thindielectric, diffusetransmission, coateddiffuse,
+              coatedconductor), a texture-typed "reflectance" or "albedo",
               Texture (constant, checkerboard, scale, mix, directionmix,
               bilerp, dots, fbm, wrinkled, windy, marble, imagemap), Shape
               trianglemesh, plymesh and sphere (analytic outside objects; an
@@ -56,9 +57,12 @@ from ..cameras.perspective import PerspectiveCamera
 from ..core import transform as tfm
 from ..lights.buffers import LightBuffers
 from ..materials.buffers import (
+    MAT_COATEDCONDUCTOR,
+    MAT_COATEDDIFFUSE,
     MAT_CONDUCTOR,
     MAT_DIELECTRIC,
     MAT_DIFFUSE,
+    MAT_DIFFUSETRANS,
     MAT_THINDIELECTRIC,
     MaterialBuffers,
 )
@@ -139,9 +143,8 @@ _DIRECTIVES = {
 
 # Material families of the reference parser the port cannot shade yet.
 _UNPORTED_MATERIALS = {
-    "subsurface", "none", "interface", "", "diffusetransmission",
-    "retroreflective", "mix", "measured", "coateddiffuse", "coatedconductor",
-    "hair",
+    "subsurface", "none", "interface", "", "retroreflective", "mix",
+    "measured", "hair",
 }
 # Material parameters that may name a texture (the albedo overlay); any
 # other texture-typed parameter raises.
@@ -468,6 +471,27 @@ class PbrtParser:
         elif mtype == "thindielectric":
             spec["kind"] = MAT_THINDIELECTRIC
             spec["eta"] = float(_get(p, "eta", 1.5) or 1.5)
+        elif mtype == "diffusetransmission":
+            spec["kind"] = MAT_DIFFUSETRANS
+            # The reference defaults reflectance and transmittance to 0.25
+            # (DiffuseTransmissionMaterial::Create).
+            spec["albedo"] = (0.25, 0.25, 0.25)
+            t = _get_vec(p, "transmittance")
+            if t is not None and len(np.atleast_1d(t)) == 3:
+                spec["transmittance"] = tuple(np.asarray(t, float))
+        elif mtype == "coateddiffuse":
+            spec["kind"] = MAT_COATEDDIFFUSE
+            spec["roughness"] = float(_get(p, "roughness", 0.1) or 0.1)
+            # The coat lobe's roughness is interface.roughness, as in the
+            # reference's CoatedDiffuseMaterial, not the base's.
+            spec["coat_roughness"] = float(
+                _get(p, "interface.roughness", 0.05) or 0.05)
+        elif mtype == "coatedconductor":
+            spec["kind"] = MAT_COATEDCONDUCTOR
+            spec["roughness"] = float(
+                _get(p, "conductor.roughness", 0.05) or 0.05)
+            spec["coat_roughness"] = float(
+                _get(p, "interface.roughness", 0.05) or 0.05)
         elif mtype != "diffuse":
             # "matte" and unknown families, as the reference renders them.
             self.warnings.append(f"material {mtype} approximated as diffuse")

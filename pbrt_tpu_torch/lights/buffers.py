@@ -6,10 +6,13 @@ The light list is, in this order, as in the reference:
 so a light's id, `tri_light` / `sph_light` and the selection pmf agree with
 the reference's id for id. The infinite slot holds the uniform infinite
 light, or an image-based one (lights/envmap.py, EnvironmentMap) or a
-portal light (lights/portal.py) that replaces it. Selection is uniform or
-power-proportional; the light BVH and exhaustive samplers raise
-NotImplementedError (ROADMAP Queue 1 item 11), and so does SampleLe's
-origin sampling for the light-tracing integrators (item 13). With no
+portal light (lights/portal.py) that replaces it. Selection is uniform,
+power-proportional, by the light BVH's stochastic descent
+(lights/bvh.py) or by the exhaustive sampler's importance over every
+light (its oracle); the last two hold the positional lights, and the
+distant and infinite lights are picked outside them with a count
+proportional share. SampleLe's origin sampling for the light-tracing
+integrators raises NotImplementedError (ROADMAP Queue 1 item 13). With no
 infinite light, escaped rays carry no radiance and no pdf.
 
 Emission RGBs are sigmoid-polynomial coefficients + scale, fitted on the
@@ -22,6 +25,7 @@ pmf with `is_delta` set.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,6 +45,7 @@ from ..core.vecmath import (
     equal_area_sphere_to_square,
     normalize,
 )
+from . import bvh as light_bvh
 from .portal import PortalLight
 
 _EPS = 1e-9
@@ -142,6 +147,9 @@ def _in_block(idx, lo: int, count: int):
     return (idx >= lo) & (idx < lo + count)
 
 
+SAMPLERS = ("uniform", "power", "bvh", "exhaustive")
+
+
 @tensorclass
 class LightBuffers:
     # Area lights: one emissive triangle each.
@@ -201,15 +209,19 @@ class LightBuffers:
     # Image-based infinite light replacing the uniform one: an
     # EnvironmentMap or a PortalLight.
     env: object = None
+    # The light BVH (lights/bvh.py), set when sampler == "bvh" and the
+    # scene has positional lights.
+    bvh: Optional[light_bvh.LightBVH] = None
+    # The exhaustive sampler's per-light records (L, 16) (lights/bvh.py
+    # pack_light_records), set when sampler == "exhaustive".
+    exh_recs: Optional[torch.Tensor] = None
     has_infinite: bool = static_field(default=False)
     sampler: str = static_field(default="uniform")
 
     def __post_init__(self):
-        if self.sampler not in ("uniform", "power"):
-            raise NotImplementedError(
-                f"light sampler {self.sampler!r} is not ported yet (ROADMAP "
-                "Queue 1 item 11); only 'uniform' and 'power' are"
-            )
+        if self.sampler not in SAMPLERS:
+            raise ValueError(f"unknown light sampler {self.sampler!r}; "
+                             f"one of {SAMPLERS}")
 
     # -- counts --------------------------------------------------------------
 
@@ -270,9 +282,12 @@ class LightBuffers:
 
     @property
     def _p_infinite(self) -> float:
-        """Probability of sampling the non-BVH light list; with no light
-        BVH (not ported) the reference's rule reduces to this."""
-        return 0.0 if self.n_bvh > 0 else 1.0
+        """Probability of sampling the non-BVH light list (BVHLightSampler::
+        Sample: a count-proportional split)."""
+        ni = self.n_inf_list
+        if (self.bvh is None and self.exh_recs is None) or ni == 0:
+            return 0.0 if self.n_bvh > 0 else 1.0
+        return ni / (ni + 1.0)
 
     @staticmethod
     def build(area_tris=None, sphere_lights=None, points=None, spots=None,
@@ -288,8 +303,7 @@ class LightBuffers:
         distants: dir (travel direction), rgb, scale, illuminant;
         infinite: rgb, scale, illuminant, or None;
         envmap: an EnvironmentMap or PortalLight replacing `infinite`;
-        sampler: "uniform" | "power" selection (another raises, naming
-        ROADMAP Queue 1 item 11)."""
+        sampler: "uniform" | "power" | "bvh" | "exhaustive" selection."""
         area_tris = area_tris or []
         sphere_lights = sphere_lights or []
         points = points or []
@@ -381,7 +395,7 @@ class LightBuffers:
         pc, psc = _fit(points)
         spc, spsc = _fit(spots)
         dc, dsc = _fit(distants)
-        return LightBuffers(
+        lb = LightBuffers(
             area_verts=torch.as_tensor(av),
             area_coeffs=ac,
             area_scale=asc,
@@ -429,20 +443,96 @@ class LightBuffers:
             has_infinite=infinite is not None,
             sampler=sampler,
         )
+        if sampler == "bvh":
+            lb = lb.replace(bvh=light_bvh.LightBVH.build(lb))
+        elif sampler == "exhaustive":
+            lbs = light_bvh.light_bounds_arrays(lb)
+            if lbs:
+                lb = lb.replace(exh_recs=torch.from_numpy(
+                    light_bvh.pack_light_records(lbs)))
+        return lb
 
     # -- selection ----------------------------------------------------------
 
+    def _split_infinite(self, u_select):
+        """The BVH and exhaustive samplers' split: (p_inf, n_inf, pick_inf,
+        inf_idx, u remapped for the positional lights)."""
+        p_inf = self._p_infinite
+        ni = self.n_inf_list
+        if ni > 0:
+            pick_inf = u_select < p_inf
+            inf_off = torch.clamp(
+                (u_select / max(p_inf, 1e-9) * ni).to(torch.int32), max=ni - 1)
+            inf_idx = self.n_bvh + inf_off.long()
+        else:
+            pick_inf = torch.zeros(u_select.shape, dtype=torch.bool,
+                                   device=u_select.device)
+            inf_idx = torch.zeros(u_select.shape, dtype=torch.int64,
+                                  device=u_select.device)
+        u_pos = torch.clamp((u_select - p_inf) / max(1.0 - p_inf, 1e-9),
+                            0.0, 1.0 - 1e-7)
+        return p_inf, ni, pick_inf, inf_idx, u_pos
+
     def select(self, p_ref, n_ref, u_select):
-        """Pick a light per shading point from the tabulated cdf:
-        (idx (N,) int64, pmf (N,))."""
+        """Pick a light per shading point: (idx (N,) int64, pmf (N,)). The
+        BVH's stochastic descent, the exhaustive sampler's importance over
+        every light (the BVH's oracle), or the tabulated power or uniform
+        cdf."""
+        if self.exh_recs is not None:
+            imp = light_bvh.exhaustive_importance(self.exh_recs, p_ref, n_ref)
+            tot = torch.sum(imp, dim=-1)
+            alive = tot > 0.0
+            pmf_l = imp / torch.clamp(tot, min=1e-30)[:, None]
+            p_inf, ni, pick_inf, inf_idx, u_b = self._split_infinite(u_select)
+            cdf = torch.cumsum(pmf_l, dim=-1)
+            bl = torch.clamp(torch.sum(cdf <= u_b[:, None], dim=-1),
+                             max=imp.shape[-1] - 1)
+            bpmf = torch.gather(pmf_l, -1, bl[:, None])[:, 0]
+            idx = torch.where(pick_inf, inf_idx, bl)
+            pmf = torch.where(pick_inf, p_inf / max(ni, 1),
+                              (1.0 - p_inf) * bpmf * alive)
+            return torch.where(pick_inf | alive, idx, -1), pmf
+        if self.bvh is not None:
+            p_inf, ni, pick_inf, inf_idx, u_b = self._split_infinite(u_select)
+            bl, bpmf = light_bvh.sample(self.bvh, p_ref, n_ref, u_b)
+            idx = torch.where(pick_inf, inf_idx, torch.clamp(bl, min=0))
+            pmf = torch.where(pick_inf, p_inf / max(ni, 1),
+                              (1.0 - p_inf) * bpmf * (bl >= 0))
+            return idx, pmf
+        # The number of cdf entries <= u, as the reference counts them
+        # over an (N, L) comparison: the cdf does not decrease, so a
+        # binary search gives the same index without the (N, L) tensor
+        # (8.6 GB of int64 at the hall's 524,288 rays and 2,048 lights).
         idx = torch.clamp(
-            torch.sum(self.select_cdf[None, :] <= u_select[..., None], dim=-1),
+            torch.searchsorted(self.select_cdf, u_select, right=True),
             max=self.n_lights - 1,
         )
         return idx, self.select_pmf[idx]
 
     def selection_pmf(self, light_idx, p_ref=None, n_ref=None):
-        """PMF that `select` picks light_idx (>= 0)."""
+        """PMF that `select` picks light_idx (>= 0) at p_ref (for MIS when
+        a BSDF ray lands on a light; BVHLightSampler::PMF)."""
+        if self.exh_recs is not None:
+            imp = light_bvh.exhaustive_importance(self.exh_recs, p_ref, n_ref)
+            tot = torch.sum(imp, dim=-1)
+            p_inf = self._p_infinite
+            in_pos = (light_idx >= 0) & (light_idx < self.n_bvh)
+            li = torch.clamp(light_idx, 0, imp.shape[-1] - 1).long()
+            pm_pos = (1.0 - p_inf) * torch.gather(imp, -1, li[:, None])[:, 0] \
+                / torch.clamp(tot, min=1e-30)
+            return torch.where(
+                in_pos, torch.where(tot > 0.0, pm_pos, 0.0),
+                torch.where(light_idx >= 0, p_inf / max(self.n_inf_list, 1),
+                            0.0))
+        if self.bvh is not None:
+            p_inf = self._p_infinite
+            in_bvh = (light_idx >= 0) & (light_idx < self.n_bvh)
+            pm = (1.0 - p_inf) * light_bvh.pmf(
+                self.bvh, p_ref, n_ref, torch.where(in_bvh, light_idx, 0))
+            return torch.where(
+                in_bvh, pm,
+                torch.where(light_idx >= 0, p_inf / max(self.n_inf_list, 1),
+                            0.0))
         i = torch.clamp(light_idx, 0, self.n_lights - 1)
         return torch.where(light_idx >= 0, self.select_pmf[i], 0.0)
 
@@ -512,8 +602,11 @@ class LightBuffers:
     def pdf_escaped(self, d, p_ref=None):
         """Solid-angle pdf that NEE produced the escaped direction d,
         including the infinite light's selection pmf; zero without one."""
-        if self.has_env:
+        if self.bvh is not None:
+            pmf = self._p_infinite / max(self.n_inf_list, 1)
+        elif self.has_env or self.has_infinite:
             pmf = self.select_pmf[self._n_finite]
+        if self.has_env:
             if isinstance(self.env, PortalLight):
                 p = p_ref if p_ref is not None else torch.zeros_like(d)
                 return self.env.pdf_dir(d, p) * pmf
@@ -521,7 +614,7 @@ class LightBuffers:
         if not self.has_infinite:
             return torch.zeros(d.shape[:-1], dtype=d.dtype, device=d.device)
         return torch.full(d.shape[:-1], UNIFORM_SPHERE_PDF, dtype=d.dtype,
-                          device=d.device) * self.select_pmf[self._n_finite]
+                          device=d.device) * pmf
 
     # -- NEE sampling -------------------------------------------------------
 
@@ -713,7 +806,12 @@ class LightBuffers:
         if na + nq == 0:
             return torch.zeros_like(dist)
         ii = torch.clamp(light_idx, 0, na + nq - 1)
-        pmf = self.select_pmf[ii]
+        # The BVH's pmf depends on the previous vertex; the exhaustive
+        # sampler's MIS takes the table's, as the reference's does.
+        if self.bvh is not None and p_ref is not None:
+            pmf = self.selection_pmf(light_idx, p_ref, n_ref)
+        else:
+            pmf = self.select_pmf[ii]
         pdf = 0.0
         if na > 0:
             i = ii if nq == 0 else torch.clamp(light_idx, 0, na - 1)

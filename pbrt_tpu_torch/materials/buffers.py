@@ -2,10 +2,11 @@
 
 Every field of the reference is carried, so a converted JAX scene maps 1:1
 and a scene may list materials the port cannot shade yet. The diffuse,
-conductor, dielectric and thin-dielectric families are shaded
-(materials/bxdf.py); `Scene` refuses geometry that references any other
-kind. RGB parameters are stored as sigmoid-polynomial coefficients fitted
-on the host (core/rgb2spec.py); a row's `albedo_tex` binds a texture
+conductor, dielectric, thin-dielectric, diffuse-transmission, coated
+diffuse and coated conductor families are shaded (materials/bxdf.py);
+`Scene` refuses geometry that references any other kind. RGB parameters
+are stored as sigmoid-polynomial coefficients fitted on the host
+(core/rgb2spec.py); a row's `albedo_tex` binds a texture
 (textures/buffers.py) that overrides them per ray.
 """
 

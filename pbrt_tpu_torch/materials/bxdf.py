@@ -1,21 +1,27 @@
 """Branchless BxDF evaluation/sampling over ray batches.
 
-Port of pbrt_tpu/materials/bxdf.py: the diffuse, conductor, dielectric
-and thin-dielectric families, and the textured-albedo overlay of
-`surface_params`. Directions are in the shading-local frame (z = shading
-normal); spectral values are (N, S). The dielectric families return a
-scalar f of shape (N,), broadcast to (N, S) by the select chain.
+Port of pbrt_tpu/materials/bxdf.py: the diffuse, conductor, dielectric,
+thin-dielectric, diffuse-transmission, coated diffuse and coated
+conductor families, and the textured-albedo overlay of `surface_params`.
+Directions are in the shading-local frame (z = shading normal); spectral
+values are (N, S). The dielectric families return a scalar f of shape
+(N,), broadcast to (N, S) by the select chain.
 
 Dispatch keeps the reference's select chain: each family is evaluated for
 every ray and the material `kind` tag selects per ray with torch.where; a
 family's link runs only when the scene's geometry references that family
-(`params["any_conductor"]`, `["any_dielectric"]`, `["any_thin"]`, from
+(the `params["any_*"]` flags of `surface_params`, from
 `Scene.shaded_kinds`). The reference keys the links on the material list
-instead; an unreferenced row selects no live lane, so the image is the
-same, and a list with spare copper and glass rows (Cornell's) skips their
-links. The other families (ROADMAP Queue 1 item 10) slot in as further
-selects. `Scene` refuses geometry that references them, so no lane ever
-needs a missing link.
+instead, and runs the coated conductor's link whenever the list holds a
+coated family and a conductor one; an unreferenced row selects no live
+lane, so the image is the same, and a list with spare copper and glass
+rows (Cornell's) skips their links. The coated families take f from the
+layered walk (materials/layered.py) in `evaluate` and `sample`, and the
+pdf and the sampled direction from the two-lobe approximation, as the
+reference does. The other families (ROADMAP Queue 1 item 10) slot in as
+further selects. `Scene` refuses geometry that references them, so no
+lane ever needs a missing link. materials/sorted.py runs the chain per
+family.
 """
 
 from __future__ import annotations
@@ -31,11 +37,25 @@ from ..core.sampling import (
 from ..core.vecmath import normalize, refract
 from . import scattering as sc
 from .buffers import (
+    MAT_COATEDCONDUCTOR,
+    MAT_COATEDDIFFUSE,
     MAT_CONDUCTOR,
     MAT_DIELECTRIC,
     MAT_DIFFUSE,
+    MAT_DIFFUSETRANS,
     MAT_THINDIELECTRIC,
 )
+from . import layered
+
+# The per-ray flags of `surface_params`: the kind whose link each gates.
+FAMILY_FLAGS = {
+    MAT_CONDUCTOR: "any_conductor",
+    MAT_DIELECTRIC: "any_dielectric",
+    MAT_THINDIELECTRIC: "any_thin",
+    MAT_DIFFUSETRANS: "any_diffusetrans",
+    MAT_COATEDDIFFUSE: "any_coated_diffuse",
+    MAT_COATEDCONDUCTOR: "any_coated_conductor",
+}
 
 _EPS = 1e-8
 
@@ -80,6 +100,27 @@ def diffuse_sample(albedo, wo, u2):
 def diffuse_pdf(wo, wi):
     same = _same_hemisphere(wo, wi)
     return torch.where(same, cosine_hemisphere_pdf(_abscos(wi)), 0.0)
+
+
+# --- Diffuse transmission (bxdfs.h DiffuseTransmissionBxDF) -----------------
+
+
+def diffusetrans_f(refl, trans, wo, wi):
+    same = _same_hemisphere(wo, wi)
+    return torch.where(same[..., None], refl, trans) * INV_PI
+
+
+def diffusetrans_pdf(wo, wi):
+    """The lobe is chosen 50/50, cosine-distributed on each side."""
+    return 0.5 * cosine_hemisphere_pdf(_abscos(wi))
+
+
+def diffusetrans_sample(refl, trans, wo, u2, uc):
+    wi = sample_cosine_hemisphere(u2)
+    side = torch.where(wo[..., 2] < 0.0, -1.0, 1.0)
+    flip = torch.where(uc < 0.5, -side, side)
+    wi = torch.cat([wi[..., :2], wi[..., 2:3] * flip[..., None]], dim=-1)
+    return wi, diffusetrans_f(refl, trans, wo, wi), diffusetrans_pdf(wo, wi)
 
 
 # --- Conductor (bxdfs.h ConductorBxDF) --------------------------------------
@@ -258,6 +299,71 @@ def thin_dielectric_sample(eta, wo, uc):
     return wi, f, torch.where(refl, r, t)
 
 
+# --- Coated materials: the two-lobe approximation ---------------------------
+# A GGX dielectric coat lobe plus the base lobe attenuated by the Fresnel
+# transmission both ways. The coated families take their pdf and sampled
+# direction from it; their f comes from the layered walk.
+
+_COAT_ETA = 1.5
+
+
+def _coat_eta(like):
+    return torch.full_like(like, _COAT_ETA)
+
+
+def _coat_spec_f(alpha_c, wo, wi):
+    """GGX reflection lobe with the dielectric Fresnel term (scalar per
+    ray)."""
+    same = _same_hemisphere(wo, wi)
+    wm = normalize(wo + wi)
+    wm_ok = torch.sum((wo + wi) ** 2, dim=-1) > 1e-16
+    fr = sc.fr_dielectric(_dot(wo, wm), _coat_eta(_cos(wo)))
+    d = sc.ggx_d(wm, alpha_c)
+    g = sc.ggx_g(wo, wi, alpha_c)
+    f = d * g * fr / torch.clamp(4.0 * _abscos(wo) * _abscos(wi), min=_EPS)
+    rough = ~sc.effectively_smooth(alpha_c)
+    return torch.where(same & wm_ok & rough, f, 0.0)
+
+
+def coated_f(base_f, alpha_c, wo, wi):
+    """base_f: (N, S) base-lobe BSDF. The coupled two-lobe coated BSDF."""
+    spec = _coat_spec_f(alpha_c, wo, wi)
+    t_o = 1.0 - sc.fr_dielectric(_abscos(wo), _coat_eta(_cos(wo)))
+    t_i = 1.0 - sc.fr_dielectric(_abscos(wi), _coat_eta(_cos(wi)))
+    return spec[..., None] + (t_o * t_i)[..., None] * base_f
+
+
+def coated_pdf(base_pdf, alpha_c, wo, wi):
+    fr_o = sc.fr_dielectric(_abscos(wo), _coat_eta(_cos(wo)))
+    # The coat lobe's pdf is the conductor's visible-NDF reflection pdf.
+    return fr_o * conductor_pdf(alpha_c, wo, wi) + (1.0 - fr_o) * base_pdf
+
+
+def _coated_wi_pdf(base_sample_fn, base_pdf_fn, alpha_c, wo, u2, uc):
+    """The two-lobe sample: the lobe picked by Fresnel(wo). Returns (wi,
+    pdf, ok, clamped alpha_c)."""
+    fr_o = sc.fr_dielectric(_abscos(wo), _coat_eta(_cos(wo)))
+    pick_spec = uc < fr_o
+    alpha_cr = torch.clamp(alpha_c, min=1e-3)
+    wm = sc.ggx_sample_wm(wo, u2, alpha_cr)
+    wi_spec = -wo + 2.0 * _dot(wo, wm)[..., None] * wm
+    wi_base, _, _ = base_sample_fn(u2)
+    wi = torch.where(pick_spec[..., None], wi_spec, wi_base)
+    pdf = coated_pdf(base_pdf_fn(wi), alpha_cr, wo, wi)
+    ok = _same_hemisphere(wo, wi)
+    return wi, torch.where(ok, pdf, 0.0), ok, alpha_cr
+
+
+def coated_sample(base_sample_fn, base_f_fn, base_pdf_fn, alpha_c, wo, u2,
+                  uc):
+    """The two-lobe approximation's sample: (wi, f, pdf). `sample` keeps
+    its wi and pdf and takes f from the layered walk instead."""
+    wi, pdf, ok, alpha_cr = _coated_wi_pdf(base_sample_fn, base_pdf_fn,
+                                           alpha_c, wo, u2, uc)
+    f = coated_f(base_f_fn(wi), alpha_cr, wo, wi)
+    return wi, torch.where(ok[..., None], f, 0.0), pdf
+
+
 def _gather_spectral_eta_k(params, lam):
     eta = rgb2spec.eval_unbounded(
         params["cond_eta_coeffs"], params["cond_eta_scale"], lam
@@ -274,12 +380,12 @@ def _gather_spectral_eta_k(params, lam):
 def surface_params(scene, isect, lam=None):
     """Per-ray material parameters at a surface interaction: the material
     row, with textured albedo overlaid (textures/buffers.py) and, on a
-    dielectric, the IOR seen from the ray's side."""
+    dielectric, the IOR seen from the ray's side; and the `any_*` flags
+    (FAMILY_FLAGS) of the kinds the geometry references."""
     kinds = scene.shaded_kinds
     params = scene.materials.gather(isect.mat)
-    params["any_conductor"] = MAT_CONDUCTOR in kinds
-    params["any_dielectric"] = MAT_DIELECTRIC in kinds
-    params["any_thin"] = MAT_THINDIELECTRIC in kinds
+    for kind, flag in FAMILY_FLAGS.items():
+        params[flag] = kind in kinds
     if lam is not None:
         params["lam"] = lam
     if scene.textures is not None:
@@ -305,17 +411,47 @@ def surface_params(scene, isect, lam=None):
     return params
 
 
+def _alpha(params):
+    """The base roughness's alpha, where a referenced family reads it."""
+    if (params["any_conductor"] or params["any_dielectric"]
+            or params["any_coated_conductor"]):
+        return sc.roughness_to_alpha(params["roughness"])
+    return None
+
+
+def _coat_alpha(params):
+    return torch.clamp(sc.roughness_to_alpha(params["coat_roughness"]),
+                       min=1e-3)
+
+
+def _coated_diffuse_walk(params, albedo, wo, wi):
+    return layered.layered_walk(
+        wo, wi,
+        lambda a, b: diffuse_f(albedo, a, b),
+        lambda a, u2_, uc_: diffuse_sample(albedo, a, u2_),
+        _coat_alpha(params), thickness=params["thickness"],
+    )
+
+
+def _coated_conductor_walk(params, eta_c, k_c, alpha_b, wo, wi):
+    return layered.layered_walk(
+        wo, wi,
+        lambda a, b: conductor_f(eta_c, k_c, alpha_b, a, b),
+        lambda a, u2_, uc_: conductor_sample(eta_c, k_c, alpha_b, a, u2_)[:3],
+        _coat_alpha(params), thickness=params["thickness"], salt=1,
+    )
+
+
 def evaluate(params, wo, wi, lam):
     """f(wo, wi) for each ray given gathered material params; (N, S).
     Delta lobes (smooth conductors and dielectrics, thin dielectrics)
     return 0 here: their contribution arrives only through sampling."""
     kind = params["kind"]
     albedo = rgb2spec.eval_sigmoid(params["albedo_coeffs"], lam)
+    alpha = _alpha(params)
     f = torch.where(
         (kind == MAT_DIFFUSE)[..., None], diffuse_f(albedo, wo, wi), 0.0
     )
-    if params["any_conductor"] or params["any_dielectric"]:
-        alpha = sc.roughness_to_alpha(params["roughness"])
     if params["any_conductor"]:
         eta_c, k_c = _gather_spectral_eta_k(params, lam)
         f = torch.where(
@@ -325,19 +461,40 @@ def evaluate(params, wo, wi, lam):
     if params["any_dielectric"]:
         f_d = dielectric_f(params["eta"], alpha, wo, wi)
         f = torch.where((kind == MAT_DIELECTRIC)[..., None], f_d[..., None], f)
+    if params["any_diffusetrans"]:
+        trans = rgb2spec.eval_sigmoid(params["trans_coeffs"], lam)
+        f = torch.where((kind == MAT_DIFFUSETRANS)[..., None],
+                        diffusetrans_f(albedo, trans, wo, wi), f)
+    if params["any_coated_diffuse"]:
+        f = torch.where((kind == MAT_COATEDDIFFUSE)[..., None],
+                        _coated_diffuse_walk(params, albedo, wo, wi), f)
+    if params["any_coated_conductor"]:
+        eta_c, k_c = _gather_spectral_eta_k(params, lam)
+        f_cc = _coated_conductor_walk(params, eta_c, k_c,
+                                      torch.clamp(alpha, min=1e-3), wo, wi)
+        f = torch.where((kind == MAT_COATEDCONDUCTOR)[..., None], f_cc, f)
     return f
 
 
 def pdf(params, wo, wi):
     kind = params["kind"]
+    alpha = _alpha(params)
     p = torch.where(kind == MAT_DIFFUSE, diffuse_pdf(wo, wi), 0.0)
-    if params["any_conductor"] or params["any_dielectric"]:
-        alpha = sc.roughness_to_alpha(params["roughness"])
     if params["any_conductor"]:
         p = torch.where(kind == MAT_CONDUCTOR, conductor_pdf(alpha, wo, wi), p)
     if params["any_dielectric"]:
         p = torch.where(kind == MAT_DIELECTRIC,
                         dielectric_pdf(params["eta"], alpha, wo, wi), p)
+    if params["any_diffusetrans"]:
+        p = torch.where(kind == MAT_DIFFUSETRANS, diffusetrans_pdf(wo, wi), p)
+    if params["any_coated_diffuse"]:
+        p_cd = coated_pdf(diffuse_pdf(wo, wi), _coat_alpha(params), wo, wi)
+        p = torch.where(kind == MAT_COATEDDIFFUSE, p_cd, p)
+    if params["any_coated_conductor"]:
+        p_cc = coated_pdf(
+            conductor_pdf(torch.clamp(alpha, min=1e-3), wo, wi),
+            _coat_alpha(params), wo, wi)
+        p = torch.where(kind == MAT_COATEDCONDUCTOR, p_cc, p)
     return p
 
 
@@ -345,26 +502,51 @@ def sample(params, wo, lam, u2, uc):
     """Sample wi for each ray. Returns dict(wi, f, pdf, specular)."""
     kind = params["kind"]
     albedo = rgb2spec.eval_sigmoid(params["albedo_coeffs"], lam)
+    alpha = _alpha(params)
     wi, f, p = diffuse_sample(albedo, wo, u2)
     specular = torch.zeros(wo.shape[:-1], dtype=torch.bool, device=wo.device)
-    if params["any_conductor"] or params["any_dielectric"]:
-        alpha = sc.roughness_to_alpha(params["roughness"])
+
+    def put(m, wi_x, f_x, p_x, spec_x):
+        nonlocal wi, f, p, specular
+        wi = torch.where(m[..., None], wi_x, wi)
+        f = torch.where(m[..., None], f_x, f)
+        p = torch.where(m, p_x, p)
+        specular = torch.where(m, spec_x, specular)
+
     if params["any_conductor"]:
         eta_c, k_c = _gather_spectral_eta_k(params, lam)
         wi_c, f_c, p_c, spec_c = conductor_sample(eta_c, k_c, alpha, wo, u2)
-        m = kind == MAT_CONDUCTOR
-        wi = torch.where(m[..., None], wi_c, wi)
-        f = torch.where(m[..., None], f_c, f)
-        p = torch.where(m, p_c, p)
-        specular = torch.where(m, spec_c, specular)
+        put(kind == MAT_CONDUCTOR, wi_c, f_c, p_c, spec_c)
     if params["any_dielectric"]:
         wi_d, f_d, p_d, spec_d = dielectric_sample(
             params["eta"], alpha, wo, u2, uc)
-        m = kind == MAT_DIELECTRIC
-        wi = torch.where(m[..., None], wi_d, wi)
-        f = torch.where(m[..., None], f_d[..., None], f)
-        p = torch.where(m, p_d, p)
-        specular = torch.where(m, spec_d, specular)
+        put(kind == MAT_DIELECTRIC, wi_d, f_d[..., None], p_d, spec_d)
+    if params["any_diffusetrans"]:
+        trans = rgb2spec.eval_sigmoid(params["trans_coeffs"], lam)
+        wi_dt, f_dt, p_dt = diffusetrans_sample(albedo, trans, wo, u2, uc)
+        put(kind == MAT_DIFFUSETRANS, wi_dt, f_dt, p_dt, False)
+    # The coated families: wi and pdf from the two-lobe approximation, f
+    # from the layered walk at that wi.
+    if params["any_coated_diffuse"]:
+        wi_cd, p_cd, ok, _ = _coated_wi_pdf(
+            lambda u: diffuse_sample(albedo, wo, u),
+            lambda wi_: diffuse_pdf(wo, wi_),
+            _coat_alpha(params), wo, u2, uc)
+        f_cd = torch.where((ok & (p_cd > 0.0))[..., None],
+                           _coated_diffuse_walk(params, albedo, wo, wi_cd), 0.0)
+        put(kind == MAT_COATEDDIFFUSE, wi_cd, f_cd, p_cd, False)
+    if params["any_coated_conductor"]:
+        eta_c, k_c = _gather_spectral_eta_k(params, lam)
+        alpha_b = torch.clamp(alpha, min=1e-3)
+        wi_cc, p_cc, ok, _ = _coated_wi_pdf(
+            lambda u: conductor_sample(eta_c, k_c, alpha_b, wo, u)[:3],
+            lambda wi_: conductor_pdf(alpha_b, wo, wi_),
+            _coat_alpha(params), wo, u2, uc)
+        f_cc = torch.where(
+            (ok & (p_cc > 0.0))[..., None],
+            _coated_conductor_walk(params, eta_c, k_c, alpha_b, wo, wi_cc),
+            0.0)
+        put(kind == MAT_COATEDCONDUCTOR, wi_cc, f_cc, p_cc, False)
     if params["any_thin"]:
         wi_t, f_t, p_t = thin_dielectric_sample(params["eta"], wo, uc)
         m = kind == MAT_THINDIELECTRIC

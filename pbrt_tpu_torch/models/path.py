@@ -1,12 +1,13 @@
 """Path integrator: NEE + MIS + Russian roulette over a fixed bounce loop.
 
-Port of pbrt_tpu/models/path.py: the primal transport and its default
-gradient path, `grad_mode="remat"` (no record/replay, subsurface, sorted
-shading or animated instances). The reference's lax.scan over bounces is
-a Python loop here; all rays advance in lockstep and terminated rays are
-masked, not compacted, so every bounce issues the same queries as the
-reference: one closest-hit and one any-hit per bounce, plus the terminal
-closest-hit.
+Port of pbrt_tpu/models/path.py: the primal transport, its default
+gradient path, `grad_mode="remat"`, and tag-sorted shading
+(materials/sorted.py, on by the reference's `sorted_shading="auto"` rule;
+no record/replay, subsurface or animated instances). The reference's
+lax.scan over bounces is a Python loop here; all rays advance in
+lockstep and terminated rays are masked, not compacted, so every bounce
+issues the same queries as the reference: one closest-hit and one any-hit
+per bounce, plus the terminal closest-hit.
 
 Gradients (the reference's detached-sampling estimator): they flow only
 through BSDF values, emission and light radiance at fixed hit points. The
@@ -100,6 +101,18 @@ def _direct(fn, *args):
     return fn(*args)
 
 
+def _bsdf_calls(params, ops):
+    """The BxDF calls of one shading point: the BSDF sample and, with a
+    light sample's direction ops["wi"], NEE's f and pdf."""
+    out = {"bs": bxdf.sample(params, ops["wo"], params["lam"], ops["u2"],
+                             ops["uc"])}
+    if "wi" in ops:
+        out["f_nee"] = bxdf.evaluate(params, ops["wo"], ops["wi"],
+                                     params["lam"])
+        out["pdf_b"] = bxdf.pdf(params, ops["wo"], ops["wi"])
+    return out
+
+
 @tensorclass
 class PathIntegrator:
     max_depth: int = static_field(default=5)
@@ -112,12 +125,29 @@ class PathIntegrator:
     replay_grad: bool = static_field(default=True)
     replay_remat: str = static_field(default="full")
     grad_mode: str = static_field(default="remat")
+    # Tag-sorted shading dispatch (materials/sorted.py): True, False or
+    # "auto", which sorts when the scene's material list holds a costly
+    # family (coated, hair, measured, subsurface), as the reference's rule
+    # does; batches of at most sort_tile lanes are never sorted.
+    sorted_shading: object = static_field(default="auto")
+    sort_tile: int = static_field(default=8192)
 
     def __post_init__(self):
         if self.grad_mode not in ("remat", "cvjp"):
             raise ValueError(f"unknown grad_mode {self.grad_mode!r}")
         if self.replay_remat not in ("full", "dots", "none"):
             raise ValueError(f"unknown replay_remat {self.replay_remat!r}")
+        if self.sorted_shading not in (True, False, "auto"):
+            raise ValueError(
+                f"unknown sorted_shading {self.sorted_shading!r}")
+
+    def sorts_shading(self, scene) -> bool:
+        """Whether the BxDF calls go through the tag-sorted dispatch."""
+        if self.sorted_shading != "auto":
+            return bool(self.sorted_shading)
+        m = scene.materials
+        return bool(m.any_coated or m.any_hair or m.any_measured
+                    or m.any_subsurface)
 
     def trace(self, scene, o, d, wl, pixel, sample_idx, sampler):
         """Estimate radiance along N camera rays. Returns (N, S)."""
@@ -162,6 +192,14 @@ class PathIntegrator:
         lights = scene.lights
         have_lights = lights.n_lights > 0
         do_nee = self.use_nee and have_lights
+        if self.sorts_shading(scene):
+            from ..materials.sorted import shade_sorted
+
+            def dispatch(params, ops):
+                return shade_sorted(params, ops, _bsdf_calls,
+                                    tile=self.sort_tile)
+        else:
+            dispatch = _bsdf_calls
 
         L = torch.zeros((n, s), dtype=f32, device=dev)
         beta = torch.ones((n, s), dtype=f32, device=dev)
@@ -223,19 +261,23 @@ class PathIntegrator:
                 L = add_emission(L, beta, isect, d, o, weights)
             t1, t2, ns, wo_l = frame
             params = bxdf.surface_params(scene, isect, lam)
+            ops = {"wo": wo_l, "u2": u["bsdf"], "uc": u["lobe"]}
             if do_nee:
                 ls = lights.sample_li(isect.p, lam, u["sel"], u["pos"], n_ref=ns)
                 ls = ls.replace(wi=ls.wi.detach(), pdf=ls.pdf.detach(),
                                 dist=ls.dist.detach())
                 wi_l = to_local(ls.wi, t1, t2, ns)
-            bs = bxdf.sample(params, wo_l, lam, u["bsdf"], u["lobe"])
+                ops["wi"] = wi_l
+            # One shading dispatch for the BSDF sample and NEE's f and pdf.
+            sh = dispatch(params, ops)
+            bs = sh["bs"]
             bs = dict(bs, wi=bs["wi"].detach(), pdf=bs["pdf"].detach())
             out = {"L": L, "bs": bs}
 
             # Next-event estimation (integrators.cpp SampleLd).
             if do_nee:
-                f_nee = bxdf.evaluate(params, wo_l, wi_l, lam) * torch.abs(wi_l[..., 2:3])
-                pdf_b = bxdf.pdf(params, wo_l, wi_l)
+                f_nee = sh["f_nee"] * torch.abs(wi_l[..., 2:3])
+                pdf_b = sh["pdf_b"]
                 if self.use_mis:
                     w_nee = torch.where(
                         ls.is_delta, 1.0, power_heuristic(1, ls.pdf, 1, pdf_b)

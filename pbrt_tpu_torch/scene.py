@@ -24,9 +24,12 @@ from .accel.kdtree import KdTree, build_kdtree
 from .core.tensorclass import static_field, tensorclass
 from .lights.buffers import LightBuffers
 from .materials.buffers import (
+    MAT_COATEDCONDUCTOR,
+    MAT_COATEDDIFFUSE,
     MAT_CONDUCTOR,
     MAT_DIELECTRIC,
     MAT_DIFFUSE,
+    MAT_DIFFUSETRANS,
     MAT_THINDIELECTRIC,
     MaterialBuffers,
 )
@@ -37,7 +40,8 @@ from .shapes.geometry import GeometryBuffers
 from .textures.buffers import TextureBuffers
 
 # Material families the BxDF select chain shades (materials/bxdf.py).
-SHADED_KINDS = {MAT_DIFFUSE, MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_THINDIELECTRIC}
+SHADED_KINDS = {MAT_DIFFUSE, MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_THINDIELECTRIC,
+                MAT_COATEDDIFFUSE, MAT_COATEDCONDUCTOR, MAT_DIFFUSETRANS}
 
 
 @tensorclass
@@ -64,8 +68,8 @@ class Scene:
 
     def __post_init__(self):
         # Only the families of SHADED_KINDS are shaded yet; a material
-        # nothing references (e.g. a coated row in a parsed list) is
-        # carried as data, and its kind's link is not traced.
+        # nothing references (e.g. a hair row in a parsed list) is carried
+        # as data, and its kind's link is not traced.
         used = torch.unique(torch.cat([self.geom.tri_mat, self.geom.sph_mat])
                             .detach().cpu().long())
         kinds = self.materials.kind.detach().cpu().long()
@@ -75,8 +79,9 @@ class Scene:
         if bad:
             raise NotImplementedError(
                 f"geometry references material kind(s) {bad}; only diffuse "
-                "(kind 0), conductor (1), dielectric (2) and thin dielectric "
-                "(3) are ported yet (ROADMAP Queue 1 item 10)"
+                "(kind 0), conductor (1), dielectric (2), thin dielectric "
+                "(3), coated diffuse (4), coated conductor (5) and diffuse "
+                "transmission (6) are ported yet (ROADMAP Queue 1 item 10)"
             )
         # A referenced material's texture must exist: the overlay would
         # otherwise skip it (no tables) or clamp its id to another texture.

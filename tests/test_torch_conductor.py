@@ -95,6 +95,10 @@ def params():
     pp = MaterialBuffers.build(MATERIALS).gather(_t(mat))
     pp["lam"] = pwl.lam
     assert pp["any_conductor"] and jp["any_conductor"]
+    # The links of the families the table does not hold (surface_params
+    # sets them from the referenced kinds).
+    pp.update(any_diffusetrans=False, any_coated_diffuse=False,
+              any_coated_conductor=False)
     return jp, pp, jwl, pwl, r
 
 

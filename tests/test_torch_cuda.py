@@ -1,6 +1,8 @@
 """K1, K2, K3 and K4 on the card: each CUDA kernel against its plain twin,
-and renders on the card (the lights, the dielectric BxDFs and the
-textures among them) against the same renders on the CPU.
+and renders on the card (the lights, the dielectric BxDFs, the textures,
+the coated materials and the many-light hall among them) against the same
+renders on the CPU, and the sorted shading dispatch against the lockstep
+chain on the card.
 
 These tests need a CUDA device and skip without one. They import neither
 jax nor pbrt_tpu, so they run on a machine that has only the port's
@@ -36,6 +38,7 @@ from pbrt_tpu_torch.scenes.cornell import cornell_box
 from pbrt_tpu_torch.scenes.meshes import killeroo_class_scene
 
 from .torch_port_bvh_walk import CASES, stack_entries, walk_case
+from .torch_port_coated import coarse_walk_keys, coated_cornell
 from .torch_port_instanced import FULL, SMALL, field_text, write_field_meshes
 from .torch_port_killeroo import small_killeroo_class_scene
 
@@ -686,3 +689,93 @@ def test_any_hit_accepts_infinite_tmax(card):
         torch.cuda.synchronize()
         assert counter.launches == 1
         assert torch.equal(got.cpu(), want) and 0 < int(want.sum()) < len(want)
+
+
+def _share_close(got, want):
+    ok = np.abs(got - want) <= 1e-5 + 1e-3 * np.abs(want)
+    return float(np.mean(ok)), int(np.sum(~ok))
+
+
+@pytest.mark.parametrize("sampler", ["power", "bvh"])
+def test_hall_render_on_card_matches_cpu(card, sampler):
+    """The full many-light hall (1,024 panels, K2) at 16x16, 2 spp, depth 4
+    without Russian roulette, on the card against the CPU, the walk on
+    coarse keys (tests/torch_port_coated.py)."""
+    from pbrt_tpu_torch.materials import layered
+    from pbrt_tpu_torch.scenes.manylight import manylight_scene
+
+    scene, camera = manylight_scene(resolution=(16, 16), sampler=sampler)
+    integ = PathIntegrator(max_depth=4, rr_start_depth=4)
+    kw = dict(spp=2, seed=1, samples_per_pass=2, n_spectrum=8)
+    with coarse_walk_keys(layered):
+        cluster.STATS.reset()
+        got = render(scene, camera, integ, device=card, **kw)
+        torch.cuda.synchronize()
+        assert cluster.STATS.launches == 9
+        want = render(scene, camera, integ, device="cpu", **kw)
+    got, want = got.cpu().numpy(), want.numpy()
+    assert np.all(np.isfinite(got)) and want.mean() > 0.1
+    share, n_bad = _share_close(got, want)
+    assert share >= 0.99, n_bad
+
+
+def test_coated_cornell_render_on_card_matches_cpu(card):
+    """The coated Cornell box (coated diffuse, coated conductor; K1) at
+    16x16, 4 spp in passes of 2, depth 5, on the card against the CPU,
+    the walk on coarse keys."""
+    from pbrt_tpu_torch.materials import layered
+
+    scene, camera = coated_cornell("pbrt_tpu_torch", (16, 16))
+    scene = scene.with_accel()
+    kw = dict(spp=4, seed=1, samples_per_pass=2, n_spectrum=8)
+    with coarse_walk_keys(layered):
+        STATS.reset()
+        got = render(scene, camera, PathIntegrator(max_depth=5), device=card,
+                     **kw)
+        torch.cuda.synchronize()
+        assert STATS.launches == 11 * 2
+        want = render(scene, camera, PathIntegrator(max_depth=5),
+                      device="cpu", **kw)
+    got, want = got.cpu().numpy(), want.numpy()
+    assert np.all(np.isfinite(got)) and want.mean() > 0.01
+    share, n_bad = _share_close(got, want)
+    assert share >= 0.99, n_bad
+
+
+def test_sorted_dispatch_is_bit_equal_on_card(card):
+    """The sorted dispatch against the lockstep chain on the card: 20,000
+    lanes of seven kinds, every output bit for bit."""
+    from pbrt_tpu_torch.core import spectrum
+    from pbrt_tpu_torch.materials import bxdf
+    from pbrt_tpu_torch.materials.buffers import MaterialBuffers
+    from pbrt_tpu_torch.materials.sorted import shade_sorted
+    from pbrt_tpu_torch.models.path import _bsdf_calls
+
+    mats = [{"kind": 0, "albedo": (0.6, 0.4, 0.3)},
+            {"kind": 1, "conductor": "Cu", "roughness": 0.2},
+            {"kind": 2, "eta": 1.5, "roughness": 0.1},
+            {"kind": 3, "eta": 1.5},
+            {"kind": 4, "albedo": (0.35, 0.35, 0.4), "coat_roughness": 0.08},
+            {"kind": 5, "conductor": "Au", "roughness": 0.1},
+            {"kind": 6, "transmittance": (0.2, 0.4, 0.6)}]
+    n = 20_000
+    r = np.random.default_rng(30)
+    mat = torch.from_numpy(r.integers(0, len(mats), n)).to(card)
+    params = MaterialBuffers.build(mats).to(card).gather(mat)
+    params.update({flag: True for flag in bxdf.FAMILY_FLAGS.values()})
+    params["lam"] = spectrum.sample_visible(
+        torch.from_numpy(r.uniform(0, 1, n).astype(np.float32)).to(card), 8).lam
+    wo = r.normal(size=(n, 3))
+    wo[:, 2] = np.abs(wo[:, 2])
+    wi = r.normal(size=(n, 3))
+    ops = {"wo": wo / np.linalg.norm(wo, axis=-1, keepdims=True),
+           "wi": wi / np.linalg.norm(wi, axis=-1, keepdims=True),
+           "u2": r.uniform(0, 1, (n, 2)), "uc": r.uniform(0, 1, n)}
+    ops = {k: torch.tensor(v, dtype=torch.float32, device=card)
+           for k, v in ops.items()}
+    want = _bsdf_calls(params, ops)
+    got = shade_sorted(params, ops, _bsdf_calls)
+    for name in ("f_nee", "pdf_b"):
+        assert torch.equal(got[name], want[name]), name
+    for name in ("wi", "f", "pdf", "specular"):
+        assert torch.equal(got["bs"][name], want["bs"][name]), name

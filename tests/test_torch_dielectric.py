@@ -248,7 +248,8 @@ def test_dispatch_broadcasts_the_scalar_lobes():
     jp["lam"] = jwl.lam
     pp = MaterialBuffers.build(MATS).gather(_t(mat))
     pp.update(lam=pwl.lam, any_conductor=False, any_dielectric=True,
-              any_thin=True)
+              any_thin=True, any_diffusetrans=False,
+              any_coated_diffuse=False, any_coated_conductor=False)
     wo, wi = _unit(r, N), _unit(r, N)
     u2 = r.uniform(0, 1, (N, 2)).astype(np.float32)
     uc = r.uniform(0, 1, N).astype(np.float32)

@@ -14,18 +14,19 @@ from pbrt_tpu_torch.convert import scene_from_arrays
 from pbrt_tpu_torch.io.image import read_image_rgb
 from pbrt_tpu_torch.lights.buffers import LightBuffers
 from pbrt_tpu_torch.materials.buffers import (
-    MAT_COATEDCONDUCTOR,
     MAT_CONDUCTOR,
     MAT_DIELECTRIC,
     MAT_DIFFUSE,
-    MAT_DIFFUSETRANS,
+    MAT_RETRO,
+    MAT_SUBSURFACE,
     MaterialBuffers,
 )
 from pbrt_tpu_torch.models.path import PathIntegrator
-from pbrt_tpu_torch.render import camera_rays_full, render
+from pbrt_tpu_torch.render import camera_rays, camera_rays_full, render
 from pbrt_tpu_torch.samplers.samplers import Sampler
 from pbrt_tpu_torch.scene import Scene
 from pbrt_tpu_torch.scenes.cornell import cornell_box
+from pbrt_tpu_torch.scenes.manylight import manylight_scene
 from pbrt_tpu_torch.scenes.meshes import mesh_gallery_scene
 from pbrt_tpu_torch.shapes.geometry import GeometryBuffers, make_quad
 from pbrt_tpu_torch.textures.buffers import TextureBuffers
@@ -40,7 +41,8 @@ def test_import_loads_no_jax():
         "pbrt_tpu_torch.scenes.cornell, pbrt_tpu_torch.scenes.meshes, "
         "pbrt_tpu_torch.ops.cluster, pbrt_tpu_torch.ops.sweep, "
         "pbrt_tpu_torch.io.ply, pbrt_tpu_torch.io.parser, "
-        "pbrt_tpu_torch.parallel.train; "
+        "pbrt_tpu_torch.parallel.train, pbrt_tpu_torch.scenes.manylight, "
+        "pbrt_tpu_torch.materials.sorted, pbrt_tpu_torch.lights.bvh; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pbrt_tpu' or m.startswith('pbrt_tpu.')]; "
         "sys.exit(1 if bad else 0)"
@@ -70,6 +72,19 @@ def _quad_geom(mat=0):
 
 
 
+def _light_bvh_gradient():
+    """A gradient request on the light BVH's node table (the hall with the
+    BVH sampler, cut to 4 lights)."""
+    scene, camera = manylight_scene(resolution=(2, 2), n_lights=4,
+                                    sampler="bvh")
+    tree = scene.lights.bvh
+    scene = scene.replace(lights=scene.lights.replace(
+        bvh=tree.replace(nodes=tree.nodes.clone().requires_grad_(True))))
+    pixel = torch.arange(4)
+    o, d, wl = camera_rays(camera, pixel, 0, 0, n_spectrum=8)
+    PathIntegrator().trace(scene, o, d, wl, pixel, 0, 0)
+
+
 def _gallery_with_torus_kind(kind):
     scene, _ = mesh_gallery_scene(resolution=(8, 8), subdiv=1)
     kinds = scene.materials.kind.clone()
@@ -83,25 +98,31 @@ def _gallery_with_torus_kind(kind):
     lambda: GeometryBuffers.build(**_quad_geom(),
                                   disk=np.array([[0, 0, 0, 0, 1, 0, 1, 0]])),
     lambda: GeometryBuffers.build(**_quad_geom(), tri_alpha=np.array([0.5, 1.0])),
-    # Every light type is ported; the exhaustive light sampler is not.
+    # Every light type and light sampler is ported (the exhaustive one
+    # here); SampleLe's origin sampling, for the light-tracing
+    # integrators, is not.
     lambda: LightBuffers.build(points=[{"p": (0, 1, 0), "rgb": (1, 1, 1)}],
-                               sampler="exhaustive"),
+                               sampler="exhaustive").sample_le_origin(
+                                   torch.zeros(4), torch.zeros(4, 2)),
     # The image-based infinite light reads PFM only.
     lambda: read_image_rgb("sky.exr"),
-    lambda: LightBuffers.build(sampler="bvh"),
+    # The light BVH renders; a gradient of its node table is refused.
+    _light_bvh_gradient,
     # Textures are ported but for Ptex.
     lambda: TextureBuffers.build([{"kind": "ptex"}]),
-    # Of the conductor families only the plain conductor is ported.
+    # The plain and the coated conductor are ported
+    # (tests/test_torch_coated.py); the retroreflective one is not.
     lambda: Scene(geom=GeometryBuffers.build(**_quad_geom(mat=1)),
                   materials=MaterialBuffers.build(
-                      [{"kind": MAT_DIFFUSE}, {"kind": MAT_COATEDCONDUCTOR}]),
+                      [{"kind": MAT_DIFFUSE}, {"kind": MAT_RETRO}]),
                   lights=LightBuffers.build()),
     lambda: Sampler(kind="sobol"),
     # Animated instances are not ported.
     lambda: scene_from_arrays({"anim.o2w_start": np.ones((1, 12))}, {}),
-    # The gallery's glass torus is shaded (tests/test_torch_dielectric.py);
-    # the same geometry with a diffuse-transmission torus is not.
-    lambda: _gallery_with_torus_kind(MAT_DIFFUSETRANS),
+    # The gallery's glass torus is shaded (tests/test_torch_dielectric.py),
+    # and so is a diffuse-transmission one (tests/test_torch_coated.py);
+    # a subsurface torus is not.
+    lambda: _gallery_with_torus_kind(MAT_SUBSURFACE),
 ], ids=["specular_variant", "disk", "alpha", "point_light", "infinite_light",
         "light_bvh", "texture", "referenced_conductor", "sobol_sampler",
         "animated_instance", "mesh_gallery_dielectric"])

@@ -357,9 +357,20 @@ def test_furnace_closed_form():
 
 @pytest.mark.parametrize("sampler", ["bvh", "exhaustive"])
 def test_unported_samplers_raise(sampler):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        LightBuffers.build(points=[{"p": (0, 1, 0), "rgb": (1, 1, 1)}],
-                           sampler=sampler)
+    """The light BVH and exhaustive samplers, refused until they were
+    ported, build; one point light is picked with pmf 1 (their tables and
+    pmfs against the reference: tests/test_torch_lightbvh.py). An unknown
+    sampler name raises."""
+    lights = LightBuffers.build(points=[{"p": (0, 1, 0), "rgb": (1, 1, 1)}],
+                                sampler=sampler)
+    assert (lights.bvh is not None) == (sampler == "bvh")
+    assert (lights.exh_recs is not None) == (sampler == "exhaustive")
+    p = torch.tensor([[0.0, 0.0, 0.0], [3.0, 1.0, -2.0]])
+    n = torch.tensor([[0.0, 1.0, 0.0], [0.0, 0.0, 0.0]])
+    idx, pmf = lights.select(p, n, torch.tensor([0.1, 0.9]))
+    assert idx.tolist() == [0, 0] and pmf.tolist() == [1.0, 1.0]
+    with pytest.raises(ValueError, match="unknown light sampler"):
+        LightBuffers.build(sampler=sampler + "_tree")
 
 
 def test_sample_le_origin_raises():

@@ -175,7 +175,9 @@ _TRI = ('Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
      'Material "conductor" "texture roughness" "t"', 10),
     ('Texture "t" "float" "fbm" '
      'Material "dielectric" "texture roughness" "t"', 10),
-    ('Material "coatedconductor"', 10),
+    # The coated and diffuse-transmission families parse
+    # (tests/test_torch_coated.py); hair does not.
+    ('Material "hair"', 10),
     ('LightSource "infinite" "string filename" "sky.exr"', 15),
     ('MakeNamedMedium "fog" "string type" "homogeneous"', 12),
     ('MediumInterface "fog" ""', 12),

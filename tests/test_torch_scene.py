@@ -102,9 +102,25 @@ def test_convert_refuses_unported_members(jax_cornell):
     assert ptex.textures.has_ptex
     with pytest.raises(NotImplementedError, match="item 15"):
         scene_from_arrays(*flatten_jax(ptex))
-    sampler_bvh = js.replace(lights=js.lights.replace(sampler="bvh"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        scene_from_arrays(*flatten_jax(sampler_bvh))
+    # The light BVH and the exhaustive sampler's records convert, table
+    # for table.
+    from pbrt_tpu.lights import bvh as jax_light_bvh
+
+    sampler_bvh = js.replace(lights=js.lights.replace(
+        sampler="bvh", bvh=jax_light_bvh.LightBVH.build(js.lights)))
+    port_bvh = scene_from_arrays(*flatten_jax(sampler_bvh)).lights.bvh
+    assert port_bvh.max_depth == sampler_bvh.lights.bvh.max_depth == 1
+    for name in ("nodes", "paths", "path_len"):
+        np.testing.assert_array_equal(
+            getattr(port_bvh, name).numpy(),
+            np.asarray(getattr(sampler_bvh.lights.bvh, name)))
+    recs = jax_light_bvh.pack_light_records(
+        jax_light_bvh.light_bounds_arrays(js.lights))
+    exhaustive = js.replace(lights=js.lights.replace(
+        sampler="exhaustive", exh_recs=jnp.asarray(recs)))
+    port = scene_from_arrays(*flatten_jax(exhaustive)).lights
+    assert port.sampler == "exhaustive" and port.bvh is None
+    np.testing.assert_array_equal(port.exh_recs.numpy(), recs)
 
 
 def test_convert_refuses_unported_shapes():
