@@ -11,18 +11,20 @@ the small tier and on the kd-tree), the killeroo-class mesh scene (on the
 cluster tier and on the BVH tier), the instanced field (a .pbrt file
 through the port's parser) and the golden scene files spot.pbrt,
 envmap.pbrt, plymesh.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt
-and imagetex.pbrt and the many-light hall (power and light-BVH samplers)
-on the card against the committed JAX goldens, renders
+and imagetex.pbrt, the many-light hall (power and light-BVH samplers),
+the volumetric cloud and fog.pbrt on the card against the committed JAX
+goldens, renders
 the golden scene files conductor.pbrt, plymesh.pbrt, spot.pbrt,
-envmap.pbrt, box.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt and
-imagetex.pbrt against the pbrt-v4 C++ goldens and the furnace scene
-against its closed form, holds the backward pass's image-loss gradients
+envmap.pbrt, box.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt,
+imagetex.pbrt and fog.pbrt against the pbrt-v4 C++ goldens and the
+furnace scene and the fog box against their closed forms, holds the backward pass's image-loss gradients
 against the JAX gradient golden, across tiers and, through delta lights
 (and a glass sphere), against the CPU, and through the coated materials'
-layered walk against their JAX golden, times the forward render of each
-timed configuration (the mesh gallery's glass torus, texture.pbrt and
-bench's many-light hall among them) and the Cornell forward+backward
-pass, and takes three training steps. Each phase prints one JSON line;
+layered walk against their JAX golden and a medium's absorption
+gradient against its JAX golden, times the forward render of each timed
+configuration (the mesh gallery's glass torus, texture.pbrt, bench's
+many-light hall and bench's volumetric cloud among them) and the Cornell
+forward+backward pass, and takes three training steps. Each phase prints one JSON line;
 any failure raises, so the script exits non-zero and never prints the
 final line. Without a CUDA device it exits non-zero at
 once. It never imports JAX.
@@ -68,6 +70,16 @@ Phases:
       any-hit mode, 524,288 lanes each), the launches counted from zero
       over that pass, each query bit-equal key by key, kernel and twin
       timed, with c2's counts, bound and diagnostic
+  c6  K1 vs its twin on every query of one pass of the volumetric path:
+      the cloud (scenes/cloud.py, bench's cloud_fwd scene: a 48^3 density
+      grid over a 2-triangle floor; 128x128, 8 spp, depth 6: per bounce
+      the closest query and the any-hit occlusion queries of the two
+      ratio-tracking transmittances, then the terminal pair; 20 queries)
+      and fog.pbrt (64x64, 8 spp: per bounce the closest query and the
+      four closest queries of each of the two interface-aware shadow
+      walks, done lanes at tmax 0; 46 queries), launches counted from
+      zero, each query bit-equal key by key, kernel and twin timed, with
+      the bound
   d   Cornell 32x32, 16 spp, 32 lanes, depth 5 (default Russian roulette)
       against tests/data/torch_port/cornell32_spp16.npy: >= 99% of pixel
       values within rtol 1e-3 / atol 1e-5, and 11 K1 launches per pass
@@ -146,6 +158,23 @@ Phases:
       9 K2 launches per pass; the share and mean of the render on the
       exact keys beside it (mean within EXACT_KEYS_MEAN_RTOL of the
       golden's)
+  d19 tests/goldens/fog.pbrt (a homogeneous interior medium behind a
+      material-less sphere, a point light; volpath) at 192 spp in passes
+      of 32 against the C++ golden, as d5 (rel 0.06, MSE 5e-5, q95 0.15)
+  d20 the fog box (scenes/cloud.py: an emissive quad behind a
+      homogeneous slab) against its closed form Le exp(-sigma_t) within
+      6% (absorbing, depth 3, 32 spp), and the absorbing-and-scattering
+      slab's bounds at depth 1 and 4, tests/test_media.py's gates
+  d21 the cloud (entry inset, tests/torch_port_media.py) and fog.pbrt at
+      32x32, 4 spp, 8 lanes against the JAX goldens of
+      scripts/make_torch_port_golden_media.py: d's gate, 20 / 46 K1
+      launches per pass; the cloud's exact-entry share and mean beside it
+  g6  tests/test_gradients.py's medium gradient: the fog box (sigma_a
+      0.8, 8x8, 48 spp, depth 2, no NEE, 32 steps, differentiable=True),
+      the mean radiance and its derivative in medium.sigma_a_scale on the
+      card against tests/data/torch_port/fogbox8_grad.npz and the CPU
+      pass, within 1e-3 of the golden's; 4 K1 launches per
+      forward+backward pass
   g5  the bench's loss and gradients on the coated Cornell box (coated
       diffuse walls, a coated gold conductor; tests/torch_port_coated.py),
       32x32, 4 spp in passes of 2, depth 5, 8 lanes, coarse walk keys,
@@ -197,6 +226,15 @@ Phases:
       pass and the device's busy share (torch.profiler); then the power
       pass with sorted_shading=False against the sorted default, in turns,
       the first pass's image of each bit-equal
+  e9  bench.py's cloud_fwd timed: the cloud at 128x128, 16 spp in passes
+      of 8 (131,072 camera rays a pass), depth 6, the DDA walk, Russian
+      roulette from 3, 8 lanes: Mrays/s as bench.py counts rays, K1
+      launches per pass, the walks' host reads per pass, peak memory, the
+      layers' device ms (camera, closest, the delta walk, the ratio
+      walks, lights, phase, BxDF, RNG, film), kernel launches per pass and
+      the busy share, the delta walk's live lanes per step at bounce 0;
+      then the compacted walks against the lockstep walks in turns, the
+      first pass's image of each bit-equal
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
   f   the kernels line, the nvidia-smi line and the final result line
@@ -237,6 +275,7 @@ CXX_GOLDENS = (
     ("d14_golden_spheres", "spheres", 384, 32, (0.035, 1e-4, 0.15), "k1"),
     ("d15_golden_texture", "texture", 256, 32, (0.04, 1e-3, 0.15), "k1"),
     ("d16_golden_imagetex", "imagetex", 256, 32, (0.04, 1e-3, 0.15), "k1"),
+    ("d19_golden_fog", "fog", 192, 32, (0.06, 5e-5, 0.15), "k1"),
 )
 # d12 and d17: golden files against the JAX goldens of
 # scripts/make_torch_port_golden_lights.py and
@@ -282,8 +321,14 @@ ENTRY_OPS = 19
 PAIR_OPS = 1
 
 
+START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the script's seconds so far."""
+    print(json.dumps({"phase": phase, **fields,
+                      "script_seconds": time.perf_counter() - START}),
+          flush=True)
 
 
 def nvidia_smi() -> str:
@@ -1288,11 +1333,11 @@ def phase_golden_kdtree(dev):
 
 
 def make_pass(scene, camera, res: int, k: int, lanes: int, depth: int = 5,
-              sorted_shading="auto"):
+              sorted_shading="auto", integrator=None):
     """One forward pass at a bench configuration: k samples per pixel over
     res x res, `lanes` wavelengths, depth `depth`, no Russian roulette,
-    the integrator's sorted_shading. Returns render_pass(pass_idx) ->
-    (mean RGB image, traced rays)."""
+    the integrator's sorted_shading (or the given integrator). Returns
+    render_pass(pass_idx) -> (mean RGB image, traced rays)."""
     import torch
 
     # Module attributes are looked up at each call, so a profiler that
@@ -1302,8 +1347,9 @@ def make_pass(scene, camera, res: int, k: int, lanes: int, depth: int = 5,
     from pbrt_tpu_torch.models.path import PathIntegrator
 
     dev = scene.geom.tri_verts.device
-    integrator = PathIntegrator(max_depth=depth, rr_start_depth=depth,
-                                sorted_shading=sorted_shading)
+    if integrator is None:
+        integrator = PathIntegrator(max_depth=depth, rr_start_depth=depth,
+                                    sorted_shading=sorted_shading)
     npix = res * res
     pixel_b = torch.arange(npix, device=dev).repeat(k)
 
@@ -2296,6 +2342,458 @@ def phase_timed_hall(dev, smi: str, hall):
     return k2_launches
 
 
+
+# --- the volumetric path (models/volpath.py) -------------------------------
+
+GOLDEN_DATA = os.path.join(ROOT, "tests", "data", "torch_port")
+FOG_FILE = os.path.join(GOLDEN_FILES, "fog.pbrt")
+# bench.py's cloud_fwd: 128x128, 16 spp in passes of 8, depth 6, the DDA
+# walk, Russian roulette from depth 3 (the integrator's default), 8 lanes.
+CLOUD = dict(res=128, spp=16, k=8, depth=6, lanes=8)
+
+
+def inset_entry():
+    """The port's medium entry inset (tests/torch_port_media.py) within
+    the block, as the cloud's goldens were made."""
+    from pbrt_tpu_torch.media.medium import MediumBuffers
+    from tests.torch_port_media import inset_entry as inset
+
+    return inset(MediumBuffers)
+
+
+def cloud_on(dev, res: int):
+    from pbrt_tpu_torch.models.volpath import VolPathIntegrator
+    from pbrt_tpu_torch.scenes.cloud import cloud_scene
+
+    scene, camera = cloud_scene(resolution=(res, res))
+    return (scene.to(dev), camera.to(dev),
+            VolPathIntegrator(max_depth=CLOUD["depth"], use_dda=True))
+
+
+def fog_on(dev, res: int):
+    from pbrt_tpu_torch.io.parser import load_pbrt
+
+    scene, camera, settings = load_pbrt(FOG_FILE, device=dev)
+    return scene, camera.replace(resolution=(res, res)), settings["integrator"]
+
+
+def _k1_queries(render_pass):
+    """Every K1 query of one render_pass() call, as the integrator sends
+    it: [(o, d, tmax, any_hit)]; the queries still launch the kernel."""
+    from pbrt_tpu_torch.accel import api
+
+    queries = []
+    launch = api.smallscene_intersect
+
+    def capture(acc, o, d, tmax, any_hit=False, **kw):
+        queries.append((o.clone(), d.clone(), tmax.clone(), any_hit))
+        return launch(acc, o, d, tmax, any_hit=any_hit, **kw)
+
+    api.smallscene_intersect = capture
+    try:
+        render_pass(0)
+    finally:
+        api.smallscene_intersect = launch
+    return queries
+
+
+def phase_k1_volpath_vs_twin(dev):
+    """c6: K1 against its twin on every query of one pass of the cloud
+    (128x128, 8 spp, depth 6: per bounce the closest query and the
+    any-hit occlusion queries of the two ratio-tracking transmittances,
+    then the terminal closest and any-hit) and of fog.pbrt (64x64, 8 spp:
+    per bounce the closest query and the four closest queries of each of
+    the two interface-aware shadow walks, done lanes at tmax 0), launches
+    counted from zero, each query bit-equal key by key, kernel and twin
+    timed, with the bound of each."""
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import (
+        STATS, smallscene_intersect, smallscene_intersect_ref)
+
+    out = {}
+    for name, res, (scene, camera, integ), want in (
+            ("cloud", CLOUD["res"], cloud_on(dev, CLOUD["res"]),
+             3 * CLOUD["depth"] + 2),
+            ("fog", 64, fog_on(dev, 64), None)):
+        if want is None:
+            want = 9 * integ.max_depth + 1
+        rp = make_pass(scene, camera, res, 8, CLOUD["lanes"],
+                       integrator=integ)
+        STATS.reset()
+        queries = _k1_queries(rp)
+        torch.cuda.synchronize()
+        launches = STATS.launches
+        if launches != want or len(queries) != launches:
+            raise AssertionError(f"{name}: {launches} K1 launches, "
+                                 f"{len(queries)} queries, {want} expected")
+        acc = scene.small
+        rows = acc.n_tris
+        per_query, ms, plain_ms, bound_ms, err = [], 0.0, 0.0, 0.0, 0.0
+        for o, d, tmax, any_hit in queries:
+            got = smallscene_intersect(acc, o, d, tmax, any_hit=any_hit)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = smallscene_intersect_ref(acc, o, d, tmax, any_hit=any_hit)
+            torch.cuda.synchronize()
+            q_plain = (time.perf_counter() - t0) * 1e3
+            bad = [k for k in ref if not torch.equal(got[k], ref[k])]
+            if set(got) != set(ref) or bad:
+                raise AssertionError(f"{name}: K1 differs from its twin in "
+                                     f"{bad} ({o.shape[0]} rays, any_hit "
+                                     f"{any_hit})")
+            q_ms = cuda_ms(lambda: smallscene_intersect(acc, o, d, tmax,
+                                                        any_hit=any_hit),
+                           reps=10)
+            n = int(o.shape[0])
+            out_bytes = 8 if any_hit else 36
+            bound = _bound(n * rows * MT_OPS, n * (28 + out_bytes) + rows * 64)
+            err = max(err, max_abs_err(got, ref))
+            ms += q_ms
+            plain_ms += q_plain
+            bound_ms += bound["bound_ms"]
+            per_query.append({"mode": "any_hit" if any_hit else "closest",
+                              "rays": n, "live": int((tmax > 0).sum()),
+                              "ms": q_ms, "plain_ms": q_plain,
+                              "bound_ms": bound["bound_ms"]})
+        STATS.reset()
+        out[name] = {"launches": launches, "triangles": rows,
+                     "ms_per_pass": ms, "plain_ms_per_pass": plain_ms,
+                     "bound_ms_per_pass": bound_ms, "max_abs_err": err,
+                     "queries": per_query}
+    emit("c6_k1_volpath_vs_twin", **out)
+    return out
+
+
+def phase_fog_box(dev):
+    """d20: scenes/cloud.py's fog box on the card against its closed form
+    (tests/test_media.py's gates): absorption only, L = Le exp(-sigma_t),
+    the mean within 6% at 32 spp; absorption and scattering at depth 1
+    between the pure attenuation and 1.5 times it, at depth 4 below the
+    unattenuated source."""
+    import math
+
+    import torch
+
+    from pbrt_tpu_torch.models.volpath import VolPathIntegrator
+    from pbrt_tpu_torch.ops.smallscene import STATS
+    from pbrt_tpu_torch.render import camera_rays
+    from pbrt_tpu_torch.scenes.cloud import fog_box_scene
+
+    def mean(sa, ss, depth, spp=32):
+        scene, camera = fog_box_scene(sigma_a=sa, sigma_s=ss, le_scale=5.0)
+        scene, camera = scene.to(dev), camera.to(dev)
+        pixel = torch.arange(64, device=dev).repeat(spp)
+        sample = torch.arange(spp, device=dev).repeat_interleave(64)
+        o, d, wl = camera_rays(camera, pixel, sample, 0, n_spectrum=8)
+        integ = VolPathIntegrator(max_depth=depth, rr_start_depth=100,
+                                  use_nee=False)
+        return float(integ.trace(scene, o, d, wl, pixel, sample, 0).mean())
+
+    expected = 5.0 * math.exp(-1.0)
+    STATS.reset()
+    got = mean(1.0, 0.0, 3)
+    launches = STATS.launches
+    got_t = mean(0.5, 0.5, 1)
+    got_s = mean(0.5, 0.5, 4)
+    rel = abs(got - expected) / expected
+    emit("d20_fog_box", mean_absorbing=got, expected=expected, rel_err=rel,
+         tolerance=0.06, mean_scattering_depth1=got_t,
+         mean_scattering_depth4=got_s, k1_launches=launches)
+    if not (rel < 0.06 and expected < got_t < min(5.0, 1.5 * expected)
+            and expected < got_s < 5.0):
+        raise AssertionError(f"fog box off its closed form: {got}, {got_t}, "
+                             f"{got_s} against {expected}")
+    if launches != 3 + 2:  # 3 bounces, the terminal closest and any-hit
+        raise AssertionError(f"fog box: {launches} K1 launches")
+
+
+def phase_golden_volpath_jax(dev):
+    """d21: the cloud (32x32, 4 spp, depth 6, entry inset as the golden)
+    and fog.pbrt (32x32, 4 spp) on the card against the JAX goldens of
+    scripts/make_torch_port_golden_media.py with d's gate; the cloud also
+    with the exact entry (its share and mean beside it: lanes whose entry
+    rounds outside the box re-draw their walks)."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import STATS
+    from pbrt_tpu_torch.render import render
+
+    kw = dict(spp=4, samples_per_pass=4, seed=0, n_spectrum=8, device=dev)
+    for name, (scene, camera, integ), per_pass in (
+            ("cloud", cloud_on(dev, 32), 3 * CLOUD["depth"] + 2),
+            ("fog", fog_on(dev, 32), None)):
+        golden = np.load(os.path.join(GOLDEN_DATA, f"{name}32_spp4.npy"))
+        per_pass = per_pass or 9 * integ.max_depth + 1
+        STATS.reset()
+        with inset_entry():
+            img = render(scene, camera, integ, **kw)
+        torch.cuda.synchronize()
+        launches = STATS.launches
+        share, fields = _golden_gate(img.cpu().numpy(), golden)
+        extra = {}
+        if name == "cloud":
+            exact = render(scene, camera, integ, **kw).cpu().numpy()
+            extra = {"exact_entry_share": float(np.mean(
+                np.abs(exact - golden) <= 1e-5 + 1e-3 * np.abs(golden))),
+                "exact_entry_mean": float(exact.mean()),
+                "exact_entry_finite": bool(np.all(np.isfinite(exact)))}
+        emit("d21_golden_volpath_jax", scene=name, resolution=32, spp=4,
+             max_depth=integ.max_depth, lanes=8,
+             entry="inset" if name == "cloud" else "exact", **fields,
+             image_mean_diff=fields["mean"] - fields["golden_mean"],
+             k1_launches=launches, expected_k1=per_pass, **extra)
+        if share < 0.99:
+            raise AssertionError(f"{name}: only {share:.4f} of pixel values "
+                                 "match the JAX golden")
+        if launches != per_pass:
+            raise AssertionError(f"{name}: {launches} K1 launches, "
+                                 f"{per_pass} expected")
+        if extra and not extra["exact_entry_finite"]:
+            raise AssertionError("cloud with the exact entry: not finite")
+
+
+def _volpath_layers(render_pass) -> dict:
+    """The layers' device ms of one volpath pass (CUDA events around each
+    layer's outermost calls, as scripts/profile_torch_pass.py takes them):
+    camera, closest queries, the delta-tracking walk, the ratio-tracking
+    transmittances (their occlusion queries inside), lights, the phase
+    function, the BxDF, RNG draws outside the walks, film, and the rest."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch import render as render_mod
+    from pbrt_tpu_torch.accel import api as accel_api
+    from pbrt_tpu_torch.films import rgb as film_mod
+    from pbrt_tpu_torch.lights.buffers import LightBuffers
+    from pbrt_tpu_torch.materials import bxdf
+    from pbrt_tpu_torch.media import phase
+    from pbrt_tpu_torch.models.volpath import VolPathIntegrator
+    from pbrt_tpu_torch.samplers.samplers import Sampler
+
+    layers = {
+        "camera": [(render_mod, "camera_rays_full")],
+        "closest": [(accel_api, "closest")],
+        "any_hit": [(accel_api, "any_hit")],
+        "delta_walk": [(VolPathIntegrator, "_walk")],
+        "ratio_walks": [(VolPathIntegrator, "_transmittance")],
+        "lights": [(LightBuffers, a) for a in (
+            "emitted", "pdf_li_area", "sample_li", "pdf_escaped",
+            "escaped_radiance")],
+        "phase": [(phase, "hg_pdf"), (phase, "hg_sample")],
+        "bxdf": [(bxdf, a) for a in ("surface_params", "sample", "evaluate",
+                                     "pdf")],
+        "rng": [(Sampler, "get_1d"), (Sampler, "get_2d")],
+        "film": [(film_mod, "spectrum_to_rgb")],
+    }
+    timer = ptp.LayerTimer()
+    saved = []
+    for name, targets in layers.items():
+        for owner, attr in targets:
+            fn = getattr(owner, attr)
+            saved.append((owner, attr, fn))
+            setattr(owner, attr, timer.wrap(name, fn))
+    try:
+        render_pass()  # warm-up
+        torch.cuda.synchronize()
+        timer.events.clear()
+        t0 = time.perf_counter()
+        render_pass()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    out = timer.totals_ms()
+    out["other"] = wall_ms - sum(out.values())
+    return {"wall_ms": wall_ms, "layers_ms": dict(
+        sorted(out.items(), key=lambda kv: -kv[1]))}
+
+
+def _walk_decay(render_pass, n_camera: int) -> dict:
+    """Live lanes of the delta-tracking walk after each step at bounce 0
+    (a diagnostic pass: one device read per step), and the lanes that
+    enter the medium, as shares of the pass's camera rays."""
+    from pbrt_tpu_torch.ops import compact
+
+    steps, first = [], []
+    run_steps = compact._steps
+
+    def counted(body, inputs, state, it0, m, draws):
+        u = draws(inputs, it0, m) if draws is not None else None
+        for j in range(m):
+            state = body(inputs, it0 + j, state,
+                         None if u is None else u[:, j])
+            if "walking" in state and not first:
+                steps.append((it0 + j, int(state["walking"].sum())))
+        return state
+
+    def staged(body, inputs, state, mask_of, max_steps, **kw):
+        if "walking" in state and not first and not steps:
+            steps.append((-1, int(state["walking"].sum())))
+        out = staged_loop(body, inputs, state, mask_of, max_steps, **kw)
+        if "walking" in state and steps:
+            first.append(True)
+        return out
+
+    from pbrt_tpu_torch.models import volpath
+
+    staged_loop = volpath.staged_masked_loop
+    compact._steps = counted
+    volpath.staged_masked_loop = staged
+    try:
+        render_pass(0)
+    finally:
+        compact._steps = run_steps
+        volpath.staged_masked_loop = staged_loop
+    # A compacted batch holds the live lanes only: the step's count is the
+    # count of live lanes in the whole pass. Steps a stage skips (no live
+    # lane at its boundary) read 0.
+    live = {it: n for it, n in steps}
+    last = max(live)
+    curve = [live.get(it, 0) / n_camera for it in range(-1, last + 1)]
+    return {"entering_share": curve[0], "live_share_after_step": curve[1:],
+            "steps_with_live_lanes": sum(1 for c in curve[1:] if c > 0)}
+
+
+def phase_timed_cloud(dev, smi: str) -> int:
+    """e9: bench.py's cloud_fwd on the card: the cloud at 128x128, 16 spp
+    in passes of 8 (131,072 camera rays a pass), depth 6, the DDA walk,
+    Russian roulette from 3, 8 lanes: Mrays/s as bench.py counts rays, K1
+    launches per pass, the walks' host reads per pass, peak memory, the
+    layers' device ms, the kernel launches of one pass and the device's
+    busy share (torch.profiler), the delta walk's live lanes per step at
+    bounce 0; then the compacted walks against the lockstep walks
+    (compact_walks=False), in turns, the first pass's image of each
+    bit-equal."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.models.volpath import VolPathIntegrator
+    from pbrt_tpu_torch.ops import compact
+    from pbrt_tpu_torch.ops.smallscene import STATS
+
+    c = CLOUD
+    res, k, passes = c["res"], c["k"], c["spp"] // c["k"]
+    t0 = time.perf_counter()
+    scene, camera, integ = cloud_on(dev, res)
+    build_s = time.perf_counter() - t0
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    render_pass = make_pass(scene, camera, res, k, c["lanes"],
+                            integrator=integ)
+    t0 = time.perf_counter()
+    render_pass(0)  # warm-up
+    first_s = time.perf_counter() - t0
+    compact.STATS.reset()
+    out = timed_forward(render_pass, passes, {"k1": STATS})
+    reads = compact.STATS.reads / passes
+    if out["k1_launches"] != passes * (3 * c["depth"] + 2):
+        raise AssertionError(f"timed cloud: {out['k1_launches']} K1 launches")
+    layers = _volpath_layers(render_pass)
+    kern = ptp.kernel_view(c["lanes"], render_pass, out_dir)
+    decay = _walk_decay(render_pass, res * res * k)
+    emit("e9_timed_cloud", lanes=c["lanes"], resolution=res, spp=c["spp"],
+         samples_per_pass=k, max_depth=c["depth"], use_dda=True,
+         rr_start_depth=integ.rr_start_depth,
+         rays_per_pass_camera=res * res * k, **out,
+         k1_launches_per_pass=out["k1_launches"] / passes,
+         walk_host_reads_per_pass=reads, scene_build_seconds=build_s,
+         first_pass_seconds=first_s, layers=layers,
+         kernel_launches_per_pass=kern["kernel_launches"],
+         device_busy_share=kern["device_busy_share"],
+         device_kernel_ms=kern["device_kernel_ms"],
+         profiled_pass_wall_ms=kern["wall_ms"], top_kernels=kern["top"],
+         walk_decay_bounce0=decay, nvidia_smi=smi)
+    runs, first = {True: [], False: []}, {}
+    for compact_walks in (True, False, False, True):
+        rp = make_pass(scene, camera, res, k, c["lanes"],
+                       integrator=integ.replace(compact_walks=compact_walks))
+        first.setdefault(compact_walks, rp(0))  # the warm-up pass
+        runs[compact_walks].append(
+            timed_forward(rp, passes, {"k1": STATS})["mrays_per_s"])
+    equal = (torch.equal(first[True][0], first[False][0])
+             and bool(first[True][1] == first[False][1]))
+    emit("e9_compacted_vs_lockstep", compacted_mrays_per_s=runs[True],
+         lockstep_mrays_per_s=runs[False],
+         compacted_over_lockstep=sum(runs[True]) / sum(runs[False]),
+         images_bit_equal=equal, nvidia_smi=smi)
+    if not equal:
+        raise AssertionError("cloud: the compacted walks' image differs from "
+                             "the lockstep walks'")
+    return out["k1_launches"]
+
+
+def phase_grad_fog_box(dev):
+    """g6: tests/test_gradients.py's medium gradient on the card: the fog
+    box (sigma_a 0.8, 8x8, 48 spp), VolPathIntegrator(max_depth=2,
+    use_nee=False, 32 steps, differentiable=True), the mean radiance and
+    its gradient with respect to medium.sigma_a_scale, against
+    tests/data/torch_port/fogbox8_grad.npz (the JAX reference's) and the
+    port's CPU pass, within 1e-3 of the golden's gradient (its largest
+    entry) and the loss within 1e-4; K1 launches per forward+backward
+    pass equal to a forward's (two bounces, the terminal closest and
+    any-hit)."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.models.volpath import VolPathIntegrator
+    from pbrt_tpu_torch.ops.smallscene import STATS
+    from pbrt_tpu_torch.render import camera_rays
+    from pbrt_tpu_torch.scenes.cloud import fog_box_scene
+
+    z = np.load(os.path.join(GOLDEN_DATA, "fogbox8_grad.npz"))
+    res, spp = int(z["resolution"]), int(z["spp"])
+    scene, camera = fog_box_scene(sigma_a=float(z["sigma_a"]), sigma_s=0.0,
+                                  le_scale=float(z["le_scale"]),
+                                  resolution=(res, res))
+    steps = int(z["max_steps"])
+    integ = VolPathIntegrator(
+        max_depth=int(z["max_depth"]), rr_start_depth=int(z["rr_start_depth"]),
+        use_nee=False, max_null_steps=steps, max_tr_steps=steps,
+        differentiable=True)
+
+    def value_and_grad(device):
+        s, cam = scene.to(device), camera.to(device)
+        leaf = s.medium.sigma_a_scale.clone().requires_grad_(True)
+        s = s.replace(medium=s.medium.replace(sigma_a_scale=leaf))
+        pixel = torch.arange(res * res, device=device).repeat(spp)
+        sample = torch.arange(spp, device=device).repeat_interleave(res * res)
+        o, d, wl = camera_rays(cam, pixel, sample, int(z["seed"]),
+                               n_spectrum=int(z["n_spectrum"]))
+        loss = integ.trace(s, o, d, wl, pixel, sample, int(z["seed"])).mean()
+        (g,) = torch.autograd.grad(loss, leaf)
+        return float(loss.detach()), float(g)
+
+    STATS.reset()
+    loss, grad = value_and_grad(dev)
+    torch.cuda.synchronize()
+    launches = STATS.launches
+    cpu_loss, cpu_grad = value_and_grad("cpu")
+    want = float(z["grad_sigma_a_scale"])
+    err_jax = abs(grad - want) / abs(want)
+    err_cpu = abs(grad - cpu_grad) / abs(want)
+    loss_err = abs(loss - float(z["loss"])) / abs(float(z["loss"]))
+    emit("g6_grad_fog_box", resolution=res, spp=spp, loss=loss,
+         golden_loss=float(z["loss"]), cpu_loss=cpu_loss,
+         grad_sigma_a_scale=grad, golden_grad=want, cpu_grad=cpu_grad,
+         rel_err_vs_jax=err_jax, rel_err_vs_cpu=err_cpu,
+         loss_rel_err=loss_err, k1_launches=launches,
+         expected_k1=int(z["max_depth"]) + 2,
+         tolerance={"grad_of_max": GRAD_RTOL_OF_MAX, "loss_rel": LOSS_RTOL})
+    if not (err_jax <= GRAD_RTOL_OF_MAX and err_cpu <= GRAD_RTOL_OF_MAX
+            and loss_err <= LOSS_RTOL and np.isfinite(grad)):
+        raise AssertionError(f"fog box gradient {grad} against {want} "
+                             f"(CPU {cpu_grad}), loss {loss}")
+    if launches != int(z["max_depth"]) + 2:
+        raise AssertionError(f"fog box gradient: {launches} K1 launches")
+
+
 def _kernel_entry(name, source, replaces, launches, k):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source,
@@ -2346,6 +2844,10 @@ def main() -> int:
     phase_grad_file(dev, "g4_grad_spheres", "spheres",
                     SPHERES_GRAD_RTOL_OF_MAX)
     phase_grad_coated(dev)
+    phase_k1_volpath_vs_twin(dev)
+    phase_fog_box(dev)
+    phase_golden_volpath_jax(dev)
+    phase_grad_fog_box(dev)
     k1_launches = phase_timed(dev, 8)
     phase_timed(dev, 32)
     phase_timed_fwdbwd(dev, smi)
@@ -2357,6 +2859,7 @@ def main() -> int:
     phase_timed_gallery(dev, smi)
     phase_timed_texture(dev, smi)
     phase_timed_hall(dev, smi, hall)
+    phase_timed_cloud(dev, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     # No single PyTorch call computes a ray/triangle intersection, so no

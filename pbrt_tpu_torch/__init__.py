@@ -8,7 +8,8 @@ is). Module paths and public names mirror the reference: a reader finds
 What is ported (the forward spectral path trace of the diffuse Cornell
 box, of the killeroo-class mesh scene, of the furnace and of pbrt-v4
 scene files with instanced meshes, analytic spheres and the scene-file
-lights, and the default gradient path):
+lights, the volumetric path of the cloud and of scene-file media, and
+the default gradient path):
   core/      tensor dataclasses, pcg4d RNG, CIE/sRGB colour, rgb2spec,
              vector maths, sampling warps, transforms, ULP stepping and
              interval arithmetic
@@ -25,18 +26,23 @@ lights, and the default gradient path):
              K2, the Morton cluster kernel (csrc/cluster.cu), K3, the
              instanced sweep kernel (csrc/sweep.cu), and K4, the BVH
              traversal kernel (csrc/traverse.cu), each with its plain
-             PyTorch twin
+             PyTorch twin; the staged compaction of masked walks
   accel/     closest / any-hit queries on the small-scene, cluster, sweep,
              kd-tree and BVH tiers with the analytic sphere test merged,
              the BVH and kd-tree builds, the ray sort, instanced attribute
              resolution and the Morton order
-  models/    the path integrator (NEE + MIS + RR) and its remat gradient
+  media/     homogeneous, grid, rgbgrid and procedural-cloud media with
+             DDA majorants, interior-media stacks, the HG phase function
+  models/    the path integrator (NEE + MIS + RR) and its remat gradient;
+             the volumetric path integrator (delta and ratio tracking,
+             interface-aware shadow rays) and its differentiable variant
   films/     spectrum -> sRGB film
   io/        the .pbrt parser's subset (load_pbrt), PLY reading and
              writing, and PFM reading (images of lights too)
   parallel/  the single-device training step
-  scenes/    the Cornell box (diffuse variant), the procedural meshes and
-             the furnace (analytic.py)
+  scenes/    the Cornell box (diffuse variant), the procedural meshes, the
+             furnace (analytic.py), the many-light hall and the cloud and
+             fog box (cloud.py)
 
 Anything outside that slice raises NotImplementedError at parse, build or
 convert time, naming the ROADMAP Queue 1 item that will port it.

@@ -15,7 +15,10 @@ distribution's tables. The light BVH ("lights.bvh.*") is carried as the
 port's LightBVH, and the exhaustive sampler's records ("lights.exh_recs")
 as a tensor. The texture tables ("textures.*", the flat texel table
 included) are carried as the port's TextureBuffers; one with a Ptex row
-raises (ROADMAP Queue 1 item 15).
+raises (ROADMAP Queue 1 item 15). The scene-level medium ("medium.*",
+its static "medium.kind") and the interior-media stack ("media_stack.*")
+are carried member for member as the port's MediumBuffers and
+MediumStack.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from .lights.bvh import LightBVH
 from .lights.envmap import EnvironmentMap
 from .lights.portal import PortalLight
 from .materials.buffers import MaterialBuffers
+from .media.medium import MediumBuffers, MediumStack
 from .ops.cluster import ClusterAccel
 from .ops.smallscene import SmallTriAccel
 from .ops.sweep import SweepAccel
@@ -43,16 +47,12 @@ from .shapes.geometry import UNPORTED_SHAPES, GeometryBuffers
 from .textures.buffers import TextureBuffers
 
 # Scene members the port does not carry -> ROADMAP Queue 1 item.
-_UNPORTED_MEMBERS = {
-    "medium": 12, "media_stack": 12, "anim": 7,
-}
+_UNPORTED_MEMBERS = {"anim": 7}
 # Static fields the port does not carry, with the only value it accepts.
 _IMPLIED_STATIC = {
     "geom.has_alpha": False,
     "camera.motion": None,
 }
-# ROADMAP Queue 1 item of a light field the port does not carry.
-_LIGHT_ITEM = 11
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -73,11 +73,19 @@ def _unported(path: str, item: int) -> NotImplementedError:
     )
 
 
-def _section(cls, prefix: str, arrays: dict, static: dict, item_of,
+def _section(cls, prefix: str, arrays: dict, static: dict, item_of=None,
              **extra):
     """Build one port dataclass from the `prefix.` entries (plus `extra`
     keyword fields); entries naming fields the port does not have must
-    carry no data."""
+    carry no data (item_of(name): the ROADMAP item that will port them;
+    None where the port carries every field, and such an entry is
+    unknown). A None for a tensor field keeps its default."""
+
+    def refuse(path, name):
+        if item_of is None:
+            return ValueError(f"unknown scene field {path!r}")
+        return _unported(path, item_of(name))
+
     fields = {f.name: f for f in dataclasses.fields(cls)}
     kwargs = {}
     for path, value in list(arrays.items()) + list(static.items()):
@@ -86,15 +94,17 @@ def _section(cls, prefix: str, arrays: dict, static: dict, item_of,
         name = path[len(prefix) + 1:]
         if name in fields:
             is_static = fields[name].metadata.get("static", False)
+            if value is None and not is_static:
+                continue
             kwargs[name] = value if is_static else _tensor(value)
         elif path in _IMPLIED_STATIC:
             if value != _IMPLIED_STATIC[path]:
-                raise _unported(path, item_of(name))
+                raise refuse(path, name)
         elif path in static:
             if value is not None:
-                raise _unported(path, item_of(name))
+                raise refuse(path, name)
         elif _carries_data(value):
-            raise _unported(path, item_of(name))
+            raise refuse(path, name)
     return cls(**kwargs, **extra)
 
 
@@ -137,7 +147,8 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
             if path in arrays or static[path] is not None:
                 raise _unported(path, _UNPORTED_MEMBERS[member])
         elif member not in ("geom", "materials", "lights", "textures",
-                            "small", "clusters", "sweep", "bvh", "kdtree"):
+                            "medium", "media_stack", "small", "clusters",
+                            "sweep", "bvh", "kdtree"):
             raise ValueError(f"unknown scene field {path!r}")
     geom = _section(GeometryBuffers, "geom", arrays, static,
                     lambda n: UNPORTED_SHAPES.get(n, 8))
@@ -147,8 +158,7 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
     env = _env_from_arrays(arrays)
     extra = {"env": env}
     if any(p.startswith("lights.bvh.") for p in list(arrays) + list(static)):
-        extra["bvh"] = _section(LightBVH, "lights.bvh", arrays, static,
-                                lambda n: _LIGHT_ITEM)
+        extra["bvh"] = _section(LightBVH, "lights.bvh", arrays, static)
         arrays = {p: v for p, v in arrays.items()
                   if not p.startswith("lights.bvh.")}
         static = {p: v for p, v in static.items()
@@ -158,12 +168,15 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
     static = {p: v for p, v in static.items()
               if not (p in ("lights.env", "lights.bvh", "lights.exh_recs")
                       and v is None)}
-    lights = _section(LightBuffers, "lights", arrays, static,
-                      lambda n: _LIGHT_ITEM, **extra)
+    lights = _section(LightBuffers, "lights", arrays, static, **extra)
     optional = {}
     if any(p.startswith("textures.") for p in list(arrays) + list(static)):
         optional["textures"] = _section(TextureBuffers, "textures", arrays,
                                       static, lambda n: 15)
+    for member, cls in (("medium", MediumBuffers),
+                        ("media_stack", MediumStack)):
+        if any(p.startswith(member + ".") for p in list(arrays) + list(static)):
+            optional[member] = _section(cls, member, arrays, static)
     for member, cls in (("small", SmallTriAccel), ("clusters", ClusterAccel),
                         ("sweep", SweepAccel), ("bvh", BVH),
                         ("kdtree", KdTree)):

@@ -10,12 +10,16 @@ reference. The directive subset:
   state:      AttributeBegin/End TransformBegin/End ObjectBegin/End
               ObjectInstance ReverseOrientation WorldBegin/End Include Import
   options:    Camera "perspective", Film "rgb", Sampler independent/random,
-              Integrator path/simplepath; Filter, Accelerator, Option and
+              Integrator path/simplepath/volpath/simplevolpath (a path
+              integrator becomes volpath when the scene has media, with
+              the reference's warning); Filter, Accelerator, Option and
               ColorSpace are consumed
   scene:      Material / MakeNamedMaterial / NamedMaterial (diffuse and the
               names the reference maps to it, conductor, dielectric / glass,
               thindielectric, diffusetransmission, coateddiffuse,
-              coatedconductor), a texture-typed "reflectance" or "albedo",
+              coatedconductor, and "" / "none" / "interface", the
+              material-less boundary), a texture-typed "reflectance" or
+              "albedo",
               Texture (constant, checkerboard, scale, mix, directionmix,
               bilerp, dots, fbm, wrinkled, windy, marble, imagemap), Shape
               trianglemesh, plymesh and sphere (analytic outside objects; an
@@ -25,10 +29,16 @@ reference. The directive subset:
   lights:     LightSource point, spot, distant, projection, goniometric and
               infinite (uniform "rgb L", an image "string filename", a
               "point3 portal" over either); light and texture images are PFM
+  media:      MakeNamedMedium homogeneous (without p0/p1 an interior-media
+              stack entry, with them the scene-level AABB medium),
+              uniformgrid / grid (with Le, Lescale), cloud and rgbgrid;
+              MediumInterface (per-shape material clones carrying the
+              inside / outside stack indices; a grid-like medium binds the
+              scene level)
 
 A feature the port lacks (another camera, sampler or integrator, other
-materials, other texture-typed parameters, Ptex, shapes, alpha, media,
-animated instances, image formats other than PFM) raises
+materials, other texture-typed parameters, Ptex, NanoVDB media, shapes,
+alpha, animated instances, image formats other than PFM) raises
 NotImplementedError naming its ROADMAP Queue 1 item, at parse or build
 time; nothing renders without it. Where the reference approximates and
 warns ("material X approximated as diffuse", unknown directives and
@@ -38,7 +48,9 @@ reference warns and renders something else: an unknown light type
 (pbrt-v4 stops on one too), a light image that cannot be read (the
 reference renders the light with its constant I or L), an unknown Texture
 class (the reference binds 0.5 gray) and an imagemap whose image cannot be
-read (the reference binds a 0.5 gray image).
+read (the reference binds a 0.5 gray image). A "nanovdb" medium raises
+(item 15) where the reference reads the file, or warns and skips the
+medium when the read fails.
 
 Instancing is true instancing: an instanced prototype's triangles are
 stored once in object space and the sweep accelerator (ops/sweep.py, K3)
@@ -63,10 +75,13 @@ from ..materials.buffers import (
     MAT_DIELECTRIC,
     MAT_DIFFUSE,
     MAT_DIFFUSETRANS,
+    MAT_INTERFACE,
     MAT_THINDIELECTRIC,
     MaterialBuffers,
 )
+from ..media.medium import MED_VACUUM, MediumBuffers, MediumStack
 from ..models.path import PathIntegrator
+from ..models.volpath import VolPathIntegrator
 from ..lights.envmap import EnvironmentMap
 from ..lights.portal import PortalLight
 from ..ops.sweep import build_sweep
@@ -143,8 +158,7 @@ _DIRECTIVES = {
 
 # Material families of the reference parser the port cannot shade yet.
 _UNPORTED_MATERIALS = {
-    "subsurface", "none", "interface", "", "retroreflective", "mix",
-    "measured", "hair",
+    "subsurface", "retroreflective", "mix", "measured", "hair",
 }
 # Material parameters that may name a texture (the albedo overlay); any
 # other texture-typed parameter raises.
@@ -246,6 +260,15 @@ class PbrtParser:
         self.infinite = None
         self.envmap = None  # EnvironmentMap or PortalLight
         # camera / settings
+        # media: named media, the interior-media stack specs and their
+        # indices, the scene-level medium and the current MediumInterface
+        self.named_media = {}
+        self.media_specs = []
+        self.named_media_idx = {}
+        self.scene_medium = None
+        self.cur_interface = None  # (inside_idx, outside_idx) or None
+        self._interface_mat_cache = {}
+        self.any_interface = False
         self.camera_params = {}
         self.world_to_camera = np.eye(4)
         self.resolution = (256, 256)
@@ -306,7 +329,8 @@ class PbrtParser:
     def _d_Integrator(self, ts):
         self.integrator = ts.next()[1:-1]
         self.integrator_params = _parse_params(ts)
-        if self.integrator not in ("path", "simplepath"):
+        if self.integrator not in ("path", "simplepath", "volpath",
+                                   "simplevolpath"):
             raise _unported(f"Integrator {self.integrator!r}", 13)
 
     def _d_Sampler(self, ts):
@@ -407,14 +431,15 @@ class PbrtParser:
     def _d_AttributeBegin(self, ts):
         self.stack.append(
             (self.ctm.copy(), self.cur_material, self.cur_area_light,
-             self.reverse,
+             self.reverse, self.cur_interface,
              None if self.ctm_end is None else self.ctm_end.copy(),
              self.active_transform)
         )
 
     def _d_AttributeEnd(self, ts):
         (self.ctm, self.cur_material, self.cur_area_light, self.reverse,
-         self.ctm_end, self.active_transform) = self.stack.pop()
+         self.cur_interface, self.ctm_end,
+         self.active_transform) = self.stack.pop()
 
     _d_TransformBegin = _d_AttributeBegin
     _d_TransformEnd = _d_AttributeEnd
@@ -461,7 +486,11 @@ class PbrtParser:
             tex_id = self._tex_ref(p, "albedo")
         if tex_id >= 0:
             spec["albedo_texture"] = tex_id
-        if mtype in ("conductor", "metal"):
+        if mtype in ("none", "interface", ""):
+            # A pure media boundary: rays pass straight through, switching
+            # media (material-less shapes with a MediumInterface).
+            spec["kind"] = MAT_INTERFACE
+        elif mtype in ("conductor", "metal"):
             spec["kind"] = MAT_CONDUCTOR
             spec["roughness"] = float(_get(p, "roughness", 0.01) or 0.01)
         elif mtype in ("dielectric", "glass"):
@@ -656,10 +685,130 @@ class PbrtParser:
             raise ValueError(f"texture image {fname!r} cannot be read: {e}") from e
 
     def _d_MakeNamedMedium(self, ts):
-        raise _unported(f"MakeNamedMedium {ts.next()}", 12)
+        """MakeNamedMedium "name" "string type" ... (media.cpp
+        Medium::Create's homogeneous, uniformgrid, cloud and rgbgrid)."""
+        name = ts.next()[1:-1]
+        p = _parse_params(ts)
+        mtype = _get(p, "type", "homogeneous")
+        scale = float(_get(p, "scale", 1.0))
+        g = float(_get(p, "g", 0.0))
+        sa = _get_vec(p, "sigma_a")
+        ss = _get_vec(p, "sigma_s")
+        sa = tuple(sa) if sa is not None else (1.0, 1.0, 1.0)
+        ss = tuple(ss) if ss is not None else (1.0, 1.0, 1.0)
+        # Bounds: p0 / p1 in medium space through the CTM (the axis-aligned
+        # subset, as in the reference).
+        p0 = _get_vec(p, "p0")
+        p1 = _get_vec(p, "p1")
+        lo = np.asarray(p0 if p0 is not None else (0, 0, 0), np.float64)
+        hi = np.asarray(p1 if p1 is not None else (1, 1, 1), np.float64)
+        corners = self._pts(np.asarray([lo, hi], np.float64))
+        blo = np.minimum(corners[0], corners[1])
+        bhi = np.maximum(corners[0], corners[1])
+        if mtype == "homogeneous":
+            med = MediumBuffers.homogeneous(sa, ss, blo, bhi, g=g, scale=scale)
+            # Without p0 / p1 (pbrt's homogeneous media have none) the
+            # medium is shape-bounded, a stack entry for MediumInterface;
+            # explicit bounds keep the scene-level AABB binding.
+            if p0 is None and p1 is None:
+                self.named_media_idx[name] = len(self.media_specs)
+                self.media_specs.append(
+                    {"sigma_a": sa, "sigma_s": ss, "g": g, "scale": scale})
+        elif mtype in ("uniformgrid", "grid"):
+            dens = _get_vec(p, "density")
+            nx = int(_get(p, "nx", 1))
+            ny = int(_get(p, "ny", 1))
+            nz = int(_get(p, "nz", 1))
+            if dens is None:
+                self.warnings.append(f"medium {name}: no density grid; skipped")
+                return
+            le = _get_vec(p, "Le")
+            med = MediumBuffers.grid(
+                np.asarray(dens, np.float32).reshape(nz, ny, nx), sa, ss,
+                blo, bhi, g=g, scale=scale,
+                le_rgb=tuple(le) if le is not None else None,
+                le_scale=float(_get(p, "Lescale", 1.0)),
+            )
+        elif mtype == "cloud":
+            med = MediumBuffers.cloud(
+                sa, ss, blo, bhi, g=g, scale=scale,
+                density=float(_get(p, "density", 1.0)),
+                wispiness=float(_get(p, "wispiness", 1.0)),
+                frequency=float(_get(p, "frequency", 5.0)),
+            )
+        elif mtype == "rgbgrid":
+            nx = int(_get(p, "nx", 1))
+            ny = int(_get(p, "ny", 1))
+            nz = int(_get(p, "nz", 1))
+            shape = (nz, ny, nx, 3)
+
+            def grid(v, const):
+                if v is not None and np.asarray(v).size == nz * ny * nx * 3:
+                    return np.asarray(v, np.float32).reshape(shape)
+                return np.broadcast_to(np.asarray(const, np.float32), shape)
+
+            med = MediumBuffers.rgbgrid(
+                grid(_get_vec(p, "sigma_a"), sa),
+                grid(_get_vec(p, "sigma_s"), ss), blo, bhi, g=g, scale=scale)
+        elif mtype == "nanovdb":
+            raise _unported(f"MakeNamedMedium {name!r} of type \"nanovdb\" "
+                            "(io/nanovdb.py)", 15)
+        else:
+            self.warnings.append(f"medium type {mtype} unsupported; skipped")
+            return
+        self.named_media[name] = med
 
     def _d_MediumInterface(self, ts):
-        raise _unported("MediumInterface", 12)
+        """MediumInterface "inside" "outside": homogeneous named media
+        attach per shape (the following shapes of this attribute scope
+        carry the stack indices, and rays switch on transmission); a grid,
+        cloud or bounded homogeneous medium binds the scene level. ""
+        means vacuum."""
+        inside = ts.next()[1:-1]
+        outside = ""
+        if ts.peek() and ts.peek().startswith('"'):
+            outside = ts.next()[1:-1]
+
+        def resolve(nm):
+            if not nm:
+                return MED_VACUUM
+            if nm in self.named_media_idx:
+                return self.named_media_idx[nm]
+            if nm in self.named_media:
+                return None  # scene-level medium
+            self.warnings.append(f"medium '{nm}' not defined")
+            return MED_VACUUM
+
+        in_idx = resolve(inside)
+        out_idx = resolve(outside)
+        if in_idx is None or out_idx is None:
+            name = inside if in_idx is None else outside
+            if self.scene_medium is not None:
+                self.warnings.append("multiple scene-level MediumInterface "
+                                     "bindings; last one wins")
+            self.scene_medium = self.named_media[name]
+            return
+        self.cur_interface = (in_idx, out_idx)
+
+    def _interfaced_material(self):
+        """The material of shapes under the current MediumInterface: the
+        graphics-state material cloned with the (inside, outside) indices,
+        one clone per (material, interface) pair."""
+        iface = self.cur_interface
+        if iface is None or iface == (MED_VACUUM, MED_VACUUM):
+            return self.cur_material
+        key = (self.cur_material, iface)
+        hit = self._interface_mat_cache.get(key)
+        if hit is not None:
+            return hit
+        mat = dict(self.materials[self.cur_material])
+        mat["med_inside"] = iface[0]
+        mat["med_outside"] = iface[1]
+        idx = len(self.materials)
+        self.materials.append(mat)
+        self._interface_mat_cache[key] = idx
+        self.any_interface = True
+        return idx
 
     # -- lights --------------------------------------------------------------
 
@@ -799,6 +948,14 @@ class PbrtParser:
         self.n_tris += len(v)
 
     def _d_Shape(self, ts):
+        mat_save = self.cur_material
+        self.cur_material = self._interfaced_material()
+        try:
+            self._shape(ts)
+        finally:
+            self.cur_material = mat_save
+
+    def _shape(self, ts):
         stype = ts.next()[1:-1]
         p = _parse_params(ts)
         if "alpha" in p:
@@ -978,11 +1135,15 @@ class PbrtParser:
             distants=self.distants, infinite=self.infinite,
             envmap=self.envmap,
         )
+        media_stack = None
+        if self.any_interface and self.media_specs:
+            media_stack = MediumStack.build(self.media_specs)
         scene = Scene(geom=geom,
                       materials=MaterialBuffers.build(self.materials),
                       lights=lights,
                       textures=TextureBuffers.build(self.tex_specs)
-                      if self.tex_specs else None)
+                      if self.tex_specs else None,
+                      medium=self.scene_medium, media_stack=media_stack)
         if inst_tables is not None:
             proto_ranges, pid, o2w, o2w_end = inst_tables
             if (np.abs(o2w - o2w_end).max(axis=(1, 2)) > 1e-7).any():
@@ -999,10 +1160,20 @@ class PbrtParser:
             fov_deg=float(_get(self.camera_params, "fov", 90.0)),
         )
         max_depth = int(_get(self.integrator_params, "maxdepth", 5))
+        integ_cls = (VolPathIntegrator
+                     if self.integrator in ("volpath", "simplevolpath")
+                     else PathIntegrator)
+        if integ_cls is PathIntegrator and (self.scene_medium is not None
+                                            or media_stack is not None):
+            # Media need the null-scattering walk; pbrt errors, the
+            # reference upgrades (render.cpp's integrator/media check).
+            integ_cls = VolPathIntegrator
+            self.warnings.append("scene has media; integrator upgraded to "
+                                 "volpath")
         settings = {
             "spp": self.spp,
             "sampler": self.sampler_kind,
-            "integrator": PathIntegrator(max_depth=max_depth),
+            "integrator": integ_cls(max_depth=max_depth),
             "warnings": self.warnings,
         }
         return scene, camera, settings

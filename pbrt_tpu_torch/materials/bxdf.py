@@ -2,7 +2,8 @@
 
 Port of pbrt_tpu/materials/bxdf.py: the diffuse, conductor, dielectric,
 thin-dielectric, diffuse-transmission, coated diffuse and coated
-conductor families, and the textured-albedo overlay of `surface_params`.
+conductor families, the material-less interface's passthrough link, and
+the textured-albedo overlay of `surface_params`.
 Directions are in the shading-local frame (z = shading normal); spectral
 values are (N, S). The dielectric families return a scalar f of shape
 (N,), broadcast to (N, S) by the select chain.
@@ -43,6 +44,7 @@ from .buffers import (
     MAT_DIELECTRIC,
     MAT_DIFFUSE,
     MAT_DIFFUSETRANS,
+    MAT_INTERFACE,
     MAT_THINDIELECTRIC,
 )
 from . import layered
@@ -386,6 +388,9 @@ def surface_params(scene, isect, lam=None):
     params = scene.materials.gather(isect.mat)
     for kind, flag in FAMILY_FLAGS.items():
         params[flag] = kind in kinds
+    # The material-less interface's passthrough link (no BxDF family of
+    # the sorted dispatch: it only ends sample's select chain).
+    params["any_interface_mat"] = MAT_INTERFACE in kinds
     if lam is not None:
         params["lam"] = lam
     if scene.textures is not None:
@@ -553,5 +558,15 @@ def sample(params, wo, lam, u2, uc):
         wi = torch.where(m[..., None], wi_t, wi)
         f = torch.where(m[..., None], f_t[..., None], f)
         p = torch.where(m, p_t, p)
+        specular = specular | m
+    if params.get("any_interface_mat"):
+        # A material-less boundary (Material "" / "none" / "interface"):
+        # the ray goes straight through, a delta "transmission" with
+        # f |cos| / pdf = 1, so media can switch at it.
+        m = kind == MAT_INTERFACE
+        f_i = 1.0 / torch.clamp(torch.abs(wo[..., 2:3]), min=1e-4)
+        wi = torch.where(m[..., None], -wo, wi)
+        f = torch.where(m[..., None], f_i, f)
+        p = torch.where(m, 1.0, p)
         specular = specular | m
     return {"wi": wi, "f": f, "pdf": p, "specular": specular}

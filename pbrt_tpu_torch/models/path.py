@@ -181,6 +181,12 @@ class PathIntegrator:
             )
 
     def _run(self, scene, o, d, wl, pixel, sample_idx, sampler):
+        medium = getattr(scene, "medium", None)
+        if ((medium is not None and not medium.is_none)
+                or getattr(scene, "media_stack", None) is not None):
+            # The reference's path integrator ignores the media silently.
+            raise ValueError("the scene has participating media; render it "
+                             "with models/volpath.py's VolPathIntegrator")
         grad = _gradient_requested(scene, o, d, wl)
         if grad:
             self._check_grad_mode()

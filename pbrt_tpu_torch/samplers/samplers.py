@@ -47,3 +47,13 @@ class Sampler:
 
     def get_2d(self, pixel, sample_idx, dim):
         return rng.uniform_2d(pixel, sample_idx, dim, self.seed)
+
+    def get_1d_run(self, pixel, sample_idx, dim0: int, n: int) -> torch.Tensor:
+        """get_1d at dimensions dim0 .. dim0 + n - 1 in one hash: (N, n),
+        column j bit-equal to get_1d(pixel, sample_idx, dim0 + j).
+        pixel and sample_idx are (N,) tensors."""
+        dims = torch.arange(dim0, dim0 + n, dtype=torch.int64,
+                            device=pixel.device)
+        v0, _, _, _ = rng.pcg4d(pixel[:, None], sample_idx[:, None],
+                                dims[None, :], self.seed)
+        return rng.u32_to_uniform(v0)

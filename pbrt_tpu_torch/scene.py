@@ -8,9 +8,11 @@ clusters (K2), which `with_accel()` attaches, the instanced sweep tables
 attached as in the reference with
 `scene.replace(small=None, clusters=None, bvh=build_bvh(tri_verts))`, or
 the SAH kd-tree (`with_kdtree()`). accel/api.py states which tier answers
-when several are attached. The texture tables (textures/buffers.py) ride
-along as in the reference. Its other optional members (media, animated
-instances) are not ported; convert.py refuses scenes that carry them.
+when several are attached. The texture tables (textures/buffers.py) and
+the participating media (media/medium.py: the scene-level medium and the
+interior-media stack, which models/volpath.py renders) ride along as in
+the reference. Animated instances are not ported; convert.py refuses
+scenes that carry them.
 """
 
 from __future__ import annotations
@@ -30,9 +32,11 @@ from .materials.buffers import (
     MAT_DIELECTRIC,
     MAT_DIFFUSE,
     MAT_DIFFUSETRANS,
+    MAT_INTERFACE,
     MAT_THINDIELECTRIC,
     MaterialBuffers,
 )
+from .media.medium import MediumBuffers, MediumStack
 from .ops.cluster import ClusterAccel, build_clusters
 from .ops.smallscene import SmallTriAccel, build_smallscene
 from .ops.sweep import SweepAccel, build_sweep
@@ -41,7 +45,8 @@ from .textures.buffers import TextureBuffers
 
 # Material families the BxDF select chain shades (materials/bxdf.py).
 SHADED_KINDS = {MAT_DIFFUSE, MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_THINDIELECTRIC,
-                MAT_COATEDDIFFUSE, MAT_COATEDCONDUCTOR, MAT_DIFFUSETRANS}
+                MAT_COATEDDIFFUSE, MAT_COATEDCONDUCTOR, MAT_DIFFUSETRANS,
+                MAT_INTERFACE}
 
 
 @tensorclass
@@ -49,6 +54,11 @@ class Scene:
     geom: GeometryBuffers
     materials: MaterialBuffers
     lights: LightBuffers
+    # Scene-level participating medium (None: vacuum everywhere).
+    medium: Optional[MediumBuffers] = None
+    # Shape-bounded interior media; rays switch by the per-material
+    # med_inside / med_outside on transmission (per-shape MediumInterface).
+    media_stack: Optional[MediumStack] = None
     # Texture tables (textures/buffers.py); materials bind them by id.
     textures: Optional[TextureBuffers] = None
     # Brute-force small-scene intersector (ops/smallscene.py, kernel K1).
@@ -80,8 +90,9 @@ class Scene:
             raise NotImplementedError(
                 f"geometry references material kind(s) {bad}; only diffuse "
                 "(kind 0), conductor (1), dielectric (2), thin dielectric "
-                "(3), coated diffuse (4), coated conductor (5) and diffuse "
-                "transmission (6) are ported yet (ROADMAP Queue 1 item 10)"
+                "(3), coated diffuse (4), coated conductor (5), diffuse "
+                "transmission (6) and the material-less interface (12) are "
+                "ported yet (ROADMAP Queue 1 item 10)"
             )
         # A referenced material's texture must exist: the overlay would
         # otherwise skip it (no tables) or clamp its id to another texture.

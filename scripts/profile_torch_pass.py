@@ -78,17 +78,18 @@ def kernel_view(lanes: int, render_pass, out_dir: str) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Kernel events only: operator events (aten::mul, ...) also carry the
     # device time of the kernels they launch and would count it twice.
+    # One aggregation serves both views (a pass holds up to ~2e5 launches).
+    averages = prof.key_averages()
     kern = sorted(
         ((e.key, e.self_device_time_total / 1e3, e.count)
-         for e in prof.key_averages()
+         for e in averages
          if str(getattr(e, "device_type", "")).endswith("CUDA")),
         key=lambda x: -x[1],
     )
     device_ms = sum(ms for _, ms, _ in kern)
     k1_ms = sum(ms for name, ms, _ in kern if "smallscene_kernel" in name)
     with open(os.path.join(out_dir, f"profile_pass_{lanes}.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=80))
+        f.write(averages.table(sort_by="self_cuda_time_total", row_limit=80))
     return {
         "view": "kernels", "lanes": lanes, "rays": float(rays),
         "wall_ms": wall_ms,

@@ -779,3 +779,56 @@ def test_sorted_dispatch_is_bit_equal_on_card(card):
         assert torch.equal(got[name], want[name]), name
     for name in ("wi", "f", "pdf", "specular"):
         assert torch.equal(got["bs"][name], want["bs"][name]), name
+
+
+@pytest.mark.parametrize("name", ["cloud", "fog.pbrt"])
+def test_volpath_render_on_card_matches_cpu(card, name):
+    """The volumetric path on the card against the CPU: the bench cloud
+    (grid medium, DDA walk, K1 for the floor) and fog.pbrt (interior
+    medium, four-crossing shadow walks) at 16x16, 4 spp in passes of 2, the
+    medium entry inset (tests/torch_port_media.py) as the goldens are."""
+    from pbrt_tpu_torch.media.medium import MediumBuffers
+    from pbrt_tpu_torch.models.volpath import VolPathIntegrator
+    from pbrt_tpu_torch.scenes.cloud import cloud_scene
+
+    from .torch_port_media import inset_entry
+
+    if name == "cloud":
+        scene, camera = cloud_scene(resolution=(16, 16))
+        integ, per_pass = VolPathIntegrator(max_depth=6), 3 * 6 + 2
+    else:
+        scene, camera, settings = load_pbrt("tests/goldens/" + name,
+                                            device="cpu")
+        camera = camera.replace(resolution=(16, 16))
+        integ = settings["integrator"]
+        per_pass = 9 * integ.max_depth + 1
+    kw = dict(spp=4, seed=1, samples_per_pass=2, n_spectrum=8)
+    with inset_entry(MediumBuffers):
+        STATS.reset()
+        got = render(scene, camera, integ, device=card, **kw)
+        torch.cuda.synchronize()
+        assert STATS.launches == per_pass * 2
+        want = render(scene, camera, integ, device="cpu", **kw)
+    got, want = got.cpu().numpy(), want.numpy()
+    assert np.all(np.isfinite(got)) and want.mean() > 0.01
+    share, n_bad = _share_close(got, want)
+    assert share >= 0.99, n_bad
+
+
+def test_volpath_compacted_walks_equal_lockstep_on_card(card):
+    """The staged compaction of the walks against the lockstep walks on
+    the card: the cloud's samples and ray count bit for bit."""
+    from pbrt_tpu_torch.models.volpath import VolPathIntegrator
+    from pbrt_tpu_torch.scenes.cloud import cloud_scene
+
+    scene, camera = cloud_scene(resolution=(32, 32))
+    scene, camera = scene.to(card), camera.to(card)
+    pixel = torch.arange(1024, device=card).repeat(4)
+    sample = torch.arange(4, device=card).repeat_interleave(1024)
+    o, d, wl, _ = camera_rays_full(camera, pixel, sample, 0, n_spectrum=8)
+    args = (scene, o, d, wl, pixel, sample, 0)
+    a, sa = VolPathIntegrator(max_depth=6).trace_with_stats(*args)
+    b, sb = VolPathIntegrator(max_depth=6,
+                              compact_walks=False).trace_with_stats(*args)
+    assert torch.equal(a, b) and bool(sa["rays"] == sb["rays"])
+    assert float(a.mean()) > 0.05

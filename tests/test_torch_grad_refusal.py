@@ -123,3 +123,28 @@ def test_textured_albedo_rows_get_no_gradient(imagetex8):
     assert tex_rows.tolist() == [False, True, False]
     assert torch.all(g[tex_rows] == 0.0) and torch.all(torch.isfinite(g))
     assert torch.any(g[2] != 0.0)
+
+
+@pytest.mark.parametrize("differentiable, member, field", [
+    # The reference differentiates media only with differentiable=True.
+    (False, "medium", "sigma_a_scale"),
+    # Of the medium's tensors only sigma_a_scale and sigma_s_scale train.
+    (True, "medium", "sigma_a_coeffs"),
+    (True, "medium", "g"),
+    # Nor does any surface parameter through the volumetric path.
+    (True, "materials", "albedo_coeffs"),
+])
+def test_medium_grad_request_raises(differentiable, member, field):
+    """Gradients through media: the fog box's sigma_a_scale and
+    sigma_s_scale with differentiable=True (tests/test_torch_volpath.py);
+    any other request raises (item 5)."""
+    from pbrt_tpu_torch.models.volpath import VolPathIntegrator
+    from pbrt_tpu_torch.scenes.cloud import fog_box_scene
+
+    scene, camera = fog_box_scene(resolution=(4, 4))
+    integ = VolPathIntegrator(max_depth=2, differentiable=differentiable)
+    pixel = torch.arange(16)
+    o, d, wl, _ = camera_rays_full(camera, pixel, 0, 0, n_spectrum=8)
+    asked = _with_grad(scene, member, field)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        integ.trace(asked, o, d, wl, pixel, 0, 0)

@@ -42,7 +42,10 @@ def test_import_loads_no_jax():
         "pbrt_tpu_torch.ops.cluster, pbrt_tpu_torch.ops.sweep, "
         "pbrt_tpu_torch.io.ply, pbrt_tpu_torch.io.parser, "
         "pbrt_tpu_torch.parallel.train, pbrt_tpu_torch.scenes.manylight, "
-        "pbrt_tpu_torch.materials.sorted, pbrt_tpu_torch.lights.bvh; "
+        "pbrt_tpu_torch.materials.sorted, pbrt_tpu_torch.lights.bvh, "
+        "pbrt_tpu_torch.media.medium, pbrt_tpu_torch.media.phase, "
+        "pbrt_tpu_torch.ops.compact, pbrt_tpu_torch.models.volpath, "
+        "pbrt_tpu_torch.scenes.cloud; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pbrt_tpu' or m.startswith('pbrt_tpu.')]; "
         "sys.exit(1 if bad else 0)"

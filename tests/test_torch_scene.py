@@ -1,6 +1,8 @@
 """The port's Cornell scene and camera against the JAX build, and the
 numpy conversion path (pbrt_tpu_torch.convert)."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ from pbrt_tpu_torch.scenes.cornell import cornell_box
 from .torch_port_helpers import flatten_jax, port_scene_and_camera
 
 torch.set_num_threads(2)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -121,6 +124,21 @@ def test_convert_refuses_unported_members(jax_cornell):
     port = scene_from_arrays(*flatten_jax(exhaustive)).lights
     assert port.sampler == "exhaustive" and port.bvh is None
     np.testing.assert_array_equal(port.exh_recs.numpy(), recs)
+    # The scene-level medium (the bench cloud's density grid) and the
+    # interior-media stack (fog.pbrt's) convert, table for table.
+    from pbrt_tpu.io.parser import load_pbrt as jax_load_pbrt
+    from pbrt_tpu.scenes.cloud import cloud_scene as jax_cloud
+
+    for ref, member in ((jax_cloud(resolution=(4, 4))[0], "medium"),
+                        (jax_load_pbrt(os.path.join(
+                            ROOT, "tests", "goldens", "fog.pbrt"))[0],
+                         "media_stack")):
+        port = scene_from_arrays(*flatten_jax(ref))
+        want, want_static = flatten_jax(getattr(ref, member))
+        got, got_static = flatten_jax(getattr(port, member))
+        assert set(got) == set(want) and got_static == want_static
+        for path, value in want.items():
+            np.testing.assert_array_equal(got[path], value, err_msg=path)
 
 
 def test_convert_refuses_unported_shapes():
