@@ -12,8 +12,9 @@ cluster tier and on the BVH tier), the instanced field (a .pbrt file
 through the port's parser) and the golden scene files spot.pbrt,
 envmap.pbrt, plymesh.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt
 and imagetex.pbrt, the many-light hall (power and light-BVH samplers),
-the volumetric cloud and fog.pbrt on the card against the committed JAX
-goldens, renders
+the volumetric cloud, fog.pbrt and the families box (hair, subsurface,
+measured, mix and retroreflective materials) on the card against the
+committed JAX goldens, renders
 the golden scene files conductor.pbrt, plymesh.pbrt, spot.pbrt,
 envmap.pbrt, box.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt,
 imagetex.pbrt and fog.pbrt against the pbrt-v4 C++ goldens and the
@@ -23,7 +24,8 @@ against the JAX gradient golden, across tiers and, through delta lights
 layered walk against their JAX golden and a medium's absorption
 gradient against its JAX golden, times the forward render of each timed
 configuration (the mesh gallery's glass torus, texture.pbrt, bench's
-many-light hall and bench's volumetric cloud among them) and the Cornell
+many-light hall, bench's volumetric cloud and the families box among
+them) and the Cornell
 forward+backward pass, and takes three training steps. Each phase prints one JSON line;
 any failure raises, so the script exits non-zero and never prints the
 final line. Without a CUDA device it exits non-zero at
@@ -169,6 +171,17 @@ Phases:
       32x32, 4 spp, 8 lanes against the JAX goldens of
       scripts/make_torch_port_golden_media.py: d's gate, 20 / 46 K1
       launches per pass; the cloud's exact-entry share and mean beside it
+  c7  K1 vs its twin on every query of one pass of the families box
+      (tests/data/torch_port/families.pbrt: hair, subsurface, measured
+      from a synthetic RGL file, mix and retroreflective surfaces; 128x128,
+      8 spp, depth 5: per bounce the closest query, the subsurface probe
+      (a closest query of a per-ray tmax, on every lane) and the shadow
+      query, then the terminal closest; 16 queries), launches counted from
+      zero, each query bit-equal key by key, kernel and twin timed
+  d22 the families box at 32x32, 4 spp, 8 lanes, depth 5, the mix hash on
+      coarse keys (tests/torch_port_families.py), against the JAX golden
+      of scripts/make_torch_port_golden_families.py: d's gate, 16 K1
+      launches per pass
   g6  tests/test_gradients.py's medium gradient: the fog box (sigma_a
       0.8, 8x8, 48 spp, depth 2, no NEE, 32 steps, differentiable=True),
       the mean radiance and its derivative in medium.sigma_a_scale on the
@@ -235,6 +248,14 @@ Phases:
       the busy share, the delta walk's live lanes per step at bounce 0;
       then the compacted walks against the lockstep walks in turns, the
       first pass's image of each bit-equal
+  e10 the families box timed at 512x512, 8 spp in passes of 4, depth 5
+      without Russian roulette, 8 lanes, seed 0: Mrays/s, K1 launches per
+      pass, peak memory, the first pass's seconds, the layers' device ms
+      with the BxDF's split by the sorted dispatch's family segments and
+      the subsurface step's and its probe query's ms, kernel launches per
+      pass and the device's busy share (torch.profiler); then sorted
+      against lockstep shading, in turns, the first pass's image of each
+      bit-equal
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
   f   the kernels line, the nvidia-smi line and the final result line
@@ -2794,6 +2815,266 @@ def phase_grad_fog_box(dev):
         raise AssertionError(f"fog box gradient: {launches} K1 launches")
 
 
+# --- the families box (hair, subsurface, measured, mix, retroreflective) ---
+
+FAMILIES_FILE = os.path.join(GOLDEN_DATA, "families.pbrt")
+# e10: 512x512, 8 spp in passes of 4, depth 5, 8 lanes (as e6 and e7).
+FAMILIES = dict(res=512, spp=8, k=4, depth=5, lanes=8)
+# K1 queries of a depth-5 families pass: per bounce the closest query,
+# the subsurface probe and the shadow query, then the terminal closest.
+FAMILIES_K1_PER_PASS = 3 * FAMILIES["depth"] + 1
+_FAMILIES_SCENE = {}
+
+
+def families_on(dev):
+    """The families box through the port's parser on the card (built once:
+    the measured table's per-cell fit takes seconds on the host)."""
+    from pbrt_tpu_torch.io.parser import load_pbrt
+
+    if "built" not in _FAMILIES_SCENE:
+        t0 = time.perf_counter()
+        built = load_pbrt(FAMILIES_FILE, device=dev)
+        _FAMILIES_SCENE["built"] = built
+        _FAMILIES_SCENE["seconds"] = time.perf_counter() - t0
+    scene, camera, settings = _FAMILIES_SCENE["built"]
+    return scene, camera, settings["integrator"]
+
+
+def coarse_mix_keys():
+    """The port's mix hash on coarse keys within the block, as the
+    families goldens were made (tests/torch_port_families.py)."""
+    from pbrt_tpu_torch.materials import bxdf
+    from tests.torch_port_families import coarse_mix_keys as coarse
+
+    return coarse(bxdf)
+
+
+def phase_k1_families_vs_twin(dev):
+    """c7: K1 against its twin on every query of one families-box pass
+    (128x128, 8 spp, depth 5), the subsurface probes included (closest
+    queries of a per-ray tmax), launches counted from zero, each query
+    bit-equal key by key, kernel and twin timed, with the bound of each."""
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import (
+        STATS, smallscene_intersect, smallscene_intersect_ref)
+
+    scene, camera, integ = families_on(dev)
+    res, k = 128, 8
+    rp = make_pass(scene, camera.replace(resolution=(res, res)), res, k,
+                   FAMILIES["lanes"], depth=FAMILIES["depth"])
+    STATS.reset()
+    queries = _k1_queries(rp)
+    torch.cuda.synchronize()
+    launches = STATS.launches
+    if launches != FAMILIES_K1_PER_PASS or len(queries) != launches:
+        raise AssertionError(f"families: {launches} K1 launches, "
+                             f"{len(queries)} queries, "
+                             f"{FAMILIES_K1_PER_PASS} expected")
+    acc = scene.small
+    rows = acc.n_tris
+    per_query, ms, plain_ms, bound_ms, err = [], 0.0, 0.0, 0.0, 0.0
+    for i, (o, d, tmax, any_hit) in enumerate(queries):
+        got = smallscene_intersect(acc, o, d, tmax, any_hit=any_hit)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = smallscene_intersect_ref(acc, o, d, tmax, any_hit=any_hit)
+        torch.cuda.synchronize()
+        q_plain = (time.perf_counter() - t0) * 1e3
+        bad = [key for key in ref if not torch.equal(got[key], ref[key])]
+        if set(got) != set(ref) or bad:
+            raise AssertionError(f"families query {i}: K1 differs from its "
+                                 f"twin in {bad} (any_hit {any_hit})")
+        q_ms = cuda_ms(lambda: smallscene_intersect(acc, o, d, tmax,
+                                                    any_hit=any_hit), reps=10)
+        n = int(o.shape[0])
+        bound = _bound(n * rows * MT_OPS,
+                       n * (28 + (8 if any_hit else 36)) + rows * 64)
+        err = max(err, max_abs_err(got, ref))
+        ms += q_ms
+        plain_ms += q_plain
+        bound_ms += bound["bound_ms"]
+        # Within a bounce: the closest query, the probe, the shadow query.
+        kind = ("terminal" if i == len(queries) - 1 else
+                ("closest", "probe", "any_hit")[i % 3])
+        per_query.append({"query": kind, "rays": n,
+                          "live": int((tmax > 0).sum()),
+                          "finite_tmax": int(torch.isfinite(tmax).sum()),
+                          "ms": q_ms, "plain_ms": q_plain,
+                          "bound_ms": bound["bound_ms"]})
+    STATS.reset()
+    emit("c7_k1_families_vs_twin", resolution=res, spp=k,
+         max_depth=FAMILIES["depth"], launches=launches, triangles=rows,
+         ms_per_pass=ms, plain_ms_per_pass=plain_ms,
+         bound_ms_per_pass=bound_ms, max_abs_err=err,
+         probe_ms_per_pass=sum(q["ms"] for q in per_query
+                               if q["query"] == "probe"),
+         scene_build_seconds=_FAMILIES_SCENE["seconds"], queries=per_query)
+
+
+def phase_golden_families_jax(dev):
+    """d22: the families box at 32x32, 4 spp, 8 lanes, depth 5, the mix
+    hash on coarse keys, against families32_spp4.npy (the JAX reference,
+    scripts/make_torch_port_golden_families.py) with d's gate; 16 K1
+    launches per pass."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import STATS
+    from pbrt_tpu_torch.render import render
+
+    scene, camera, integ = families_on(dev)
+    golden = np.load(os.path.join(GOLDEN_DATA, "families32_spp4.npy"))
+    STATS.reset()
+    with coarse_mix_keys():
+        img = render(scene, camera.replace(resolution=(32, 32)), integ,
+                     spp=4, samples_per_pass=4, seed=0, n_spectrum=8,
+                     device=dev)
+    torch.cuda.synchronize()
+    launches = STATS.launches
+    share, fields = _golden_gate(img.cpu().numpy(), golden)
+    emit("d22_golden_families_jax", resolution=32, spp=4,
+         max_depth=integ.max_depth, lanes=8, **fields,
+         image_mean_diff=fields["mean"] - fields["golden_mean"],
+         k1_launches=launches, expected_k1=FAMILIES_K1_PER_PASS)
+    if share < 0.99:
+        raise AssertionError(f"families: only {share:.4f} of pixel values "
+                             "match the JAX golden")
+    if launches != FAMILIES_K1_PER_PASS:
+        raise AssertionError(f"families: {launches} K1 launches")
+
+
+def _families_layers(render_pass) -> dict:
+    """e5's layers of one families pass (CUDA events around each layer's
+    top-level calls), with the BxDF calls split by the family segment the
+    sorted dispatch runs them on (the link flag it leaves on; "diffuse"
+    with none), and the subsurface step and its probe query timed from the
+    inside."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.accel import api as accel_api
+    from pbrt_tpu_torch.materials import bxdf
+    from pbrt_tpu_torch.models import path as path_mod
+
+    timer = ptp.LayerTimer()
+    families, step, probe = (ptp.LayerTimer() for _ in range(3))
+    saved = [(path_mod, a, getattr(path_mod, a)) for a in
+             ("_bsdf_calls", "_subsurface_step", "subsurface_exit")]
+    calls, step_fn, exit_fn = (fn for _, _, fn in saved)
+    in_exit = []
+
+    def by_family(params, ops):
+        on = [f for f in bxdf.FLAGS if params.get(f)]
+        name = on[0] if len(on) == 1 else ("diffuse" if not on else "chain")
+        return families.wrap(name.removeprefix("any_"), calls)(params, ops)
+
+    def exit_(*args, **kw):
+        in_exit.append(True)
+        try:
+            return exit_fn(*args, **kw)
+        finally:
+            in_exit.pop()
+
+    with ptp.wrapped_layers(timer):
+        closest = accel_api.closest
+
+        def probe_or_closest(*args, **kw):
+            if in_exit:
+                return probe.wrap("probe", closest)(*args, **kw)
+            return closest(*args, **kw)
+
+        accel_api.closest = probe_or_closest
+        path_mod._bsdf_calls = by_family
+        path_mod._subsurface_step = step.wrap("subsurface_step", step_fn)
+        path_mod.subsurface_exit = exit_
+        try:
+            render_pass()  # warm-up
+            torch.cuda.synchronize()
+            for t in (timer, families, step, probe):
+                t.events.clear()
+            t0 = time.perf_counter()
+            render_pass()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            accel_api.closest = closest
+            for owner, attr, fn in saved:
+                setattr(owner, attr, fn)
+    layers = timer.totals_ms()
+    layers["other"] = wall_ms - sum(layers.values())
+    layers = {key.replace("k1_", "queries_"): ms for key, ms in layers.items()}
+    return {"wall_ms": wall_ms, "layers_ms": layers,
+            "bxdf_by_family_ms": families.totals_ms(),
+            "subsurface_step_ms": step.totals_ms().get("subsurface_step", 0.0),
+            "probe_query_ms": probe.totals_ms().get("probe", 0.0)}
+
+
+def phase_timed_families(dev, smi: str) -> int:
+    """e10: the families box timed at 512x512, 8 spp in passes of 4
+    (1,048,576 camera rays a pass), depth 5 without Russian roulette, 8
+    lanes, seed 0 (the sorted dispatch on, by the reference's auto rule):
+    Mrays/s, K1 launches per pass, peak memory, the first pass's seconds,
+    the layers (_families_layers), kernel launches per pass and the busy
+    share (torch.profiler); then sorted against lockstep shading
+    (sorted_shading=False), in turns, the first pass's image of each
+    bit-equal."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.ops.smallscene import STATS
+
+    f = FAMILIES
+    res, k, passes = f["res"], f["k"], f["spp"] // f["k"]
+    scene, camera, _ = families_on(dev)
+    camera = camera.replace(resolution=(res, res))
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    render_pass = make_pass(scene, camera, res, k, f["lanes"],
+                            depth=f["depth"])
+    t0 = time.perf_counter()
+    render_pass(0)  # warm-up
+    first_s = time.perf_counter() - t0
+    out = timed_forward(render_pass, passes, {"k1": STATS})
+    if out["k1_launches"] != passes * FAMILIES_K1_PER_PASS:
+        raise AssertionError(f"timed families: {out['k1_launches']} K1 "
+                             "launches")
+    layers = _families_layers(render_pass)
+    kern = ptp.kernel_view(f["lanes"], render_pass, out_dir)
+    emit("e10_timed_families", lanes=f["lanes"], resolution=res,
+         spp=f["spp"], samples_per_pass=k, max_depth=f["depth"],
+         rays_per_pass_camera=res * res * k, **out,
+         k1_launches_per_pass=out["k1_launches"] / passes,
+         scene_build_seconds=_FAMILIES_SCENE["seconds"],
+         first_pass_seconds=first_s, layers=layers,
+         kernel_launches_per_pass=kern["kernel_launches"],
+         device_busy_share=kern["device_busy_share"],
+         device_kernel_ms=kern["device_kernel_ms"],
+         profiled_pass_wall_ms=kern["wall_ms"], top_kernels=kern["top"],
+         nvidia_smi=smi)
+    runs, first = {True: [], False: []}, {}
+    for sort in ("auto", False, False, "auto"):
+        rp = make_pass(scene, camera, res, k, f["lanes"], depth=f["depth"],
+                       sorted_shading=sort)
+        first.setdefault(sort == "auto", rp(0))  # the warm-up pass
+        runs[sort == "auto"].append(
+            timed_forward(rp, passes, {"k1": STATS})["mrays_per_s"])
+    equal = (torch.equal(first[True][0], first[False][0])
+             and bool(first[True][1] == first[False][1]))
+    emit("e10_sorted_vs_lockstep", sorted_mrays_per_s=runs[True],
+         lockstep_mrays_per_s=runs[False],
+         sorted_over_lockstep=sum(runs[True]) / sum(runs[False]),
+         images_bit_equal=equal, nvidia_smi=smi)
+    if not equal:
+        raise AssertionError("families: the sorted pass's image differs "
+                             "from the lockstep pass's")
+    return out["k1_launches"]
+
+
 def _kernel_entry(name, source, replaces, launches, k):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source,
@@ -2848,6 +3129,8 @@ def main() -> int:
     phase_fog_box(dev)
     phase_golden_volpath_jax(dev)
     phase_grad_fog_box(dev)
+    phase_k1_families_vs_twin(dev)
+    phase_golden_families_jax(dev)
     k1_launches = phase_timed(dev, 8)
     phase_timed(dev, 32)
     phase_timed_fwdbwd(dev, smi)
@@ -2860,6 +3143,7 @@ def main() -> int:
     phase_timed_texture(dev, smi)
     phase_timed_hall(dev, smi, hall)
     phase_timed_cloud(dev, smi)
+    phase_timed_families(dev, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     # No single PyTorch call computes a ray/triangle intersection, so no

@@ -13,8 +13,10 @@ image-based infinite light ("lights.env.*") is carried as the port's
 EnvironmentMap or, when it has portal corners, PortalLight, with its
 distribution's tables. The light BVH ("lights.bvh.*") is carried as the
 port's LightBVH, and the exhaustive sampler's records ("lights.exh_recs")
-as a tensor. The texture tables ("textures.*", the flat texel table
-included) are carried as the port's TextureBuffers; one with a Ptex row
+as a tensor. Every material field is carried (the measured tables and
+the mix columns included), so an unknown one is a ValueError. The
+texture tables ("textures.*", the flat texel table included) are
+carried as the port's TextureBuffers; one with a Ptex row
 raises (ROADMAP Queue 1 item 15). The scene-level medium ("medium.*",
 its static "medium.kind") and the interior-media stack ("media_stack.*")
 are carried member for member as the port's MediumBuffers and
@@ -152,8 +154,7 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
             raise ValueError(f"unknown scene field {path!r}")
     geom = _section(GeometryBuffers, "geom", arrays, static,
                     lambda n: UNPORTED_SHAPES.get(n, 8))
-    materials = _section(MaterialBuffers, "materials", arrays, static,
-                         lambda n: 10)
+    materials = _section(MaterialBuffers, "materials", arrays, static)
     arrays = dict(arrays)
     env = _env_from_arrays(arrays)
     extra = {"env": env}

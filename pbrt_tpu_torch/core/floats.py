@@ -9,9 +9,19 @@ the reference's uint32 arithmetic on the same bit patterns.
 give and PyTorch's vectorised CPU kernel does not always (about 0.7% of
 float32 inputs come out one ulp off): it is taken in float64 and rounded
 once, which is exact for float32 (53 >= 2 * 24 + 2 bits).
+
+`atan2` and `sinh` give a lane the same bits wherever it sits in its
+tensor. PyTorch's CPU atan2 and sinh round the vector loop's body and its
+scalar tail differently, and a tensor's split between threads moves the
+tail, so a lane's value depends on its position and on the thread count;
+the sorted shading dispatch (materials/sorted.py) moves lanes, and must
+give the bits of the lockstep chain. They are built from atan, expm1 and
+division, which round the same everywhere.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -43,3 +53,19 @@ def next_float_down(f) -> torch.Tensor:
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root."""
     return torch.sqrt(x.double()).float()
+
+
+def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The angle of (x, y) in [-pi, pi], signed zeros and the axes as
+    torch.atan2 (the value an ulp or so apart), by lane alone."""
+    pi = torch.where(torch.signbit(y), -math.pi, math.pi)
+    left = torch.signbit(x)
+    a = torch.atan(y / x)  # y / +-0 = +-inf: +-pi/2 on the y axis
+    a = torch.where(left, a + pi, a)
+    origin = (x == 0.0) & (y == 0.0)
+    return torch.where(origin, torch.where(left, pi, y), a)
+
+
+def sinh(x: torch.Tensor) -> torch.Tensor:
+    """sinh by lane alone: (expm1(x) - expm1(-x)) / 2."""
+    return (torch.expm1(x) - torch.expm1(-x)) * 0.5

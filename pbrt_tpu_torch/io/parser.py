@@ -17,9 +17,10 @@ reference. The directive subset:
   scene:      Material / MakeNamedMaterial / NamedMaterial (diffuse and the
               names the reference maps to it, conductor, dielectric / glass,
               thindielectric, diffusetransmission, coateddiffuse,
-              coatedconductor, and "" / "none" / "interface", the
-              material-less boundary), a texture-typed "reflectance" or
-              "albedo",
+              coatedconductor, hair, subsurface, measured (an RGL .bsdf
+              file or a baked .npy table), mix, retroreflective, and
+              "" / "none" / "interface", the material-less boundary), a
+              texture-typed "reflectance" or "albedo",
               Texture (constant, checkerboard, scale, mix, directionmix,
               bilerp, dots, fbm, wrinkled, windy, marble, imagemap), Shape
               trianglemesh, plymesh and sphere (analytic outside objects; an
@@ -36,19 +37,22 @@ reference. The directive subset:
               inside / outside stack indices; a grid-like medium binds the
               scene level)
 
-A feature the port lacks (another camera, sampler or integrator, other
-materials, other texture-typed parameters, Ptex, NanoVDB media, shapes,
-alpha, animated instances, image formats other than PFM) raises
-NotImplementedError naming its ROADMAP Queue 1 item, at parse or build
-time; nothing renders without it. Where the reference approximates and
+A feature the port lacks (another camera, sampler or integrator, Ptex,
+NanoVDB media, shapes, alpha, animated instances, image formats other
+than PFM) raises NotImplementedError naming its ROADMAP Queue 1 item, at
+parse or build time; nothing renders without it. A texture-typed
+material parameter other than the reflectance raises ValueError: the
+reference has none (its parser takes float() of the texture's name). Where the reference approximates and
 warns ("material X approximated as diffuse", unknown directives and
 shapes, a texture used before it is defined), the port does the same,
-since that is the reference's behaviour. Four departures raise where the
+since that is the reference's behaviour. Six departures raise where the
 reference warns and renders something else: an unknown light type
 (pbrt-v4 stops on one too), a light image that cannot be read (the
 reference renders the light with its constant I or L), an unknown Texture
-class (the reference binds 0.5 gray) and an imagemap whose image cannot be
-read (the reference binds a 0.5 gray image). A "nanovdb" medium raises
+class (the reference binds 0.5 gray), an imagemap whose image cannot be
+read (the reference binds a 0.5 gray image), a measured material with no
+readable table (the reference binds a gray table) and a mix that names
+an undefined material (the reference falls back to diffuse). A "nanovdb" medium raises
 (item 15) where the reference reads the file, or warns and skips the
 medium when the read fails.
 
@@ -75,7 +79,12 @@ from ..materials.buffers import (
     MAT_DIELECTRIC,
     MAT_DIFFUSE,
     MAT_DIFFUSETRANS,
+    MAT_HAIR,
     MAT_INTERFACE,
+    MAT_MEASURED,
+    MAT_MIX,
+    MAT_RETRO,
+    MAT_SUBSURFACE,
     MAT_THINDIELECTRIC,
     MaterialBuffers,
 )
@@ -156,12 +165,10 @@ _DIRECTIVES = {
     "Attribute", "TransformTimes", "ActiveTransform",
 }
 
-# Material families of the reference parser the port cannot shade yet.
-_UNPORTED_MATERIALS = {
-    "subsurface", "retroreflective", "mix", "measured", "hair",
-}
-# Material parameters that may name a texture (the albedo overlay); any
-# other texture-typed parameter raises.
+# Material parameters that may name a texture (the albedo overlay). The
+# reference has no other texture-typed material parameter: its parser
+# takes float() of a texture-typed roughness's or eta's name, which raises,
+# and so does the port's, on any other texture-typed parameter.
 _TEXTURED_PARAMS = ("reflectance", "albedo")
 # Shapes the reference builds that the port does not (item 8).
 _UNPORTED_SHAPES = {"disk", "cylinder", "bilinearmesh", "loopsubdiv", "curve"}
@@ -218,7 +225,10 @@ def _get_vec(params, name, default=None):
 def _no_textures(params, where: str, allowed=()):
     for name, (ptype, _) in params.items():
         if ptype == "texture" and name not in allowed:
-            raise _unported(f"texture parameter {name!r} of {where}", 10)
+            raise ValueError(
+                f"texture parameter {name!r} of {where}: the reference has "
+                "no texture-typed roughness, eta or other material "
+                "parameter; only the reflectance binds a texture")
 
 
 class PbrtParser:
@@ -473,8 +483,6 @@ class PbrtParser:
 
     def _material_from_params(self, mtype, p):
         _no_textures(p, f"material {mtype!r}", _TEXTURED_PARAMS)
-        if mtype in _UNPORTED_MATERIALS:
-            raise _unported(f"material {mtype!r}", 10)
         spec = {"kind": MAT_DIFFUSE, "albedo": (0.5, 0.5, 0.5)}
         refl = _get_vec(p, "reflectance")
         if refl is None:
@@ -490,6 +498,76 @@ class PbrtParser:
             # A pure media boundary: rays pass straight through, switching
             # media (material-less shapes with a MediumInterface).
             spec["kind"] = MAT_INTERFACE
+        elif mtype == "subsurface":
+            # SubsurfaceMaterial: sigma_a and sigma_s give the single-
+            # scattering albedo and the mean free path of the Burley
+            # profile (materials/bssrdf.py).
+            spec["kind"] = MAT_SUBSURFACE
+            sa = _get_vec(p, "sigma_a")
+            ssv = _get_vec(p, "sigma_s")
+            spec["eta"] = float(_get(p, "eta", 1.33))
+            if sa is not None or ssv is not None:
+                sa = np.asarray(sa if sa is not None else (0.0011, 0.0024, 0.014))
+                ssv = np.asarray(ssv if ssv is not None else (2.55, 3.21, 3.77))
+                st = np.maximum(sa + ssv, 1e-6)
+                spec["albedo"] = tuple(ssv / st)
+                spec["mfp"] = tuple(1.0 / st)
+            else:
+                m_ = _get_vec(p, "mfp")
+                spec["mfp"] = (
+                    tuple(m_) if m_ is not None and len(np.atleast_1d(m_)) == 3
+                    else ((float(m_),) * 3 if m_ is not None else (0.2,) * 3))
+        elif mtype == "retroreflective":
+            # The ISET fork's RetroreflectiveBxDF: conductor microfacet
+            # parameters and the wo-peaked retro lobe.
+            spec["kind"] = MAT_RETRO
+            spec["roughness"] = float(_get(p, "roughness", 0.05) or 0.05)
+            spec["conductor"] = _get(p, "conductor", "Al")
+        elif mtype == "mix":
+            # MixMaterial: "string materials" names two named materials
+            # defined before it; amount is the probability of the first.
+            # The reference falls back to diffuse when a name is not
+            # defined; the port raises.
+            names = _get(p, "materials")
+            pair = [names] if isinstance(names, str) else list(names or [])
+            missing = [nm for nm in pair if nm not in self.named_materials]
+            if len(pair) != 2 or missing:
+                raise ValueError(
+                    f"mix material: \"materials\" must name two defined "
+                    f"named materials (got {pair}, undefined {missing})")
+            spec["kind"] = MAT_MIX
+            spec["mix_m0"] = self.named_materials[pair[0]]
+            spec["mix_m1"] = self.named_materials[pair[1]]
+            spec["mix_amount"] = float(_get(p, "amount", 0.5))
+        elif mtype == "measured":
+            # MeasuredBxDF: an RGL .bsdf file, read exactly and baked into
+            # the half-angle table (materials/rgl.py), or a baked
+            # (N_TH, N_TD, N_PD, 3) .npy table. The reference warns and
+            # binds a gray table when neither can be read; the port raises.
+            spec["kind"] = MAT_MEASURED
+            spec["measured_table"] = self._measured_table(_get(p, "filename"))
+        elif mtype == "hair":
+            # pbrt-v4's HairMaterial::Create: sigma_a, else reflectance,
+            # else eumelanin / pheomelanin (eumelanin 1.3 by default).
+            from ..materials import hair as hair_mod
+
+            spec["kind"] = MAT_HAIR
+            spec["roughness"] = float(_get(p, "beta_m", 0.3) or 0.3)
+            spec["coat_roughness"] = float(_get(p, "beta_n", 0.3) or 0.3)
+            spec["eta"] = float(_get(p, "eta", 1.55) or 1.55)
+            spec["hair_alpha"] = float(_get(p, "alpha", 2.0) or 2.0)
+            sig = _get_vec(p, "sigma_a")
+            if sig is None and refl is not None:
+                sig = hair_mod.sigma_a_from_reflectance(
+                    np.asarray(refl, np.float32), spec["coat_roughness"]
+                ).numpy()
+            if sig is None:
+                ce = float(_get(p, "eumelanin", 1.3) or 1.3)
+                cp = float(_get(p, "pheomelanin", 0.0) or 0.0)
+                sig = hair_mod.sigma_a_from_concentration(ce, cp).numpy()
+            if len(np.atleast_1d(sig)) == 3:
+                spec["hair_sigma_a"] = tuple(np.asarray(sig, float))
+            refl = None  # the reflectance is the pigment, not an albedo
         elif mtype in ("conductor", "metal"):
             spec["kind"] = MAT_CONDUCTOR
             spec["roughness"] = float(_get(p, "roughness", 0.01) or 0.01)
@@ -527,6 +605,21 @@ class PbrtParser:
         if refl is not None and len(np.atleast_1d(refl)) == 3:
             spec["albedo"] = tuple(np.asarray(refl, float))
         return spec
+
+    def _measured_table(self, fname):
+        """The (N_TH, N_TD, N_PD, 3) table a measured material names."""
+        if not fname:
+            raise ValueError('measured material without a "filename"')
+        path = os.path.join(self.base_dir, fname)
+        try:
+            if fname.endswith(".bsdf"):
+                from ..materials.rgl import bake_rgl
+
+                return bake_rgl(path)
+            return np.load(path)
+        except (OSError, ValueError, KeyError) as e:
+            raise ValueError(f"measured material: cannot read {fname!r} "
+                             f"({e})") from e
 
     def _d_Material(self, ts):
         mtype = ts.next()[1:-1]

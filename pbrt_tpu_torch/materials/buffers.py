@@ -1,13 +1,15 @@
 """Flat material parameter tables (port of pbrt_tpu/materials/buffers.py).
 
-Every field of the reference is carried, so a converted JAX scene maps 1:1
-and a scene may list materials the port cannot shade yet. The diffuse,
-conductor, dielectric, thin-dielectric, diffuse-transmission, coated
-diffuse and coated conductor families are shaded (materials/bxdf.py);
-`Scene` refuses geometry that references any other kind. RGB parameters
-are stored as sigmoid-polynomial coefficients fitted on the host
+Every field of the reference is carried, so a converted JAX scene maps 1:1.
+Every family of the reference is shaded (materials/bxdf.py): a mix row
+resolves to one of its two sub-materials per ray before the gather, and
+the subsurface step of models/path.py moves a subsurface lane's vertex
+before it shades with the normalized-Fresnel lobe. RGB parameters are
+stored as sigmoid-polynomial coefficients fitted on the host
 (core/rgb2spec.py); a row's `albedo_tex` binds a texture
-(textures/buffers.py) that overrides them per ray.
+(textures/buffers.py) that overrides them per ray. The measured rows'
+tables (materials/measured.py) are stacked, fitted per cell, and a row's
+`measured_idx` names its table.
 """
 
 from __future__ import annotations
@@ -42,8 +44,21 @@ CONDUCTOR_PRESETS = {
     "Al": ((1.3450, 0.9650, 0.6170), (7.4746, 6.3995, 5.3031)),
 }
 
-# Measured-BRDF table bins (materials/measured.py N_TH, N_TD, N_PD).
-_MEASURED_SHAPE = (32, 32, 16)
+
+def _measured_stack(tables):
+    """The stacked per-cell fits of the measured rows' tables."""
+    from .measured import N_PD, N_TD, N_TH, MeasuredBRDF
+
+    if not tables:
+        return dict(
+            measured_coeffs=torch.zeros((0, N_TH, N_TD, N_PD, 3)),
+            measured_scale=torch.zeros((0, N_TH, N_TD, N_PD)),
+        )
+    ms = [MeasuredBRDF.from_table(t) for t in tables]
+    return dict(
+        measured_coeffs=torch.stack([m.coeffs for m in ms]),
+        measured_scale=torch.stack([m.scale for m in ms]),
+    )
 
 
 @tensorclass
@@ -89,12 +104,13 @@ class MaterialBuffers:
     def build(materials) -> "MaterialBuffers":
         """materials: list of dicts with keys kind, albedo (rgb), roughness,
         eta, conductor ("Cu"/"Au"/"Ag"/"Al" or (eta_rgb, k_rgb) pair)."""
+        tables = [m["measured_table"] for m in materials
+                  if m.get("measured_table") is not None]
+        meas_idx, n_tab = [], 0
         for m in materials:
-            if m.get("measured_table") is not None:
-                raise NotImplementedError(
-                    "measured BRDF tables are not ported yet (ROADMAP Queue "
-                    "1 item 10)"
-                )
+            has = m.get("measured_table") is not None
+            meas_idx.append(n_tab if has else -1)
+            n_tab += has
         kinds = [m.get("kind", MAT_DIFFUSE) for m in materials]
         conds = []
         for m in materials:
@@ -132,12 +148,11 @@ class MaterialBuffers:
             thickness=f32(col("thickness", 0.01)),
             ss_mfp_coeffs=ms,
             ss_mfp_scale=mss,
-            measured_idx=i32([-1] * len(materials)),
+            measured_idx=i32(meas_idx),
             mix_m0=i32(col("mix_m0", 0)),
             mix_m1=i32(col("mix_m1", 0)),
             mix_amount=f32(col("mix_amount", 0.5)),
-            measured_coeffs=torch.zeros((0, *_MEASURED_SHAPE, 3)),
-            measured_scale=torch.zeros((0, *_MEASURED_SHAPE)),
+            **_measured_stack(tables),
             med_inside=i32(col("med_inside", -2)),
             med_outside=i32(col("med_outside", -2)),
             any_conductor=any(

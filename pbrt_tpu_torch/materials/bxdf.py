@@ -1,9 +1,11 @@
 """Branchless BxDF evaluation/sampling over ray batches.
 
-Port of pbrt_tpu/materials/bxdf.py: the diffuse, conductor, dielectric,
-thin-dielectric, diffuse-transmission, coated diffuse and coated
-conductor families, the material-less interface's passthrough link, and
-the textured-albedo overlay of `surface_params`.
+Port of pbrt_tpu/materials/bxdf.py: every family of the reference (the
+diffuse, conductor, dielectric, thin-dielectric, diffuse-transmission,
+coated diffuse and coated conductor, hair, measured and retroreflective
+BxDFs, the normalized-Fresnel lobe a subsurface lane exits with, the
+material-less interface's passthrough link), the mix materials' per-ray
+resolution and the textured-albedo overlay of `surface_params`.
 Directions are in the shading-local frame (z = shading normal); spectral
 values are (N, S). The dielectric families return a scalar f of shape
 (N,), broadcast to (N, S) by the select chain.
@@ -12,31 +14,36 @@ Dispatch keeps the reference's select chain: each family is evaluated for
 every ray and the material `kind` tag selects per ray with torch.where; a
 family's link runs only when the scene's geometry references that family
 (the `params["any_*"]` flags of `surface_params`, from
-`Scene.shaded_kinds`). The reference keys the links on the material list
-instead, and runs the coated conductor's link whenever the list holds a
-coated family and a conductor one; an unreferenced row selects no live
-lane, so the image is the same, and a list with spare copper and glass
-rows (Cornell's) skips their links. The coated families take f from the
+`Scene.shaded_kinds`, which counts a mix's two sub-materials as
+referenced). The reference keys the links on the material list instead,
+and runs the coated conductor's link whenever the list holds a coated
+family and a conductor one; an unreferenced row selects no live lane, so
+the image is the same, and a list with spare copper and glass rows
+(Cornell's) skips their links. The coated families take f from the
 layered walk (materials/layered.py) in `evaluate` and `sample`, and the
 pdf and the sampled direction from the two-lobe approximation, as the
-reference does. The other families (ROADMAP Queue 1 item 10) slot in as
-further selects. `Scene` refuses geometry that references them, so no
-lane ever needs a missing link. materials/sorted.py runs the chain per
-family.
+reference does. materials/sorted.py runs the chain per family.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core import rgb2spec
+from ..core import rng
 from ..core.sampling import (
     INV_PI,
     cosine_hemisphere_pdf,
     sample_cosine_hemisphere,
 )
+from ..core.take import take
 from ..core.vecmath import normalize, refract
+from . import hair
+from . import measured
 from . import scattering as sc
+from .bssrdf import fresnel_moment1
 from .buffers import (
     MAT_COATEDCONDUCTOR,
     MAT_COATEDDIFFUSE,
@@ -44,12 +51,22 @@ from .buffers import (
     MAT_DIELECTRIC,
     MAT_DIFFUSE,
     MAT_DIFFUSETRANS,
+    MAT_HAIR,
     MAT_INTERFACE,
+    MAT_MEASURED,
+    MAT_MIX,
+    MAT_NORMFRESNEL,
+    MAT_RETRO,
+    MAT_SUBSURFACE,
     MAT_THINDIELECTRIC,
 )
 from . import layered
 
 # The per-ray flags of `surface_params`: the kind whose link each gates.
+# A subsurface lane shades with the normalized-Fresnel lobe: the path
+# integrator rewrites its kind to MAT_NORMFRESNEL at the exit vertex, and
+# evaluate / pdf / sample rewrite a kind still MAT_SUBSURFACE (the
+# volumetric path has no subsurface step), so one flag gates both kinds.
 FAMILY_FLAGS = {
     MAT_CONDUCTOR: "any_conductor",
     MAT_DIELECTRIC: "any_dielectric",
@@ -57,7 +74,16 @@ FAMILY_FLAGS = {
     MAT_DIFFUSETRANS: "any_diffusetrans",
     MAT_COATEDDIFFUSE: "any_coated_diffuse",
     MAT_COATEDCONDUCTOR: "any_coated_conductor",
+    MAT_HAIR: "any_hair",
+    MAT_SUBSURFACE: "any_subsurface",
+    MAT_NORMFRESNEL: "any_subsurface",
+    MAT_MEASURED: "any_measured",
+    MAT_RETRO: "any_retro",
 }
+FLAGS = tuple(dict.fromkeys(FAMILY_FLAGS.values()))
+
+# The mix materials' hash salt ("MIXC").
+_MIX_SALT = 0x4D495843
 
 _EPS = 1e-8
 
@@ -91,17 +117,40 @@ def diffuse_f(albedo, wo, wi):
     return torch.where(same[..., None], albedo * INV_PI, 0.0)
 
 
-def diffuse_sample(albedo, wo, u2):
+def _cosine_sample(wo, u2):
+    """A cosine-distributed direction on wo's side, and its pdf."""
     wi = sample_cosine_hemisphere(u2)
     flip = torch.where(wo[..., 2] < 0.0, -1.0, 1.0)
     wi = torch.cat([wi[..., :2], wi[..., 2:3] * flip[..., None]], dim=-1)
-    pdf = cosine_hemisphere_pdf(_abscos(wi))
+    return wi, cosine_hemisphere_pdf(_abscos(wi))
+
+
+def diffuse_sample(albedo, wo, u2):
+    wi, pdf = _cosine_sample(wo, u2)
     return wi, albedo * INV_PI, pdf
 
 
 def diffuse_pdf(wo, wi):
     same = _same_hemisphere(wo, wi)
     return torch.where(same, cosine_hemisphere_pdf(_abscos(wi)), 0.0)
+
+
+# --- Normalized Fresnel (bxdfs.h NormalizedFresnelBxDF) ---------------------
+# The BSSRDF's Sw lobe: the normalized Fresnel transmittance
+# (1 - Fr(cos_i, eta)) / (c pi), with c = 1 - 2 FresnelMoment1(1 / eta),
+# times eta^2 for radiance transport; `sample` draws its directions from
+# the cosine hemisphere. The cosine is |cos wi|, the reference's rule
+# (pbrt-v4 passes the signed one).
+
+
+def normfresnel_f(eta, wo, wi, n_lam):
+    same = _same_hemisphere(wo, wi)
+    c = 1.0 - 2.0 * fresnel_moment1(1.0 / eta)
+    fr = sc.fr_dielectric(_abscos(wi), eta)
+    val = (1.0 - fr) / (c * math.pi) * (eta * eta)
+    val = torch.where(same, val, 0.0)
+    return val[..., None].expand(*val.shape, n_lam)
+
 
 
 # --- Diffuse transmission (bxdfs.h DiffuseTransmissionBxDF) -----------------
@@ -376,18 +425,112 @@ def _gather_spectral_eta_k(params, lam):
     return eta, k
 
 
+# --- Retroreflective (the ISET fork's RetroreflectiveBxDF) ------------------
+
+
+def normalize_half(wo, wi):
+    h = wo + wi
+    return h / torch.clamp(torch.sqrt(torch.sum(h * h, dim=-1, keepdim=True)),
+                           min=1e-9)
+
+
+def retro_f(eta, k, alpha, wo, wi):
+    """RetroreflectiveBxDF::f (the ISET fork, bxdfs.h:104-180): a GGX
+    conductor lobe plus a retro lobe whose microfacet normal is wo itself,
+    peaked about wi = wo, both weighted by the fork's (1 - (R_i - R_o))
+    dielectric-coating factor."""
+    same = _same_hemisphere(wo, wi)
+    alpha_r = torch.clamp(alpha, min=1e-3)
+    standard = conductor_f(eta, k, alpha_r, wo, wi)
+    cos_o = torch.clamp(_abscos(wo), min=1e-6)
+    cos_i = torch.clamp(_abscos(wi), min=1e-6)
+    wm_retro = wo * torch.sign(wo[..., 2:3])
+    d_retro = sc.ggx_d(wm_retro, alpha_r)
+    g = sc.ggx_g(wo, wi, alpha_r)
+    f_retro_fres = sc.fr_complex(torch.abs(_dot(wo, wi))[..., None], eta, k)
+    retro = f_retro_fres * (d_retro * g / (4.0 * cos_o * cos_i))[..., None]
+    r_i = sc.fr_dielectric(torch.abs(_dot(wi, wm_retro)),
+                           torch.full_like(cos_i, 1.59))
+    wm = normalize_half(wo, wi)
+    r_o = sc.fr_dielectric(torch.abs(_dot(wo, wm)),
+                           torch.full_like(cos_o, 1.59))
+    w = torch.clamp(1.0 - (r_i - r_o), 0.0, 2.0)[..., None]
+    return torch.where(same[..., None], w * (retro + standard), 0.0)
+
+
+# --- Measured and hair: the per-ray inputs of their modules -----------------
+
+
+def _measured_f(params, wo, wi, lam):
+    """The tabulated BRDF of each ray's table (materials/measured.py)."""
+    coeffs = params["measured_coeffs"]
+    idx = params["measured_idx"].long()
+    if coeffs.shape[0] == 0:  # no table: no row can name one
+        return torch.zeros(wo.shape[:-1] + lam.shape[-1:], dtype=wo.dtype,
+                           device=wo.device)
+    base = torch.clamp(idx, min=0) * (measured.N_TH * measured.N_TD
+                                      * measured.N_PD)
+    val = measured.lookup(coeffs.reshape(-1, 3),
+                          params["measured_scale"].reshape(-1), base, wo, wi,
+                          lam)
+    return torch.where((idx >= 0)[..., None], val, 0.0)
+
+
+def _hair_args(params):
+    bm = torch.clamp(params["roughness"], 1e-2, 1.0)
+    bn = torch.clamp(params["coat_roughness"], 1e-2, 1.0)
+    h = params.get("hair_h", torch.zeros_like(bm))
+    return h, params["eta"], bm, bn, params["hair_alpha"]
+
+
+def _hair_sigma_a(params, lam):
+    return rgb2spec.eval_unbounded(
+        params["hair_sigma_coeffs"], params["hair_sigma_scale"], lam)
+
+
 # --- Dispatch ---------------------------------------------------------------
+
+
+def _bits(x):
+    """The uint32 bit patterns of float32 values, in int64."""
+    return x.detach().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def resolve_mix(materials, mat_idx, p, wo):
+    """MixMaterial (materials.h): each lane of a mix row takes one of its
+    two sub-materials, the first with probability `amount`, by a pcg4d
+    hash of the bit patterns of the hit point and of wo: the same choice
+    for the same (point, direction), another across samples through wo
+    (pbrt-v4 draws from the sampler; the reference's departure)."""
+    kind0 = take(materials.kind, torch.clamp(mat_idx, 0,
+                                              materials.kind.shape[0] - 1))
+    bits_p = _bits(p)
+    bits_w = _bits(wo)
+    h, _, _, _ = rng.pcg4d(bits_p[..., 0] ^ bits_p[..., 2], bits_w[..., 0],
+                           bits_w[..., 1] ^ bits_p[..., 1], _MIX_SALT)
+    u = rng.u32_to_uniform(h)
+    row = torch.clamp(mat_idx, min=0)
+    pick = torch.where(u < take(materials.mix_amount, row),
+                       take(materials.mix_m0, row), take(materials.mix_m1, row))
+    return torch.where(kind0 == MAT_MIX, pick, mat_idx)
 
 
 def surface_params(scene, isect, lam=None):
     """Per-ray material parameters at a surface interaction: the material
-    row, with textured albedo overlaid (textures/buffers.py) and, on a
-    dielectric, the IOR seen from the ray's side; and the `any_*` flags
-    (FAMILY_FLAGS) of the kinds the geometry references."""
+    row (a mix row resolved to a sub-material first), with textured albedo
+    overlaid (textures/buffers.py), a hair lane's offset h across the
+    curve from uv[1], and, on a dielectric, the IOR seen from the ray's
+    side; and the `any_*` flags (FAMILY_FLAGS) of the kinds the geometry
+    references."""
     kinds = scene.shaded_kinds
-    params = scene.materials.gather(isect.mat)
+    mat_idx = isect.mat
+    if MAT_MIX in kinds:
+        mat_idx = resolve_mix(scene.materials, mat_idx, isect.p, isect.wo)
+    params = scene.materials.gather(mat_idx)
+    for flag in FLAGS:
+        params[flag] = False
     for kind, flag in FAMILY_FLAGS.items():
-        params[flag] = kind in kinds
+        params[flag] = params[flag] or kind in kinds
     # The material-less interface's passthrough link (no BxDF family of
     # the sorted dispatch: it only ends sample's select chain).
     params["any_interface_mat"] = MAT_INTERFACE in kinds
@@ -400,6 +543,10 @@ def surface_params(scene, isect, lam=None):
             scene.textures, params["albedo_tex"], isect.uv, isect.p,
             params["albedo_coeffs"],
         )
+    if params["any_hair"]:
+        # pbrt-v4's hair.h: h = -1 + 2 uv[1].
+        params["hair_h"] = torch.clamp(2.0 * isect.uv[..., 1] - 1.0,
+                                       -0.9995, 0.9995)
     # The integrator shades in a frame flipped toward wo, which erases the
     # inside/outside distinction the dielectric needs to pick eta or 1/eta.
     # isect.n is canonical (outward for quadrics, by winding for meshes),
@@ -419,7 +566,7 @@ def surface_params(scene, isect, lam=None):
 def _alpha(params):
     """The base roughness's alpha, where a referenced family reads it."""
     if (params["any_conductor"] or params["any_dielectric"]
-            or params["any_coated_conductor"]):
+            or params["any_coated_conductor"] or params.get("any_retro")):
         return sc.roughness_to_alpha(params["roughness"])
     return None
 
@@ -451,12 +598,15 @@ def evaluate(params, wo, wi, lam):
     """f(wo, wi) for each ray given gathered material params; (N, S).
     Delta lobes (smooth conductors and dielectrics, thin dielectrics)
     return 0 here: their contribution arrives only through sampling."""
-    kind = params["kind"]
+    kind = _exit_kind(params)
     albedo = rgb2spec.eval_sigmoid(params["albedo_coeffs"], lam)
     alpha = _alpha(params)
     f = torch.where(
         (kind == MAT_DIFFUSE)[..., None], diffuse_f(albedo, wo, wi), 0.0
     )
+    if params.get("any_subsurface"):
+        f = torch.where((kind == MAT_NORMFRESNEL)[..., None],
+                        normfresnel_f(params["eta"], wo, wi, lam.shape[-1]), f)
     if params["any_conductor"]:
         eta_c, k_c = _gather_spectral_eta_k(params, lam)
         f = torch.where(
@@ -478,11 +628,35 @@ def evaluate(params, wo, wi, lam):
         f_cc = _coated_conductor_walk(params, eta_c, k_c,
                                       torch.clamp(alpha, min=1e-3), wo, wi)
         f = torch.where((kind == MAT_COATEDCONDUCTOR)[..., None], f_cc, f)
+    if params.get("any_hair"):
+        h, eta_h, bm, bn, tilt = _hair_args(params)
+        f_h = hair.hair_f(h, eta_h, _hair_sigma_a(params, lam), bm, bn, tilt,
+                          wo, wi)
+        f = torch.where((kind == MAT_HAIR)[..., None], f_h, f)
+    if params.get("any_measured"):
+        f = torch.where((kind == MAT_MEASURED)[..., None],
+                        _measured_f(params, wo, wi, lam), f)
+    if params.get("any_retro"):
+        eta_c, k_c = _gather_spectral_eta_k(params, lam)
+        f = torch.where((kind == MAT_RETRO)[..., None],
+                        retro_f(eta_c, k_c, alpha, wo, wi), f)
     return f
 
 
-def pdf(params, wo, wi):
+def _exit_kind(params):
+    """The kind each lane shades with: a subsurface lane exits through the
+    normalized-Fresnel lobe."""
     kind = params["kind"]
+    if params.get("any_subsurface"):
+        kind = torch.where(kind == MAT_SUBSURFACE, MAT_NORMFRESNEL, kind)
+    return kind
+
+
+def pdf(params, wo, wi):
+    kind = _exit_kind(params)
+    if params.get("any_subsurface"):
+        # The normalized-Fresnel lobe samples as the diffuse one does.
+        kind = torch.where(kind == MAT_NORMFRESNEL, MAT_DIFFUSE, kind)
     alpha = _alpha(params)
     p = torch.where(kind == MAT_DIFFUSE, diffuse_pdf(wo, wi), 0.0)
     if params["any_conductor"]:
@@ -500,16 +674,30 @@ def pdf(params, wo, wi):
             conductor_pdf(torch.clamp(alpha, min=1e-3), wo, wi),
             _coat_alpha(params), wo, wi)
         p = torch.where(kind == MAT_COATEDCONDUCTOR, p_cc, p)
+    if params.get("any_hair"):
+        h, eta_h, bm, bn, tilt = _hair_args(params)
+        p_h = hair.hair_pdf(h, eta_h, _hair_sigma_a(params, params["lam"]),
+                            bm, bn, tilt, wo, wi)
+        p = torch.where(kind == MAT_HAIR, p_h, p)
+    if params.get("any_measured"):
+        p = torch.where(kind == MAT_MEASURED, diffuse_pdf(wo, wi), p)
+    if params.get("any_retro"):
+        p = torch.where(kind == MAT_RETRO,
+                        conductor_pdf(torch.clamp(alpha, min=1e-3), wo, wi), p)
     return p
 
 
 def sample(params, wo, lam, u2, uc):
     """Sample wi for each ray. Returns dict(wi, f, pdf, specular)."""
-    kind = params["kind"]
+    kind = _exit_kind(params)
     albedo = rgb2spec.eval_sigmoid(params["albedo_coeffs"], lam)
     alpha = _alpha(params)
     wi, f, p = diffuse_sample(albedo, wo, u2)
     specular = torch.zeros(wo.shape[:-1], dtype=torch.bool, device=wo.device)
+    if params.get("any_subsurface"):
+        # The diffuse sample's direction and pdf, the lobe's f.
+        f = torch.where((kind == MAT_NORMFRESNEL)[..., None],
+                        normfresnel_f(params["eta"], wo, wi, lam.shape[-1]), f)
 
     def put(m, wi_x, f_x, p_x, spec_x):
         nonlocal wi, f, p, specular
@@ -552,6 +740,21 @@ def sample(params, wo, lam, u2, uc):
             _coated_conductor_walk(params, eta_c, k_c, alpha_b, wo, wi_cc),
             0.0)
         put(kind == MAT_COATEDCONDUCTOR, wi_cc, f_cc, p_cc, False)
+    if params.get("any_measured"):
+        wi_m, p_m = _cosine_sample(wo, u2)
+        put(kind == MAT_MEASURED, wi_m, _measured_f(params, wo, wi_m, lam),
+            p_m, False)
+    if params.get("any_retro"):
+        eta_c, k_c = _gather_spectral_eta_k(params, lam)
+        alpha_r = torch.clamp(alpha, min=1e-3)
+        wi_r, _, p_r, _ = conductor_sample(eta_c, k_c, alpha_r, wo, u2)
+        put(kind == MAT_RETRO, wi_r, retro_f(eta_c, k_c, alpha_r, wo, wi_r),
+            p_r, False)
+    if params.get("any_hair"):
+        h, eta_h, bm, bn, tilt = _hair_args(params)
+        wi_h, f_h, p_h = hair.hair_sample(
+            h, eta_h, _hair_sigma_a(params, lam), bm, bn, tilt, wo, u2, uc)
+        put(kind == MAT_HAIR, wi_h, f_h, p_h, False)
     if params["any_thin"]:
         wi_t, f_t, p_t = thin_dielectric_sample(params["eta"], wo, uc)
         m = kind == MAT_THINDIELECTRIC

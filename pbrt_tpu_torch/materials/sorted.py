@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..core.take import take
-from .bxdf import FAMILY_FLAGS
+from .bxdf import FAMILY_FLAGS, FLAGS
 from .buffers import MAT_DIFFUSE
 
 # Entries of the surface_params dict that are global tables, never per ray.
@@ -34,10 +34,16 @@ def possible_families(params) -> list[int]:
 
 
 def _restrict(params, fam: int):
-    """params with the link flags narrowed to one family's."""
+    """params with the link flags narrowed to one family's. A subsurface
+    lane is rewritten to the normalized-Fresnel kind (13) before the
+    dispatch; kind 13's segment keeps the subsurface flag, which gates
+    that lobe. The reference's tiles have no branch of their own for kind
+    13 and run such a tile through the full chain, which gives those
+    lanes the same values (every op is per lane)."""
     out = dict(params)
-    for kind, flag in FAMILY_FLAGS.items():
-        out[flag] = kind == fam
+    keep = FAMILY_FLAGS.get(fam)
+    for flag in FLAGS:
+        out[flag] = flag == keep
     return out
 
 

@@ -1,13 +1,15 @@
 """Path integrator: NEE + MIS + Russian roulette over a fixed bounce loop.
 
-Port of pbrt_tpu/models/path.py: the primal transport, its default
-gradient path, `grad_mode="remat"`, and tag-sorted shading
-(materials/sorted.py, on by the reference's `sorted_shading="auto"` rule;
-no record/replay, subsurface or animated instances). The reference's
-lax.scan over bounces is a Python loop here; all rays advance in
-lockstep and terminated rays are masked, not compacted, so every bounce
-issues the same queries as the reference: one closest-hit and one any-hit
-per bounce, plus the terminal closest-hit.
+Port of pbrt_tpu/models/path.py: the primal transport, the subsurface
+step, its default gradient path, `grad_mode="remat"`, and tag-sorted
+shading (materials/sorted.py, on by the reference's
+`sorted_shading="auto"` rule; no record/replay or animated instances).
+The reference's lax.scan over bounces is a Python loop here; all rays
+advance in lockstep and terminated rays are masked, not compacted, so
+every bounce issues the same queries as the reference: one closest-hit
+and one any-hit per bounce, plus the terminal closest-hit, and, when the
+geometry references a subsurface material, the subsurface probe's
+closest-hit on every lane of every bounce (materials/bssrdf.py).
 
 Gradients (the reference's detached-sampling estimator): they flow only
 through BSDF values, emission and light radiance at fixed hit points. The
@@ -16,8 +18,10 @@ are detached where the reference stops them. The reference's
 `save_only_these_names("trav")` remat becomes `torch.utils.checkpoint`
 around the shading between the queries, two segments per bounce split at
 the shadow query: the backward pass recomputes shading only and never
-re-runs a query. Only the leaves of DEFAULT_TRAINABLE may require grad;
-any other request raises NotImplementedError (ROADMAP Queue 1 item 5).
+re-runs a query. Only the leaves of DEFAULT_TRAINABLE may require grad,
+and not on a scene whose geometry references a hair, subsurface,
+measured, mix or retroreflective material (FORWARD_ONLY_KINDS); any
+other request raises NotImplementedError (ROADMAP Queue 1 item 5).
 
 RNG dimension layout (per ray; stateless pcg4d streams, core/rng.py):
   dims 0-7            camera: pixel jitter (0,1), lens (2,3), wavelength (4)
@@ -26,6 +30,7 @@ RNG dimension layout (per ray; stateless pcg4d streams, core/rng.py):
                       2      bsdf lobe selection
                       3      bsdf direction (2D)
                       4      russian roulette
+                      5, 6   subsurface probe radius and angle
 """
 
 from __future__ import annotations
@@ -37,10 +42,21 @@ import torch.utils.checkpoint
 
 from ..accel import api as accel_api
 from ..accel.dense import offset_ray_origin, shadow_segment
+from ..core import rgb2spec
 from ..core.sampling import power_heuristic
 from ..core.tensorclass import static_field, tensorclass
 from ..core.vecmath import dot, from_local, shading_frame, to_local
 from ..materials import bxdf
+from ..materials import scattering as sc
+from ..materials.bssrdf import subsurface_exit
+from ..materials.buffers import (
+    MAT_HAIR,
+    MAT_MEASURED,
+    MAT_MIX,
+    MAT_NORMFRESNEL,
+    MAT_RETRO,
+    MAT_SUBSURFACE,
+)
 
 _CAM_DIMS = 8
 _BOUNCE_DIMS = 8
@@ -50,6 +66,22 @@ _BOUNCE_DIMS = 8
 # not finite (conductor roughness) or not the same on every backend.
 DEFAULT_TRAINABLE = ("materials.albedo_coeffs", "lights.area_scale")
 _ITEM5 = "ROADMAP Queue 1 item 5"
+# Material kinds whose gradients are not ported: a gradient request on a
+# scene whose geometry references one raises.
+FORWARD_ONLY_KINDS = frozenset(
+    {MAT_HAIR, MAT_SUBSURFACE, MAT_MEASURED, MAT_MIX, MAT_RETRO})
+
+
+def refuse_forward_only(scene) -> None:
+    """Raise for a gradient request on a scene whose geometry references a
+    material kind of FORWARD_ONLY_KINDS."""
+    kinds = sorted(scene.shaded_kinds & FORWARD_ONLY_KINDS)
+    if kinds:
+        raise NotImplementedError(
+            f"the geometry references material kind(s) {kinds} (hair 7, "
+            "subsurface 8, measured 9, mix 10, retroreflective 11), whose "
+            f"gradients are not ported ({_ITEM5}); render under "
+            "torch.no_grad()")
 
 
 def _tensors(value, name: str):
@@ -84,7 +116,50 @@ def _gradient_requested(scene, o, d, wl) -> bool:
                     f"ported gradients ({_ITEM5})"
                 )
             asked = True
+    if asked:
+        refuse_forward_only(scene)
     return asked
+
+
+def _frame(isect):
+    """The shading frame (t1, t2, ns, wo_l): the geometric normal flipped
+    toward wo (no shading normals), its tangents and wo in it."""
+    cos_o = dot(isect.n, isect.wo, keepdims=True)
+    ns = isect.n * torch.sign(torch.where(cos_o == 0.0, 1.0, cos_o))
+    t1, t2 = shading_frame(ns, isect.dpdu)
+    return t1, t2, ns, to_local(isect.wo, t1, t2, ns)
+
+
+def _subsurface_step(scene, isect, frame, params, hit, beta, lam, u_r, u_phi):
+    """SeparableBSSRDF::Sample_S (bssrdf.h, wavefront/subsurface.cpp) at
+    the hit lanes of a subsurface material: the Fresnel transmission at
+    the entry, the Burley diffusion to a probed exit vertex, and the
+    vertex, its frame and its wo (the exit normal) moved there; the
+    lane's kind becomes MAT_NORMFRESNEL, the exit lobe that NEE and BSDF
+    sampling then shade. Every lane issues the probe. Returns (beta,
+    isect, frame, params, subsurface lane count)."""
+    t1, t2, ns, wo_l = frame
+    is_ss = hit & (params["kind"] == MAT_SUBSURFACE)
+    albedo = rgb2spec.eval_sigmoid(params["albedo_coeffs"], lam)
+    mfp = rgb2spec.eval_unbounded(params["ss_mfp_coeffs"],
+                                  params["ss_mfp_scale"], lam)
+    p_exit, n_exit, w_ss, _ = subsurface_exit(
+        scene, isect, ns, t1, t2, albedo, mfp[..., 0], u_r, u_phi)
+    fr_in = sc.fr_dielectric(torch.abs(wo_l[..., 2]), params["eta"])
+    beta = torch.where(is_ss[..., None],
+                       beta * w_ss * (1.0 - fr_in)[..., None], beta)
+    m = is_ss[:, None]
+    new_n = torch.where(m, n_exit, isect.n)
+    isect = isect.replace(
+        p=torch.where(m, p_exit, isect.p),
+        n=new_n,
+        wo=torch.where(m, new_n, isect.wo),
+        dpdu=torch.where(m, torch.zeros_like(isect.dpdu), isect.dpdu),
+    )
+    params = dict(params, kind=torch.where(is_ss, MAT_NORMFRESNEL,
+                                           params["kind"]))
+    return (beta, isect, _frame(isect), params,
+            torch.sum(is_ss.to(torch.float32)))
 
 
 def _remat(fn, *args):
@@ -198,6 +273,7 @@ class PathIntegrator:
         lights = scene.lights
         have_lights = lights.n_lights > 0
         do_nee = self.use_nee and have_lights
+        subsurface = MAT_SUBSURFACE in scene.shaded_kinds
         if self.sorts_shading(scene):
             from ..materials.sorted import shade_sorted
 
@@ -255,18 +331,20 @@ class PathIntegrator:
                 0.0,
             )
 
-        def shade(L, beta, isect, d, o, weights, frame, u):
-            """First segment of a bounce, between the closest-hit and the
-            shadow query: emission, the light sample, the BSDF sample and
-            the NEE contribution. Live outputs: L, contrib and bs["f"].
-            Its inputs and every other output are detached geometry (the
-            frame, the draws, the light sample's direction, pdf and
-            distance, the sampled direction and pdf), as the reference
-            stops them."""
-            if have_lights:
+        def shade(L, beta, isect, d, o, weights, frame, u, params=None):
+            """First segment of a bounce, between the closest-hit (or the
+            subsurface step, which adds the emission and gathers params
+            itself) and the shadow query: emission, the light sample, the
+            BSDF sample and the NEE contribution. Live outputs: L, contrib
+            and bs["f"]. Its inputs and every other output are detached
+            geometry (the frame, the draws, the light sample's direction,
+            pdf and distance, the sampled direction and pdf), as the
+            reference stops them."""
+            if weights is not None:
                 L = add_emission(L, beta, isect, d, o, weights)
             t1, t2, ns, wo_l = frame
-            params = bxdf.surface_params(scene, isect, lam)
+            if params is None:
+                params = bxdf.surface_params(scene, isect, lam)
             ops = {"wo": wo_l, "u2": u["bsdf"], "uc": u["lobe"]}
             if do_nee:
                 ls = lights.sample_li(isect.p, lam, u["sel"], u["pos"], n_ref=ns)
@@ -330,13 +408,25 @@ class PathIntegrator:
             weights = mis_weights(isect, active, d, o, prev) if have_lights else None
             hit = active & isect.valid
 
-            # Shading frame (shading normal == geometric normal, flipped
-            # toward wo) and the bounce's draws: no gradient reaches them.
-            cos_o = dot(isect.n, isect.wo, keepdims=True)
-            ns = isect.n * torch.sign(torch.where(cos_o == 0.0, 1.0, cos_o))
-            t1, t2 = shading_frame(ns, isect.dpdu)
-            frame = (t1, t2, ns, to_local(isect.wo, t1, t2, ns))
+            # Shading frame and the bounce's draws: no gradient reaches
+            # them.
+            frame = _frame(isect)
             dim0 = _CAM_DIMS + depth * _BOUNCE_DIMS
+            params = None
+            if subsurface:
+                # The emission at the entry, then the move to the exit;
+                # the material row is the entry's. Outside the shading
+                # segments, as the queries are (no gradient is asked).
+                params = bxdf.surface_params(scene, isect, lam)
+                if weights is not None:
+                    L = add_emission(L, beta, isect, d, o, weights)
+                    weights = None
+                beta, isect, frame, params, n_ss = _subsurface_step(
+                    scene, isect, frame, params, hit, beta, lam,
+                    sampler.get_1d(pixel, sample_idx, dim0 + 5),
+                    sampler.get_1d(pixel, sample_idx, dim0 + 6))
+                n_rays = n_rays + n_ss
+            t1, t2, ns, _ = frame
             u = {}
             if do_nee:
                 u["sel"] = sampler.get_1d(pixel, sample_idx, dim0 + 0)
@@ -346,7 +436,8 @@ class PathIntegrator:
             ub0, ub1 = sampler.get_2d(pixel, sample_idx, dim0 + 3)
             u["bsdf"] = torch.stack([ub0, ub1], dim=-1)
 
-            sh = segment(shade, L, beta, isect, d, o, weights, frame, u)
+            sh = segment(shade, L, beta, isect, d, o, weights, frame, u,
+                         params)
             bs = sh["bs"]
             unoccluded = contrib = None
             if do_nee:

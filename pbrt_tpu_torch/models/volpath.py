@@ -13,7 +13,9 @@ ray's wavelengths times the max density), or the coarse cell's (the DDA
 walk of grid media). Shadow-ray transmittance is ratio tracking with the
 same majorants; across material-less interfaces (MAT_INTERFACE) a shadow
 ray switches interior media and attenuates in closed form. Homogeneous
-interior media (MediumStack) take closed-form free flight.
+interior media (MediumStack) take closed-form free flight. As in the
+reference there is no subsurface step: a subsurface surface shades with
+the normalized-Fresnel exit lobe at its entry (materials/bxdf.py).
 
 RNG dimension layout (per ray; stateless pcg4d streams, core/rng.py):
   dims 0-7               camera
@@ -36,7 +38,9 @@ and detached, the absorption event folded into the null weight (pa = 0)
 and the scatter probability detached, so gradients reach the medium's
 sigma_a_scale and sigma_s_scale through the continuous weights. Those two
 are the only trainables; any other gradient request, and any request with
-differentiable=False, raises NotImplementedError (ROADMAP Queue 1 item 5).
+differentiable=False, or on a scene whose geometry references a hair,
+subsurface, measured, mix or retroreflective material, raises
+NotImplementedError (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from ..materials.buffers import MAT_INTERFACE
 from ..media import phase as ph
 from ..media.medium import MED_KEEP
 from ..ops.compact import masked_loop, staged_masked_loop
-from .path import _ITEM5, _tensors
+from .path import _ITEM5, _tensors, refuse_forward_only
 
 _CAM_DIMS = 8
 _BOUNCE_DIMS = 512  # wide stride: walk iterations consume many dims
@@ -123,6 +127,8 @@ class VolPathIntegrator:
                     f"{name} requires grad: only {VOLPATH_TRAINABLE} have "
                     f"ported gradients through media ({_ITEM5})")
             asked = True
+        if asked:
+            refuse_forward_only(scene)
         return asked
 
     def _majorants(self, med, lam):

@@ -25,17 +25,7 @@ from .accel.bvh import BVH
 from .accel.kdtree import KdTree, build_kdtree
 from .core.tensorclass import static_field, tensorclass
 from .lights.buffers import LightBuffers
-from .materials.buffers import (
-    MAT_COATEDCONDUCTOR,
-    MAT_COATEDDIFFUSE,
-    MAT_CONDUCTOR,
-    MAT_DIELECTRIC,
-    MAT_DIFFUSE,
-    MAT_DIFFUSETRANS,
-    MAT_INTERFACE,
-    MAT_THINDIELECTRIC,
-    MaterialBuffers,
-)
+from .materials.buffers import MAT_MIX, MaterialBuffers
 from .media.medium import MediumBuffers, MediumStack
 from .ops.cluster import ClusterAccel, build_clusters
 from .ops.smallscene import SmallTriAccel, build_smallscene
@@ -43,10 +33,10 @@ from .ops.sweep import SweepAccel, build_sweep
 from .shapes.geometry import GeometryBuffers
 from .textures.buffers import TextureBuffers
 
-# Material families the BxDF select chain shades (materials/bxdf.py).
-SHADED_KINDS = {MAT_DIFFUSE, MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_THINDIELECTRIC,
-                MAT_COATEDDIFFUSE, MAT_COATEDCONDUCTOR, MAT_DIFFUSETRANS,
-                MAT_INTERFACE}
+# Material kinds the port shades (materials/bxdf.py): every kind of the
+# reference, 0 to 13. A mix row (10) resolves to a sub-material per ray
+# before the gather.
+SHADED_KINDS = frozenset(range(14))
 
 
 @tensorclass
@@ -72,32 +62,35 @@ class Scene:
     bvh: Optional[BVH] = None
     # SAH kd-tree (accel/kdtree.py); plain PyTorch on both devices.
     kdtree: Optional[KdTree] = None
-    # Material kinds the geometry references; the BxDF select chain runs
+    # Material kinds the geometry references, with the kinds of a
+    # referenced mix row's two sub-materials; the BxDF select chain runs
     # only their links (materials/bxdf.py). Derived, never passed.
     shaded_kinds: FrozenSet[int] = static_field(init=False, default=frozenset())
 
     def __post_init__(self):
-        # Only the families of SHADED_KINDS are shaded yet; a material
-        # nothing references (e.g. a hair row in a parsed list) is carried
-        # as data, and its kind's link is not traced.
+        # A material nothing references is carried as data, and its kind's
+        # link is not run. The reference resolves a mix one level deep: a
+        # mix naming a mix leaves its lanes with kind 10, which no link
+        # shades, as there.
         used = torch.unique(torch.cat([self.geom.tri_mat, self.geom.sph_mat])
-                            .detach().cpu().long())
-        kinds = self.materials.kind.detach().cpu().long()
-        referenced = frozenset(int(kinds[m]) for m in used.tolist())
+                            .detach().cpu().long()).tolist()
+        mats = self.materials
+        kinds = mats.kind.detach().cpu().long()
+        subs = [int(x) for m in used if int(kinds[m]) == MAT_MIX
+                for x in (mats.mix_m0[m], mats.mix_m1[m])]
+        if any(not 0 <= x < kinds.shape[0] for x in subs):
+            raise ValueError(f"a mix material names sub-materials {subs}; "
+                             f"the scene holds {kinds.shape[0]} materials")
+        referenced = frozenset(int(kinds[m]) for m in used + subs)
         object.__setattr__(self, "shaded_kinds", referenced)
         bad = sorted(referenced - SHADED_KINDS)
         if bad:
-            raise NotImplementedError(
-                f"geometry references material kind(s) {bad}; only diffuse "
-                "(kind 0), conductor (1), dielectric (2), thin dielectric "
-                "(3), coated diffuse (4), coated conductor (5), diffuse "
-                "transmission (6) and the material-less interface (12) are "
-                "ported yet (ROADMAP Queue 1 item 10)"
-            )
+            raise ValueError(f"geometry references unknown material "
+                             f"kind(s) {bad}")
         # A referenced material's texture must exist: the overlay would
         # otherwise skip it (no tables) or clamp its id to another texture.
         tex = self.materials.albedo_tex.detach().cpu().long()
-        bound = sorted({int(tex[m]) for m in used.tolist()} - {-1})
+        bound = sorted({int(tex[m]) for m in used + subs} - {-1})
         n_tex = 0 if self.textures is None else self.textures.n_textures
         if bound and bound[-1] >= n_tex:
             raise ValueError(f"materials bind texture id(s) {bound}; the "

@@ -1,6 +1,7 @@
-"""K1, K2, K3 and K4 on the card: each CUDA kernel against its plain twin,
-and renders on the card (the lights, the dielectric BxDFs, the textures,
-the coated materials and the many-light hall among them) against the same
+"""K1, K2, K3 and K4 on the card: each CUDA kernel against its plain twin
+(the subsurface probe's query among K1's), and renders on the card (the
+lights, the dielectric BxDFs, the textures, the coated materials, the
+many-light hall and the families box among them) against the same
 renders on the CPU, and the sorted shading dispatch against the lockstep
 chain on the card.
 
@@ -762,7 +763,8 @@ def test_sorted_dispatch_is_bit_equal_on_card(card):
     r = np.random.default_rng(30)
     mat = torch.from_numpy(r.integers(0, len(mats), n)).to(card)
     params = MaterialBuffers.build(mats).to(card).gather(mat)
-    params.update({flag: True for flag in bxdf.FAMILY_FLAGS.values()})
+    params.update({flag: False for flag in bxdf.FLAGS})
+    params.update({bxdf.FAMILY_FLAGS[m["kind"]]: True for m in mats[1:]})
     params["lam"] = spectrum.sample_visible(
         torch.from_numpy(r.uniform(0, 1, n).astype(np.float32)).to(card), 8).lam
     wo = r.normal(size=(n, 3))
@@ -832,3 +834,69 @@ def test_volpath_compacted_walks_equal_lockstep_on_card(card):
                               compact_walks=False).trace_with_stats(*args)
     assert torch.equal(a, b) and bool(sa["rays"] == sb["rays"])
     assert float(a.mean()) > 0.05
+
+
+def test_families_render_on_card_matches_cpu(card):
+    """The families box (hair, subsurface, measured, mix, retroreflective)
+    on the card against the CPU: 16x16, 4 spp in passes of 2, the mix hash
+    on coarse keys (tests/torch_port_families.py); 16 K1 launches a pass
+    (a closest query, the subsurface probe and a shadow query per bounce,
+    the terminal closest)."""
+    from pbrt_tpu_torch.materials import bxdf
+
+    from .torch_port_families import FAMILIES_PBRT, coarse_mix_keys
+
+    scene, camera, settings = load_pbrt(FAMILIES_PBRT, device="cpu")
+    camera = camera.replace(resolution=(16, 16))
+    integ = settings["integrator"]
+    kw = dict(spp=4, seed=1, samples_per_pass=2, n_spectrum=8)
+    with coarse_mix_keys(bxdf):
+        STATS.reset()
+        got = render(scene, camera, integ, device=card, **kw)
+        torch.cuda.synchronize()
+        assert STATS.launches == (3 * integ.max_depth + 1) * 2
+        want = render(scene, camera, integ, device="cpu", **kw)
+    got, want = got.cpu().numpy(), want.numpy()
+    assert np.all(np.isfinite(got)) and want.mean() > 0.01
+    share, n_bad = _share_close(got, want)
+    assert share >= 0.99, n_bad
+
+
+def test_k1_subsurface_probe_matches_twin(card):
+    """The subsurface probe's query (closest, a per-ray finite tmax of
+    twice the chord, from above the surface along -n) on the families box:
+    K1 against its twin, bit for bit."""
+    from pbrt_tpu_torch.core.vecmath import coordinate_system
+    from pbrt_tpu_torch.materials import bssrdf
+
+    from .torch_port_families import FAMILIES_PBRT
+
+    scene, camera, _ = load_pbrt(FAMILIES_PBRT, device=card)
+    n = 65_536
+    pixel = torch.arange(n, device=card) % 1024
+    o, d, wl, _ = camera_rays_full(camera, pixel, 0, 0, n_spectrum=8)
+    isect = api.closest(scene, o, d)
+    t1, t2 = coordinate_system(isect.n)
+    queries = []
+    closest = api.closest
+
+    def capture(scene_, o_, d_, tmax=None):
+        queries.append((o_, d_, tmax))
+        return closest(scene_, o_, d_, tmax=tmax)
+
+    api.closest = capture
+    try:
+        r = torch.rand(2, n, device=card, generator=torch.Generator(
+            device=card).manual_seed(0))
+        bssrdf.subsurface_exit(scene, isect, isect.n, t1, t2,
+                               torch.full((n, 8), 0.9, device=card),
+                               torch.full((n,), 0.3, device=card), r[0], r[1])
+    finally:
+        api.closest = closest
+    (po, pd, tmax), = queries
+    assert bool(torch.isfinite(tmax).all()) and bool((tmax > 0).any())
+    got = smallscene_intersect(scene.small, po, pd, tmax)
+    want = smallscene_intersect_ref(scene.small, po, pd, tmax)
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key

@@ -3,7 +3,8 @@ item 5): with autograd on, a scene tensor outside the default trainable
 set (materials.albedo_coeffs, lights.area_scale), the ray origins or
 directions, or the wavelengths that require grad raise NotImplementedError
 at entry, and so does a gradient asked through an unported gradient mode
-or of a texture table. Under torch.no_grad() the render is what it was
+or of a texture table, or through a hair, subsurface, measured, mix or
+retroreflective material. Under torch.no_grad() the render is what it was
 without a request."""
 
 import pytest
@@ -148,3 +149,44 @@ def test_medium_grad_request_raises(differentiable, member, field):
     asked = _with_grad(scene, member, field)
     with pytest.raises(NotImplementedError, match="item 5"):
         integ.trace(asked, o, d, wl, pixel, 0, 0)
+
+
+def _family_quad(kind):
+    """A quad of material `kind` (a mix over two diffuse rows for kind 10;
+    a measured row without a table reads none, which the refusal does not
+    need) beside Cornell's camera."""
+    import numpy as np
+
+    from pbrt_tpu_torch.lights.buffers import LightBuffers
+    from pbrt_tpu_torch.materials.buffers import MaterialBuffers
+    from pbrt_tpu_torch.scene import Scene
+    from pbrt_tpu_torch.shapes.geometry import GeometryBuffers, make_quad
+
+    mats = [{"kind": 0}, {"kind": 0, "albedo": (0.2, 0.3, 0.4)},
+            {"kind": kind, "mix_m0": 0, "mix_m1": 1, "mix_amount": 0.3}]
+    quad = make_quad((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0))
+    return Scene(geom=GeometryBuffers.build(
+                     tri_verts=quad, tri_mat=np.array([2, 2], np.int32)),
+                 materials=MaterialBuffers.build(mats),
+                 lights=LightBuffers.build()).with_accel()
+
+
+@pytest.mark.parametrize("kind", [7, 8, 9, 10, 11],
+                         ids=["hair", "subsurface", "measured", "mix",
+                              "retroreflective"])
+def test_forward_only_family_grad_request_raises(cornell8, kind):
+    """The families of the hair / subsurface / measured / mix /
+    retroreflective slice render forward only: with autograd on, a request
+    for even a default trainable raises (item 5); under torch.no_grad()
+    the same trace runs."""
+    _, camera = cornell8
+    scene = _family_quad(kind)
+    assert kind in scene.shaded_kinds
+    pixel = torch.arange(64)
+    o, d, wl, _ = camera_rays_full(camera, pixel, 0, 0, n_spectrum=8)
+    asked = _with_grad(scene, "materials", "albedo_coeffs")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        PathIntegrator(max_depth=2).trace(asked, o, d, wl, pixel, 0, 0)
+    with torch.no_grad():
+        L = PathIntegrator(max_depth=2).trace(asked, o, d, wl, pixel, 0, 0)
+    assert torch.isfinite(L).all()

@@ -45,7 +45,9 @@ def test_import_loads_no_jax():
         "pbrt_tpu_torch.materials.sorted, pbrt_tpu_torch.lights.bvh, "
         "pbrt_tpu_torch.media.medium, pbrt_tpu_torch.media.phase, "
         "pbrt_tpu_torch.ops.compact, pbrt_tpu_torch.models.volpath, "
-        "pbrt_tpu_torch.scenes.cloud; "
+        "pbrt_tpu_torch.scenes.cloud, pbrt_tpu_torch.materials.hair, "
+        "pbrt_tpu_torch.materials.measured, pbrt_tpu_torch.materials.rgl, "
+        "pbrt_tpu_torch.materials.bssrdf; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pbrt_tpu' or m.startswith('pbrt_tpu.')]; "
         "sys.exit(1 if bad else 0)"
@@ -96,6 +98,18 @@ def _gallery_with_torus_kind(kind):
     return scene.replace(materials=scene.materials.replace(kind=kinds))
 
 
+def _albedo_gradient(scene):
+    """A request for the albedo's gradient, the default trainable, through
+    `scene` (the rays of a 2x2 Cornell camera)."""
+    m = scene.materials
+    scene = scene.replace(materials=m.replace(
+        albedo_coeffs=m.albedo_coeffs.clone().requires_grad_(True)))
+    pixel = torch.arange(4)
+    o, d, wl = camera_rays(cornell_box(resolution=(2, 2))[1], pixel, 0, 0,
+                           n_spectrum=8)
+    PathIntegrator().trace(scene.with_accel(), o, d, wl, pixel, 0, 0)
+
+
 @pytest.mark.parametrize("build", [
     lambda: cornell_box(variant="specular"),
     lambda: GeometryBuffers.build(**_quad_geom(),
@@ -113,19 +127,22 @@ def _gallery_with_torus_kind(kind):
     _light_bvh_gradient,
     # Textures are ported but for Ptex.
     lambda: TextureBuffers.build([{"kind": "ptex"}]),
-    # The plain and the coated conductor are ported
-    # (tests/test_torch_coated.py); the retroreflective one is not.
-    lambda: Scene(geom=GeometryBuffers.build(**_quad_geom(mat=1)),
-                  materials=MaterialBuffers.build(
-                      [{"kind": MAT_DIFFUSE}, {"kind": MAT_RETRO}]),
-                  lights=LightBuffers.build()),
+    # The plain, coated and retroreflective conductors render
+    # (tests/test_torch_coated.py, tests/test_torch_families.py); a
+    # gradient through the retroreflective one is refused (item 5).
+    lambda: _albedo_gradient(Scene(
+        geom=GeometryBuffers.build(**_quad_geom(mat=1)),
+        materials=MaterialBuffers.build([{"kind": MAT_DIFFUSE},
+                                         {"kind": MAT_RETRO}]),
+        lights=LightBuffers.build())),
     lambda: Sampler(kind="sobol"),
     # Animated instances are not ported.
     lambda: scene_from_arrays({"anim.o2w_start": np.ones((1, 12))}, {}),
     # The gallery's glass torus is shaded (tests/test_torch_dielectric.py),
-    # and so is a diffuse-transmission one (tests/test_torch_coated.py);
-    # a subsurface torus is not.
-    lambda: _gallery_with_torus_kind(MAT_SUBSURFACE),
+    # and so are a diffuse-transmission one (tests/test_torch_coated.py)
+    # and a subsurface one; a gradient through the subsurface one is
+    # refused (item 5).
+    lambda: _albedo_gradient(_gallery_with_torus_kind(MAT_SUBSURFACE)),
 ], ids=["specular_variant", "disk", "alpha", "point_light", "infinite_light",
         "light_bvh", "texture", "referenced_conductor", "sobol_sampler",
         "animated_instance", "mesh_gallery_dielectric"])

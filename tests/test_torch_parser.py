@@ -171,14 +171,18 @@ _TRI = ('Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
     # volpath builds (tests/test_torch_volpath.py); bdpt does not.
     ('Integrator "bdpt"', 13),
     ('Texture "t" "spectrum" "ptex" "string filename" "t.ptx"', 15),
-    # Of the texture-typed material parameters only the albedo is ported.
+    # The reference has no texture-typed material parameter but the
+    # albedo: its parser takes float() of the texture's name, and the
+    # port's raises ValueError.
     ('Texture "t" "float" "constant" "float value" 0.2 '
-     'Material "conductor" "texture roughness" "t"', 10),
+     'Material "conductor" "texture roughness" "t"', ValueError),
     ('Texture "t" "float" "fbm" '
-     'Material "dielectric" "texture roughness" "t"', 10),
-    # The coated and diffuse-transmission families parse
-    # (tests/test_torch_coated.py); hair does not.
-    ('Material "hair"', 10),
+     'Material "dielectric" "texture roughness" "t"', ValueError),
+    # Every material family parses (tests/test_torch_coated.py,
+    # tests/test_torch_families.py), the coat's roughness not as a texture.
+    ('Texture "r" "float" "constant" "float value" 0.2 '
+     'Material "coatedconductor" "texture interface.roughness" "r"',
+     ValueError),
     ('LightSource "infinite" "string filename" "sky.exr"', 15),
     # Homogeneous, grid, cloud and rgbgrid media build
     # (tests/test_torch_volpath.py); a NanoVDB grid does not, nor a
@@ -201,7 +205,54 @@ _TRI = ('Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
         "medium", "medium_interface", "sphere", "bilinear", "subdivision",
         "alpha", "animated_instance"])
 def test_unported_features_raise(text, item):
+    if item is ValueError:
+        with pytest.raises(ValueError, match="the reference has no "
+                           "texture-typed roughness, eta"):
+            load_pbrt_string(text, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+        load_pbrt_string(text, device="cpu")
+
+
+_FAMILIES = """
+MakeNamedMaterial "a" "string type" "diffuse" "rgb reflectance" [0.7 0.2 0.1]
+MakeNamedMaterial "b" "string type" "coateddiffuse" "float roughness" 0.2
+Material "mix" "string materials" ["a" "b"] "float amount" 0.25
+Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] "integer indices" [0 1 2]
+Material "hair" "float beta_m" 0.25 "float beta_n" 0.4 "float alpha" 3
+  "float eumelanin" 0.8 "float pheomelanin" 0.3
+Shape "trianglemesh" "point3 P" [0 0 1 1 0 1 0 1 1] "integer indices" [0 1 2]
+Material "hair" "rgb sigma_a" [0.2 0.4 0.9]
+Shape "trianglemesh" "point3 P" [0 0 2 1 0 2 0 1 2] "integer indices" [0 1 2]
+Material "subsurface" "rgb mfp" [0.1 0.2 0.3] "float eta" 1.4
+Shape "trianglemesh" "point3 P" [0 0 3 1 0 3 0 1 3] "integer indices" [0 1 2]
+Material "subsurface" "rgb sigma_s" [1 2 3]
+Shape "trianglemesh" "point3 P" [0 0 4 1 0 4 0 1 4] "integer indices" [0 1 2]
+Material "retroreflective" "float roughness" 0.2 "string conductor" "Au"
+Shape "trianglemesh" "point3 P" [0 0 5 1 0 5 0 1 5] "integer indices" [0 1 2]
+"""
+
+
+def test_material_families_match_jax():
+    """hair (pigment and sigma_a), subsurface (mfp, and sigma_s over the
+    default sigma_a), a mix over a diffuse and a coated material and
+    retroreflective gold parse to the reference's tables, bit for bit (the
+    measured family: tests/test_torch_families.py)."""
+    built = load_pbrt_string(_FAMILIES, device="cpu")
+    _assert_same_build(jax_load_pbrt_string(_FAMILIES), built)
+    assert built[0].shaded_kinds == {0, 4, 7, 8, 10, 11}
+
+
+@pytest.mark.parametrize("text, match", [
+    ('Material "measured" "string filename" "missing.bsdf"', "cannot read"),
+    ('Material "measured"', "without a"),
+    ('MakeNamedMaterial "a" "string type" "diffuse" '
+     'Material "mix" "string materials" ["a" "nowhere"]', "undefined"),
+], ids=["measured_unreadable", "measured_no_file", "mix_undefined"])
+def test_material_departures_raise(text, match):
+    """Loud where the reference warns and binds a gray table or a diffuse
+    fallback (ROADMAP Queue 3's departures)."""
+    with pytest.raises(ValueError, match=match):
         load_pbrt_string(text, device="cpu")
 
 
