@@ -12,20 +12,23 @@ cluster tier and on the BVH tier), the instanced field (a .pbrt file
 through the port's parser) and the golden scene files spot.pbrt,
 envmap.pbrt, plymesh.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt
 and imagetex.pbrt, the many-light hall (power and light-BVH samplers),
-the volumetric cloud, fog.pbrt and the families box (hair, subsurface,
-measured, mix and retroreflective materials) on the card against the
+the volumetric cloud, fog.pbrt, the families box (hair, subsurface,
+measured, mix and retroreflective materials) and the light tracers (the
+light path, BDPT, AO, the spectral bands) on the card against the
 committed JAX goldens, renders
 the golden scene files conductor.pbrt, plymesh.pbrt, spot.pbrt,
 envmap.pbrt, box.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt,
-imagetex.pbrt and fog.pbrt against the pbrt-v4 C++ goldens and the
+imagetex.pbrt, fog.pbrt, bdpt.pbrt, sppm.pbrt and mlt.pbrt (the last
+three through the file entry, render.render_file) against the pbrt-v4
+C++ goldens and the
 furnace scene and the fog box against their closed forms, holds the backward pass's image-loss gradients
 against the JAX gradient golden, across tiers and, through delta lights
 (and a glass sphere), against the CPU, and through the coated materials'
 layered walk against their JAX golden and a medium's absorption
 gradient against its JAX golden, times the forward render of each timed
 configuration (the mesh gallery's glass torus, texture.pbrt, bench's
-many-light hall, bench's volumetric cloud and the families box among
-them) and the Cornell
+many-light hall, bench's volumetric cloud, the families box, BDPT,
+SPPM and MLT among them) and the Cornell
 forward+backward pass, and takes three training steps. Each phase prints one JSON line;
 any failure raises, so the script exits non-zero and never prints the
 final line. Without a CUDA device it exits non-zero at
@@ -182,6 +185,24 @@ Phases:
       coarse keys (tests/torch_port_families.py), against the JAX golden
       of scripts/make_torch_port_golden_families.py: d's gate, 16 K1
       launches per pass
+  c8  K1 vs its twin on every query of one pass of each light tracer on
+      its golden scene, launches counted from zero, each query bit-equal
+      key by key, kernel and twin timed, with the bound: the light path
+      (bdpt.pbrt's room, 128x128 paths: 11 queries), BDPT (the room,
+      128x128, 1 spp: 6 camera and 5 light walk steps, 15 connections, 6
+      t = 1 splats; 32), an SPPM iteration (sppm.pbrt, 128x128, its glass
+      sphere answered by the sphere block after K1: 15) and an MLT step
+      (mlt.pbrt, 256 chains: 11)
+  d23 bdpt.pbrt (256 spp in passes of 16), sppm.pbrt (64 iterations) and
+      mlt.pbrt (1,024 mutations per pixel) through the parser and
+      render.render_file, seed 1, against the pbrt-v4 C++ goldens with
+      tests/test_reference_parity.py's MC_CASES gate (relative mean error
+      and MSE); MLT runs the file's 256 chains unless their 9,216 steps
+      would take more than 240 s at the time of the first steps, and then
+      4,096 (the phase prints which)
+  d24 the light path, BDPT, AO and the spectral bands on the room at
+      16x16 against the JAX goldens of
+      scripts/make_torch_port_golden_lighttransport.py: d's gate
   g6  tests/test_gradients.py's medium gradient: the fog box (sigma_a
       0.8, 8x8, 48 spp, depth 2, no NEE, 32 steps, differentiable=True),
       the mean radiance and its derivative in medium.sigma_a_scale on the
@@ -256,6 +277,14 @@ Phases:
       pass and the device's busy share (torch.profiler); then sorted
       against lockstep shading, in turns, the first pass's image of each
       bit-equal
+  e11 the light tracers timed, each with K1 launches and ms per pass,
+      peak memory, its layers' device ms (BDPT: walks, connection
+      queries, BxDF, splats; SPPM: camera pass, grid, photon pass and its
+      deposits; MLT: the contribution's path trace), kernel launches per
+      pass and the busy share: BDPT on the room at 256x256, 8 spp in
+      passes of 4 (paths/s); SPPM on sppm.pbrt at 256x256, 4 iterations
+      (iterations/s, photons/s); MLT on mlt.pbrt, 16 steps of 256 and of
+      4,096 chains (mutations/s)
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
   f   the kernels line, the nvidia-smi line and the final result line
@@ -2418,6 +2447,46 @@ def _k1_queries(render_pass):
     return queries
 
 
+def _hold_k1(acc, queries, label: str) -> dict:
+    """Each captured K1 query (_k1_queries) against the twin, bit for bit
+    key by key, with the kernel's and the twin's times and the bound."""
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import (
+        smallscene_intersect, smallscene_intersect_ref)
+
+    rows = acc.n_tris
+    per_query, ms, plain_ms, bound_ms, err = [], 0.0, 0.0, 0.0, 0.0
+    for i, (o, d, tmax, any_hit) in enumerate(queries):
+        got = smallscene_intersect(acc, o, d, tmax, any_hit=any_hit)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = smallscene_intersect_ref(acc, o, d, tmax, any_hit=any_hit)
+        torch.cuda.synchronize()
+        q_plain = (time.perf_counter() - t0) * 1e3
+        bad = [key for key in ref if not torch.equal(got[key], ref[key])]
+        if set(got) != set(ref) or bad:
+            raise AssertionError(f"{label} query {i}: K1 differs from its "
+                                 f"twin in {bad} (any_hit {any_hit})")
+        q_ms = cuda_ms(lambda: smallscene_intersect(acc, o, d, tmax,
+                                                    any_hit=any_hit), reps=10)
+        n = int(o.shape[0])
+        bound = _bound(n * rows * MT_OPS,
+                       n * (28 + (8 if any_hit else 36)) + rows * 64)
+        err = max(err, max_abs_err(got, ref))
+        ms += q_ms
+        plain_ms += q_plain
+        bound_ms += bound["bound_ms"]
+        per_query.append({"mode": "any_hit" if any_hit else "closest",
+                          "rays": n, "live": int((tmax > 0).sum()),
+                          "finite_tmax": int(torch.isfinite(tmax).sum()),
+                          "ms": q_ms, "plain_ms": q_plain,
+                          "bound_ms": bound["bound_ms"]})
+    return {"queries": len(queries), "triangles": rows, "ms_per_pass": ms,
+            "plain_ms_per_pass": plain_ms, "bound_ms_per_pass": bound_ms,
+            "max_abs_err": err, "per_query": per_query}
+
+
 def phase_k1_volpath_vs_twin(dev):
     """c6: K1 against its twin on every query of one pass of the cloud
     (128x128, 8 spp, depth 6: per bounce the closest query and the
@@ -2429,8 +2498,7 @@ def phase_k1_volpath_vs_twin(dev):
     timed, with the bound of each."""
     import torch
 
-    from pbrt_tpu_torch.ops.smallscene import (
-        STATS, smallscene_intersect, smallscene_intersect_ref)
+    from pbrt_tpu_torch.ops.smallscene import STATS
 
     out = {}
     for name, res, (scene, camera, integ), want in (
@@ -2448,40 +2516,9 @@ def phase_k1_volpath_vs_twin(dev):
         if launches != want or len(queries) != launches:
             raise AssertionError(f"{name}: {launches} K1 launches, "
                                  f"{len(queries)} queries, {want} expected")
-        acc = scene.small
-        rows = acc.n_tris
-        per_query, ms, plain_ms, bound_ms, err = [], 0.0, 0.0, 0.0, 0.0
-        for o, d, tmax, any_hit in queries:
-            got = smallscene_intersect(acc, o, d, tmax, any_hit=any_hit)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ref = smallscene_intersect_ref(acc, o, d, tmax, any_hit=any_hit)
-            torch.cuda.synchronize()
-            q_plain = (time.perf_counter() - t0) * 1e3
-            bad = [k for k in ref if not torch.equal(got[k], ref[k])]
-            if set(got) != set(ref) or bad:
-                raise AssertionError(f"{name}: K1 differs from its twin in "
-                                     f"{bad} ({o.shape[0]} rays, any_hit "
-                                     f"{any_hit})")
-            q_ms = cuda_ms(lambda: smallscene_intersect(acc, o, d, tmax,
-                                                        any_hit=any_hit),
-                           reps=10)
-            n = int(o.shape[0])
-            out_bytes = 8 if any_hit else 36
-            bound = _bound(n * rows * MT_OPS, n * (28 + out_bytes) + rows * 64)
-            err = max(err, max_abs_err(got, ref))
-            ms += q_ms
-            plain_ms += q_plain
-            bound_ms += bound["bound_ms"]
-            per_query.append({"mode": "any_hit" if any_hit else "closest",
-                              "rays": n, "live": int((tmax > 0).sum()),
-                              "ms": q_ms, "plain_ms": q_plain,
-                              "bound_ms": bound["bound_ms"]})
+        out[name] = {"launches": launches,
+                     **_hold_k1(scene.small, queries, name)}
         STATS.reset()
-        out[name] = {"launches": launches, "triangles": rows,
-                     "ms_per_pass": ms, "plain_ms_per_pass": plain_ms,
-                     "bound_ms_per_pass": bound_ms, "max_abs_err": err,
-                     "queries": per_query}
     emit("c6_k1_volpath_vs_twin", **out)
     return out
 
@@ -2856,8 +2893,7 @@ def phase_k1_families_vs_twin(dev):
     bit-equal key by key, kernel and twin timed, with the bound of each."""
     import torch
 
-    from pbrt_tpu_torch.ops.smallscene import (
-        STATS, smallscene_intersect, smallscene_intersect_ref)
+    from pbrt_tpu_torch.ops.smallscene import STATS
 
     scene, camera, integ = families_on(dev)
     res, k = 128, 8
@@ -2871,45 +2907,17 @@ def phase_k1_families_vs_twin(dev):
         raise AssertionError(f"families: {launches} K1 launches, "
                              f"{len(queries)} queries, "
                              f"{FAMILIES_K1_PER_PASS} expected")
-    acc = scene.small
-    rows = acc.n_tris
-    per_query, ms, plain_ms, bound_ms, err = [], 0.0, 0.0, 0.0, 0.0
-    for i, (o, d, tmax, any_hit) in enumerate(queries):
-        got = smallscene_intersect(acc, o, d, tmax, any_hit=any_hit)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = smallscene_intersect_ref(acc, o, d, tmax, any_hit=any_hit)
-        torch.cuda.synchronize()
-        q_plain = (time.perf_counter() - t0) * 1e3
-        bad = [key for key in ref if not torch.equal(got[key], ref[key])]
-        if set(got) != set(ref) or bad:
-            raise AssertionError(f"families query {i}: K1 differs from its "
-                                 f"twin in {bad} (any_hit {any_hit})")
-        q_ms = cuda_ms(lambda: smallscene_intersect(acc, o, d, tmax,
-                                                    any_hit=any_hit), reps=10)
-        n = int(o.shape[0])
-        bound = _bound(n * rows * MT_OPS,
-                       n * (28 + (8 if any_hit else 36)) + rows * 64)
-        err = max(err, max_abs_err(got, ref))
-        ms += q_ms
-        plain_ms += q_plain
-        bound_ms += bound["bound_ms"]
-        # Within a bounce: the closest query, the probe, the shadow query.
-        kind = ("terminal" if i == len(queries) - 1 else
-                ("closest", "probe", "any_hit")[i % 3])
-        per_query.append({"query": kind, "rays": n,
-                          "live": int((tmax > 0).sum()),
-                          "finite_tmax": int(torch.isfinite(tmax).sum()),
-                          "ms": q_ms, "plain_ms": q_plain,
-                          "bound_ms": bound["bound_ms"]})
+    held = _hold_k1(scene.small, queries, "families")
     STATS.reset()
+    # Within a bounce: the closest query, the probe, the shadow query.
+    for i, q in enumerate(held["per_query"]):
+        q["query"] = ("terminal" if i == launches - 1 else
+                      ("closest", "probe", "any_hit")[i % 3])
     emit("c7_k1_families_vs_twin", resolution=res, spp=k,
-         max_depth=FAMILIES["depth"], launches=launches, triangles=rows,
-         ms_per_pass=ms, plain_ms_per_pass=plain_ms,
-         bound_ms_per_pass=bound_ms, max_abs_err=err,
-         probe_ms_per_pass=sum(q["ms"] for q in per_query
+         max_depth=FAMILIES["depth"], launches=launches, **held,
+         probe_ms_per_pass=sum(q["ms"] for q in held["per_query"]
                                if q["query"] == "probe"),
-         scene_build_seconds=_FAMILIES_SCENE["seconds"], queries=per_query)
+         scene_build_seconds=_FAMILIES_SCENE["seconds"])
 
 
 def phase_golden_families_jax(dev):
@@ -3075,6 +3083,402 @@ def phase_timed_families(dev, smi: str) -> int:
     return out["k1_launches"]
 
 
+# ---- PR: the light-tracing and specialty integrators (c8, d23, d24, e11)
+
+LT_ROOM = os.path.join(GOLDEN_FILES, "bdpt.pbrt")
+LT_CAUSTIC = os.path.join(GOLDEN_FILES, "sppm.pbrt")
+LT_MLT = os.path.join(GOLDEN_FILES, "mlt.pbrt")
+# K1 queries of one pass of each (depth 5): the light path, a closest and
+# a camera connection a bounce and the light point's connection; BDPT,
+# the 6 camera and 5 light walk steps, 15 connections and 6 t = 1
+# splats; SPPM, a closest and a shadow query a camera bounce and a
+# closest a photon bounce; an MLT step, a depth-5 path trace.
+LT_K1_PER_PASS = {"lightpath": 11, "bdpt": 32, "sppm": 15, "mlt": 11}
+# d23: tests/test_reference_parity.py's MC_CASES rows (file, spp or
+# iterations or mutations per pixel as that test passes them, bounds on
+# the relative mean error and the MSE), copied, not imported; its seed 1.
+MC_GOLDENS = (("bdpt", 256, (0.06, 0.02)), ("sppm", 64, (0.10, 0.03)),
+              ("mlt", 1024, (0.10, 0.03)))
+MC_SEED = 1
+# d23's MLT runs the file's 256 chains unless their steps (9,216 at 1,024
+# mutations per pixel over 48x48) would take longer than this, timed on
+# the first steps; then the reference parser's default of 4,096 chains.
+MLT_STEPS_BUDGET_S = 240.0
+MLT_DEFAULT_CHAINS = 4096
+# e11's configurations.
+E11 = dict(res=256, bdpt_spp=8, bdpt_k=4, sppm_iterations=4, mlt_steps=16,
+           mlt_chains=(256, 4096), lanes=8, depth=5)
+
+
+def lt_scene(dev, path, res):
+    """A golden scene file on `dev` at res x res: (scene, camera,
+    integrator)."""
+    from pbrt_tpu_torch.io.parser import load_pbrt
+
+    scene, camera, settings = load_pbrt(path, device=dev)
+    return scene, camera.replace(resolution=(res, res)), settings["integrator"]
+
+
+def lt_pass(kind: str, dev, res: int, k: int = 1, chains: int = 256):
+    """One pass of a light-tracing integrator on its golden scene, as its
+    render loop runs it, 8 lanes, seed 0: render_pass(pass_idx=0) ->
+    (image, work), work the pass's paths (lightpath: res^2 k light paths;
+    bdpt: res^2 k bidirectional samples), photons (sppm: one iteration,
+    res^2 photons and camera paths) or mutations (mlt: one step of every
+    chain, after the bootstrap at build)."""
+    import torch
+
+    from pbrt_tpu_torch.core import spectrum
+    from pbrt_tpu_torch.films.rgb import spectrum_to_rgb
+    from pbrt_tpu_torch.models.lightpath import LightPathIntegrator
+    from pbrt_tpu_torch.samplers.samplers import Sampler
+
+    npix = res * res
+    lanes, seed = 8, 0
+    if kind in ("lightpath", "bdpt"):
+        scene, camera, integ = lt_scene(dev, LT_ROOM, res)
+        sampler = Sampler(seed=seed, kind="independent", spp=k, nx=res)
+        n = npix * k
+        if kind == "lightpath":
+            integ = LightPathIntegrator(max_depth=integ.max_depth)
+            path_id = torch.arange(n, device=dev)
+
+            def render_pass(p: int = 0):
+                wl = spectrum.sample_visible(sampler.get_1d(path_id, p, 5),
+                                             lanes)
+                return integ.render_splats(scene, camera, n, wl, p,
+                                           sampler), n
+            return render_pass
+        pixel = torch.arange(npix, device=dev).repeat(k)
+
+        def render_pass(p: int = 0):
+            sample = torch.arange(p * k, (p + 1) * k,
+                                  device=dev).repeat_interleave(npix)
+            wl = spectrum.sample_visible(sampler.get_1d(pixel, sample, 4),
+                                         lanes)
+            L, splat, _ = integ.trace(scene, camera, wl, pixel, sample,
+                                      sampler)
+            rgb = spectrum_to_rgb(L, wl).reshape(k, res, res, 3).mean(dim=0)
+            return rgb + splat.reshape(res, res, 3), n
+        return render_pass
+    if kind == "sppm":
+        scene, camera, integ = lt_scene(dev, LT_CAUSTIC, res)
+        state = {"s": integ.start(scene, camera)}
+
+        def render_pass(p: int = 0):
+            state["s"] = integ.iterate(scene, camera, state["s"], p, seed,
+                                       lanes)
+            return integ.image(camera, state["s"], p + 1), npix
+        return render_pass
+    from pbrt_tpu_torch.models.mlt import MLTIntegrator
+
+    scene, camera, integ = lt_scene(dev, LT_MLT, res)
+    integ = MLTIntegrator(base=integ.base, n_chains=chains,
+                          mutations_per_chain=1, sigma=integ.sigma,
+                          p_large=integ.p_large)
+    b, u0 = integ._bootstrap(scene, camera, seed, lanes)
+    state = {"s": integ.start(scene, camera, u0, lanes)}
+
+    def render_pass(p: int = 0):
+        state["s"], _ = integ.step(scene, camera, state["s"], p, b, seed,
+                                   lanes)
+        return state["s"]["splat"][:npix].reshape(res, res, 3), chains
+    return render_pass
+
+
+def phase_k1_lighttransport_vs_twin(dev):
+    """c8: K1 against its twin on every query of one pass of the light
+    path (bdpt.pbrt's room, 128x128 paths), BDPT (the room, 128x128, 1
+    spp), an SPPM iteration (sppm.pbrt, 128x128: the glass sphere answered
+    by the sphere block after K1's triangles) and an MLT step (mlt.pbrt,
+    256 chains), launches counted from zero, each query bit-equal key by
+    key, kernel and twin timed, with the bound."""
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import STATS
+
+    out = {}
+    for kind in ("lightpath", "bdpt", "sppm", "mlt"):
+        rp = lt_pass(kind, dev, 128 if kind != "mlt" else 48)
+        STATS.reset()
+        queries = _k1_queries(rp)
+        torch.cuda.synchronize()
+        launches = STATS.launches
+        want = LT_K1_PER_PASS[kind]
+        if launches != want or len(queries) != launches:
+            raise AssertionError(f"{kind}: {launches} K1 launches, "
+                                 f"{len(queries)} queries, {want} expected")
+        path = {"lightpath": LT_ROOM, "bdpt": LT_ROOM, "sppm": LT_CAUSTIC,
+                "mlt": LT_MLT}[kind]
+        scene = lt_scene(dev, path, 8)[0]
+        out[kind] = {"launches": launches,
+                     "spheres": scene.geom.num_spheres,
+                     **_hold_k1(scene.small, queries, kind)}
+        STATS.reset()
+    emit("c8_k1_lighttransport_vs_twin", **out)
+    return out
+
+
+def _mlt_chains(dev, spp: int) -> dict:
+    """d23's chain count: the file's 256 unless its 1,024 mutations per
+    pixel (9,216 steps over 48x48) would exceed MLT_STEPS_BUDGET_S at the
+    time of the first steps (timed after a warm-up step), then the
+    reference parser's default."""
+    import torch
+
+    scene, camera, integ = lt_scene(dev, LT_MLT, 8)
+    nx, ny = 48, 48
+    steps = spp * nx * ny // integ.n_chains
+    rp = lt_pass("mlt", dev, nx, chains=integ.n_chains)
+    rp(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in range(1, 9):
+        rp(p)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 8
+    fits = step_s * steps <= MLT_STEPS_BUDGET_S
+    return {"file_chains": integ.n_chains, "file_steps": steps,
+            "step_seconds_at_file_chains": step_s,
+            "estimated_seconds_at_file_chains": step_s * steps,
+            "chains": integ.n_chains if fits else MLT_DEFAULT_CHAINS}
+
+
+def phase_golden_mc(dev):
+    """d23: bdpt.pbrt (256 spp in passes of 16), sppm.pbrt (64
+    iterations) and mlt.pbrt (1,024 mutations per pixel) through the
+    port's parser and its file entry (render.render_file) on the card,
+    seed 1, against the pbrt-v4 C++ goldens with
+    tests/test_reference_parity.py's MC_CASES gate (relative mean error,
+    MSE); each launches K1."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.io.image import read_pfm
+    from pbrt_tpu_torch.io.parser import load_pbrt
+    from pbrt_tpu_torch.ops.smallscene import STATS
+    from pbrt_tpu_torch.render import render_file
+
+    for name, spp, (rel_tol, mse_tol) in MC_GOLDENS:
+        scene, camera, settings = load_pbrt(
+            os.path.join(GOLDEN_FILES, name + ".pbrt"), device=dev)
+        extra = {}
+        if name == "mlt":
+            extra = _mlt_chains(dev, spp)
+            settings = dict(settings, integrator=settings["integrator"].replace(
+                n_chains=extra["chains"]))
+        STATS.reset()
+        t0 = time.perf_counter()
+        img = render_file(scene, camera, settings, spp=spp, seed=MC_SEED,
+                          samples_per_pass=16, device=dev)
+        img = img.cpu().numpy()
+        seconds = time.perf_counter() - t0
+        ref = read_pfm(os.path.join(GOLDEN_FILES, name + "_ref.pfm"))
+        if img.shape != ref.shape or not np.isfinite(img).all():
+            raise AssertionError(f"{name}: bad render, shape {img.shape}")
+        rel = float(abs(img.mean() - ref.mean()) / ref.mean())
+        mse = float(np.mean((img - ref) ** 2))
+        emit(f"d23_golden_{name}", integrator=type(
+                 settings["integrator"]).__name__, spp=spp, seed=MC_SEED,
+             seconds=seconds, rel_mean_err=rel, mse=mse,
+             mean=float(img.mean()), golden_mean=float(ref.mean()),
+             k1_launches=STATS.launches,
+             bounds={"rel_mean_err": rel_tol, "mse": mse_tol}, **extra)
+        torch.cuda.synchronize()
+        if not (rel < rel_tol and mse < mse_tol):
+            raise AssertionError(f"{name}.pbrt off the C++ golden: rel {rel}, "
+                                 f"MSE {mse}")
+        if STATS.launches == 0:
+            raise AssertionError(f"{name}.pbrt launched no K1")
+
+
+def phase_golden_lighttransport_jax(dev):
+    """d24: the light path (4 passes of 256 paths), BDPT (4 spp in passes
+    of 2), AO (4 spp) and the spectral bands (4 bands, 2 spp a band,
+    depth 3) on bdpt.pbrt's room at 16x16, 8 lanes, seed 0, against the
+    JAX goldens of scripts/make_torch_port_golden_lighttransport.py, with
+    d's gate (>= 99% of values within rtol 1e-3 / atol 1e-5)."""
+    import numpy as np
+
+    from pbrt_tpu_torch.models.ao import AOIntegrator
+    from pbrt_tpu_torch.models.bdpt import render_bdpt
+    from pbrt_tpu_torch.models.lightpath import render_lightpath
+    from pbrt_tpu_torch.models.spectralpath import render_spectral
+    from pbrt_tpu_torch.ops.smallscene import STATS
+    from pbrt_tpu_torch.render import render
+
+    scene, camera, _ = lt_scene(dev, LT_ROOM, 16)
+    ao = np.load(os.path.join(GOLDEN_DATA, "ao16.npz"))
+    spectral = np.load(os.path.join(GOLDEN_DATA, "spectral16.npz"))
+    renders = {
+        "lightpath": (lambda: render_lightpath(
+            scene, camera, n_paths_total=1024, paths_per_pass=256,
+            n_spectrum=8, device=dev),
+            np.load(os.path.join(GOLDEN_DATA, "lightpath16_spp4.npy"))),
+        "bdpt": (lambda: render_bdpt(scene, camera, spp=4,
+                                     samples_per_pass=2, n_spectrum=8,
+                                     device=dev),
+                 np.load(os.path.join(GOLDEN_DATA, "bdpt16_spp4.npy"))),
+        "ao": (lambda: render(scene, camera, AOIntegrator(), spp=4,
+                              samples_per_pass=4, n_spectrum=8, device=dev),
+               ao["ao_image"]),
+        "spectral": (lambda: render_spectral(
+            scene, camera, n_bands=4, spp_per_band=2, max_depth=3,
+            n_spectrum=8, device=dev), (spectral["rgb"], spectral["bands"])),
+    }
+    out, worst = {}, 1.0
+    for name, (fn, golden) in renders.items():
+        STATS.reset()
+        img = fn()
+        launches = STATS.launches
+        if name == "spectral":
+            share_rgb, fields = _golden_gate(img[0].cpu().numpy(), golden[0])
+            share_bands, bands = _golden_gate(img[1].cpu().numpy(), golden[1])
+            share = min(share_rgb, share_bands)
+            fields = {"rgb": fields, "bands": bands}
+        else:
+            share, fields = _golden_gate(img.cpu().numpy(), golden)
+        out[name] = {**fields, "k1_launches": launches}
+        worst = min(worst, share)
+        if launches == 0:
+            raise AssertionError(f"{name}: no K1 launch")
+    emit("d24_golden_lighttransport_jax", resolution=16, lanes=8, **out)
+    if worst < 0.99:
+        raise AssertionError(f"light transport: only {worst:.4f} of values "
+                             "match the JAX goldens")
+
+
+def _lt_layers(kind: str, render_pass) -> dict:
+    """The device ms of one pass by layer (CUDA events around the
+    outermost calls): BDPT's two walks, its connection queries, BxDF
+    calls and splat rows; SPPM's camera pass, grid and photon pass (its
+    deposits inside it); MLT's contribution (the path trace) against the
+    rest of a step."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.accel import api as accel_api
+    from pbrt_tpu_torch.materials import bxdf
+    from pbrt_tpu_torch.models import bdpt, lightpath, mlt, sppm
+
+    timer, inner = ptp.LayerTimer(), ptp.LayerTimer()
+    spots = {
+        "bdpt": [(timer, bdpt.BDPTIntegrator, "_walk", "walks"),
+                 (timer, accel_api, "any_hit", "connection_queries"),
+                 (timer, bxdf, "evaluate", "bxdf"),
+                 (timer, bxdf, "pdf", "bxdf"),
+                 (timer, lightpath, "splat_rows", "splats")],
+        "sppm": [(timer, sppm.SPPMIntegrator, "_camera_pass", "camera_pass"),
+                 (timer, sppm.SPPMIntegrator, "_build_grid", "grid"),
+                 (timer, sppm.SPPMIntegrator, "_photon_pass", "photon_pass"),
+                 (inner, sppm.SPPMIntegrator, "_deposit", "deposits")],
+        "mlt": [(timer, mlt, "_contribution", "contribution")],
+    }[kind]
+    # The raw class or module entries (a staticmethod stays one).
+    saved = [(owner, attr, vars(owner)[attr]) for _, owner, attr, _ in spots]
+    for (t, owner, attr, name), (_, _, raw) in zip(spots, saved):
+        wrapped = t.wrap(name, getattr(owner, attr))
+        setattr(owner, attr, staticmethod(wrapped)
+                if isinstance(raw, staticmethod) else wrapped)
+    try:
+        render_pass(1)
+        torch.cuda.synchronize()
+        for t in (timer, inner):
+            t.events.clear()
+        t0 = time.perf_counter()
+        render_pass(2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    layers = {**timer.totals_ms(), **inner.totals_ms()}
+    layers["other"] = wall_ms - sum(timer.totals_ms().values())
+    return {"wall_ms": wall_ms, "layers_ms": layers}
+
+
+def _lt_timed(kind: str, render_pass, passes: int, per_pass: str,
+              smi: str, **fields) -> dict:
+    """Time `passes` passes after a warm-up: the pass's work per second,
+    K1 launches and ms per pass, peak memory, the layers of one pass,
+    kernel launches per pass and the busy share (torch.profiler)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.ops.smallscene import STATS
+
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    render_pass(0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    STATS.reset(timed=True)
+    t0 = time.perf_counter()
+    work = 0
+    for p in range(1, passes + 1):
+        img, n = render_pass(p)
+        work += n
+    finite = bool(torch.isfinite(img).all())
+    seconds = time.perf_counter() - t0
+    k1_ms = STATS.elapsed_ms()
+    launches = STATS.launches
+    STATS.reset()
+    peak = torch.cuda.max_memory_allocated()
+    layers = _lt_layers(kind, render_pass)
+    kern = ptp.kernel_view(f"{kind}_{fields.get('chains', '')}",
+                           lambda: render_pass(passes + 3), out_dir)
+    out = {"passes": passes, per_pass: work, "seconds": seconds,
+           f"{per_pass}_per_s": work / seconds,
+           "passes_per_s": passes / seconds, "first_pass_seconds": first_s,
+           "k1_launches_per_pass": launches / passes,
+           "k1_ms_per_pass": k1_ms / passes,
+           "k1_share": k1_ms / (seconds * 1e3), "peak_bytes": peak,
+           "image_mean": float(img.mean()), **layers,
+           "kernel_launches_per_pass": kern["kernel_launches"],
+           "device_busy_share": kern["device_busy_share"],
+           "device_kernel_ms": kern["device_kernel_ms"],
+           "profiled_pass_wall_ms": kern["wall_ms"], "top_kernels": kern["top"],
+           "nvidia_smi": smi, **fields}
+    if not finite:
+        raise AssertionError(f"{kind}: non-finite image, {out}")
+    return out
+
+
+def phase_timed_lighttransport(dev, smi: str):
+    """e11: BDPT on bdpt.pbrt's room at 256x256, 8 spp in passes of 4
+    (262,144 bidirectional samples a pass), depth 5, 8 lanes: paths/s;
+    SPPM on sppm.pbrt at 256x256 (65,536 camera paths and 65,536 photons
+    an iteration), 4 iterations: iterations/s and photons/s; MLT on
+    mlt.pbrt at 48x48 with 256 and 4,096 chains, 16 steps: mutations/s.
+    Each with K1 launches per pass, peak memory, its layers, kernel
+    launches per pass and the busy share."""
+    e = E11
+    res = e["res"]
+    out = _lt_timed("bdpt", lt_pass("bdpt", dev, res, k=e["bdpt_k"]),
+                    e["bdpt_spp"] // e["bdpt_k"], "paths", smi,
+                    resolution=res, samples_per_pass=e["bdpt_k"],
+                    spp=e["bdpt_spp"], max_depth=e["depth"], lanes=e["lanes"])
+    emit("e11_timed_bdpt", **out)
+    out = _lt_timed("sppm", lt_pass("sppm", dev, res), e["sppm_iterations"],
+                    "photons", smi, resolution=res,
+                    camera_paths_per_iteration=res * res,
+                    max_depth=e["depth"], lanes=e["lanes"])
+    out["iterations_per_s"] = out.pop("passes_per_s")
+    emit("e11_timed_sppm", **out)
+    for chains in e["mlt_chains"]:
+        out = _lt_timed("mlt", lt_pass("mlt", dev, 48, chains=chains),
+                        e["mlt_steps"], "mutations", smi, chains=chains,
+                        resolution=48, max_depth=e["depth"], lanes=e["lanes"])
+        out["steps_per_s"] = out.pop("passes_per_s")
+        emit("e11_timed_mlt", **out)
+
+
 def _kernel_entry(name, source, replaces, launches, k):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source,
@@ -3131,6 +3535,9 @@ def main() -> int:
     phase_grad_fog_box(dev)
     phase_k1_families_vs_twin(dev)
     phase_golden_families_jax(dev)
+    phase_k1_lighttransport_vs_twin(dev)
+    phase_golden_mc(dev)
+    phase_golden_lighttransport_jax(dev)
     k1_launches = phase_timed(dev, 8)
     phase_timed(dev, 32)
     phase_timed_fwdbwd(dev, smi)
@@ -3144,6 +3551,7 @@ def main() -> int:
     phase_timed_hall(dev, smi, hall)
     phase_timed_cloud(dev, smi)
     phase_timed_families(dev, smi)
+    phase_timed_lighttransport(dev, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     # No single PyTorch call computes a ray/triangle intersection, so no

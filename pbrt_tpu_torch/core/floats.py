@@ -17,12 +17,21 @@ tail, so a lane's value depends on its position and on the thread count;
 the sorted shading dispatch (materials/sorted.py) moves lanes, and must
 give the bits of the lockstep chain. They are built from atan, expm1 and
 division, which round the same everywhere.
+
+`erfinv` is XLA's float32 ErfInv as the reference's CPU build computes it
+(jax.scipy.special.erfinv, the MLT integrator's Gaussian step): Giles'
+two polynomials in w = -log1p(-x^2), with XLA's own log1p (a Cephes
+rational for |y| < sqrt(2) - 1, else its Cephes log of 1 + y) and the
+multiply-adds its compiler fuses done as single roundings (`_fma`).
+torch.special.erfinv is another approximation; one ulp in a mutated
+sample moves a chain's path, so the port takes the reference's bits.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -69,3 +78,104 @@ def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def sinh(x: torch.Tensor) -> torch.Tensor:
     """sinh by lane alone: (expm1(x) - expm1(-x)) / 2."""
     return (torch.expm1(x) - torch.expm1(-x)) * 0.5
+
+
+def _r32(x: torch.Tensor) -> torch.Tensor:
+    """A float64 tensor rounded to float32 values (kept in float64)."""
+    return x.float().double()
+
+
+def _c32(c: float) -> float:
+    """A constant as the float32 XLA holds it."""
+    return float(np.float32(c))
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """a * b + c of float32 values held in float64 tensors, with one
+    rounding to float32: the product is exact in float64, and the sum's
+    one float64 rounding is then rounded to float32."""
+    return _r32(a * b + c)
+
+
+def _horner(x, coeffs):
+    """XLA's EvaluatePolynomial: p = p * x + c from p = 0, fused."""
+    p = torch.full_like(x, _c32(coeffs[0]))
+    for c in coeffs[1:]:
+        p = _fma(p, x, _c32(c))
+    return p
+
+
+# XLA's log1p for |y| < sqrt(2) - 1 (elemental_ir_emitter.cc EmitLog1p).
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+# XLA's CPU log (polynomial_approximations.cc, the Cephes logf).
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+# Giles' erfinv polynomials for w < 5 and w >= 5 (math.cc ErfInv32).
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _xla_log(v: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 CPU log of positive finite v (float32): mantissa in
+    [0.5, 1) shifted to [sqrt(1/2) - 1, sqrt(2) - 1), a degree-8
+    polynomial, the exponent's log 2 in two parts. Returns float64
+    holding float32 values."""
+    v = torch.clamp(v, min=1.17549435e-38)
+    bits = v.view(torch.int32)
+    e = ((bits >> 23) - 0x7F).to(torch.float32) + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    low = m < 0.707106781186547524
+    x = ((m - 1.0) + torch.where(low, m, 0.0)).double()
+    e = (e - torch.where(low, 1.0, 0.0)).double()
+    x2 = _r32(x * x)
+    x3 = _r32(x2 * x)
+    p = [_c32(c) for c in _LOG_P]
+    y = _fma(x, p[0], p[1])
+    y1 = _fma(x, p[3], p[4])
+    y2 = _fma(x, p[6], p[7])
+    y = _fma(y, x, p[2])
+    y1 = _fma(y1, x, p[5])
+    y2 = _fma(y2, x, p[8])
+    y = _fma(y, x3, y1)
+    y = _fma(y, x3, y2)
+    y = _fma(y, x3, _r32(_c32(-2.12194440e-4) * e))
+    x = _r32(_r32(x - _r32(0.5 * x2)) + y)
+    return _r32(x + _r32(0.693359375 * e))
+
+
+def _xla_log1p(y: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 CPU log1p of float32 y; float64 holding float32
+    values."""
+    yd = y.double()
+    y2 = _r32(yd * yd)
+    small = _r32(_horner(yd, _LOG1P_NUM) / _horner(yd, _LOG1P_DEN))
+    small = _r32(_r32(yd * y2) * small)
+    small = _r32(yd + _fma(y2, -0.5, small))
+    return torch.where(torch.abs(y) < 0.41421356237309504880, small,
+                       _xla_log(1.0 + y))
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ErfInv of float32 x (see the module docstring); +-1
+    map to +-inf, as XLA's do."""
+    w = -_xla_log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, _r32(w - 2.5), _r32(torch.sqrt(w)) - 3.0)
+    lt5 = [_c32(c) for c in _ERFINV_LT5]
+    ge5 = [_c32(c) for c in _ERFINV_GE5]
+    p = torch.where(lt, lt5[0], ge5[0]).double()
+    for a, b in zip(lt5[1:], ge5[1:]):
+        p = _fma(p, w, torch.where(lt, a, b))
+    return torch.where(torch.abs(x) == 1.0, x * float("inf"),
+                       (p * x.double()).float())

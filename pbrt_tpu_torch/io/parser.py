@@ -12,8 +12,13 @@ reference. The directive subset:
   options:    Camera "perspective", Film "rgb", Sampler independent/random,
               Integrator path/simplepath/volpath/simplevolpath (a path
               integrator becomes volpath when the scene has media, with
-              the reference's warning); Filter, Accelerator, Option and
-              ColorSpace are consumed
+              the reference's warning), bdpt, mlt, sppm, lightpath and
+              function with the reference's parameters and defaults, and
+              ambientocclusion / randomwalk (pbrt-v4's, which the
+              reference renders as a path trace); any other name raises
+              ValueError, where the reference renders a path trace; a
+              light tracer on a scene with media raises ValueError;
+              Filter, Accelerator, Option and ColorSpace are consumed
   scene:      Material / MakeNamedMaterial / NamedMaterial (diffuse and the
               names the reference maps to it, conductor, dielectric / glass,
               thindielectric, diffusetransmission, coateddiffuse,
@@ -100,6 +105,13 @@ from ..shapes.geometry import GeometryBuffers
 from ..textures.buffers import TextureBuffers
 from .image import read_image_rgb
 from .ply import read_ply
+
+
+# Integrator names the parser builds: the reference's, and pbrt-v4's
+# ambientocclusion and randomwalk.
+INTEGRATORS = ("path", "simplepath", "volpath", "simplevolpath", "bdpt",
+               "mlt", "sppm", "lightpath", "function", "ambientocclusion",
+               "randomwalk")
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -339,9 +351,63 @@ class PbrtParser:
     def _d_Integrator(self, ts):
         self.integrator = ts.next()[1:-1]
         self.integrator_params = _parse_params(ts)
-        if self.integrator not in ("path", "simplepath", "volpath",
-                                   "simplevolpath"):
-            raise _unported(f"Integrator {self.integrator!r}", 13)
+        if self.integrator not in INTEGRATORS:
+            # The reference renders an unknown name as a path trace.
+            raise ValueError(
+                f"unknown Integrator {self.integrator!r}; the port builds "
+                f"{', '.join(INTEGRATORS)}")
+
+    def _integrator(self, has_media: bool):
+        """The file's integrator, with the reference's parameters and
+        defaults (pbrt_tpu/io/parser.py's integrator block)."""
+        p = self.integrator_params
+        name = self.integrator
+        max_depth = int(_get(p, "maxdepth", 5))
+        if name in ("path", "simplepath", "volpath", "simplevolpath"):
+            if name in ("volpath", "simplevolpath"):
+                return VolPathIntegrator(max_depth=max_depth)
+            if has_media:
+                # Media need the null-scattering walk; pbrt errors, the
+                # reference upgrades (render.cpp's integrator/media check).
+                self.warnings.append("scene has media; integrator upgraded "
+                                     "to volpath")
+                return VolPathIntegrator(max_depth=max_depth)
+            return PathIntegrator(max_depth=max_depth)
+        if has_media:
+            raise ValueError(f"Integrator {name!r} does not trace "
+                             "participating media; use volpath")
+        if name == "mlt":
+            from ..models.mlt import MLTIntegrator
+
+            return MLTIntegrator(
+                base=PathIntegrator(max_depth=max_depth),
+                n_chains=int(_get(p, "chains", 4096)),
+                sigma=float(_get(p, "sigma", 0.01)),
+                p_large=float(_get(p, "largestepprobability", 0.3)))
+        if name == "bdpt":
+            from ..models.bdpt import BDPTIntegrator
+
+            return BDPTIntegrator(max_depth=max_depth)
+        if name == "lightpath":
+            from ..models.lightpath import LightPathIntegrator
+
+            return LightPathIntegrator(max_depth=max_depth)
+        if name == "function":
+            from ..models.function import FunctionIntegrator
+
+            return FunctionIntegrator(
+                func=str(_get(p, "function", "quadratic")))
+        if name == "sppm":
+            from ..models.sppm import SPPMIntegrator
+
+            return SPPMIntegrator(max_depth=max_depth,
+                                  initial_radius=float(_get(p, "radius", 0.0)))
+        from ..models.ao import AOIntegrator, RandomWalkIntegrator
+
+        if name == "ambientocclusion":
+            return AOIntegrator(
+                max_distance=float(_get(p, "maxdistance", 1e30)))
+        return RandomWalkIntegrator(max_depth=max_depth)
 
     def _d_Sampler(self, ts):
         kind = ts.next()[1:-1]
@@ -1252,21 +1318,12 @@ class PbrtParser:
             resolution=self.resolution,
             fov_deg=float(_get(self.camera_params, "fov", 90.0)),
         )
-        max_depth = int(_get(self.integrator_params, "maxdepth", 5))
-        integ_cls = (VolPathIntegrator
-                     if self.integrator in ("volpath", "simplevolpath")
-                     else PathIntegrator)
-        if integ_cls is PathIntegrator and (self.scene_medium is not None
-                                            or media_stack is not None):
-            # Media need the null-scattering walk; pbrt errors, the
-            # reference upgrades (render.cpp's integrator/media check).
-            integ_cls = VolPathIntegrator
-            self.warnings.append("scene has media; integrator upgraded to "
-                                 "volpath")
+        integrator = self._integrator(self.scene_medium is not None
+                                      or media_stack is not None)
         settings = {
             "spp": self.spp,
             "sampler": self.sampler_kind,
-            "integrator": integ_cls(max_depth=max_depth),
+            "integrator": integrator,
             "warnings": self.warnings,
         }
         return scene, camera, settings

@@ -839,9 +839,68 @@ class LightBuffers:
         return torch.where(light_idx >= 0, pdf * pmf, 0.0)
 
     def sample_le_origin(self, u_sel, u_pos):
-        """SampleLe's origin over the emissive geometry, for the
-        light-tracing integrators (LightPath, BDPT, SPPM)."""
-        raise NotImplementedError(
-            "sample_le_origin serves the light-tracing integrators, which are "
-            "not ported yet (ROADMAP Queue 1 item 13)"
-        )
+        """SampleLe's origin over ALL emissive geometry (area triangles and
+        analytic spheres) with the selection pmf renormalised over those
+        lights: the front half shared by the light tracers (LightPath,
+        BDPT, SPPM; DiffuseAreaLight::SampleLe's position sample). The
+        callers sample the direction (cosine about n). Returns a dict: p
+        (N, 3), n (N, 3), area (N,), pmf (N,), coeffs (N, 3), scale (N,),
+        illum (N,) for eval_emission, and idx (N,) the light id.
+
+        A scene with lights of another kind raises: its light paths would
+        leave those lights out (pbrt-v4 starts them on every light; the
+        reference, on emissive geometry only)."""
+        na, nq = self.n_area, self.n_sphl
+        ne = na + nq
+        if self.n_lights > ne:
+            raise NotImplementedError(
+                "light paths from point, spot, projection, goniometric, "
+                "distant and infinite lights (their SampleLe) are not ported "
+                "(ROADMAP Queue 1 item 16); light tracing starts on emissive "
+                "geometry only")
+        if ne == 0:
+            raise ValueError("sample_le_origin: the scene has no emissive "
+                             "geometry")
+        pmf_e = self.select_pmf[:ne]
+        pmf_e = pmf_e / torch.clamp(torch.sum(pmf_e), min=1e-12)
+        cdf_e = torch.cumsum(pmf_e, dim=0)
+        idx = torch.clamp(
+            torch.sum((cdf_e[None, :] <= u_sel[..., None]).to(torch.int64),
+                      dim=-1), max=ne - 1)
+        pmf = pmf_e[idx]
+        n = u_sel.shape[0]
+        dev = u_sel.device
+        p0 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        n0 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        area = torch.ones((n,), dtype=torch.float32, device=dev)
+        coeffs = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        scale = torch.zeros((n,), dtype=torch.float32, device=dev)
+        illum = torch.zeros((n,), dtype=torch.bool, device=dev)
+        if na > 0:
+            ai = torch.clamp(idx, 0, na - 1)
+            verts = self.area_verts[ai]  # (N, 3, 3)
+            b = sample_uniform_triangle(u_pos)
+            p_a = torch.einsum("nk,nkj->nj", b, verts)
+            n_a = normalize(cross(verts[:, 1] - verts[:, 0],
+                                  verts[:, 2] - verts[:, 0]))
+            use = idx < na
+            p0 = torch.where(use[:, None], p_a, p0)
+            n0 = torch.where(use[:, None], n_a, n0)
+            area = torch.where(use, self.area_area[ai], area)
+            coeffs = torch.where(use[:, None], self.area_coeffs[ai], coeffs)
+            scale = torch.where(use, self.area_scale[ai], scale)
+            illum = torch.where(use, self.area_illum[ai], illum)
+        if nq > 0:
+            qi = torch.clamp(idx - na, 0, nq - 1)
+            r_q = self.sphl_r[qi]
+            n_q = sample_uniform_sphere(u_pos)
+            use = idx >= na
+            p0 = torch.where(use[:, None], self.sphl_c[qi] + r_q[:, None] * n_q,
+                             p0)
+            n0 = torch.where(use[:, None], n_q, n0)
+            area = torch.where(use, 4.0 * math.pi * r_q * r_q, area)
+            coeffs = torch.where(use[:, None], self.sphl_coeffs[qi], coeffs)
+            scale = torch.where(use, self.sphl_scale[qi], scale)
+            illum = torch.where(use, self.sphl_illum[qi], illum)
+        return {"p": p0, "n": n0, "area": area, "pmf": pmf, "coeffs": coeffs,
+                "scale": scale, "illum": illum, "idx": idx}

@@ -84,6 +84,20 @@ def refuse_forward_only(scene) -> None:
             "torch.no_grad()")
 
 
+def refuse_gradient(scene, integrator: str) -> None:
+    """Raise when autograd is on and a floating tensor of the scene
+    requires grad: the light-tracing and specialty integrators (light
+    path, BDPT, SPPM, MLT, AO, random walk, spectral bands) are forward
+    only."""
+    if not torch.is_grad_enabled():
+        return
+    for name, x in _tensors(scene, "scene"):
+        if x.is_floating_point() and x.requires_grad:
+            raise NotImplementedError(
+                f"{name} requires grad: gradients through {integrator} are "
+                f"not ported ({_ITEM5}); render under torch.no_grad()")
+
+
 def _tensors(value, name: str):
     """(path, tensor) of every tensor in a nest of tensorclasses."""
     if isinstance(value, torch.Tensor):

@@ -51,6 +51,29 @@ def camera_rays(camera, pixel, sample_idx, sampler, jitter: bool = True,
     return o, d, wl
 
 
+def check_device(device) -> torch.device:
+    """`device` as a torch.device. A CUDA device without a card raises, and
+    so does TF32 matmul on (the renders keep float32); nothing falls back
+    to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={str(device)!r}: no CUDA device is available")
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError(
+                "the renders keep float32 throughout: set "
+                "torch.backends.cuda.matmul.allow_tf32 = False"
+            )
+    return device
+
+
+def on_device(scene, camera, device):
+    """The scene and camera moved to `device` (check_device)."""
+    device = check_device(device)
+    return scene.to(device), camera.to(device)
+
+
 def render(scene, camera, integrator, spp: int = 16, seed: int = 0,
            samples_per_pass: int = 1, jitter: bool = True,
            sampler_kind: str = "independent", sample_offset: int = 0,
@@ -65,16 +88,6 @@ def render(scene, camera, integrator, spp: int = 16, seed: int = 0,
     [sample_offset, sample_offset + spp) of a total_spp-sample render.
     """
     device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "render(device='cuda'): no CUDA device is available"
-            )
-        if torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError(
-                "render keeps float32 throughout: set "
-                "torch.backends.cuda.matmul.allow_tf32 = False"
-            )
     if filter_kind != "box":
         raise NotImplementedError(
             f"filter {filter_kind!r} is not ported yet (ROADMAP Queue 1 "
@@ -82,8 +95,7 @@ def render(scene, camera, integrator, spp: int = 16, seed: int = 0,
         )
     if spp % samples_per_pass != 0:
         raise ValueError("spp must divide by samples_per_pass")
-    scene = scene.to(device)
-    camera = camera.to(device)
+    scene, camera = on_device(scene, camera, device)
     nx, ny = camera.resolution
     sampler = Sampler(
         seed=int(seed), kind=sampler_kind, spp=total_spp or spp, nx=nx,
@@ -116,3 +128,46 @@ def render(scene, camera, integrator, spp: int = 16, seed: int = 0,
         )
         film = film.add_sample_image(rgb_img, w_img)
     return film.image()
+
+
+def render_file(scene, camera, settings, spp: int | None = None, seed: int = 0,
+                samples_per_pass: int = 1,
+                n_spectrum: int = spectrum.N_SPECTRUM_DEFAULT, *, device):
+    """Render a parsed scene file (io/parser.py's (scene, camera,
+    settings)) with the integrator it names, as pbrt_tpu's
+    tools/pbrt_render.py does: the light tracers and MLT own their render
+    loops, the rest go through render(). `spp` (default the file's) is the
+    samples per pixel of render() and BDPT, SPPM's iterations, MLT's
+    mutations per pixel, the light path's paths per pixel and the function
+    integrator's samples. Returns the (ny, nx, 3) linear-RGB image."""
+    from .models.bdpt import BDPTIntegrator, render_bdpt
+    from .models.function import FunctionIntegrator
+    from .models.lightpath import LightPathIntegrator, render_lightpath
+    from .models.mlt import MLTIntegrator, render_mlt
+    from .models.sppm import SPPMIntegrator
+
+    integ = settings["integrator"]
+    spp = int(settings["spp"] if spp is None else spp)
+    kw = {"n_spectrum": n_spectrum, "device": device}
+    if isinstance(integ, FunctionIntegrator):
+        est, _ = integ.render(camera.resolution, spp,
+                              sampler_kind=settings["sampler"], seed=seed,
+                              device=device)
+        return est[..., None].expand(*est.shape, 3)
+    if isinstance(integ, MLTIntegrator):
+        return render_mlt(scene, camera, max_depth=integ.base.max_depth,
+                          seed=seed, mutations_per_pixel=spp,
+                          n_chains=integ.n_chains, sigma=integ.sigma,
+                          p_large=integ.p_large, **kw)
+    if isinstance(integ, SPPMIntegrator):
+        return integ.render(scene, camera, n_iterations=spp, seed=seed, **kw)
+    if isinstance(integ, BDPTIntegrator):
+        return render_bdpt(scene, camera, spp=spp, max_depth=integ.max_depth,
+                           seed=seed, samples_per_pass=samples_per_pass, **kw)
+    if isinstance(integ, LightPathIntegrator):
+        nx, ny = camera.resolution
+        return render_lightpath(scene, camera, n_paths_total=spp * nx * ny,
+                                max_depth=integ.max_depth, seed=seed, **kw)
+    return render(scene, camera, integ, spp=spp, seed=seed,
+                  samples_per_pass=samples_per_pass,
+                  sampler_kind=settings["sampler"], **kw)

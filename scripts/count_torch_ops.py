@@ -9,6 +9,12 @@ one kernel launch each on the card).
             by the family segment the BxDF calls run on
   texture   tests/goldens/texture.pbrt at 32x32, 2 spp, depth 4, 8 lanes
   hall      the many-light hall cut to 16 lights, 24x24, 2 spp, depth 4
+  lightpath one light-path pass (32x32 paths) on bdpt.pbrt's room, depth 5
+  bdpt      one BDPT pass (32x32, 1 spp) on bdpt.pbrt's room, depth 5
+  sppm      one SPPM iteration on sppm.pbrt at 32x32
+  mlt       one MLT step of 256 chains on mlt.pbrt (48x48)
+            (these four: chip_smoke.lt_pass, 8 lanes; K1's twin ops split
+            out as "k1", one launch a call on the card)
 
 Usage (from the repository root; --root runs another checkout's port,
 e.g. the parent commit unpacked into an ignored directory):
@@ -44,6 +50,11 @@ def _pass(name: str, root: str):
             os.path.join(root, "tests/goldens/texture.pbrt"), device="cpu")
         return cs.make_pass(scene, camera.replace(resolution=(32, 32)), 32,
                             2, 8, depth=4)
+    if name in ("lightpath", "bdpt", "sppm", "mlt"):
+        import torch
+
+        return cs.lt_pass(name, torch.device("cpu"), 48 if name == "mlt"
+                          else 32)
     from pbrt_tpu_torch.scenes.manylight import manylight_scene
 
     scene, camera = manylight_scene(resolution=(24, 24), n_lights=16,
@@ -53,9 +64,12 @@ def _pass(name: str, root: str):
 
 def _layers(name: str):
     """(owner, attribute, layer) of the calls whose ops are split out."""
+    from pbrt_tpu_torch.accel import api
+
+    if name in ("lightpath", "bdpt", "sppm", "mlt"):
+        return [(api, "smallscene_intersect", "k1")]
     if name != "families":
         return []
-    from pbrt_tpu_torch.accel import api
     from pbrt_tpu_torch.lights.buffers import LightBuffers
     from pbrt_tpu_torch.materials import bxdf
     from pbrt_tpu_torch.models import path
@@ -80,6 +94,7 @@ def count(name: str, root: str) -> dict:
     render_pass = _pass(name, root)
     stack = []
     counts = collections.Counter()
+    calls = collections.Counter()
 
     class Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -97,6 +112,8 @@ def count(name: str, root: str) -> dict:
             else:
                 layer_ = layer
             stack.append(layer_)
+            if len(stack) == 1:
+                calls[layer_] += 1
             try:
                 return fn(*args, **kw)
             finally:
@@ -118,6 +135,11 @@ def count(name: str, root: str) -> dict:
            "rays": float(rays), "image_mean": float(img.mean())}
     if len(counts) > 1:
         out["by_layer"] = dict(counts.most_common())
+    if calls["k1"]:
+        # On the card each K1 call is one launch, not its twin's ops.
+        out["k1_calls"] = calls["k1"]
+        out["card_launches_estimate"] = (out["non_view_ops"] - counts["k1"]
+                                         + calls["k1"])
     return out
 
 

@@ -1,7 +1,8 @@
 """K1, K2, K3 and K4 on the card: each CUDA kernel against its plain twin
 (the subsurface probe's query among K1's), and renders on the card (the
 lights, the dielectric BxDFs, the textures, the coated materials, the
-many-light hall and the families box among them) against the same
+many-light hall, the families box and the light tracers (BDPT, the
+light path, SPPM, MLT's first steps) among them) against the same
 renders on the CPU, and the sorted shading dispatch against the lockstep
 chain on the card.
 
@@ -900,3 +901,84 @@ def test_k1_subsurface_probe_matches_twin(card):
     assert set(got) == set(want)
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+def _golden_file(name, res):
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tests", "goldens", name + ".pbrt")
+    scene, camera, settings = load_pbrt(path, device="cpu")
+    return scene, camera.replace(resolution=(res, res)), settings["integrator"]
+
+
+def test_bdpt_and_lightpath_on_card_match_cpu(card):
+    """BDPT's radiance and splats and the light path's splats on
+    bdpt.pbrt's room on the card against the CPU, 16x16: the splats add
+    with atomics on the card (last bits only), so >= 99% of the values
+    within rtol 1e-3 / atol 1e-5; 32 K1 launches a BDPT pass, 11 a
+    light-path pass."""
+    from pbrt_tpu_torch.models.bdpt import render_bdpt
+    from pbrt_tpu_torch.models.lightpath import render_lightpath
+
+    scene, camera, integ = _golden_file("bdpt", 16)
+    STATS.reset()
+    got = render_bdpt(scene, camera, spp=2, samples_per_pass=2, n_spectrum=8,
+                      device=card)
+    torch.cuda.synchronize()
+    assert STATS.launches == 32
+    want = render_bdpt(scene, camera, spp=2, samples_per_pass=2,
+                       n_spectrum=8, device="cpu")
+    share, n_bad = _share_close(got.cpu().numpy(), want.numpy())
+    assert share >= 0.99 and want.mean() > 0.01, n_bad
+    STATS.reset()
+    got = render_lightpath(scene, camera, n_paths_total=512,
+                           paths_per_pass=256, n_spectrum=8, device=card)
+    torch.cuda.synchronize()
+    assert STATS.launches == 22
+    want = render_lightpath(scene, camera, n_paths_total=512,
+                            paths_per_pass=256, n_spectrum=8, device="cpu")
+    share, n_bad = _share_close(got.cpu().numpy(), want.numpy())
+    assert share >= 0.99, n_bad
+
+
+def test_sppm_on_card_matches_cpu(card):
+    """Two SPPM iterations of sppm.pbrt at 16x16 (4,096 photons an
+    iteration) on the card against the CPU: the radii (from the integer
+    photon counts M) and the image (Phi added with atomics on the card)
+    each on >= 99% of their values within rtol 1e-3 / atol 1e-5 (a photon
+    that rounds into another cell moves a pixel's count)."""
+    scene, camera, integ = _golden_file("sppm", 16)
+    integ = integ.replace(photons_per_iteration=4096)
+    kw = dict(n_iterations=2, return_stats=True, n_spectrum=8)
+    got, got_stats = integ.render(scene, camera, device=card, **kw)
+    want, want_stats = integ.render(scene, camera, device="cpu", **kw)
+    share, n_bad = _share_close(got_stats["radius"].cpu().numpy(),
+                                want_stats["radius"].numpy())
+    assert share >= 0.99, n_bad
+    share, n_bad = _share_close(got.cpu().numpy(), want.numpy())
+    assert share >= 0.99 and want.mean() > 0.01, n_bad
+
+
+def test_mlt_on_card_matches_cpu(card):
+    """mlt.pbrt's bootstrap and first steps, 64 chains at 16x16, on the
+    card against the CPU: b within rtol 1e-5, the chain starts equal, each
+    of 4 steps' acceptance equal on >= 99% of the chains."""
+    from pbrt_tpu_torch.models.mlt import MLTIntegrator
+
+    scene, camera, integ = _golden_file("mlt", 16)
+    integ = MLTIntegrator(base=integ.base, n_chains=64, mutations_per_chain=4)
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        s, c = scene.to(dev), camera.to(dev)
+        b, u0 = integ._bootstrap(s, c, 0, 8)
+        state = integ.start(s, c, u0, 8)
+        acc = []
+        for t in range(4):
+            state, a = integ.step(s, c, state, t, b, 0, 8)
+            acc.append(a.cpu())
+        runs[dev.type] = (b, u0.cpu(), torch.stack(acc))
+    (b1, u1, a1), (b2, u2, a2) = runs["cuda"], runs["cpu"]
+    assert b1 == pytest.approx(b2, rel=1e-5)
+    assert torch.equal(u1, u2)
+    assert float((a1 == a2).float().mean(dim=1).min()) >= 0.99

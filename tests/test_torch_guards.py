@@ -47,7 +47,11 @@ def test_import_loads_no_jax():
         "pbrt_tpu_torch.ops.compact, pbrt_tpu_torch.models.volpath, "
         "pbrt_tpu_torch.scenes.cloud, pbrt_tpu_torch.materials.hair, "
         "pbrt_tpu_torch.materials.measured, pbrt_tpu_torch.materials.rgl, "
-        "pbrt_tpu_torch.materials.bssrdf; "
+        "pbrt_tpu_torch.materials.bssrdf, pbrt_tpu_torch.models.lightpath, "
+        "pbrt_tpu_torch.models.bdpt, pbrt_tpu_torch.models.sppm, "
+        "pbrt_tpu_torch.models.mlt, pbrt_tpu_torch.models.ao, "
+        "pbrt_tpu_torch.models.function, "
+        "pbrt_tpu_torch.models.spectralpath; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pbrt_tpu' or m.startswith('pbrt_tpu.')]; "
         "sys.exit(1 if bad else 0)"
@@ -116,8 +120,8 @@ def _albedo_gradient(scene):
                                   disk=np.array([[0, 0, 0, 0, 1, 0, 1, 0]])),
     lambda: GeometryBuffers.build(**_quad_geom(), tri_alpha=np.array([0.5, 1.0])),
     # Every light type and light sampler is ported (the exhaustive one
-    # here); SampleLe's origin sampling, for the light-tracing
-    # integrators, is not.
+    # here); SampleLe's origin, for the light-tracing integrators, only on
+    # emissive geometry, as in the reference (item 16).
     lambda: LightBuffers.build(points=[{"p": (0, 1, 0), "rgb": (1, 1, 1)}],
                                sampler="exhaustive").sample_le_origin(
                                    torch.zeros(4), torch.zeros(4, 2)),

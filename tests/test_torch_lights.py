@@ -3,7 +3,8 @@ inputs: the tabulated distributions, the equal-area maps, the light
 tables of a scene holding every light type, NEE sampling of each type,
 the sphere lights' emission and MIS pdf, the power pmf, the furnace's
 closed form, and the refusals (the light BVH and exhaustive samplers,
-SampleLe's origin, gradients of the new light tensors).
+SampleLe's origin without emitters, gradients of the new light
+tensors).
 
 Tolerances, each for its reason:
 - the distributions' tables, and every light table: bit for bit (the
@@ -374,10 +375,21 @@ def test_unported_samplers_raise(sampler):
 
 
 def test_sample_le_origin_raises():
+    """SampleLe's origin is ported (tests/test_torch_lightpath.py holds it
+    against the reference); it raises without emissive geometry, and for
+    lights of other kinds (item 16)."""
     lights = LightBuffers.build(sphere_lights=[
         {"c": (0, 0, 0), "r": 1.0, "rgb": (1, 1, 1)}])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        lights.sample_le_origin(torch.zeros(4), torch.zeros(4, 2))
+    org = lights.sample_le_origin(torch.zeros(4), torch.full((4, 2), 0.25))
+    np.testing.assert_allclose(torch.linalg.norm(org["p"], dim=-1).numpy(),
+                               1.0, rtol=1e-6)
+    assert org["idx"].tolist() == [0] * 4
+    with pytest.raises(ValueError, match="no emissive geometry"):
+        LightBuffers.build().sample_le_origin(torch.zeros(4),
+                                              torch.zeros(4, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16"):
+        LightBuffers.build(points=[{"p": (0, 0, 0), "rgb": (1, 1, 1)}]
+                           ).sample_le_origin(torch.zeros(4), torch.zeros(4, 2))
 
 
 def test_new_light_gradients_refused(every_light):

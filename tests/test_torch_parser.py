@@ -28,10 +28,10 @@ GOLDENS = sorted(os.path.basename(p) for p in
 # What each golden scene needs that the port lacks: its ROADMAP Queue 1
 # item (the first such feature in the file), or None when it builds.
 GOLDEN_ITEMS = {
-    "bdpt.pbrt": 13, "box.pbrt": None, "conductor.pbrt": None,
+    "bdpt.pbrt": None, "box.pbrt": None, "conductor.pbrt": None,
     "dielectric.pbrt": None, "envmap.pbrt": None, "fog.pbrt": None,
-    "imagetex.pbrt": None, "mlt.pbrt": 13, "plymesh.pbrt": None,
-    "spheres.pbrt": None, "spot.pbrt": None, "sppm.pbrt": 13,
+    "imagetex.pbrt": None, "mlt.pbrt": None, "plymesh.pbrt": None,
+    "spheres.pbrt": None, "spot.pbrt": None, "sppm.pbrt": None,
     "texture.pbrt": None,
 }
 
@@ -108,7 +108,17 @@ def _assert_same_build(jax_built, port_built):
                                np.asarray(jc.camera_to_world.m_inv),
                                rtol=1e-6, atol=1e-6)
     assert (pc.resolution, pc.fov_deg) == (jc.resolution, jc.fov_deg)
-    assert pset["integrator"].max_depth == jset["integrator"].max_depth
+    # The integrator: the same class, and every setting both carry equal
+    # (MLT's base path integrator's included; the port's own switches,
+    # such as the volumetric path's compact_walks, aside).
+    assert (type(pset["integrator"]).__name__
+            == type(jset["integrator"]).__name__)
+    _, got_integ = flatten_jax(pset["integrator"])
+    _, want_integ = flatten_jax(jset["integrator"])
+    shared = got_integ.keys() & want_integ.keys()
+    assert shared
+    for path in shared:
+        assert got_integ[path] == want_integ[path], path
     for key in ("spp", "sampler", "warnings"):
         assert pset[key] == jset[key], key
 
@@ -168,8 +178,10 @@ _TRI = ('Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
     ('Camera "realistic"', 14),
     ('Film "gbuffer"', 14),
     ('Sampler "sobol"', 14),
-    # volpath builds (tests/test_torch_volpath.py); bdpt does not.
-    ('Integrator "bdpt"', 13),
+    # Every integrator of the reference builds
+    # (tests/test_torch_integrators_misc.py); a name the reference renders
+    # as a path trace raises ValueError.
+    ('Integrator "aov"', "unknown Integrator 'aov'"),
     ('Texture "t" "spectrum" "ptex" "string filename" "t.ptx"', 15),
     # The reference has no texture-typed material parameter but the
     # albedo: its parser takes float() of the texture's name, and the
@@ -205,6 +217,10 @@ _TRI = ('Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
         "medium", "medium_interface", "sphere", "bilinear", "subdivision",
         "alpha", "animated_instance"])
 def test_unported_features_raise(text, item):
+    if isinstance(item, str):
+        with pytest.raises(ValueError, match=item):
+            load_pbrt_string(text, device="cpu")
+        return
     if item is ValueError:
         with pytest.raises(ValueError, match="the reference has no "
                            "texture-typed roughness, eta"):
