@@ -13,9 +13,10 @@ through the port's parser) and the golden scene files spot.pbrt,
 envmap.pbrt, plymesh.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt
 and imagetex.pbrt, the many-light hall (power and light-BVH samplers),
 the volumetric cloud, fog.pbrt, the families box (hair, subsurface,
-measured, mix and retroreflective materials) and the light tracers (the
-light path, BDPT, AO, the spectral bands) on the card against the
-committed JAX goldens, renders
+measured, mix and retroreflective materials), the light tracers (the
+light path, BDPT, AO, the spectral bands), the shapes box (every shape
+family and shape alpha) and the moving instanced field on the card
+against the committed JAX goldens, renders
 the golden scene files conductor.pbrt, plymesh.pbrt, spot.pbrt,
 envmap.pbrt, box.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt,
 imagetex.pbrt, fog.pbrt, bdpt.pbrt, sppm.pbrt and mlt.pbrt (the last
@@ -24,11 +25,13 @@ C++ goldens and the
 furnace scene and the fog box against their closed forms, holds the backward pass's image-loss gradients
 against the JAX gradient golden, across tiers and, through delta lights
 (and a glass sphere), against the CPU, and through the coated materials'
-layered walk against their JAX golden and a medium's absorption
-gradient against its JAX golden, times the forward render of each timed
+layered walk against their JAX golden, a medium's absorption
+gradient and the moving field's gradients against their JAX goldens,
+times the forward render of each timed
 configuration (the mesh gallery's glass torus, texture.pbrt, bench's
 many-light hall, bench's volumetric cloud, the families box, BDPT,
-SPPM and MLT among them) and the Cornell
+SPPM, MLT, the shapes box and the moving field among them) and the
+Cornell
 forward+backward pass, and takes three training steps. Each phase prints one JSON line;
 any failure raises, so the script exits non-zero and never prints the
 final line. Without a CUDA device it exits non-zero at
@@ -285,9 +288,38 @@ Phases:
       passes of 4 (paths/s); SPPM on sppm.pbrt at 256x256, 4 iterations
       (iterations/s, photons/s); MLT on mlt.pbrt, 16 steps of 256 and of
       4,096 chains (mutations/s)
+  c9  K1 vs its twin on every query of one pass of the shapes box
+      (tests/data/torch_port/shapes.pbrt: 336 triangles, 126 curve
+      segments, a disk, a cylinder, a bilinear patch, a texture-alpha
+      screen and an alpha 0.5 panel; 128x128, 8 spp, depth 5: every
+      closest and shadow query is a first query and 3 alpha restarts, 44
+      queries) and K3 vs its twin on every query of one pass of the
+      moving field (tests/data/torch_port/motion.pbrt: 7 static
+      instances on K3, 2 moving ones; 32x32, 4 spp; 44 queries),
+      launches counted from zero, each query bit-equal key by key,
+      kernel and twin timed, with the bound
+  d25 the shapes box (the alpha test on coarse keys,
+      tests/torch_port_shapes.py) and the moving field at 32x32, 4 spp, 8
+      lanes, depth 5 against the JAX goldens of
+      scripts/make_torch_port_golden_shapes.py: d's gate, 44 K1 (shapes)
+      or K3 (motion) launches per pass
+  g7  the bench's loss and gradients on the moving field, 32x32, 4 spp in
+      passes of 2, depth 5, 8 lanes, against
+      tests/data/torch_port/motion32_grad.npz with g's tolerance; 44 K3
+      launches per forward+backward pass
+  e12 the shapes box and the moving field timed at 512x512, 8 spp in
+      passes of 4, depth 5 without Russian roulette, 8 lanes, seed 0:
+      Mrays/s, the wall a pass, K1 / K3 launches a pass, peak memory,
+      the layers' device ms with the queries split (the triangle tier
+      with its alpha loop, the animated pass, the curve and disk /
+      cylinder / patch merges, the analytic shadow occlusion; K1 / K3,
+      K3's sorts and resolution, the alpha evaluations), kernel launches
+      per pass and the busy share, the card's name and power limit
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
-  f   the kernels line, the nvidia-smi line and the final result line
+  f   the kernels line (K1's launches those of e and e12's shapes box,
+      K3's those of e3 and e12's moving field, by path), the nvidia-smi
+      line and the final result line
 """
 
 from __future__ import annotations
@@ -3479,6 +3511,347 @@ def phase_timed_lighttransport(dev, smi: str):
         emit("e11_timed_mlt", **out)
 
 
+# ---- PR: the rest of the geometry (c9, d25, e12, g7)
+
+SHAPES_FILE = os.path.join(GOLDEN_DATA, "shapes.pbrt")
+MOTION_FILE = os.path.join(GOLDEN_DATA, "motion.pbrt")
+GOLDEN_MOTION_GRAD = os.path.join(GOLDEN_DATA, "motion32_grad.npz")
+# e12's configuration (the families box's).
+GEOM = dict(res=512, spp=8, k=4, depth=5, lanes=8)
+# Triangle-kernel queries of one pass of either file: with alpha in the
+# scene a closest query is the first query and 3 restarts
+# (accel/api.py _ALPHA_ROUNDS), and a shadow query runs the same loop; a
+# closest and a shadow query a bounce, then the terminal closest.
+GEOM_QUERIES_PER_PASS = 2 * 4 * GEOM["depth"] + 4
+_GEOM_SCENES = {}
+
+
+def geom_on(dev, name: str):
+    """shapes.pbrt or motion.pbrt through the port's parser on the card
+    (built once): (scene, camera, integrator)."""
+    from pbrt_tpu_torch.io.parser import load_pbrt
+
+    if name not in _GEOM_SCENES:
+        t0 = time.perf_counter()
+        built = load_pbrt(SHAPES_FILE if name == "shapes" else MOTION_FILE,
+                          device=dev)
+        _GEOM_SCENES[name] = (built, time.perf_counter() - t0)
+    (scene, camera, settings), _ = _GEOM_SCENES[name]
+    return scene, camera, settings["integrator"]
+
+
+def coarse_alpha_keys():
+    """The port's stochastic alpha test on coarse keys within the block, as
+    the shapes goldens were made (tests/torch_port_shapes.py)."""
+    from pbrt_tpu_torch.accel import api
+    from tests.torch_port_shapes import coarse_alpha_keys as coarse
+
+    return coarse(api)
+
+
+def _k3_queries(render_pass):
+    """Every K3 query of one render_pass(0) call, as the path sends it
+    (sorted rays): [(o, d, tmax, any_hit)]; they still launch the kernel."""
+    from pbrt_tpu_torch.accel import api
+
+    queries = []
+    launch = api.sweep_intersect
+
+    def capture(acc, o, d, tmax, any_hit=False, **kw):
+        queries.append((o.clone(), d.clone(), tmax.clone(), any_hit))
+        return launch(acc, o, d, tmax, any_hit=any_hit, **kw)
+
+    api.sweep_intersect = capture
+    try:
+        render_pass(0)
+    finally:
+        api.sweep_intersect = launch
+    return queries
+
+
+def _hold_k3(acc, queries, label: str) -> dict:
+    """Each captured K3 query against the twin, bit for bit key by key,
+    with the kernel's and the twin's times and the bound of c3's cost
+    model (_k3_timed) from the twin's work counts."""
+    import torch
+
+    from pbrt_tpu_torch.ops.sweep import sweep_intersect, sweep_intersect_ref
+
+    per_query, ms, plain_ms, bound_ms, err = [], 0.0, 0.0, 0.0, 0.0
+    for i, (o, d, tmax, any_hit) in enumerate(queries):
+        got = sweep_intersect(acc, o, d, tmax, any_hit=any_hit)
+        torch.cuda.synchronize()
+        counts = {}
+        t0 = time.perf_counter()
+        ref = sweep_intersect_ref(acc, o, d, tmax, any_hit=any_hit,
+                                  counts=counts)
+        torch.cuda.synchronize()
+        q_plain = (time.perf_counter() - t0) * 1e3
+        bad = [key for key in ref if not torch.equal(got[key], ref[key])]
+        if set(got) != set(ref) or bad:
+            raise AssertionError(f"{label} query {i}: K3 differs from its "
+                                 f"twin in {bad} (any_hit {any_hit})")
+        q_ms = cuda_ms(lambda: sweep_intersect(acc, o, d, tmax,
+                                               any_hit=any_hit), reps=10)
+        n = int(o.shape[0])
+        bound = _bound(
+            counts["pairs"] * 128 * MT_OPS + counts["instances"] * XFORM_OPS,
+            n * (28 + 12) + acc.n_clusters * (128 * 10 * 4 + 32)
+            + acc.n_instances * (12 + 8 + 2) * 4)
+        err = max(err, max_abs_err(got, ref))
+        ms += q_ms
+        plain_ms += q_plain
+        bound_ms += bound["bound_ms"]
+        per_query.append({"mode": "any_hit" if any_hit else "closest",
+                          "rays": n, "live": int((tmax > 0).sum()),
+                          "hits": int((ref["prim"] >= 0).sum()),
+                          "ms": q_ms, "plain_ms": q_plain,
+                          "bound_ms": bound["bound_ms"],
+                          "bound_by": bound["bound_by"]})
+    return {"queries": len(queries), "instances": acc.n_instances,
+            "entries": acc.n_entries, "ms_per_pass": ms,
+            "plain_ms_per_pass": plain_ms, "bound_ms_per_pass": bound_ms,
+            "max_abs_err": err, "per_query": per_query}
+
+
+def _name_alpha_queries(per_query, depth: int):
+    """Label the 4 queries of each alpha loop: the first query and its
+    restarts, a closest and a shadow loop a bounce, the terminal loop."""
+    for i, q in enumerate(per_query):
+        loop = i // 4
+        kind = ("terminal" if loop == 2 * depth else
+                ("closest", "shadow")[loop % 2])
+        q["query"] = kind + ("" if i % 4 == 0 else f"_restart{i % 4}")
+
+
+def phase_geometry_vs_twin(dev):
+    """c9: K1 against its twin on every query of one shapes.pbrt pass
+    (128x128, 8 spp, depth 5: the alpha restart queries included) and K3
+    against its twin on every query of one motion.pbrt pass (32x32, 4
+    spp), launches counted from zero, each query bit-equal key by key,
+    kernel and twin timed."""
+    import torch
+
+    from pbrt_tpu_torch.ops import smallscene, sweep
+
+    depth = GEOM["depth"]
+    out = {}
+    for name, res, k in (("shapes", 128, 8), ("motion", 32, 4)):
+        scene, camera, _ = geom_on(dev, name)
+        rp = make_pass(scene, camera.replace(resolution=(res, res)), res, k,
+                       GEOM["lanes"], depth=depth)
+        stats = smallscene.STATS if name == "shapes" else sweep.STATS
+        smallscene.STATS.reset()
+        sweep.STATS.reset()
+        queries = (_k1_queries if name == "shapes" else _k3_queries)(rp)
+        torch.cuda.synchronize()
+        launches = stats.launches
+        other = (sweep.STATS if name == "shapes" else smallscene.STATS).launches
+        if (launches != GEOM_QUERIES_PER_PASS or len(queries) != launches
+                or other):
+            raise AssertionError(f"{name}: {launches} launches, "
+                                 f"{len(queries)} queries, {other} of the "
+                                 f"other kernel, {GEOM_QUERIES_PER_PASS} "
+                                 "expected")
+        held = (_hold_k1(scene.small, queries, name) if name == "shapes"
+                else _hold_k3(scene.sweep, queries, name))
+        _name_alpha_queries(held["per_query"], depth)
+        out[name] = {"kernel": "k1" if name == "shapes" else "k3",
+                     "resolution": res, "spp": k, "launches": launches,
+                     **held}
+    smallscene.STATS.reset()
+    sweep.STATS.reset()
+    emit("c9_geometry_vs_twin", max_depth=depth, **out)
+
+
+def phase_golden_geometry_jax(dev):
+    """d25: shapes.pbrt (the stochastic alpha test on coarse keys) and
+    motion.pbrt at 32x32, 4 spp, 8 lanes, depth 5, against the JAX goldens
+    of scripts/make_torch_port_golden_shapes.py with d's gate; 44 K1
+    (shapes) or K3 (motion) launches per pass."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.ops import smallscene, sweep
+    from pbrt_tpu_torch.render import render
+
+    for name in ("shapes", "motion"):
+        scene, camera, integ = geom_on(dev, name)
+        golden = np.load(os.path.join(GOLDEN_DATA, f"{name}32_spp4.npy"))
+        smallscene.STATS.reset()
+        sweep.STATS.reset()
+        with (coarse_alpha_keys() if name == "shapes"
+              else contextlib.nullcontext()):
+            img = render(scene, camera.replace(resolution=(32, 32)), integ,
+                         spp=4, samples_per_pass=4, seed=0, n_spectrum=8,
+                         device=dev)
+        torch.cuda.synchronize()
+        k1, k3 = smallscene.STATS.launches, sweep.STATS.launches
+        share, fields = _golden_gate(img.cpu().numpy(), golden)
+        emit(f"d25_golden_{name}_jax", resolution=32, spp=4,
+             max_depth=integ.max_depth, lanes=8, **fields,
+             image_mean_diff=fields["mean"] - fields["golden_mean"],
+             k1_launches=k1, k3_launches=k3,
+             expected=GEOM_QUERIES_PER_PASS)
+        if share < 0.99:
+            raise AssertionError(f"{name}: only {share:.4f} of pixel values "
+                                 "match the JAX golden")
+        want = (GEOM_QUERIES_PER_PASS, 0) if name == "shapes" else (
+            0, GEOM_QUERIES_PER_PASS)
+        if (k1, k3) != want:
+            raise AssertionError(f"{name}: {k1} K1 and {k3} K3 launches")
+
+
+def _geometry_layers(render_pass) -> dict:
+    """e5's layers of one pass (CUDA events around each path layer's
+    top-level calls), with the queries split from the inside: the
+    triangle tier with its alpha restart loop, the animated pass, the
+    sphere, curve and disk / cylinder / patch merges (and the analytic
+    families' occlusion of shadow rays), and within those the K1 / K3
+    launches, K3's ray sorts and attribute resolution and the alpha
+    evaluations (the alpha of a hit and the test's hash)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.accel import api
+
+    outer, mid, inner = ptp.LayerTimer(), ptp.LayerTimer(), ptp.LayerTimer()
+    wraps = [(mid, "triangles_with_alpha_restarts", "_tri_closest"),
+             (mid, "triangles_with_alpha_restarts", "_tri_any"),
+             (mid, "animated", "animated_best"),
+             (mid, "animated", "animated_any"),
+             (mid, "spheres", "_merge_spheres"),
+             (mid, "curves", "_merge_curves"),
+             (mid, "disk_cyl_blp", "_merge_disk_cyl"),
+             (mid, "any_hit_analytic", "_merge_anyhit_quadrics"),
+             (inner, "k1", "smallscene_intersect"),
+             (inner, "k3", "sweep_intersect"),
+             (inner, "k3_ray_sort", "ray_sort_perm"),
+             (inner, "k3_resolve", "resolve_tri_attrs_inst"),
+             (inner, "alpha_eval", "_alpha_at"),
+             (inner, "alpha_eval", "_alpha_rand")]
+    saved = [(attr, getattr(api, attr)) for _, _, attr in wraps]
+    with ptp.wrapped_layers(outer):
+        for timer, name, attr in wraps:
+            setattr(api, attr, timer.wrap(name, getattr(api, attr)))
+        try:
+            render_pass()  # warm-up
+            torch.cuda.synchronize()
+            for t in (outer, mid, inner):
+                t.events.clear()
+            t0 = time.perf_counter()
+            render_pass()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for attr, fn in saved:
+                setattr(api, attr, fn)
+    layers = outer.totals_ms()
+    layers["other"] = wall_ms - sum(layers.values())
+    layers = {key.replace("k1_", "queries_"): ms for key, ms in layers.items()}
+    return {"wall_ms": wall_ms, "layers_ms": layers,
+            "queries_split_ms": mid.totals_ms(),
+            "kernels_and_alpha_ms": inner.totals_ms()}
+
+
+def phase_timed_geometry(dev, smi: str) -> dict:
+    """e12: shapes.pbrt and motion.pbrt timed at 512x512, 8 spp in passes
+    of 4 (1,048,576 camera rays a pass), depth 5 without Russian roulette,
+    8 lanes, seed 0, the exact alpha keys: Mrays/s, the wall a pass, K1 /
+    K3 launches a pass, peak memory, the first pass's seconds, the layers
+    (_geometry_layers), kernel launches a pass and the busy share
+    (torch.profiler). Returns each file's K1 and K3 launches of its timed
+    passes."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.ops import smallscene, sweep
+
+    g = GEOM
+    res, k, passes = g["res"], g["k"], g["spp"] // g["k"]
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    launches = {}
+    for name in ("shapes", "motion"):
+        scene, camera, _ = geom_on(dev, name)
+        camera = camera.replace(resolution=(res, res))
+        render_pass = make_pass(scene, camera, res, k, g["lanes"],
+                                depth=g["depth"])
+        t0 = time.perf_counter()
+        render_pass(0)  # warm-up
+        first_s = time.perf_counter() - t0
+        out = timed_forward(render_pass, passes,
+                            {"k1": smallscene.STATS, "k3": sweep.STATS})
+        want = GEOM_QUERIES_PER_PASS * passes
+        if (out["k1_launches"], out["k3_launches"]) != (
+                (want, 0) if name == "shapes" else (0, want)):
+            raise AssertionError(f"timed {name}: {out['k1_launches']} K1 and "
+                                 f"{out['k3_launches']} K3 launches")
+        launches[name] = (out["k1_launches"], out["k3_launches"])
+        layers = _geometry_layers(render_pass)
+        kern = ptp.kernel_view(g["lanes"], render_pass, out_dir)
+        emit(f"e12_timed_{name}", lanes=g["lanes"], resolution=res,
+             spp=g["spp"], samples_per_pass=k, max_depth=g["depth"],
+             rays_per_pass_camera=res * res * k, **out,
+             wall_ms_per_pass=out["seconds"] * 1e3 / passes,
+             k1_launches_per_pass=out["k1_launches"] / passes,
+             k3_launches_per_pass=out["k3_launches"] / passes,
+             scene_build_seconds=_GEOM_SCENES[name][1],
+             first_pass_seconds=first_s, layers=layers,
+             kernel_launches_per_pass=kern["kernel_launches"],
+             device_busy_share=kern["device_busy_share"],
+             device_kernel_ms=kern["device_kernel_ms"],
+             profiled_pass_wall_ms=kern["wall_ms"], top_kernels=kern["top"],
+             nvidia_smi=smi)
+    return launches
+
+
+def phase_grad_motion(dev):
+    """g7: the bench's loss and gradients (materials.albedo_coeffs,
+    lights.area_scale, the remat path) on motion.pbrt at 32x32, 4 spp in
+    passes of 2, depth 5 without Russian roulette, 8 lanes, on the card
+    against the JAX golden (tests/data/torch_port/motion32_grad.npz) with
+    phase g's tolerance; 44 K3 launches per forward+backward pass, a
+    forward's (geometry is detached: the moving instances change only
+    which surface a ray hits)."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.ops import sweep
+
+    z = np.load(GOLDEN_MOTION_GRAD)
+    res, k, lanes = int(z["resolution"]), int(z["samples_per_pass"]), \
+        int(z["n_spectrum"])
+    passes, depth = int(z["spp"]) // k, int(z["max_depth"])
+    if int(z["rr_start_depth"]) != depth:
+        raise AssertionError("the golden's Russian roulette is not off")
+    want = {"materials.albedo_coeffs": z["grad_albedo_coeffs"],
+            "lights.area_scale": z["grad_area_scale"]}
+    scene, camera, _ = geom_on(dev, "motion")
+    sweep.STATS.reset()
+    t0 = time.perf_counter()
+    loss, grads = grad_passes(scene, camera, res, k, lanes, passes, depth)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = sweep.STATS.launches
+    vs_jax = _grad_compare(loss, grads, float(z["loss"]), want)
+    emit("g7_grad_motion", resolution=res, spp=int(z["spp"]),
+         samples_per_pass=k, lanes=lanes, max_depth=depth, loss=loss,
+         golden_loss=float(z["loss"]), vs_jax=vs_jax, k3_launches=launches,
+         passes=passes, k3_launches_per_pass=launches / passes,
+         expected_per_pass=GEOM_QUERIES_PER_PASS, card_seconds=card_s,
+         tolerance={"grad_of_max": GRAD_RTOL_OF_MAX, "loss_rel": LOSS_RTOL})
+    if not vs_jax["ok"]:
+        raise AssertionError("motion.pbrt gradients disagree with the golden")
+    if launches != GEOM_QUERIES_PER_PASS * passes:
+        raise AssertionError(f"{launches} K3 launches for {passes} "
+                             "forward+backward passes")
+
+
 def _kernel_entry(name, source, replaces, launches, k):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source,
@@ -3538,6 +3911,9 @@ def main() -> int:
     phase_k1_lighttransport_vs_twin(dev)
     phase_golden_mc(dev)
     phase_golden_lighttransport_jax(dev)
+    phase_geometry_vs_twin(dev)
+    phase_golden_geometry_jax(dev)
+    phase_grad_motion(dev)
     k1_launches = phase_timed(dev, 8)
     phase_timed(dev, 32)
     phase_timed_fwdbwd(dev, smi)
@@ -3552,24 +3928,37 @@ def main() -> int:
     phase_timed_cloud(dev, smi)
     phase_timed_families(dev, smi)
     phase_timed_lighttransport(dev, smi)
+    geom_launches = phase_timed_geometry(dev, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     # No single PyTorch call computes a ray/triangle intersection, so no
     # kernel has a library yardstick. K2's, K3's and K4's errors are those
-    # of the 1,048,576-ray comparisons, both modes.
+    # of the 1,048,576-ray comparisons, both modes. K1's launches are those
+    # of the Cornell (e) and shapes (e12) main paths, K3's of the
+    # instanced field (e3) and motion.pbrt (e12), each counted from zero
+    # around its timed passes.
     lines = {}
     for name, res in (("cluster", k2), ("sweep", k3), ("traverse", k4)):
         lines[name] = {**res["closest"], "max_abs_err": max(
             res["closest"]["max_abs_err"], res["any_hit"]["max_abs_err"])}
-    print(json.dumps({"kernels": [
-        _kernel_entry("smallscene", K1_SOURCE, K1_REPLACES, k1_launches, k1),
+    by_path = {"smallscene": {"cornell": k1_launches,
+                              "shapes": geom_launches["shapes"][0]},
+               "sweep": {"instanced_field": k3_launches,
+                         "motion": geom_launches["motion"][1]}}
+    entries = [
+        _kernel_entry("smallscene", K1_SOURCE, K1_REPLACES,
+                      sum(by_path["smallscene"].values()), k1),
         _kernel_entry("cluster", K2_SOURCE, K2_REPLACES, k2_launches,
                       lines["cluster"]),
-        _kernel_entry("sweep", K3_SOURCE, K3_REPLACES, k3_launches,
-                      lines["sweep"]),
+        _kernel_entry("sweep", K3_SOURCE, K3_REPLACES,
+                      sum(by_path["sweep"].values()), lines["sweep"]),
         _kernel_entry("traverse", K4_SOURCE, K4_REPLACES, k4_launches,
                       lines["traverse"]),
-    ]}), flush=True)
+    ]
+    for entry in entries:
+        if entry["name"] in by_path:
+            entry["launches_by_path"] = by_path[entry["name"]]
+    print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

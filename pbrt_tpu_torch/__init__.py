@@ -5,17 +5,20 @@ is). Module paths and public names mirror the reference: a reader finds
 `pbrt_tpu/lights/buffers.py::LightBuffers.sample_li` at
 `pbrt_tpu_torch/lights/buffers.py::LightBuffers.sample_li`.
 
-What is ported (the forward spectral path trace of the diffuse Cornell
-box, of the killeroo-class mesh scene, of the furnace and of pbrt-v4
-scene files with instanced meshes, analytic spheres and the scene-file
-lights, the volumetric path of the cloud and of scene-file media, and
-the default gradient path):
+What is ported (the forward spectral path trace of the Cornell box, of
+the killeroo-class mesh scene, of the furnace and of pbrt-v4 scene files
+with static and moving instances, every shape family, shape alpha and
+the scene-file lights, the volumetric path of the cloud and of
+scene-file media, the light-tracing integrators, and the default
+gradient path):
   core/      tensor dataclasses, pcg4d RNG, CIE/sRGB colour, rgb2spec,
-             vector maths, sampling warps, transforms, ULP stepping and
-             interval arithmetic
+             vector maths, sampling warps, transforms (animated ones with
+             quaternions), ULP stepping, error-free products and interval
+             arithmetic
   samplers/  the independent sampler
-  cameras/   perspective camera ray generation
-  shapes/    triangle and sphere geometry buffers + Interaction
+  cameras/   perspective camera ray generation (a moving camera too)
+  shapes/    the geometry buffers of every shape family + Interaction,
+             curve flattening and Loop subdivision
   materials/ material table, the GGX and Fresnel terms, and the diffuse and
              conductor BxDFs of the select chain
   lights/    area, sphere, point, spot, projection, goniometric and
@@ -28,9 +31,10 @@ the default gradient path):
              traversal kernel (csrc/traverse.cu), each with its plain
              PyTorch twin; the staged compaction of masked walks
   accel/     closest / any-hit queries on the small-scene, cluster, sweep,
-             kd-tree and BVH tiers with the analytic sphere test merged,
-             the BVH and kd-tree builds, the ray sort, instanced attribute
-             resolution and the Morton order
+             kd-tree and BVH tiers, or the dense watertight tester, with
+             the alpha restart loop, the moving instances and the analytic
+             families merged; the BVH and kd-tree builds, the ray sort,
+             instanced attribute resolution and the Morton order
   media/     homogeneous, grid, rgbgrid and procedural-cloud media with
              DDA majorants, interior-media stacks, the HG phase function
   models/    the path integrator (NEE + MIS + RR) and its remat gradient;

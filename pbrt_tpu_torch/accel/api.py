@@ -12,10 +12,18 @@ K2 and K3 answer on rays permuted by `ray_sort_perm`, and their
 closest-hit queries defer the hit's attributes to `resolve_tri_attrs`
 (`resolve_tri_attrs_inst` for instances); the kd-tree and the BVH return
 u, v, and the attributes are gathered by prim, as the reference does.
-Analytic spheres are tested densely after the triangle tier and merged,
-closest wins. A scene with no triangles (the furnace) needs no tier: its
-triangle queries miss and the spheres answer. The dense watertight
-triangle tester (ROADMAP Queue 1 item 8) is not ported.
+A scene with no tier attached is answered by the dense watertight tester
+(accel/dense.py), as in the reference; a scene with no triangles needs
+no tier.
+
+After the triangle tier, in the reference's order: the alpha restart
+loop (a hit whose alpha cuts it is skipped by re-tracing from just past
+it, up to _ALPHA_ROUNDS surfaces; shadow rays run the closest loop once
+the scene has alpha), the moving instances at the rays' times
+(accel/instances.py), the mesh uv, the spheres, the curve segments, and
+the disks, cylinders and bilinear patches, each merged where closer.
+Prims are numbered triangles, spheres, curves, disks, cylinders,
+patches.
 """
 
 from __future__ import annotations
@@ -30,8 +38,12 @@ from ..ops.smallscene import smallscene_intersect
 from ..ops.sweep import sweep_intersect
 from ..ops.traverse import bvh_intersect
 from ..shapes.geometry import Interaction
-from .dense import sphere_any, sphere_best
+from . import dense
+from .dense import sphere_best
+from .instances import animated_any, animated_best
 from .kdtree import kdtree_intersect
+
+_INF = float("inf")
 
 
 def _spread8(x):
@@ -123,13 +135,6 @@ def resolve_tri_attrs_inst(geom, sweep, o, d, prim, inst):
     return u, v, ng, geom.tri_mat[tri_idx], geom.tri_light[tri_idx]
 
 
-def _no_accel():
-    return NotImplementedError(
-        "scene has no accelerator: call Scene.with_accel() (the dense "
-        "watertight tester is not ported, ROADMAP Queue 1 item 8)"
-    )
-
-
 def interp_tri_uv(geom, prim, u, v):
     """Map barycentric (u, v) to the mesh's declared texture coordinates
     (triangle.cpp InterpolateUV); the default per-triangle table is the
@@ -166,8 +171,16 @@ def _no_triangles(o):
             torch.zeros_like(o), torch.zeros_like(miss), miss)
 
 
-def _tri_closest(scene, o, d, tmax):
-    """(t, prim, u, v, ng, mat, light) of the closest triangle hit."""
+def _has_tier(scene) -> bool:
+    return any(x is not None for x in (scene.sweep, scene.small,
+                                       scene.clusters, scene.kdtree,
+                                       scene.bvh))
+
+
+def _tri_closest_once(scene, o, d, tmax):
+    """(t, prim, u, v, ng, mat, light) of the closest triangle hit, by the
+    scene's tier or, with none, the dense tester. The triangles of a scene
+    whose only instances move are object-space prototypes: they miss."""
     if scene.geom.num_triangles == 0:
         return _no_triangles(o)
     if scene.sweep is not None:
@@ -198,7 +211,78 @@ def _tri_closest(scene, o, d, tmax):
             t, prim, u, v = bvh_intersect(scene.bvh, o, d, tmax)
         t = torch.where(prim >= 0, t, float("inf"))
         return (t, prim, u, v, *_prim_attrs(scene.geom, prim))
-    raise _no_accel()
+    if scene.anim is not None:
+        return _no_triangles(o)
+    t, prim, u, v = dense.intersect_closest_tri(scene.geom, o, d, tmax)
+    return (t, prim, *resolve_tri_attrs(scene.geom, o, d, prim))
+
+
+_ALPHA_ROUNDS = 4
+
+
+def _alpha_at(scene, o, d, t, prim, u, v):
+    """Alpha of each triangle hit: the triangle's constant times its alpha
+    texture at the hit's uv (GeometricPrimitive alpha,
+    cpu/primitive.h:59-63)."""
+    from ..textures.buffers import evaluate_float
+
+    geom = scene.geom
+    safe = torch.clamp(prim, 0, max(geom.num_triangles - 1, 0)).long()
+    base = geom.tri_alpha[safe]
+    if scene.textures is None:
+        return base
+    um, vm = interp_tri_uv(geom, prim, u, v)
+    p_hit = o + t[:, None] * d
+    p_hit = torch.where(torch.isfinite(p_hit), p_hit, 0.0)
+    return base * evaluate_float(scene.textures, geom.tri_alpha_tex[safe],
+                                 torch.stack([um, vm], dim=-1), p_hit,
+                                 torch.ones_like(base))
+
+
+def _bits(x):
+    """The uint32 bit patterns of float32 x, held in int64."""
+    return x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _alpha_rand(o, d, k: int):
+    """The stochastic alpha test's uniform of restart k, hashed from the
+    ray's bits (the reference renderer's HashFloat(o, d))."""
+    from ..core.rng import pcg4d, u32_to_uniform
+
+    h0, _, _, _ = pcg4d(_bits(o[:, 0]) ^ _bits(d[:, 1]),
+                        _bits(o[:, 1]) ^ _bits(d[:, 2]),
+                        _bits(o[:, 2]) ^ _bits(d[:, 0]), k + 1)
+    return u32_to_uniform(h0)
+
+
+def _tri_closest(scene, o, d, tmax):
+    """The closest triangle hit with the alpha restart loop: a hit whose
+    alpha is 0, or that fails its stochastic test, is skipped by a new
+    query from just past it, up to _ALPHA_ROUNDS surfaces (a ray still cut
+    after that keeps its hit); a hit that survives its test is final.
+    Opaque scenes make one query (the any-hit alpha programs of the
+    reference renderer, GeometricPrimitive::Intersect)."""
+    res = _tri_closest_once(scene, o, d, tmax)
+    if not scene.geom.has_alpha:
+        return res
+    s = torch.zeros_like(res[0])
+    pending = torch.ones(res[0].shape, dtype=torch.bool, device=o.device)
+    for k in range(_ALPHA_ROUNDS - 1):
+        t, prim, u, v = res[:4]
+        a = _alpha_at(scene, o, d, t, prim, u, v)
+        cut = (pending & (prim >= 0) & (a < 1.0)
+               & ((a <= 0.0) | (_alpha_rand(o, d, k) > a)))
+        pending = cut
+        eps = 1e-4 * torch.clamp(torch.abs(t), min=1.0)
+        s_new = torch.where(cut, t + eps, s)
+        o_shift = o + s_new[:, None] * d
+        tq = torch.where(cut, tmax - s_new, 0.0)
+        r2 = _tri_closest_once(scene, o_shift, d, tq)
+        r2 = (r2[0] + s_new, *r2[1:])
+        res = tuple(torch.where(cut[:, None] if x.dim() == 2 else cut, y, x)
+                    for x, y in zip(res, r2))
+        s = s_new
+    return res
 
 
 def _merge_spheres(geom, o, d, tmax, t, prim, u, v, ng, mat, light):
@@ -222,20 +306,91 @@ def _merge_spheres(geom, o, d, tmax, t, prim, u, v, ng, mat, light):
             torch.where(better, geom.sph_light[safe], light))
 
 
-def closest(scene, o, d, tmax=None) -> Interaction:
-    """Closest hit of each ray (N, 3) within tmax (N,) (default inf)."""
+def _merge_curves(geom, o, d, tmax, t, prim, u, v, ng, mat, light, dpdu):
+    """Fold the nearest curve-segment hit in where it is closer: u the
+    curve parameter, v = (h + 1) / 2, the fiber tangent as dpdu."""
+    t_c, c_idx, u_c, v_c = dense.curve_best(geom, o, d, tmax)
+    better = t_c < t
+    safe = torch.clamp(c_idx, 0, geom.num_curves - 1)
+    tang, n_c = dense.curve_frame(geom, safe, d)
+    b3 = better[:, None]
+    return (torch.where(better, t_c, t),
+            torch.where(better, geom.num_triangles + geom.num_spheres + c_idx,
+                        prim),
+            torch.where(better, u_c, u), torch.where(better, v_c, v),
+            torch.where(b3, n_c, ng),
+            torch.where(better, geom.crv_mat[safe.long()], mat),
+            torch.where(better, -1, light), torch.where(b3, tang, dpdu))
+
+
+def _merge_disk_cyl(geom, o, d, isect: Interaction) -> Interaction:
+    """Fold the disk, cylinder and bilinear-patch hits in where closer
+    (the closest-wins merge of the other families)."""
+    base = geom.num_triangles + geom.num_spheres + geom.num_curves
+    for best, n_fam, mats in ((dense.disk_best, geom.num_disks, geom.disk_mat),
+                              (dense.cyl_best, geom.num_cyls, geom.cyl_mat),
+                              (dense.blp_best, geom.num_blps, geom.blp_mat)):
+        if n_fam == 0:
+            continue
+        t_cur = torch.where(isect.valid, isect.t, _INF)
+        t_f, i_f, u_f, v_f = best(geom, o, d, t_cur)
+        better = t_f < t_cur
+        if best is dense.blp_best:
+            ng = dense.blp_normal(geom, i_f, u_f, v_f)
+        else:
+            kind_disk = torch.full(t_f.shape, best is dense.disk_best,
+                                   dtype=torch.bool, device=o.device)
+            ng = dense.disk_cyl_normals(geom, o, d, t_f, kind_disk, i_f)
+        mat_f = mats[torch.clamp(i_f, 0, n_fam - 1).long()]
+        b3 = better[:, None]
+        isect = isect.replace(
+            valid=isect.valid | better,
+            p=torch.where(b3, o + t_f[:, None] * d, isect.p),
+            n=torch.where(b3, ng, isect.n),
+            t=torch.where(better, t_f, isect.t),
+            uv=torch.where(b3, torch.stack([u_f, v_f], -1), isect.uv),
+            mat=torch.where(better, mat_f, isect.mat),
+            light=torch.where(better, -1, isect.light),
+            prim=torch.where(better, base + i_f, isect.prim),
+            dpdu=torch.where(b3, torch.zeros_like(isect.dpdu), isect.dpdu),
+        )
+        base = base + n_fam
+    return isect
+
+
+def closest(scene, o, d, tmax=None, time=None) -> Interaction:
+    """Closest hit of each ray (N, 3) within tmax (N,) (default inf), the
+    moving instances at the rays' shutter times `time` (N,) (default the
+    shutter midpoint)."""
+    geom = scene.geom
     if tmax is None:
-        tmax = torch.full((o.shape[0],), float("inf"), dtype=o.dtype,
-                          device=o.device)
+        tmax = torch.full((o.shape[0],), _INF, dtype=o.dtype, device=o.device)
+    if not _has_tier(scene) and scene.anim is None and not geom.has_alpha:
+        isect = dense.intersect_closest(geom, o, d, tmax)
+        u, v = interp_tri_uv(geom, isect.prim, isect.uv[:, 0], isect.uv[:, 1])
+        return _merge_disk_cyl(geom, o, d, isect.replace(
+            uv=torch.stack([u, v], dim=-1)))
     t, prim, u, v, ng, mat, light = _tri_closest(scene, o, d, tmax)
-    # Barycentrics -> declared mesh uv first; sphere hits carry their own.
-    u, v = interp_tri_uv(scene.geom, prim, u, v)
-    if scene.geom.num_spheres > 0:
+    if scene.anim is not None:
+        t_base = torch.minimum(torch.where(prim >= 0, t, _INF), tmax)
+        hit_a = animated_best(scene.anim, geom, o, d, t_base, time)
+        bet = hit_a[0] < t_base
+        t, prim, u, v, ng, mat, light = (
+            torch.where(bet[:, None] if x.dim() == 2 else bet, y, x)
+            for x, y in zip((t, prim, u, v, ng, mat, light), hit_a))
+    # Barycentrics -> declared mesh uv first; the other families carry
+    # their own.
+    u, v = interp_tri_uv(geom, prim, u, v)
+    if geom.num_spheres > 0:
         t, prim, u, v, ng, mat, light = _merge_spheres(
-            scene.geom, o, d, tmax, t, prim, u, v, ng, mat, light)
+            geom, o, d, tmax, t, prim, u, v, ng, mat, light)
+    dpdu = torch.zeros_like(o)
+    if geom.num_curves > 0:
+        t, prim, u, v, ng, mat, light, dpdu = _merge_curves(
+            geom, o, d, tmax, t, prim, u, v, ng, mat, light, dpdu)
     valid = prim >= 0
     p = torch.where(valid[:, None], o + t[:, None] * d, 0.0)
-    return Interaction(
+    return _merge_disk_cyl(geom, o, d, Interaction(
         valid=valid,
         t=t,
         p=p,
@@ -245,11 +400,12 @@ def closest(scene, o, d, tmax=None) -> Interaction:
         mat=torch.where(valid, mat, 0),
         light=torch.where(valid, light, -1),
         prim=prim,
-        dpdu=torch.zeros_like(o),
-    )
+        dpdu=dpdu,
+    ))
 
 
 def _tri_any(scene, o, d, tmax):
+    """Triangle occlusion by the scene's tier (there is one)."""
     if scene.geom.num_triangles == 0:
         return torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
     if scene.sweep is not None:
@@ -267,14 +423,51 @@ def _tri_any(scene, o, d, tmax):
         res = cluster_intersect(scene.clusters, o[perm], d[perm], tmax[perm],
                                 any_hit=True)
         return (res["prim"] >= 0)[inv]
-    if scene.bvh is not None:
-        return bvh_intersect(scene.bvh, o, d, tmax, any_hit=True)[1] >= 0
-    raise _no_accel()
+    return bvh_intersect(scene.bvh, o, d, tmax, any_hit=True)[1] >= 0
 
 
-def any_hit(scene, o, d, tmax) -> torch.Tensor:
-    """Occlusion: True where any hit with 0 < t < tmax."""
-    occ = _tri_any(scene, o, d, tmax)
-    if scene.geom.num_spheres > 0:
-        occ = occ | sphere_any(scene.geom, o, d, tmax)
+def _merge_anyhit_quadrics(geom, o, d, tmax, occ):
+    """OR the analytic families' occlusion (spheres, curves, disks,
+    cylinders, patches) into the triangles'."""
+    if geom.num_spheres > 0:
+        blk, _ = dense._sph_soa(geom.sph)
+        occ = occ | torch.any(torch.isfinite(
+            dense._intersect_sph_block(o, d, tmax, blk)), dim=1)
+    for n_fam, best in ((geom.num_curves, dense.curve_best),
+                        (geom.num_disks, dense.disk_best),
+                        (geom.num_cyls, dense.cyl_best),
+                        (geom.num_blps, dense.blp_best)):
+        if n_fam > 0:
+            occ = occ | (best(geom, o, d, tmax)[1] >= 0)
     return occ
+
+
+def any_hit(scene, o, d, tmax, time=None) -> torch.Tensor:
+    """Occlusion: True where any hit with 0 < t < tmax, the moving
+    instances at the rays' times."""
+    geom = scene.geom
+
+    def with_anim(occ):
+        if scene.anim is None:
+            return occ
+        return occ | animated_any(scene.anim, geom, o, d, tmax, time)
+
+    if geom.has_alpha:
+        # The first-hit-wins any-hit queries cannot skip cut surfaces:
+        # shadow rays run the closest loop, its stochastic test the same.
+        occ = _tri_closest(scene, o, d, tmax)[1] >= 0
+    elif _has_tier(scene):
+        occ = _tri_any(scene, o, d, tmax)
+    elif scene.anim is None:
+        occ = dense.intersect_any(geom, o, d, tmax)
+        for n_fam, best in ((geom.num_disks, dense.disk_best),
+                            (geom.num_cyls, dense.cyl_best),
+                            (geom.num_blps, dense.blp_best)):
+            if n_fam > 0:
+                occ = occ | (best(geom, o, d, tmax)[1] >= 0)
+        return occ
+    else:
+        # Only moving instances: their object-space prototypes are not
+        # intersected directly.
+        occ = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
+    return _merge_anyhit_quadrics(geom, o, d, tmax, with_anim(occ))

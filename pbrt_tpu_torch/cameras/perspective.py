@@ -3,20 +3,25 @@
 Conventions match pbrt: camera space is left-handed with the view direction
 +z; the screen window spans [-1, 1] on the shorter axis scaled by the
 aspect ratio; `fov_deg` is the full angle on the shorter image axis.
-Thin-lens defocus via lens_radius / focal_distance. Camera motion blur is
-not ported (ROADMAP Queue 1 item 14). `position`, `pixel_solid_angle_base`
+Thin-lens defocus via lens_radius / focal_distance. Camera motion blur:
+`motion`, an AnimatedTransform, replaces camera_to_world at each ray's
+shutter time (`sample_time` of the dim-5 draw, render.py; the reference's
+parser makes no moving camera, its scenes and convert.py do).
+`position`, `pixel_solid_angle_base`
 and `project` are the pinhole's importance and raster projection, for the
 light tracers' connections to the camera (models/lightpath.py, bdpt.py).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from ..core.sampling import sample_uniform_disk_concentric
 from ..core.tensorclass import static_field, tensorclass
-from ..core.transform import Transform
+from ..core.transform import AnimatedTransform, Transform
 from ..core.vecmath import normalize
 
 
@@ -29,6 +34,7 @@ class PerspectiveCamera:
     focal_distance: float = static_field(default=1e6)
     shutter_open: float = static_field(default=0.0)
     shutter_close: float = static_field(default=1.0)
+    motion: Optional[AnimatedTransform] = None
 
     def _screen_window(self):
         nx, ny = self.resolution
@@ -37,11 +43,17 @@ class PerspectiveCamera:
             return (-aspect, aspect, -1.0, 1.0)
         return (-1.0, 1.0, -1.0 / aspect, 1.0 / aspect)
 
-    def generate_rays(self, p_film, u_lens=None):
+    def sample_time(self, u_time):
+        """A uniform sample -> a shutter time (CameraBase::SampleTime)."""
+        return self.shutter_open + u_time * (self.shutter_close
+                                             - self.shutter_open)
+
+    def generate_rays(self, p_film, u_lens=None, time=None):
         """p_film: (N, 2) continuous raster coords in [0,nx)x[0,ny).
 
         Returns (o, d) world-space rays with unit directions
-        (PerspectiveCamera::GenerateRay).
+        (PerspectiveCamera::GenerateRay); with `motion` and times (N,),
+        through the camera's transform at each time.
         """
         nx, ny = self.resolution
         x0, x1, y0, y1 = self._screen_window()
@@ -62,6 +74,9 @@ class PerspectiveCamera:
             )
             d_cam = p_focus - o_cam
         d_cam = normalize(d_cam)
+        if self.motion is not None and time is not None:
+            return (self.motion.apply_point(o_cam, time),
+                    normalize(self.motion.apply_vector(d_cam, time)))
         o_w = self.camera_to_world.apply_point(o_cam)
         d_w = self.camera_to_world.apply_vector(d_cam)
         return o_w, d_w

@@ -20,7 +20,10 @@ carried as the port's TextureBuffers; one with a Ptex row
 raises (ROADMAP Queue 1 item 15). The scene-level medium ("medium.*",
 its static "medium.kind") and the interior-media stack ("media_stack.*")
 are carried member for member as the port's MediumBuffers and
-MediumStack.
+MediumStack. The moving instances ("anim.xforms.<i>.<field>", each
+instance's keyframes decomposed, with the static "anim.ranges",
+"anim.time0" and "anim.time1") are carried as the port's
+AnimatedInstances, and a camera's "motion.*" as its AnimatedTransform.
 """
 
 from __future__ import annotations
@@ -32,9 +35,10 @@ import numpy as np
 import torch
 
 from .accel.bvh import BVH
+from .accel.instances import AnimatedInstances, stack_xforms
 from .accel.kdtree import KdTree
 from .cameras.perspective import PerspectiveCamera
-from .core.transform import Transform
+from .core.transform import AnimatedTransform, Transform
 from .lights.buffers import LightBuffers
 from .lights.bvh import LightBVH
 from .lights.envmap import EnvironmentMap
@@ -45,16 +49,10 @@ from .ops.cluster import ClusterAccel
 from .ops.smallscene import SmallTriAccel
 from .ops.sweep import SweepAccel
 from .scene import Scene
-from .shapes.geometry import UNPORTED_SHAPES, GeometryBuffers
+from .shapes.geometry import GeometryBuffers
 from .textures.buffers import TextureBuffers
 
-# Scene members the port does not carry -> ROADMAP Queue 1 item.
-_UNPORTED_MEMBERS = {"anim": 7}
-# Static fields the port does not carry, with the only value it accepts.
-_IMPLIED_STATIC = {
-    "geom.has_alpha": False,
-    "camera.motion": None,
-}
+_XFORM_ARRAYS = ("t_start", "t_end", "q_start", "q_end", "s_start", "s_end")
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -99,9 +97,6 @@ def _section(cls, prefix: str, arrays: dict, static: dict, item_of=None,
             if value is None and not is_static:
                 continue
             kwargs[name] = value if is_static else _tensor(value)
-        elif path in _IMPLIED_STATIC:
-            if value != _IMPLIED_STATIC[path]:
-                raise refuse(path, name)
         elif path in static:
             if value is not None:
                 raise refuse(path, name)
@@ -141,19 +136,44 @@ def _env_from_arrays(arrays: dict):
     return out
 
 
+def _xform(prefix: str, arrays: dict, static: dict) -> AnimatedTransform:
+    """The AnimatedTransform of the `prefix.` entries."""
+    known = {f"{prefix}.{k}" for k in _XFORM_ARRAYS + ("time0", "time1")}
+    extra = sorted(p for p in list(arrays) + list(static)
+                   if p.startswith(prefix + ".") and p not in known)
+    if extra:
+        raise ValueError(f"unknown animated transform fields {extra}")
+    return AnimatedTransform(
+        **{k: _tensor(arrays[f"{prefix}.{k}"]) for k in _XFORM_ARRAYS},
+        time0=float(static[f"{prefix}.time0"]),
+        time1=float(static[f"{prefix}.time1"]))
+
+
+def _anim_from_arrays(arrays: dict, static: dict) -> AnimatedInstances:
+    """The moving instances of the "anim." entries."""
+    n = len({p.split(".")[2] for p in arrays if p.startswith("anim.xforms.")})
+    known = {"anim.ranges", "anim.time0", "anim.time1"}
+    extra = sorted(p for p in list(arrays) + list(static)
+                   if p.startswith("anim.") and p not in known
+                   and not p.startswith("anim.xforms."))
+    if extra:
+        raise ValueError(f"unknown animated instance fields {extra}")
+    xforms = [_xform(f"anim.xforms.{i}", arrays, static) for i in range(n)]
+    return AnimatedInstances(
+        xforms=stack_xforms(xforms),
+        ranges=tuple(tuple(int(x) for x in r) for r in static["anim.ranges"]),
+        time0=float(static["anim.time0"]), time1=float(static["anim.time1"]))
+
+
 def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
     """Build the port's Scene from a reference scene's flattened fields."""
     for path in list(arrays) + list(static):
-        member = path.split(".", 1)[0]
-        if member in _UNPORTED_MEMBERS:
-            if path in arrays or static[path] is not None:
-                raise _unported(path, _UNPORTED_MEMBERS[member])
-        elif member not in ("geom", "materials", "lights", "textures",
-                            "medium", "media_stack", "small", "clusters",
-                            "sweep", "bvh", "kdtree"):
+        if path.split(".", 1)[0] not in (
+                "geom", "materials", "lights", "textures", "medium",
+                "media_stack", "small", "clusters", "sweep", "bvh", "kdtree",
+                "anim"):
             raise ValueError(f"unknown scene field {path!r}")
-    geom = _section(GeometryBuffers, "geom", arrays, static,
-                    lambda n: UNPORTED_SHAPES.get(n, 8))
+    geom = _section(GeometryBuffers, "geom", arrays, static)
     materials = _section(MaterialBuffers, "materials", arrays, static)
     arrays = dict(arrays)
     env = _env_from_arrays(arrays)
@@ -183,18 +203,24 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
                         ("kdtree", KdTree)):
         if any(p.startswith(member + ".") for p in list(arrays) + list(static)):
             optional[member] = _section(cls, member, arrays, static, lambda n: 6)
+    if any(p.startswith("anim.") for p in arrays):
+        optional["anim"] = _anim_from_arrays(arrays, static)
     return Scene(geom=geom, materials=materials, lights=lights, **optional)
 
 
 def camera_from_arrays(arrays: dict[str, np.ndarray],
                        static: dict) -> PerspectiveCamera:
     """Build the port's PerspectiveCamera from a reference camera's
-    flattened fields ("camera_to_world.m", "camera_to_world.m_inv" and the
-    static "resolution", "fov_deg", ...)."""
+    flattened fields ("camera_to_world.m", "camera_to_world.m_inv",
+    "motion.*" and the static "resolution", "fov_deg", ...)."""
     c2w = Transform(m=_tensor(arrays["camera_to_world.m"]),
                     m_inv=_tensor(arrays["camera_to_world.m_inv"]))
+    extra = {"camera_to_world": c2w}
+    if any(k.startswith("motion.") for k in arrays):
+        extra["motion"] = _xform("motion", arrays, static)
     arrays = {"camera." + k: v for k, v in arrays.items()
-              if not k.startswith("camera_to_world.")}
-    static = {"camera." + k: v for k, v in static.items()}
+              if not k.startswith(("camera_to_world.", "motion."))}
+    static = {"camera." + k: v for k, v in static.items()
+              if not k.startswith("motion.")}
     return _section(PerspectiveCamera, "camera", arrays, static,
-                    lambda n: 14, camera_to_world=c2w)
+                    lambda n: 14, **extra)

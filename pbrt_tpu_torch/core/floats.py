@@ -1,5 +1,7 @@
 """ULP stepping of float32 values (port of the NextFloatUp / NextFloatDown
-pair of pbrt_tpu/core/floats.py; float.h in the reference renderer).
+pair of pbrt_tpu/core/floats.py; float.h in the reference renderer), and
+the error-free product behind the watertight triangle test's edge
+functions (`two_prod`, `difference_of_products`).
 
 The step works on the float's bits viewed as int32: for a non-negative
 float the next one up is bits + 1, for a negative one bits - 1, which is
@@ -57,6 +59,44 @@ def next_float_down(f) -> torch.Tensor:
     b = f0.view(torch.int32)
     down = torch.where(f0 > 0.0, b - 1, b + 1).view(torch.float32)
     return torch.where(torch.isneginf(f), f, down)
+
+
+def _dekker_split(a):
+    """Veltkamp split: a = hi + lo with hi holding the top 12 bits."""
+    c = 4097.0 * a  # 2^12 + 1
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def two_prod(a, b):
+    """Error-free product: a * b = p + err (math.h TwoProd), by Dekker's
+    split in plain IEEE operations, never the `a * b - p` idiom, whose
+    contraction to a fused multiply-add would depend on the compiler.
+    Every eager PyTorch op rounds once, on the CPU and on the card."""
+    p = a * b
+    ah, al = _dekker_split(a)
+    bh, bl = _dekker_split(b)
+    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    return p, err
+
+
+def difference_of_products(a, b, c, d):
+    """a * b - c * d with its round-off corrected (math.h:57). Exactly
+    antisymmetric: difference_of_products(c, d, a, b) is the exact
+    negation, and equal products give exactly zero, which the watertight
+    triangle test's shared edges rely on."""
+    p1, e1 = two_prod(a, b)
+    p2, e2 = two_prod(c, d)
+    return (p1 - p2) + (e1 - e2)
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """a * b + c of float32 tensors with one rounding, as the multiply-adds
+    that XLA's CPU compiler contracts: the product is exact in float64,
+    and the float64 sum is rounded to float32 (a second rounding that
+    changes the result only when the float64 sum lands on a float32
+    half-way point)."""
+    return (a.double() * b.double() + c.double()).float()
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,11 @@
 """Homogeneous transforms (port of core/transform.py: Transform, translate,
-scale, rotate, look_at).
+scale, rotate, look_at, AnimatedTransform).
 
 The builders make their float32 matrices with the reference's numpy code,
 so the parser's float64 CTM (io/parser.py) is the same to the bit.
+An AnimatedTransform's keyframes are decomposed on the host with the
+reference's numpy code (polar decomposition of the float32 matrices);
+`interpolate_matrices` recomposes them per ray time with torch ops.
 """
 
 from __future__ import annotations
@@ -10,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .tensorclass import tensorclass
+from .quaternion import quat_from_matrix, quat_to_matrix, slerp
+from .tensorclass import static_field, tensorclass
 
 
 @tensorclass
@@ -91,3 +95,83 @@ def look_at(eye, target, up) -> Transform:
     m[:3, 2] = dir_
     m[:3, 3] = eye
     return Transform.from_matrix(m)
+
+
+def _decompose(m):
+    """(translation, rotation, scale) of a 4x4 keyframe: the polar
+    decomposition by averaging with the inverse transpose
+    (transform.cpp Decompose), in the matrix's own float32, as the
+    reference's numpy code runs it."""
+    m = np.asarray(m)
+    t = m[:3, 3]
+    a = m[:3, :3]
+    r = a.copy()
+    for _ in range(100):
+        r_next = 0.5 * (r + np.linalg.inv(r.T))
+        if np.abs(r_next - r).max() < 1e-7:
+            r = r_next
+            break
+        r = r_next
+    return t, r, np.linalg.inv(r) @ a
+
+
+@tensorclass
+class AnimatedTransform:
+    """Two keyframed transforms interpolated over [time0, time1]
+    (AnimatedTransform, transform.h:444): each keyframe decomposed into a
+    translation T, a rotation quaternion R and a scale / shear S; a time
+    recomposes lerp(T), slerp(R) and lerp(S). Fields may carry leading
+    batch axes (AnimatedInstances stacks one per instance)."""
+
+    t_start: torch.Tensor  # (3,) translation at time0
+    t_end: torch.Tensor  # (3,)
+    q_start: torch.Tensor  # (4,) rotation at time0
+    q_end: torch.Tensor  # (4,)
+    s_start: torch.Tensor  # (3, 3) scale / shear at time0
+    s_end: torch.Tensor  # (3, 3)
+    time0: float = static_field(default=0.0)
+    time1: float = static_field(default=1.0)
+
+    @staticmethod
+    def build(start, end, time0: float = 0.0,
+              time1: float = 1.0) -> "AnimatedTransform":
+        """From two keyframes (Transforms or 4x4 matrices), made float32
+        as the reference's Transform.from_matrix makes them."""
+        def f32(x):
+            x = x.m if isinstance(x, Transform) else x
+            if isinstance(x, torch.Tensor):
+                x = x.detach().cpu().numpy()
+            return np.asarray(x, np.float32)
+
+        t0v, r0, s0 = _decompose(f32(start))
+        t1v, r1, s1 = _decompose(f32(end))
+        q0 = quat_from_matrix(torch.from_numpy(np.asarray(r0, np.float32)))
+        q1 = quat_from_matrix(torch.from_numpy(np.asarray(r1, np.float32)))
+        # Keep the short rotation path.
+        q1 = torch.where(torch.sum(q0 * q1) < 0.0, -q1, q1)
+
+        def t(x):
+            return torch.from_numpy(np.array(x, np.float32))
+
+        return AnimatedTransform(t_start=t(t0v), t_end=t(t1v), q_start=q0,
+                                 q_end=q1, s_start=t(s0), s_end=t(s1),
+                                 time0=float(time0), time1=float(time1))
+
+    def interpolate_matrices(self, time):
+        """(N,) times -> (N, 3, 3) linear parts and (N, 3) translations."""
+        dt = torch.clamp((time - self.time0)
+                         / max(self.time1 - self.time0, 1e-9), 0.0, 1.0)
+        trans = ((1.0 - dt)[..., None] * self.t_start[None]
+                 + dt[..., None] * self.t_end[None])
+        r = quat_to_matrix(slerp(self.q_start[None], self.q_end[None], dt))
+        s = ((1.0 - dt)[..., None, None] * self.s_start[None]
+             + dt[..., None, None] * self.s_end[None])
+        return torch.einsum("nij,njk->nik", r, s), trans
+
+    def apply_point(self, p, time):
+        lin, tr = self.interpolate_matrices(time)
+        return torch.einsum("nij,nj->ni", lin, p) + tr
+
+    def apply_vector(self, v, time):
+        lin, _ = self.interpolate_matrices(time)
+        return torch.einsum("nij,nj->ni", lin, v)

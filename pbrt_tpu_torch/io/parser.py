@@ -28,10 +28,15 @@ reference. The directive subset:
               texture-typed "reflectance" or "albedo",
               Texture (constant, checkerboard, scale, mix, directionmix,
               bilerp, dots, fbm, wrinkled, windy, marble, imagemap), Shape
-              trianglemesh, plymesh and sphere (analytic outside objects; an
+              trianglemesh, plymesh, sphere (analytic outside objects; an
               emissive one is a sphere light, or an icosphere when reversed
-              or inside an object, as in the reference), AreaLightSource
-              "diffuse"
+              or inside an object, as in the reference), disk (analytic;
+              64 segments when emissive or under an anisotropic scale),
+              cylinder (analytic and open; 64 x 2 triangles when
+              emissive), bilinearmesh (analytic patches; a 4 x 4 grid of
+              quads each when emissive), loopsubdiv and curve (bezier or
+              bspline, flattened to round segments), each with an "alpha"
+              (a float or a float texture), AreaLightSource "diffuse"
   lights:     LightSource point, spot, distant, projection, goniometric and
               infinite (uniform "rgb L", an image "string filename", a
               "point3 portal" over either); light and texture images are PFM
@@ -43,11 +48,11 @@ reference. The directive subset:
               scene level)
 
 A feature the port lacks (another camera, sampler or integrator, Ptex,
-NanoVDB media, shapes, alpha, animated instances, image formats other
-than PFM) raises NotImplementedError naming its ROADMAP Queue 1 item, at
-parse or build time; nothing renders without it. A texture-typed
-material parameter other than the reflectance raises ValueError: the
-reference has none (its parser takes float() of the texture's name). Where the reference approximates and
+NanoVDB media, image formats other than PFM) raises NotImplementedError
+naming its ROADMAP Queue 1 item, at parse or build time; nothing renders
+without it. A texture-typed material parameter other than the
+reflectance raises ValueError: the reference has none (its parser takes
+float() of the texture's name). Where the reference approximates and
 warns ("material X approximated as diffuse", unknown directives and
 shapes, a texture used before it is defined), the port does the same,
 since that is the reference's behaviour. Six departures raise where the
@@ -57,13 +62,20 @@ reference renders the light with its constant I or L), an unknown Texture
 class (the reference binds 0.5 gray), an imagemap whose image cannot be
 read (the reference binds a 0.5 gray image), a measured material with no
 readable table (the reference binds a gray table) and a mix that names
-an undefined material (the reference falls back to diffuse). A "nanovdb" medium raises
-(item 15) where the reference reads the file, or warns and skips the
-medium when the read fails.
+an undefined material (the reference falls back to diffuse). A seventh
+raises ValueError where the reference renders a fault: an analytic shape
+(a non-emissive sphere, disk, cylinder or bilinear mesh, or a curve)
+inside ObjectBegin, which the reference draws once in world space under
+the ObjectBegin transform and no instance carries. A "nanovdb" medium
+raises (item 15) where the reference reads the file, or warns and skips
+the medium when the read fails.
 
 Instancing is true instancing: an instanced prototype's triangles are
 stored once in object space and the sweep accelerator (ops/sweep.py, K3)
-walks each instance under its transform. Emissive objects are flattened
+walks each static instance under its transform. An instance whose
+ActiveTransform keyframes differ (by more than 1e-7) moves over the
+TransformTimes interval: it is an animated instance (accel/instances.py),
+intersected per ray time after the sweep. Emissive objects are flattened
 into world-space copies, with the reference's warning.
 """
 
@@ -100,8 +112,11 @@ from ..lights.envmap import EnvironmentMap
 from ..lights.portal import PortalLight
 from ..ops.sweep import build_sweep
 from ..scene import Scene
+from ..accel.instances import build_animated_instances
 from ..scenes.meshes import icosphere
+from ..shapes.curve import build_curve_segments
 from ..shapes.geometry import GeometryBuffers
+from ..shapes.subdiv import loop_subdivide
 from ..textures.buffers import TextureBuffers
 from .image import read_image_rgb
 from .ply import read_ply
@@ -182,8 +197,6 @@ _DIRECTIVES = {
 # takes float() of a texture-typed roughness's or eta's name, which raises,
 # and so does the port's, on any other texture-typed parameter.
 _TEXTURED_PARAMS = ("reflectance", "albedo")
-# Shapes the reference builds that the port does not (item 8).
-_UNPORTED_SHAPES = {"disk", "cylinder", "bilinearmesh", "loopsubdiv", "curve"}
 
 
 def _parse_params(ts: _TokenStream):
@@ -267,12 +280,21 @@ class PbrtParser:
         self.tri_light = []
         self.tri_face = []
         self.tri_uv = []
+        # Alpha masks (GeometricPrimitive alpha, cpu/primitive.h:59-63):
+        # each triangle's (constant, texture id), from its shape's "alpha".
+        self.tri_alpha = []
+        self.tri_alpha_tex = []
+        self.cur_alpha = (1.0, -1)
         self.n_tris = 0
         self._pending_uv = None  # (n, 3, 2) for the shape being emitted
         self.spheres = []  # [cx, cy, cz, r] in world space
         self.sph_mat = []
         self.sph_light = []  # per sphere: index into sphere_lights, or -1
         self.sphere_lights = []  # emissive analytic spheres: c, r, rgb, ...
+        self.curves = []  # curve specs for build_curve_segments
+        self.disks = []  # (row, material)
+        self.cyls = []
+        self.blps = []
         self.area_lights = []
         self.points = []
         self.spots = []
@@ -302,8 +324,10 @@ class PbrtParser:
         self.objects = {}
         self.cur_object = None
         self.object_base = {}
-        # Recorded (name, object_to_world, o2w_end) instance references.
+        # Recorded (name, object_to_world, o2w_end) instance references; the
+        # shutter interval of moving ones.
         self.instances = []
+        self.transform_times = (0.0, 1.0)
         # ActiveTransform state: "all" applies transform directives to both
         # keyframes; "start"/"end" to one (scene.cpp TransformSet).
         self.active_transform = "all"
@@ -524,13 +548,14 @@ class PbrtParser:
         self.reverse = not self.reverse
 
     def _d_TransformTimes(self, ts):
-        # The shutter interval of animated transforms, which build() refuses.
-        float(ts.next()), float(ts.next())
+        """TransformTimes start end: the shutter interval of animated
+        transforms (scene.cpp TransformTimes)."""
+        self.transform_times = (float(ts.next()), float(ts.next()))
 
     def _d_ActiveTransform(self, ts):
         """ActiveTransform StartTime|EndTime|All: which CTM keyframe later
         transform directives update. Differing keyframes on an
-        ObjectInstance make it animated, which build() refuses."""
+        ObjectInstance make it an animated instance."""
         which = ts.next()
         if self.ctm_end is None:
             self.ctm_end = self.ctm.copy()
@@ -1096,15 +1121,18 @@ class PbrtParser:
                 {"verts": v[i].copy(), **self.cur_area_light} for i in range(n)
             )
         self._append(v, np.full((n,), self.cur_material, np.int32), light,
-                     np.arange(n, dtype=np.int32), uvs)
+                     np.arange(n, dtype=np.int32), uvs, self.cur_alpha)
 
-    def _append(self, v, mat, light, face, uvs):
+    def _append(self, v, mat, light, face, uvs, alpha):
+        n = len(v)
         self.tris.append(np.ascontiguousarray(v, np.float32))
         self.tri_mat.append(mat)
         self.tri_light.append(light)
         self.tri_face.append(face)
         self.tri_uv.append(np.asarray(uvs, np.float32))
-        self.n_tris += len(v)
+        self.tri_alpha.append(np.full((n,), alpha[0], np.float32))
+        self.tri_alpha_tex.append(np.full((n,), alpha[1], np.int32))
+        self.n_tris += n
 
     def _d_Shape(self, ts):
         mat_save = self.cur_material
@@ -1117,13 +1145,17 @@ class PbrtParser:
     def _shape(self, ts):
         stype = ts.next()[1:-1]
         p = _parse_params(ts)
-        if "alpha" in p:
-            ptype, vals = p["alpha"]
-            if ptype == "texture" or float(vals[0]) != 1.0:
-                raise _unported("shape alpha", 7)
-        _no_textures(p, f"shape {stype!r}")
-        if stype in _UNPORTED_SHAPES:
-            raise _unported(f"shape {stype!r}", 8)
+        _no_textures(p, f"shape {stype!r}", ("alpha",))
+        # The shape's alpha: a float texture or a constant.
+        a_tex = self._tex_ref(p, "alpha")
+        if a_tex >= 0:
+            self.cur_alpha = (1.0, a_tex)
+        else:
+            try:
+                self.cur_alpha = (float(_get(p, "alpha", 1.0)), -1)
+            except (TypeError, ValueError):
+                self.cur_alpha = (1.0, -1)
+        analytic = self.cur_area_light is None
         if stype == "trianglemesh":
             pts = _get_vec(p, "P").reshape(-1, 3)
             idx = np.asarray(p["indices"][1], np.int64).reshape(-1, 3)
@@ -1139,6 +1171,54 @@ class PbrtParser:
         elif stype == "sphere":
             self._sphere(p)
             return
+        elif stype == "disk":
+            tris = self._disk(p) if analytic else self._tessellate_disk(p)
+            if tris is None:
+                return
+        elif stype == "cylinder":
+            if analytic:
+                self._cylinder(p)
+                return
+            tris = self._tessellate_cylinder(p)
+        elif stype == "bilinearmesh":
+            quads = _get_vec(p, "P").reshape(-1, 3)
+            idx = _get_vec(p, "indices")
+            if idx is not None:
+                quads = quads[np.asarray(idx, np.int64).reshape(-1, 4)]
+            else:
+                quads = quads.reshape(-1, 4, 3)
+            if analytic:
+                self._outside_objects(stype)
+                for qd in quads:
+                    w = self._pts(qd.astype(np.float64))
+                    # pbrt's vertex order: p00, p10, p01, p11.
+                    self.blps.append((tuple(w.reshape(-1)), self.cur_material))
+                return
+            tris = self._tessellate_patches(quads)
+        elif stype == "loopsubdiv":
+            pts = _get_vec(p, "P").reshape(-1, 3)
+            idx = _get_vec(p, "indices")
+            if idx is None:
+                self.warnings.append("loopsubdiv needs indices; skipped")
+                return
+            levels = int(_get(p, "levels", _get(p, "nlevels", 3)))
+            vv, ff = loop_subdivide(pts, np.asarray(idx, np.int64).reshape(-1, 3),
+                                    levels)
+            tris = self._pts(vv.astype(np.float64))[ff]
+        elif stype == "curve":
+            # shapes.cpp CreateCurve: cubic bezier or bspline control
+            # points, full widths; every type is treated as round.
+            self._outside_objects(stype)
+            w = float(_get(p, "width", 1.0))
+            self.curves.append({
+                "cp": self._pts(_get_vec(p, "P").reshape(-1, 3)).astype(
+                    np.float32),
+                "basis": _get(p, "basis", "bezier"),
+                "width0": float(_get(p, "width0", w)),
+                "width1": float(_get(p, "width1", w)),
+                "mat": self.cur_material,
+            })
+            return
         else:
             self.warnings.append(f"shape {stype} unknown; skipped")
             return
@@ -1147,10 +1227,115 @@ class PbrtParser:
             # stores nor clears the pending uv table (ROADMAP Queue 3); no
             # ported feature reads uv, so parity holds either way.
             self.objects[self.cur_object].append(
-                (tris, self.cur_material, self.cur_area_light)
+                (tris, self.cur_material, self.cur_area_light, self.cur_alpha)
             )
         else:
             self._emit_triangles(tris)
+
+    def _outside_objects(self, stype):
+        """Refuse an analytic shape inside ObjectBegin: the reference
+        draws it once in world space under the ObjectBegin transform, and
+        no instance carries it (ROADMAP Queue 3)."""
+        if self.cur_object is not None:
+            raise ValueError(
+                f'a Shape "{stype}" inside ObjectBegin: the reference draws '
+                "it once in world space, carried by no instance")
+
+    def _disk(self, p):
+        """An analytic disk (Disk::Intersect: a plane solve and a radius
+        window) under a rigid, uniformly scaled CTM; under an anisotropic
+        scale the tessellation, with the reference's warning."""
+        r = float(_get(p, "radius", 1.0))
+        ri = float(_get(p, "innerradius", 0.0))
+        h = float(_get(p, "height", 0.0))
+        c_w = self._pts(np.asarray([[0.0, 0.0, h]]))[0]
+        e1 = self._pts(np.asarray([[1.0, 0.0, h]]))[0] - c_w
+        e2 = self._pts(np.asarray([[0.0, 1.0, h]]))[0] - c_w
+        s1, s2 = np.linalg.norm(e1), np.linalg.norm(e2)
+        if abs(s1 - s2) < 1e-5 * max(s1, s2):
+            self._outside_objects("disk")
+            n_w = np.cross(e1, e2)
+            n_w /= max(np.linalg.norm(n_w), 1e-12)
+            self.disks.append((tuple(c_w) + tuple(n_w) + (r * s1, ri * s1),
+                               self.cur_material))
+            return None
+        self.warnings.append("disk under anisotropic scale: tessellated")
+        return self._tessellate_disk(p)
+
+    def _tessellate_disk(self, p):
+        r = float(_get(p, "radius", 1.0))
+        ri = float(_get(p, "innerradius", 0.0))
+        h = float(_get(p, "height", 0.0))
+        seg = 64
+        ang = np.linspace(0, 2 * np.pi, seg + 1)
+        outer = np.stack([r * np.cos(ang), r * np.sin(ang),
+                          np.full(seg + 1, h)], -1)
+        inner = np.stack([ri * np.cos(ang), ri * np.sin(ang),
+                          np.full(seg + 1, h)], -1)
+        tris = []
+        for i in range(seg):
+            tris.append([inner[i], outer[i], outer[i + 1]])
+            if ri > 0:
+                tris.append([inner[i], outer[i + 1], inner[i + 1]])
+        local = np.asarray(tris, np.float32).reshape(-1, 3)
+        return self._pts(local).reshape(-1, 3, 3)
+
+    def _cylinder(self, p):
+        """An analytic open cylinder (Cylinder::Intersect): base point at
+        the middle of [zmin, zmax], unit axis, radius and half length in
+        world space."""
+        r = float(_get(p, "radius", 1.0))
+        z0 = float(_get(p, "zmin", -1.0))
+        z1 = float(_get(p, "zmax", 1.0))
+        zc = 0.5 * (z0 + z1)
+        base_w = self._pts(np.asarray([[0.0, 0.0, zc]]))[0]
+        top_w = self._pts(np.asarray([[0.0, 0.0, z1]]))[0]
+        rad_w = self._pts(np.asarray([[1.0, 0.0, zc]]))[0] - base_w
+        axis = top_w - base_w
+        half = np.linalg.norm(axis)
+        self._outside_objects("cylinder")
+        if half > 1e-12:
+            axis /= half
+            self.cyls.append((tuple(base_w) + tuple(axis)
+                              + (r * np.linalg.norm(rad_w), half),
+                              self.cur_material))
+        else:
+            self.warnings.append("degenerate cylinder; skipped")
+
+    def _tessellate_cylinder(self, p):
+        r = float(_get(p, "radius", 1.0))
+        z0 = float(_get(p, "zmin", -1.0))
+        z1 = float(_get(p, "zmax", 1.0))
+        seg = 64
+        ang = np.linspace(0, 2 * np.pi, seg + 1)
+        lo = np.stack([r * np.cos(ang), r * np.sin(ang), np.full(seg + 1, z0)], -1)
+        hi = np.stack([r * np.cos(ang), r * np.sin(ang), np.full(seg + 1, z1)], -1)
+        tris = []
+        for i in range(seg):
+            tris.append([lo[i], lo[i + 1], hi[i + 1]])
+            tris.append([lo[i], hi[i + 1], hi[i]])
+        local = np.asarray(tris, np.float32).reshape(-1, 3)
+        return self._pts(local).reshape(-1, 3, 3)
+
+    def _tessellate_patches(self, quads):
+        """Each bilinear patch (p00, p10, p01, p11) as a 4 x 4 grid of
+        quads, two triangles each."""
+        tris = []
+        k = 4
+        for p00, p10, p01, p11 in quads:
+            def bl(u, v):
+                return ((1 - u) * (1 - v) * p00 + u * (1 - v) * p10
+                        + (1 - u) * v * p01 + u * v * p11)
+            for i in range(k):
+                for j in range(k):
+                    a = bl(i / k, j / k)
+                    b = bl((i + 1) / k, j / k)
+                    c = bl((i + 1) / k, (j + 1) / k)
+                    d = bl(i / k, (j + 1) / k)
+                    tris.append([a, b, c])
+                    tris.append([a, c, d])
+        world = self._pts(np.asarray(tris, np.float32).reshape(-1, 3))
+        return world.reshape(-1, 3, 3)
 
     def _sphere(self, p):
         """An analytic sphere: the centre through the CTM and the radius
@@ -1169,11 +1354,8 @@ class PbrtParser:
             self.sph_light.append(len(self.sphere_lights))
             self.sphere_lights.append(
                 {"c": center, "r": r * sc, **self.cur_area_light})
-        elif self.cur_object is not None:
-            # The reference stores such a sphere in world space under the
-            # ObjectBegin CTM, outside the object (ROADMAP Queue 3).
-            raise _unported('a Shape "sphere" inside ObjectBegin', 7)
         else:
+            self._outside_objects("sphere")
             self.sph_light.append(-1)
         self.spheres.append([*center, r * sc])
         self.sph_mat.append(self.cur_material)
@@ -1207,19 +1389,20 @@ class PbrtParser:
         entries = self.objects.get(name, [])
         if not entries:
             return
-        if any(area is not None for _, _, area in entries):
+        if any(area is not None for _, _, area, _ in entries):
             self.warnings.append(
                 f"ObjectInstance '{name}': emissive object flattened "
                 "(reference: area lights unsupported under instancing)"
             )
-            saved = (self.cur_material, self.cur_area_light)
-            for tris, mat, area in entries:
+            saved = (self.cur_material, self.cur_area_light, self.cur_alpha)
+            for tris, mat, area, alpha in entries:
                 local = self._object_local(name, tris).reshape(-1, 3)
                 h = np.concatenate([local, np.ones((len(local), 1))], axis=1)
                 world = (h @ self.ctm.T)[:, :3].reshape(-1, 3, 3)
                 self.cur_material, self.cur_area_light = mat, area
+                self.cur_alpha = alpha
                 self._emit_triangles(world)
-            self.cur_material, self.cur_area_light = saved
+            self.cur_material, self.cur_area_light, self.cur_alpha = saved
             return
         o2w_end = self.ctm_end if self.ctm_end is not None else self.ctm
         self.instances.append((name, self.ctm.copy(), o2w_end.copy()))
@@ -1242,7 +1425,7 @@ class PbrtParser:
         for name, o2w, o2w_end in self.instances:
             if name not in name_to_pid:
                 start = self.n_tris
-                for tris, mat, _area in self.objects[name]:
+                for tris, mat, _area, alpha in self.objects[name]:
                     local = self._object_local(name, tris).astype(np.float32)
                     n = len(local)
                     # The reference gives prototype triangles the identity
@@ -1250,7 +1433,8 @@ class PbrtParser:
                     self._append(local, np.full((n,), mat, np.int32),
                                  np.full((n,), -1, np.int32),
                                  np.arange(n, dtype=np.int32),
-                                 np.broadcast_to(self._UV_IDENTITY, (n, 3, 2)))
+                                 np.broadcast_to(self._UV_IDENTITY, (n, 3, 2)),
+                                 alpha)
                 name_to_pid[name] = len(proto_ranges)
                 proto_ranges.append((start, self.n_tris - start))
             inst_pid.append(name_to_pid[name])
@@ -1260,6 +1444,20 @@ class PbrtParser:
                 np.stack(inst_o2w), np.stack(inst_o2w_end))
 
     # -- finalize ------------------------------------------------------------
+
+    def _analytic(self) -> dict:
+        """GeometryBuffers.build's curve, disk, cylinder and patch
+        arguments."""
+        out = {}
+        if self.curves:
+            out.update(zip(("crv", "crv_u", "crv_mat"),
+                           build_curve_segments(self.curves)))
+        for rows, key in ((self.disks, "disk"), (self.cyls, "cyl"),
+                          (self.blps, "blp")):
+            if rows:
+                out[key] = np.asarray([r for r, _ in rows], np.float32)
+                out[key + "_mat"] = np.asarray([m for _, m in rows], np.int32)
+        return out
 
     def build(self):
         """Returns (scene, camera, settings dict), on the CPU."""
@@ -1277,6 +1475,8 @@ class PbrtParser:
             tri_light=cat(self.tri_light, (), np.int32),
             tri_face=cat(self.tri_face, (), np.int32),
             tri_uv=cat(self.tri_uv, (3, 2), np.float32),
+            tri_alpha=cat(self.tri_alpha, (), np.float32),
+            tri_alpha_tex=cat(self.tri_alpha_tex, (), np.int32),
             spheres=np.asarray(self.spheres, np.float32).reshape(-1, 4)
             if self.spheres else None,
             sph_mat=np.asarray(self.sph_mat, np.int32)
@@ -1286,6 +1486,7 @@ class PbrtParser:
                 [len(self.area_lights) + q if q >= 0 else -1
                  for q in self.sph_light], np.int32)
             if self.spheres else None,
+            **self._analytic(),
         )
         lights = LightBuffers.build(
             area_tris=self.area_lights, sphere_lights=self.sphere_lights,
@@ -1304,11 +1505,19 @@ class PbrtParser:
                       if self.tex_specs else None,
                       medium=self.scene_medium, media_stack=media_stack)
         if inst_tables is not None:
+            # Static instances go to the sweep, moving ones to the animated
+            # pass.
             proto_ranges, pid, o2w, o2w_end = inst_tables
-            if (np.abs(o2w - o2w_end).max(axis=(1, 2)) > 1e-7).any():
-                raise _unported("animated ObjectInstance (ActiveTransform)", 7)
-            scene = scene.replace(sweep=build_sweep(
-                tri_verts, proto_ranges=proto_ranges, instances=(pid, o2w)))
+            moving = np.abs(o2w - o2w_end).max(axis=(1, 2)) > 1e-7
+            sweep = anim = None
+            if (~moving).any():
+                sweep = build_sweep(tri_verts, proto_ranges=proto_ranges,
+                                    instances=(pid[~moving], o2w[~moving]))
+            if moving.any():
+                anim = build_animated_instances(
+                    proto_ranges, pid[moving], o2w[moving], o2w_end[moving],
+                    times=self.transform_times)
+            scene = scene.replace(sweep=sweep, anim=anim)
         else:
             scene = scene.with_accel()
 

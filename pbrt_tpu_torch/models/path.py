@@ -3,7 +3,10 @@
 Port of pbrt_tpu/models/path.py: the primal transport, the subsurface
 step, its default gradient path, `grad_mode="remat"`, and tag-sorted
 shading (materials/sorted.py, on by the reference's
-`sorted_shading="auto"` rule; no record/replay or animated instances).
+`sorted_shading="auto"` rule; no record/replay). A scene with moving
+instances gives each ray a shutter time from its dim-5 draw, the draw
+that moves a moving camera (render.py), and every query of the path
+takes it.
 The reference's lax.scan over bounces is a Python loop here; all rays
 advance in lockstep and terminated rays are masked, not compacted, so
 every bounce issues the same queries as the reference: one closest-hit
@@ -24,7 +27,8 @@ measured, mix or retroreflective material (FORWARD_ONLY_KINDS); any
 other request raises NotImplementedError (ROADMAP Queue 1 item 5).
 
 RNG dimension layout (per ray; stateless pcg4d streams, core/rng.py):
-  dims 0-7            camera: pixel jitter (0,1), lens (2,3), wavelength (4)
+  dims 0-7            camera: pixel jitter (0,1), lens (2,3), wavelength (4),
+                      shutter time (5)
   dims 8 + 8*depth +  0      light selection
                       1      light point (2D)
                       2      bsdf lobe selection
@@ -309,6 +313,12 @@ class PathIntegrator:
             torch.zeros((n, 3), dtype=f32, device=dev),
         )
         rays = torch.zeros((), dtype=torch.float32, device=dev)
+        # The rays' shutter times for the moving instances.
+        ray_time = None
+        if scene.anim is not None:
+            u_t = sampler.get_1d(pixel, sample_idx, 5)
+            ray_time = scene.anim.time0 + u_t * (scene.anim.time1
+                                                 - scene.anim.time0)
 
         def mis_weights(isect, active, d_cur, o_cur, prev):
             """Where emission and escaped radiance count, and their MIS
@@ -417,7 +427,8 @@ class PathIntegrator:
             n_rays = rays + torch.sum(active.to(torch.float32))
             # Dead lanes get tmax = 0 and fail every hit gate.
             isect = accel_api.closest(
-                scene, o, d, tmax=torch.where(active, float("inf"), 0.0)
+                scene, o, d, tmax=torch.where(active, float("inf"), 0.0),
+                time=ray_time,
             )
             weights = mis_weights(isect, active, d, o, prev) if have_lights else None
             hit = active & isect.valid
@@ -463,6 +474,7 @@ class PathIntegrator:
                     torch.where(need_shadow[..., None], so, torch.zeros_like(so) + 1e8),
                     wi_sh,
                     torch.where(need_shadow, smax, 0.0),
+                    time=ray_time,
                 )
                 unoccluded = need_shadow & ~occluded
                 n_rays = n_rays + torch.sum(need_shadow.to(torch.float32))
@@ -496,7 +508,8 @@ class PathIntegrator:
         # Plain autograd, as in the reference.
         if have_lights:
             isect = accel_api.closest(
-                scene, o, d, tmax=torch.where(active, float("inf"), 0.0)
+                scene, o, d, tmax=torch.where(active, float("inf"), 0.0),
+                time=ray_time,
             )
             L = add_emission(L, beta, isect, d, o,
                              mis_weights(isect, active, d, o, prev))

@@ -37,9 +37,14 @@ def camera_rays_full(camera, pixel, sample_idx, sampler, jitter: bool = True,
     py = torch.div(pixel, nx, rounding_mode="floor").to(torch.float32) + jy
     p_film = torch.stack([px, py], dim=-1)
     ul0, ul1 = sampler.get_2d(pixel, sample_idx, 2)
+    time = None
+    if camera.motion is not None:
+        # The shutter time (dim 5) moves the camera.
+        time = camera.sample_time(sampler.get_1d(pixel, sample_idx, 5))
     u_wl = sampler.get_1d(pixel, sample_idx, 4)
     wl = spectrum.sample_visible(u_wl, n_spectrum)
-    o, d = camera.generate_rays(p_film, torch.stack([ul0, ul1], dim=-1))
+    o, d = camera.generate_rays(p_film, torch.stack([ul0, ul1], dim=-1),
+                                time)
     return o, d, wl, torch.ones_like(px)
 
 

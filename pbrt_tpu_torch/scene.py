@@ -11,8 +11,11 @@ the SAH kd-tree (`with_kdtree()`). accel/api.py states which tier answers
 when several are attached. The texture tables (textures/buffers.py) and
 the participating media (media/medium.py: the scene-level medium and the
 interior-media stack, which models/volpath.py renders) ride along as in
-the reference. Animated instances are not ported; convert.py refuses
-scenes that carry them.
+the reference, and so do the animated instances (accel/instances.py:
+moving ObjectInstances, intersected per ray time after the triangle
+tier). The triangles of instanced prototypes are in object space: a
+scene whose sweep is instanced, or that carries animated instances,
+takes no other tier.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import FrozenSet, Optional
 import torch
 
 from .accel.bvh import BVH
+from .accel.instances import AnimatedInstances
 from .accel.kdtree import KdTree, build_kdtree
 from .core.tensorclass import static_field, tensorclass
 from .lights.buffers import LightBuffers
@@ -62,6 +66,8 @@ class Scene:
     bvh: Optional[BVH] = None
     # SAH kd-tree (accel/kdtree.py); plain PyTorch on both devices.
     kdtree: Optional[KdTree] = None
+    # Moving object instances (accel/instances.py), None without motion.
+    anim: Optional[AnimatedInstances] = None
     # Material kinds the geometry references, with the kinds of a
     # referenced mix row's two sub-materials; the BxDF select chain runs
     # only their links (materials/bxdf.py). Derived, never passed.
@@ -72,8 +78,7 @@ class Scene:
         # link is not run. The reference resolves a mix one level deep: a
         # mix naming a mix leaves its lanes with kind 10, which no link
         # shades, as there.
-        used = torch.unique(torch.cat([self.geom.tri_mat, self.geom.sph_mat])
-                            .detach().cpu().long()).tolist()
+        used = torch.unique(self.geom.all_mats().detach().cpu().long()).tolist()
         mats = self.materials
         kinds = mats.kind.detach().cpu().long()
         subs = [int(x) for m in used if int(kinds[m]) == MAT_MIX
@@ -108,7 +113,8 @@ class Scene:
         n_tri = self.geom.num_triangles
         if n_tri == 0:
             return self
-        if self.sweep is not None and self.sweep.instanced:
+        if ((self.sweep is not None and self.sweep.instanced)
+                or self.anim is not None):
             raise ValueError(
                 "the scene's triangles are instance prototypes in object "
                 "space; another tier would drop the instances"

@@ -33,15 +33,12 @@ def cornell_box(resolution=(256, 256), light_scale: float = LIGHT_SCALE,
                 variant: str = "diffuse"):
     """Returns (scene, camera) on the CPU; box spans [0,1]^3, camera on -z.
 
-    variant="specular" (rough copper box + glass sphere) needs spheres and
-    the conductor/dielectric BxDFs, which are not ported yet.
+    variant="diffuse": the all-diffuse box; variant="specular": the tall
+    box rough copper, the short box replaced by a glass sphere.
     """
-    if variant != "diffuse":
-        raise NotImplementedError(
-            f"cornell_box(variant={variant!r}) needs spheres (ROADMAP Queue 1"
-            " item 8) and conductor/dielectric materials (item 10); only "
-            "'diffuse' is ported"
-        )
+    if variant not in ("diffuse", "specular"):
+        raise ValueError(f"unknown Cornell box variant {variant!r}")
+    specular = variant == "specular"
     tris = []
     mats = []
 
@@ -66,9 +63,12 @@ def cornell_box(resolution=(256, 256), light_scale: float = LIGHT_SCALE,
     # Left wall (x=0): red; right wall (x=1): green.
     add(make_quad((0, 0, 0), (0, 0, 1), (0, 1, 1), (0, 1, 0)), 1)
     add(make_quad((1, 0, 0), (1, 1, 0), (1, 1, 1), (1, 0, 1)), 2)
-    # Short box (front right) and tall box (back left), white.
-    add(make_box((0.55, 0.0, 0.15), (0.85, 0.30, 0.45)), 0)
-    add(make_box((0.15, 0.0, 0.50), (0.45, 0.60, 0.80)), 0)
+    # Short box (front right) and tall box (back left), white; the
+    # specular variant's tall box is copper and a glass sphere stands for
+    # the short box.
+    if not specular:
+        add(make_box((0.55, 0.0, 0.15), (0.85, 0.30, 0.45)), 0)
+    add(make_box((0.15, 0.0, 0.50), (0.45, 0.60, 0.80)), 3 if specular else 0)
 
     tri_verts = np.stack(tris)  # (T, 3, 3)
     tri_mat = np.asarray(mats, np.int32)
@@ -91,7 +91,10 @@ def cornell_box(resolution=(256, 256), light_scale: float = LIGHT_SCALE,
         tri_light = np.append(tri_light, i).astype(np.int32)
 
     geom = GeometryBuffers.build(
-        tri_verts=tri_verts, tri_mat=tri_mat, tri_light=tri_light
+        tri_verts=tri_verts, tri_mat=tri_mat, tri_light=tri_light,
+        spheres=np.array([[0.68, 0.18, 0.3, 0.18]], np.float32)
+        if specular else None,
+        sph_mat=np.array([4], np.int32) if specular else None,
     )
     materials = MaterialBuffers.build(material_list)
     lights = LightBuffers.build(area_tris=area_lights)

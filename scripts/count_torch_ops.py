@@ -15,6 +15,13 @@ one kernel launch each on the card).
   mlt       one MLT step of 256 chains on mlt.pbrt (48x48)
             (these four: chip_smoke.lt_pass, 8 lanes; K1's twin ops split
             out as "k1", one launch a call on the card)
+  shapes    tests/data/torch_port/shapes.pbrt at 32x32, 1 spp, depth 5, 8
+            lanes; the dense blocks cut into the ray chunks of e12's
+            1,048,576-lane pass; K1's twin split out, and the alpha
+            evaluations, the curve and the disk / cylinder / patch merges
+  motion    tests/data/torch_port/motion.pbrt likewise; K3's twin split
+            out (with its ray sorts and attribute resolution), and the
+            animated pass
 
 Usage (from the repository root; --root runs another checkout's port,
 e.g. the parent commit unpacked into an ignored directory):
@@ -33,6 +40,9 @@ VIEWS = {"aten.view", "aten._unsafe_view", "aten.slice", "aten.select",
          "aten.unsqueeze", "aten.expand", "aten.t", "aten.transpose",
          "aten.permute", "aten.alias", "aten.detach", "aten.squeeze",
          "aten.as_strided", "aten.unbind", "aten.split", "aten.lift_fresh"}
+
+
+_CARD_CHUNK = {}
 
 
 def _pass(name: str, root: str):
@@ -55,6 +65,18 @@ def _pass(name: str, root: str):
 
         return cs.lt_pass(name, torch.device("cpu"), 48 if name == "mlt"
                           else 32)
+    if name in ("shapes", "motion"):
+        from pbrt_tpu_torch.accel import dense
+
+        scene, camera, _ = load_pbrt(
+            os.path.join(root, f"tests/data/torch_port/{name}.pbrt"),
+            device="cpu")
+        res, card = 32, cs.GEOM["res"] ** 2 * cs.GEOM["k"]
+        # The chunks of the card's pass: as many as there, over our rays.
+        card_elems = _CARD_CHUNK.setdefault("elems", dense._CHUNK_ELEMS)
+        dense._CHUNK_ELEMS = max(1, card_elems * res * res // card)
+        return cs.make_pass(scene, camera.replace(resolution=(res, res)),
+                            res, 1, 8, depth=5)
     from pbrt_tpu_torch.scenes.manylight import manylight_scene
 
     scene, camera = manylight_scene(resolution=(24, 24), n_lights=16,
@@ -68,6 +90,17 @@ def _layers(name: str):
 
     if name in ("lightpath", "bdpt", "sppm", "mlt"):
         return [(api, "smallscene_intersect", "k1")]
+    if name in ("shapes", "motion"):
+        return [(api, "smallscene_intersect", "k1"),
+                (api, "sweep_intersect", "k3"),
+                (api, "ray_sort_perm", "k3_sort_resolve"),
+                (api, "resolve_tri_attrs_inst", "k3_sort_resolve"),
+                (api, "_alpha_at", "alpha"), (api, "_alpha_rand", "alpha"),
+                (api, "animated_best", "animated"),
+                (api, "animated_any", "animated"),
+                (api, "_merge_curves", "curves"),
+                (api, "_merge_disk_cyl", "disk_cyl_blp"),
+                (api, "_merge_anyhit_quadrics", "any_hit_analytic")]
     if name != "families":
         return []
     from pbrt_tpu_torch.lights.buffers import LightBuffers
@@ -135,11 +168,12 @@ def count(name: str, root: str) -> dict:
            "rays": float(rays), "image_mean": float(img.mean())}
     if len(counts) > 1:
         out["by_layer"] = dict(counts.most_common())
-    if calls["k1"]:
-        # On the card each K1 call is one launch, not its twin's ops.
-        out["k1_calls"] = calls["k1"]
-        out["card_launches_estimate"] = (out["non_view_ops"] - counts["k1"]
-                                         + calls["k1"])
+    if calls["k1"] or calls["k3"]:
+        # On the card each K1 or K3 call is one launch, not its twin's ops.
+        out["k1_calls"], out["k3_calls"] = calls["k1"], calls["k3"]
+        out["card_launches_estimate"] = (
+            out["non_view_ops"] - counts["k1"] - counts["k3"] + calls["k1"]
+            + calls["k3"])
     return out
 
 

@@ -49,8 +49,8 @@ def _assert_same_tables(ps, js):
         assert value.shape == want.shape, path
         np.testing.assert_array_equal(value, want.astype(value.dtype),
                                       err_msg=path)
-    # What the port does not carry is empty in the reference: the shapes
-    # of ROADMAP Queue 1 item 8.
+    # The port carries every geometry field; a reference field it does not
+    # carry must be empty.
     for path in set(ref) - set(port):
         assert ref[path].size == 0, path
     assert ps.lights.sampler == ref_static["lights.sampler"]

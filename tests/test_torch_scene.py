@@ -48,6 +48,22 @@ def test_cornell_build_matches_jax_field_by_field(jax_cornell):
         assert not np.any(want[path]), path
 
 
+def test_specular_cornell_matches_jax():
+    """The specular variant (a copper tall box, a glass sphere) builds the
+    reference's scene bit for bit."""
+    js, _ = jax_cornell_box(resolution=(16, 12), variant="specular")
+    ps, _ = cornell_box(resolution=(16, 12), variant="specular")
+    want, _ = flatten_jax(js)
+    got, _ = flatten_jax(ps)
+    from pbrt_tpu_torch.materials.buffers import (
+        MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_DIFFUSE)
+
+    assert ps.geom.num_spheres == 1
+    assert ps.shaded_kinds == {MAT_DIFFUSE, MAT_CONDUCTOR, MAT_DIELECTRIC}
+    for path, value in got.items():
+        np.testing.assert_array_equal(value, want[path], err_msg=path)
+
+
 def test_convert_round_trip(jax_cornell):
     scene, camera = port_scene_and_camera(*jax_cornell)
     built, built_cam = cornell_box(resolution=(16, 12))
@@ -142,11 +158,31 @@ def test_convert_refuses_unported_members(jax_cornell):
 
 
 def test_convert_refuses_unported_shapes():
+    """Every shape family converts now: a reference scene with spheres,
+    curves, disks, cylinders, bilinear patches and alpha-masked triangles
+    (constant and texture alpha) carries across convert.py bit for bit,
+    and so does its alpha flag."""
     from pbrt_tpu.io.parser import load_pbrt_string as jax_load_pbrt_string
     from pbrt_tpu_torch.convert import scene_from_arrays
 
-    # Analytic spheres convert (tests/test_torch_spheres.py); disks do not.
-    js, _, _ = jax_load_pbrt_string('Shape "disk" "float radius" 0.5')
-    assert js.geom.num_disks == 1
-    with pytest.raises(NotImplementedError, match="item 8"):
-        scene_from_arrays(*flatten_jax(js))
+    js, _, _ = jax_load_pbrt_string(
+        'Texture "c" "float" "checkerboard" '
+        'Shape "disk" "float radius" 0.5 '
+        'Shape "cylinder" "float radius" 0.2 '
+        'Shape "sphere" "float radius" 0.3 '
+        'Shape "bilinearmesh" "point3 P" [0 0 0 1 0 0 0 1 0 1 1 1] '
+        'Shape "curve" "point3 P" [0 0 0 0 1 0 1 2 0 1 3 0] '
+        '"float width" 0.1 '
+        'Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
+        '"integer indices" [0 1 2] "float alpha" 0.5 '
+        'Shape "trianglemesh" "point3 P" [0 0 1 1 0 1 0 1 1] '
+        '"integer indices" [0 1 2] "texture alpha" "c"')
+    g = js.geom
+    assert (g.num_disks, g.num_cyls, g.num_spheres, g.num_blps) == (1, 1, 1, 1)
+    assert g.num_curves > 0 and g.has_alpha
+    arrays, static = flatten_jax(js)
+    got, got_static = flatten_jax(scene_from_arrays(arrays, static))
+    for path, value in arrays.items():
+        if path.startswith("geom."):
+            np.testing.assert_array_equal(got[path], value, err_msg=path)
+    assert got_static["geom.has_alpha"] is True

@@ -112,7 +112,10 @@ class _CoarseJax:
 def coarse_mix_keys(*bxdf_modules):
     """Within the block, each given `materials.bxdf` module (the
     reference's or the port's) keys the mix materials' hash on the hit
-    point and wo rounded to a grid of 1/256.
+    point and wo rounded to a grid of 1/256. (Any module that hashes
+    float bits through the port's `_bits` or the reference's inline
+    bitcast takes the same shim: tests/torch_port_shapes.py's
+    coarse_alpha_keys.)
 
     The hash reads the bit patterns of p and wo, and two float pipelines
     round the hit point (t of the triangle test) and the directions
@@ -133,7 +136,7 @@ def coarse_mix_keys(*bxdf_modules):
     saved = []
     try:
         for m in bxdf_modules:
-            if hasattr(m, "resolve_mix"):  # the port's
+            if hasattr(m, "_bits"):  # the port's
                 saved.append((m, "_bits", m._bits))
                 bits = m._bits
                 m._bits = lambda x, bits=bits: bits(_coarse(x, torch.round))

@@ -14,7 +14,9 @@ import numpy as np
 def flatten_jax(obj, prefix: str = ""):
     """Flatten a reference dataclass tree into (arrays, static) dicts keyed
     by dotted field paths, as pbrt_tpu_torch.convert expects. Fields a
-    constructor does not take (derived in __post_init__) are left out."""
+    constructor does not take (derived in __post_init__) are left out; a
+    tuple of dataclasses (the moving instances' transforms) flattens
+    entry by entry ("anim.xforms.0.t_start", ...)."""
     arrays, static = {}, {}
     for f in dataclasses.fields(obj):
         if not f.init:
@@ -27,6 +29,12 @@ def flatten_jax(obj, prefix: str = ""):
             a, s = flatten_jax(value, path + ".")
             arrays.update(a)
             static.update(s)
+        elif isinstance(value, tuple) and all(
+                dataclasses.is_dataclass(v) for v in value):
+            for i, v in enumerate(value):
+                a, s = flatten_jax(v, f"{path}.{i}.")
+                arrays.update(a)
+                static.update(s)
         else:
             arrays[path] = np.asarray(value)
     return arrays, static
