@@ -15,8 +15,11 @@ and imagetex.pbrt, the many-light hall (power and light-BVH samplers),
 the volumetric cloud, fog.pbrt, the families box (hair, subsurface,
 measured, mix and retroreflective materials), the light tracers (the
 light path, BDPT, AO, the spectral bands), the shapes box (every shape
-family and shape alpha) and the moving instanced field on the card
-against the committed JAX goldens, renders
+family and shape alpha), the moving instanced field and the Cornell box
+through every camera family (lens, omni, eye, orthographic, spherical,
+RTF; the GBuffer's channels) on the card against the committed JAX
+goldens, holds every sampler kind's draws bit for bit against the CPU's
+and the JAX package's, renders
 the golden scene files conductor.pbrt, plymesh.pbrt, spot.pbrt,
 envmap.pbrt, box.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt,
 imagetex.pbrt, fog.pbrt, bdpt.pbrt, sppm.pbrt and mlt.pbrt (the last
@@ -30,7 +33,8 @@ gradient and the moving field's gradients against their JAX goldens,
 times the forward render of each timed
 configuration (the mesh gallery's glass torus, texture.pbrt, bench's
 many-light hall, bench's volumetric cloud, the families box, BDPT,
-SPPM, MLT, the shapes box and the moving field among them) and the
+SPPM, MLT, the shapes box, the moving field, the Cornell box through a
+lens and the eye's spectral bands among them) and the
 Cornell
 forward+backward pass, and takes three training steps. Each phase prints one JSON line;
 any failure raises, so the script exits non-zero and never prints the
@@ -56,7 +60,7 @@ Phases:
       (pairs; 128-ray block, 32-ray warp and lone, triangle-parallel, warp
       visits), the bound and the share of it reached; any-hit also in
       live-lane order (live_lane_order, a diagnostic off the path)
-  c3  K3 vs its twin on every query of a 32x32, 4 spp pass (camera, four
+  c3  K3 vs its twin on every query of a 16x16, 4 spp pass (camera, four
       bounces and the terminal query in closest mode, five shadow queries
       with the path's dead lanes in any-hit mode), for the instanced field
       (tests/data/torch_port/instanced_field.pbrt: 37 instances, 17,191
@@ -102,7 +106,7 @@ Phases:
       K1, K2 or K3 launches per pass
   d5  tests/goldens/conductor.pbrt through the port's parser (two analytic
       conductor spheres, K1 for its four triangles), 384 spp in passes of
-      8, independent sampler, against the pbrt-v4 C++ golden
+      32 (the same samples as passes of 8), independent sampler, against the pbrt-v4 C++ golden
       tests/goldens/conductor_ref.pfm (4096 spp): relative mean error <
       0.05, MSE < 2e-3 and 95th percentile of the 4x4-cell relative error
       < 0.2, the bounds tests/test_reference_parity.py gives this scene
@@ -269,7 +273,8 @@ Phases:
       launches per pass, the walks' host reads per pass, peak memory, the
       layers' device ms (camera, closest, the delta walk, the ratio
       walks, lights, phase, BxDF, RNG, film), kernel launches per pass and
-      the busy share, the delta walk's live lanes per step at bounce 0;
+      the busy share (profiled at 64x64), the delta walk's live lanes per
+      step at bounce 0;
       then the compacted walks against the lockstep walks in turns, the
       first pass's image of each bit-equal
   e10 the families box timed at 512x512, 8 spp in passes of 4, depth 5
@@ -315,11 +320,46 @@ Phases:
       cylinder / patch merges, the analytic shadow occlusion; K1 / K3,
       K3's sorts and resolution, the alpha evaluations), kernel launches
       per pass and the busy share, the card's name and power limit
+  c10 K1 vs its twin on every query of one cornell_lens pass (64x64, 4
+      spp: the Cornell box through tests/data/torch_port/doublet.dat with
+      its exit pupil, zsobol, a gaussian filter; 11 queries, the
+      vignetted lanes traced) and of the GBuffer pass (render_aovs at
+      32x32, 2 spp: the path's 11 and the first-hit closest query),
+      launches counted from zero, each query bit-equal key by key, kernel
+      and twin timed, with the bound
+  d26 the Cornell box through each camera family
+      (tests/torch_port_cameras.py) at 32x32 against the JAX goldens of
+      scripts/make_torch_port_golden_cameras.py: the doublet with its exit
+      pupil (zsobol, gaussian), the omni .json lens with its microlens
+      array (sobol, triangle), orthographic (halton, mitchell), spherical
+      (pmj02bn) and RTF (fitted to the doublet, the reference's
+      coefficients carried across; stratified, lanczos) at 4 spp, the
+      Navarro eye with HURB diffraction through render_spectral (4 bands
+      of 2 spp) and every channel of render_aovs: d's gate, a lit image,
+      each render's share of camera rays with weight > 0 within 1e-3 of
+      the reference's, 11 K1 launches a pass (12 with the GBuffer's
+      closest)
+  d27 every sampler kind's get_1d and get_2d of dimensions 0-40 and
+      get_1d_run at 1,048,576 lanes, bit for bit the port's CPU draws
+      (sha256 digests; the CPU's computed by a child process started with
+      the script), and at 4,096 lanes bit for bit the committed JAX draws;
+      render_resumable stopped after its first chunk and resumed, bit for
+      bit the one-shot render on the card
+  e13 cornell_lens timed (the Cornell box through the doublet with its
+      exit pupil, zsobol, a gaussian filter; 256x256, 64 spp in passes of
+      16, depth 5 without Russian roulette, 8 lanes): Mrays/s, K1
+      launches, peak memory, the camera's and the lens trace's ms, the
+      sampler's ms, kernel launches and busy share a pass; one pass with
+      each sampler kind and with the perspective camera and the
+      independent sampler (ms, sampler ms, kernel launches from a 64x64
+      profiled pass); eye_bands: the Navarro eye with diffraction
+      through render_spectral, 8 bands x 8 spp at 256x256: Mrays/s, the
+      eye trace's ms, K1 launches, peak memory
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
-  f   the kernels line (K1's launches those of e and e12's shapes box,
-      K3's those of e3 and e12's moving field, by path), the nvidia-smi
-      line and the final result line
+  f   the kernels line (K1's launches those of e, e12's shapes box and
+      e13's cornell_lens, K3's those of e3 and e12's moving field, by
+      path), the nvidia-smi line and the final result line
 """
 
 from __future__ import annotations
@@ -348,7 +388,7 @@ GOLDEN_FILES = os.path.join(ROOT, "tests", "goldens")
 # must launch). spp and bounds are tests/test_reference_parity.py's CASES
 # rows for the file, copied, not imported.
 CXX_GOLDENS = (
-    ("d5_golden_conductor", "conductor", 384, 8, (0.05, 2e-3, 0.2), "k1"),
+    ("d5_golden_conductor", "conductor", 384, 32, (0.05, 2e-3, 0.2), "k1"),
     ("d7_golden_plymesh", "plymesh", 256, 32, (0.04, 1e-3, 0.15), "k2"),
     ("d8_golden_spot", "spot", 256, 32, (0.035, 5e-4, 0.15), "k1"),
     ("d9_golden_envmap", "envmap", 256, 32, (0.05, 2e-3, 0.35), "k1"),
@@ -902,7 +942,7 @@ def phase_k2_hall_vs_twin(dev, hall):
 # the origin's 9 multiplies and 9 adds (the direction's 15 operations are
 # left out, so the bound stays a lower bound).
 XFORM_OPS = 18
-K3_SAMPLE_RES = 32  # the pass whose every K3 query is held against the twin
+K3_SAMPLE_RES = 16  # the pass whose every K3 query is held against the twin
 
 
 def field_on(dev):
@@ -1415,16 +1455,20 @@ def phase_golden_kdtree(dev):
 
 
 def make_pass(scene, camera, res: int, k: int, lanes: int, depth: int = 5,
-              sorted_shading="auto", integrator=None):
+              sorted_shading="auto", integrator=None, sampler=0, filt=None):
     """One forward pass at a bench configuration: k samples per pixel over
     res x res, `lanes` wavelengths, depth `depth`, no Russian roulette,
-    the integrator's sorted_shading (or the given integrator). Returns
+    the integrator's sorted_shading (or the given integrator), the
+    independent sampler of seed 0 and the box filter unless `sampler` (a
+    samplers.Sampler) and `filt` (a filters.Filter) say otherwise; a lens
+    camera's weights (0 where vignetted) weigh its samples. Returns
     render_pass(pass_idx) -> (mean RGB image, traced rays)."""
     import torch
 
     # Module attributes are looked up at each call, so a profiler that
     # wraps them (scripts/profile_torch_pass.py) sees the camera and film.
     from pbrt_tpu_torch import render as render_mod
+    from pbrt_tpu_torch.cameras.perspective import PerspectiveCamera
     from pbrt_tpu_torch.films import rgb as film_mod
     from pbrt_tpu_torch.models.path import PathIntegrator
 
@@ -1434,17 +1478,20 @@ def make_pass(scene, camera, res: int, k: int, lanes: int, depth: int = 5,
                                     sorted_shading=sorted_shading)
     npix = res * res
     pixel_b = torch.arange(npix, device=dev).repeat(k)
+    weighted = not isinstance(camera, PerspectiveCamera)
 
     def render_pass(pass_idx: int = 0):
         sample_b = torch.arange(
             pass_idx * k, (pass_idx + 1) * k, device=dev
         ).repeat_interleave(npix)
-        o, d, wl, _ = render_mod.camera_rays_full(camera, pixel_b, sample_b, 0,
-                                                  n_spectrum=lanes)
+        o, d, wl, w = render_mod.camera_rays_full(
+            camera, pixel_b, sample_b, sampler, filt=filt, n_spectrum=lanes)
         radiance, stats = integrator.trace_with_stats(
-            scene, o, d, wl, pixel_b, sample_b, 0
+            scene, o, d, wl, pixel_b, sample_b, sampler
         )
         rgb = film_mod.spectrum_to_rgb(radiance, wl)
+        if weighted:
+            rgb = rgb * w[:, None]
         return torch.mean(rgb.reshape(k, res, res, 3), dim=0), stats["rays"]
 
     return render_pass
@@ -2755,7 +2802,7 @@ def phase_timed_cloud(dev, smi: str) -> int:
     Russian roulette from 3, 8 lanes: Mrays/s as bench.py counts rays, K1
     launches per pass, the walks' host reads per pass, peak memory, the
     layers' device ms, the kernel launches of one pass and the device's
-    busy share (torch.profiler), the delta walk's live lanes per step at
+    busy share (torch.profiler, a 64x64 pass), the delta walk's live lanes per step at
     bounce 0; then the compacted walks against the lockstep walks
     (compact_walks=False), in turns, the first pass's image of each
     bit-equal."""
@@ -2786,7 +2833,13 @@ def phase_timed_cloud(dev, smi: str) -> int:
     if out["k1_launches"] != passes * (3 * c["depth"] + 2):
         raise AssertionError(f"timed cloud: {out['k1_launches']} K1 launches")
     layers = _volpath_layers(render_pass)
-    kern = ptp.kernel_view(c["lanes"], render_pass, out_dir)
+    # The launches and busy share from a profiled 64x64 pass (the walks'
+    # steps and launches follow the densest lanes, not the width).
+    small = cloud_on(dev, 64)
+    kern = ptp.kernel_view(c["lanes"], make_pass(small[0], small[1], 64, k,
+                                                 c["lanes"],
+                                                 integrator=small[2]),
+                           out_dir)
     decay = _walk_decay(render_pass, res * res * k)
     emit("e9_timed_cloud", lanes=c["lanes"], resolution=res, spp=c["spp"],
          samples_per_pass=k, max_depth=c["depth"], use_dda=True,
@@ -2794,7 +2847,7 @@ def phase_timed_cloud(dev, smi: str) -> int:
          rays_per_pass_camera=res * res * k, **out,
          k1_launches_per_pass=out["k1_launches"] / passes,
          walk_host_reads_per_pass=reads, scene_build_seconds=build_s,
-         first_pass_seconds=first_s, layers=layers,
+         first_pass_seconds=first_s, layers=layers, profiled_resolution=64,
          kernel_launches_per_pass=kern["kernel_launches"],
          device_busy_share=kern["device_busy_share"],
          device_kernel_ms=kern["device_kernel_ms"],
@@ -3149,6 +3202,50 @@ def lt_scene(dev, path, res):
 
     scene, camera, settings = load_pbrt(path, device=dev)
     return scene, camera.replace(resolution=(res, res)), settings["integrator"]
+
+
+LENS = dict(res=256, spp=64, k=16, depth=5, lanes=8)
+EYE_BANDS = dict(res=256, n_bands=8, spp_per_band=8, depth=5, lanes=8)
+_CORNELL = {}
+_LENS_CAMERA = {}
+
+
+def cornell_on(dev):
+    """The Cornell box (scenes/cornell.py) with K1 attached, on dev."""
+    if dev not in _CORNELL:
+        from pbrt_tpu_torch.scenes.cornell import cornell_box
+
+        scene, camera = cornell_box(resolution=(32, 32))
+        _CORNELL[dev] = (scene.with_accel().to(dev), camera.to(dev))
+    return _CORNELL[dev]
+
+
+def lens_pass(dev, res: int, k: int, lanes: int, kind: str = "zsobol",
+              perspective: bool = False, filter_kind: str = "gaussian",
+              depth: int = LENS["depth"]):
+    """e13's cornell_lens pass (make_pass): the Cornell box through the
+    doublet (tests/torch_port_cameras.py, its exit-pupil bounds the
+    port's own), the sampler `kind` over LENS["spp"] samples a pixel and
+    the filter `filter_kind`; perspective=True takes the box's own camera,
+    the box filter. Returns render_pass(pass_idx)."""
+    from pbrt_tpu_torch.filters.filters import Filter
+    from pbrt_tpu_torch.samplers.samplers import Sampler
+
+    from tests.torch_port_cameras import lens_camera
+
+    scene, camera = cornell_on(dev)
+    filt = None
+    if perspective:
+        camera = camera.replace(resolution=(res, res))
+    else:
+        if (dev, res) not in _LENS_CAMERA:  # its pupil bounds take seconds
+            _LENS_CAMERA[dev, res] = lens_camera("pbrt_tpu_torch", res).to(dev)
+        camera = _LENS_CAMERA[dev, res]
+        filt = Filter.create(filter_kind).to(dev)
+    sampler = Sampler.create(kind, spp=LENS["spp"], seed=0, nx=res,
+                             log2_res=max(1, (res - 1).bit_length()))
+    return make_pass(scene, camera, res, k, lanes, depth=depth,
+                     sampler=sampler, filt=filt)
 
 
 def lt_pass(kind: str, dev, res: int, k: int = 1, chains: int = 256):
@@ -3852,6 +3949,439 @@ def phase_grad_motion(dev):
                              "forward+backward passes")
 
 
+CAMERA_RENDER_QUERIES = 2 * LENS["depth"] + 1  # a depth-5 pass's K1 queries
+
+
+def _cameras():
+    from tests import torch_port_cameras as cams
+
+    return cams
+
+
+def phase_k1_cameras_vs_twin(dev):
+    """c10: K1 against its twin on every query of one cornell_lens pass
+    (64x64, 4 spp: the doublet with its exit pupil, zsobol, a gaussian
+    filter; the vignetted lanes traced as the path sends them) and of the
+    GBuffer pass (render_aovs at 32x32, 2 spp: the path's queries and
+    the first-hit closest query), launches counted from zero, each query
+    bit-equal key by key, kernel and twin timed, with the bound."""
+    import torch
+
+    from pbrt_tpu_torch.films.gbuffer import render_aovs
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.ops.smallscene import STATS
+
+    scene, camera = cornell_on(dev)
+    out = {}
+    passes = {
+        "cornell_lens": (lens_pass(dev, 64, 4, LENS["lanes"]),
+                         CAMERA_RENDER_QUERIES),
+        "gbuffer": (lambda _p: render_aovs(
+            scene, camera, PathIntegrator(max_depth=LENS["depth"]), spp=2,
+            spectral_buckets=8, n_spectrum=LENS["lanes"], device=dev),
+                    CAMERA_RENDER_QUERIES + 1),
+    }
+    for name, (rp, want) in passes.items():
+        STATS.reset()
+        queries = _k1_queries(rp)
+        torch.cuda.synchronize()
+        launches = STATS.launches
+        if launches != want or len(queries) != launches:
+            raise AssertionError(f"{name}: {launches} K1 launches, "
+                                 f"{len(queries)} queries, {want} expected")
+        out[name] = {"launches": launches,
+                     "camera_query_live_lanes": int((queries[0][2] > 0).sum()),
+                     **_hold_k1(scene.small, queries, name)}
+    STATS.reset()
+    emit("c10_k1_cameras_vs_twin", **out)
+    return out
+
+
+def phase_golden_cameras_jax(dev):
+    """d26: the Cornell box through each camera family
+    (tests/torch_port_cameras.py) at 32x32 against the JAX goldens of
+    scripts/make_torch_port_golden_cameras.py, with d's gate: the doublet
+    with its exit pupil (zsobol, gaussian filter), the omni .json lens
+    with its microlens array (sobol, triangle), the orthographic (halton,
+    mitchell), spherical (pmj02bn) and RTF (fitted to the doublet, its
+    coefficients carried across; stratified, lanczos) cameras at 4 spp in
+    one pass, the Navarro eye with HURB diffraction through
+    render_spectral's 4 bands of 2 spp, and every channel of render_aovs
+    (4 spp, 8 spectral buckets). Each prints its share of camera rays with
+    weight > 0 and its mean; an unlit image fails; 11 K1 launches a
+    pass."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.films.gbuffer import render_aovs
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.models.spectralpath import render_spectral
+    from pbrt_tpu_torch.ops.smallscene import STATS
+    from pbrt_tpu_torch.render import camera_rays_full, render
+    from pbrt_tpu_torch.samplers.samplers import Sampler
+
+    cams = _cameras()
+    cfg = cams.CFG
+    golden = np.load(cams.GOLDEN)
+    scene, persp = cornell_on(dev)
+    res, spp = cfg["res"], cfg["spp"]
+    integ = PathIntegrator(max_depth=cfg["max_depth"])
+    results = {}
+
+    def gate(name, img, want, launches, expected, lit=True, **extra):
+        share, fields = _golden_gate(img, want)
+        results[name] = {**fields, "k1_launches": launches, **extra}
+        if share < 0.99 or (lit and not fields["mean"] > 0.0):
+            raise AssertionError(f"d26 {name}: {share:.4f} of the values match "
+                                 f"the golden, mean {fields['mean']}")
+        if launches != expected:
+            raise AssertionError(f"d26 {name}: {launches} K1 launches, "
+                                 f"{expected} expected")
+
+    for name, (kind, filt) in cams.RENDERS.items():
+        cam = cams.port_camera(name, golden, res).to(dev)
+        STATS.reset()
+        img = render(scene, cam, integ, spp=spp, seed=cfg["seed"],
+                     samples_per_pass=spp, sampler_kind=kind,
+                     filter_kind=filt, n_spectrum=cfg["n_spectrum"],
+                     device=dev)
+        torch.cuda.synchronize()
+        launches = STATS.launches
+        sampler = Sampler.create(kind, spp=spp, nx=res,
+                                 log2_res=max(1, (res - 1).bit_length()))
+        pixel = torch.arange(res * res, device=dev).repeat(spp)
+        sample = torch.arange(spp, device=dev).repeat_interleave(res * res)
+        w = camera_rays_full(cam, pixel, sample, sampler)[3]
+        share_w = float((w > 0).float().mean())
+        gate(name, img.cpu().numpy(), golden[name], launches,
+             CAMERA_RENDER_QUERIES, sampler=kind, filter=filt,
+             weight_positive_share=share_w,
+             golden_weight_positive_share=float(golden[name + "_share"]))
+        if abs(share_w - float(golden[name + "_share"])) > 1e-3:
+            raise AssertionError(f"d26 {name}: weight > 0 on {share_w} of the "
+                                 "camera rays against the reference's "
+                                 f"{float(golden[name + '_share'])}")
+    STATS.reset()
+    rgb, bands = render_spectral(scene, cams.eye_factory("pbrt_tpu_torch", res),
+                                 seed=cfg["seed"], n_spectrum=cfg["n_spectrum"],
+                                 device=dev, **cams.EYE_CFG)
+    torch.cuda.synchronize()
+    launches = STATS.launches
+    eye = cams.eye_factory("pbrt_tpu_torch", res)(560.0).to(dev)
+    pixel = torch.arange(res * res, device=dev).repeat(2)
+    sample = torch.arange(2, device=dev).repeat_interleave(res * res)
+    w = camera_rays_full(eye, pixel, sample, 0, n_spectrum=cfg["n_spectrum"])[3]
+    expected = CAMERA_RENDER_QUERIES * cams.EYE_CFG["n_bands"]
+    gate("eye_rgb", rgb.cpu().numpy(), golden["eye_rgb"], launches, expected,
+         weight_positive_share=float((w > 0).float().mean()))
+    gate("eye_bands", bands.cpu().numpy(), golden["eye_bands"], launches,
+         expected)
+    STATS.reset()
+    aovs = render_aovs(scene, persp, integ, seed=cfg["seed"],
+                       n_spectrum=cfg["n_spectrum"], device=dev,
+                       **cams.AOV_CFG)
+    torch.cuda.synchronize()
+    launches = STATS.launches
+    for channel, img in aovs.items():
+        gate("aov_" + channel, img.cpu().numpy(), golden["aov_" + channel],
+             launches, CAMERA_RENDER_QUERIES + 1, lit=channel == "rgb")
+    emit("d26_golden_cameras_jax", resolution=res, spp=spp,
+         lanes=cfg["n_spectrum"], renders=results)
+
+
+SAMPLER_DIMS_FILE = os.path.join(ROOT, "chiprun_out", "sampler_cpu_digests.npz")
+
+
+def _cpu_sampler_digests(path: str) -> None:
+    """d27's CPU side, run in a background process from the start of the
+    script: the sha256 digests of every sampler kind's draws (get_1d and
+    get_2d of dimensions 0-40, get_1d_run of dimensions 3-8) at
+    1,048,576 lanes of the settings "c" of tests/torch_port_cameras.py,
+    on the CPU, saved to `path`."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.samplers.samplers import Sampler
+
+    cams = _cameras()
+    torch.set_num_threads(4)
+    cfg = cams.SAMPLER_CFGS["c"]
+    pixel, sample = (torch.from_numpy(a.astype(np.int64))
+                     for a in cams.draw_lanes(1 << 20, cfg))
+    out = {}
+    for kind in cams.SAMPLER_KINDS:
+        s = Sampler.create(kind, spp=cfg["spp"], seed=cfg["seed"],
+                           nx=cfg["nx"], log2_res=cfg["log2_res"])
+        out[kind] = cams.digests(v.numpy() for v in
+                                 cams.draws(s, pixel, sample))
+        run = s.get_1d_run(pixel, sample, 3, 6)
+        out[kind + "_run"] = cams.digests(run[:, j].numpy() for j in range(6))
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **out)
+    os.replace(tmp, path)
+
+
+def start_cpu_sampler_digests():
+    """Start _cpu_sampler_digests in a child process; returns it."""
+    os.makedirs(os.path.dirname(SAMPLER_DIMS_FILE), exist_ok=True)
+    if os.path.exists(SAMPLER_DIMS_FILE):
+        os.remove(SAMPLER_DIMS_FILE)
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--cpu-sampler-digests", SAMPLER_DIMS_FILE],
+                            cwd=ROOT)
+
+
+def phase_samplers_and_resume(dev, cpu_digests):
+    """d27: every sampler kind's get_1d and get_2d of dimensions 0-40 and
+    get_1d_run of dimensions 3-8 at 1,048,576 lanes on the card, bit for
+    bit the port's CPU draws of the same lanes (sha256 digests of each
+    draw, the CPU's from the background process started with the script);
+    at 4,096 lanes under settings a and b, bit for bit the committed JAX
+    draws of scripts/make_torch_port_golden_cameras.py; then
+    render_resumable, stopped after its first chunk and resumed, equal to
+    the one-shot render_resumable on the card, bit for bit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.films.checkpoint import render_resumable, save_checkpoint
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.render import render
+    from pbrt_tpu_torch.samplers.samplers import Sampler
+
+    cams = _cameras()
+    jax_draws = np.load(cams.SAMPLER_GOLDEN)
+    t0 = time.perf_counter()
+    gpu = {}
+    for kind in cams.SAMPLER_KINDS:
+        cfg = cams.SAMPLER_CFGS["c"]
+        s = Sampler.create(kind, spp=cfg["spp"], seed=cfg["seed"],
+                           nx=cfg["nx"], log2_res=cfg["log2_res"])
+        pixel, sample = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                         for a in cams.draw_lanes(1 << 20, cfg))
+        gpu[kind] = cams.digests(v.cpu().numpy() for v in
+                                 cams.draws(s, pixel, sample))
+        run = s.get_1d_run(pixel, sample, 3, 6).cpu()
+        gpu[kind + "_run"] = cams.digests(run[:, j].numpy() for j in range(6))
+        for cfg_name in ("a", "b"):
+            cfg = cams.SAMPLER_CFGS[cfg_name]
+            s = Sampler.create(kind, spp=cfg["spp"], seed=cfg["seed"],
+                               nx=cfg["nx"], log2_res=cfg["log2_res"])
+            pixel, sample = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                             for a in cams.draw_lanes(cams.DRAW_LANES, cfg))
+            vals = [v.cpu().numpy() for v in cams.draws(s, pixel, sample)]
+            bad = np.nonzero(cams.digests(vals)
+                             != jax_draws[f"{kind}_{cfg_name}_digest"])[0]
+            if bad.size:
+                raise AssertionError(f"d27 {kind} {cfg_name}: draws (dim, "
+                                     "component) "
+                                     f"{[divmod(int(b), 3) for b in bad]} "
+                                     "differ from the JAX golden")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc = cpu_digests.wait(timeout=900)
+    wait_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"d27: the CPU draws' process exited {rc}")
+    cpu = np.load(SAMPLER_DIMS_FILE)
+    for key, digests in gpu.items():
+        bad = np.nonzero(digests != cpu[key])[0]
+        if bad.size:
+            raise AssertionError(f"d27 {key}: card draws {bad.tolist()} differ "
+                                 "from the CPU's")
+    scene, _ = cornell_on(dev)
+    cam = cams.lens_camera("pbrt_tpu_torch", 32).to(dev)
+    integ = PathIntegrator(max_depth=LENS["depth"])
+    kw = dict(seed=3, samples_per_pass=4, chunk_spp=8, sampler_kind="zsobol",
+              filter_kind="gaussian", n_spectrum=LENS["lanes"], device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = render_resumable(scene, cam, integ, 24,
+                                 os.path.join(tmp, "whole.npz"), **kw)
+        first = render(scene, cam, integ, spp=8, seed=3, samples_per_pass=4,
+                       sample_offset=0, total_spp=24, sampler_kind="zsobol",
+                       filter_kind="gaussian", n_spectrum=LENS["lanes"],
+                       device=dev)
+        path = os.path.join(tmp, "stopped.npz")
+        save_checkpoint(path, first * 8, 8, 24, 3)
+        resumed = render_resumable(scene, cam, integ, 24, path, **kw)
+    equal = bool(torch.equal(whole, resumed))
+    emit("d27_samplers_and_resume", lanes=1 << 20, dims=cams.DRAW_DIMS,
+         kinds=list(cams.SAMPLER_KINDS), card_seconds=card_s,
+         cpu_wait_seconds=wait_s, draws_bit_equal_to_cpu=True,
+         jax_draws_bit_equal=True, resume_bit_equal=equal,
+         resume_image_mean=float(whole.mean()))
+    if not equal:
+        raise AssertionError("d27: the resumed render differs from the "
+                             "one-shot render")
+
+
+def _lens_layers(render_pass) -> dict:
+    """e13's layers of one pass (CUDA events): the camera (camera_rays_full)
+    with, inside it, the lens trace and the exit-pupil sampling, and the
+    sampler's draws (every get_1d / get_2d, the camera's included)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.cameras import humaneye, realistic
+    from pbrt_tpu_torch.samplers.samplers import Sampler
+
+    outer, lens_t, samp_t = ptp.LayerTimer(), ptp.LayerTimer(), ptp.LayerTimer()
+    wraps = [(lens_t, "lens_trace", realistic, "trace_through_stack"),
+             (lens_t, "lens_trace", humaneye, "trace_through_stack"),
+             (samp_t, "sampler", Sampler, "get_1d"),
+             (samp_t, "sampler", Sampler, "get_2d")]
+    saved = [(owner, attr, getattr(owner, attr)) for _, _, owner, attr in wraps]
+    with ptp.wrapped_layers(outer):
+        for timer, name, owner, attr in wraps:
+            setattr(owner, attr, timer.wrap(name, getattr(owner, attr)))
+        try:
+            render_pass()  # warm-up
+            torch.cuda.synchronize()
+            for t in (outer, lens_t, samp_t):
+                t.events.clear()
+            t0 = time.perf_counter()
+            render_pass()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for owner, attr, fn in saved:
+                setattr(owner, attr, fn)
+    layers = outer.totals_ms()
+    layers["other"] = wall_ms - sum(layers.values())
+    return {"wall_ms": wall_ms, "layers_ms": layers,
+            "lens_trace_ms": lens_t.totals_ms().get("lens_trace", 0.0),
+            "sampler_ms_all_draws": samp_t.totals_ms().get("sampler", 0.0)}
+
+
+class _CountedTrace:
+    """An integrator whose trace counts its rays (render_spectral calls
+    trace; e13's eye_bands reads the rays as bench.py counts them)."""
+
+    def __init__(self, integ):
+        self.integ = integ
+        self.rays = []
+
+    def trace(self, *args):
+        radiance, stats = self.integ.trace_with_stats(*args)
+        self.rays.append(stats["rays"])
+        return radiance
+
+
+def phase_timed_cameras(dev, smi: str) -> int:
+    """e13, timed at full width. cornell_lens: the Cornell box through the
+    doublet with its exit pupil (the port's own bounds), zsobol and a
+    gaussian filter, 256x256, 64 spp in passes of 16 (1,048,576 camera
+    rays a pass), depth 5 without Russian roulette, 8 lanes: Mrays/s, K1
+    launches, peak memory, the layers (the camera with its lens trace,
+    the sampler's draws), kernel launches and busy share a pass
+    (torch.profiler); then one timed pass with each sampler kind, and the
+    perspective camera with the independent sampler (e's pass at this
+    shape), each with its sampler ms, and its kernel launches from a
+    profiled 64x64 pass (the launches do not depend on the width).
+    eye_bands: the Navarro eye with diffraction through render_spectral,
+    8 bands x 8 spp a band at 256x256: Mrays/s, the eye trace's ms, K1
+    launches, peak memory. Returns cornell_lens's K1 launches."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.cameras import humaneye
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.models.spectralpath import render_spectral
+    from pbrt_tpu_torch.ops.smallscene import STATS
+
+    c = LENS
+    res, k, passes = c["res"], c["k"], c["spp"] // c["k"]
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    render_pass = lens_pass(dev, res, k, c["lanes"])
+    t0 = time.perf_counter()
+    render_pass(0)  # warm-up
+    first_s = time.perf_counter() - t0
+    out = timed_forward(render_pass, passes, {"k1": STATS})
+    if out["k1_launches"] != passes * CAMERA_RENDER_QUERIES:
+        raise AssertionError(f"timed cornell_lens: {out['k1_launches']} K1 "
+                             "launches")
+    layers = _lens_layers(render_pass)
+    kern = ptp.kernel_view(c["lanes"], render_pass, out_dir)
+    emit("e13_timed_cornell_lens", lanes=c["lanes"], resolution=res,
+         spp=c["spp"], samples_per_pass=k, max_depth=c["depth"],
+         sampler="zsobol", filter="gaussian",
+         rays_per_pass_camera=res * res * k, **out,
+         wall_ms_per_pass=out["seconds"] * 1e3 / passes,
+         k1_launches_per_pass=out["k1_launches"] / passes,
+         first_pass_seconds=first_s, layers=layers,
+         kernel_launches_per_pass=kern["kernel_launches"],
+         device_busy_share=kern["device_busy_share"],
+         device_kernel_ms=kern["device_kernel_ms"],
+         profiled_pass_wall_ms=kern["wall_ms"], top_kernels=kern["top"],
+         nvidia_smi=smi)
+    k1_launches = out["k1_launches"]
+    kinds = {}
+    runs = [(kind, False) for kind in _cameras().SAMPLER_KINDS]
+    runs.append(("independent", True))
+    for kind, persp in runs:
+        label = "perspective_independent" if persp else kind
+        rp = lens_pass(dev, res, k, c["lanes"], kind, perspective=persp)
+        rp(0)  # warm-up
+        one = timed_forward(rp, 1, {"k1": STATS})
+        lay = _lens_layers(rp)
+        small = lens_pass(dev, 64, 1, c["lanes"], kind, perspective=persp)
+        kv = ptp.kernel_view(c["lanes"], small, out_dir)
+        kinds[label] = {"pass_ms": one["seconds"] * 1e3,
+                        "mrays_per_s": one["mrays_per_s"],
+                        "sampler_ms": lay["sampler_ms_all_draws"],
+                        "camera_ms": lay["layers_ms"].get("camera", 0.0),
+                        "kernel_launches_per_pass": kv["kernel_launches"],
+                        "image_mean": one["image_mean"]}
+    emit("e13_sampler_kinds", resolution=res, samples_per_pass=k,
+         lanes=c["lanes"], passes=kinds, nvidia_smi=smi)
+    e = EYE_BANDS
+    scene, _ = cornell_on(dev)
+    counted = _CountedTrace(PathIntegrator(max_depth=e["depth"],
+                                           rr_start_depth=e["depth"]))
+    factory = _cameras().eye_factory("pbrt_tpu_torch", e["res"])
+    render_spectral(scene, factory, n_bands=1, spp_per_band=1,
+                    n_spectrum=e["lanes"], integrator=counted,
+                    device=dev)  # warm-up
+    counted.rays.clear()
+    lens_t = ptp.LayerTimer()
+    trace = humaneye.trace_through_stack
+    humaneye.trace_through_stack = lens_t.wrap("eye_trace", trace)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        STATS.reset(timed=True)
+        t0 = time.perf_counter()
+        rgb, bands = render_spectral(scene, factory, n_bands=e["n_bands"],
+                                     spp_per_band=e["spp_per_band"],
+                                     n_spectrum=e["lanes"],
+                                     integrator=counted, device=dev)
+        rays = float(sum(counted.rays))  # synchronizes
+        seconds = time.perf_counter() - t0
+    finally:
+        humaneye.trace_through_stack = trace
+    eye = {"seconds": seconds, "rays": rays, "mrays_per_s": rays / seconds / 1e6,
+           "camera_rays": e["res"] ** 2 * e["n_bands"] * e["spp_per_band"],
+           "eye_trace_ms": lens_t.totals_ms().get("eye_trace", 0.0),
+           "k1_launches": STATS.launches, "k1_ms": STATS.elapsed_ms(),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "image_mean": float(rgb.mean()), "bands_mean": float(bands.mean())}
+    STATS.reset()
+    if not bool(torch.isfinite(rgb).all()) or not eye["image_mean"] > 0.0:
+        raise AssertionError(f"eye_bands: a non-finite or unlit image, {eye}")
+    if eye["k1_launches"] != e["n_bands"] * CAMERA_RENDER_QUERIES:
+        raise AssertionError(f"eye_bands: {eye['k1_launches']} K1 launches")
+    emit("e13_timed_eye_bands", resolution=e["res"], n_bands=e["n_bands"],
+         spp_per_band=e["spp_per_band"], lanes=e["lanes"],
+         max_depth=e["depth"], diffraction=True, **eye, nvidia_smi=smi)
+    return k1_launches
+
+
 def _kernel_entry(name, source, replaces, launches, k):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source,
@@ -3873,6 +4403,18 @@ def main() -> int:
         raise AssertionError("the port imported jax")
     dev = torch.device("cuda", 0)
     smi = phase_device()
+    cpu_digests = start_cpu_sampler_digests()
+    try:
+        return _run(dev, smi, cpu_digests)
+    finally:
+        if cpu_digests.poll() is None:
+            cpu_digests.kill()
+            cpu_digests.wait()
+
+
+def _run(dev, smi, cpu_digests) -> int:
+    import torch
+
     builds = phase_build()
     k1 = phase_kernel_vs_twin(dev)
     killeroo = killeroo_on(dev)
@@ -3914,6 +4456,9 @@ def main() -> int:
     phase_geometry_vs_twin(dev)
     phase_golden_geometry_jax(dev)
     phase_grad_motion(dev)
+    phase_k1_cameras_vs_twin(dev)
+    phase_golden_cameras_jax(dev)
+    phase_samplers_and_resume(dev, cpu_digests)
     k1_launches = phase_timed(dev, 8)
     phase_timed(dev, 32)
     phase_timed_fwdbwd(dev, smi)
@@ -3929,12 +4474,14 @@ def main() -> int:
     phase_timed_families(dev, smi)
     phase_timed_lighttransport(dev, smi)
     geom_launches = phase_timed_geometry(dev, smi)
+    lens_launches = phase_timed_cameras(dev, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     # No single PyTorch call computes a ray/triangle intersection, so no
     # kernel has a library yardstick. K2's, K3's and K4's errors are those
     # of the 1,048,576-ray comparisons, both modes. K1's launches are those
-    # of the Cornell (e) and shapes (e12) main paths, K3's of the
+    # of the Cornell (e), shapes (e12) and cornell_lens (e13) main paths,
+    # K3's of the
     # instanced field (e3) and motion.pbrt (e12), each counted from zero
     # around its timed passes.
     lines = {}
@@ -3942,7 +4489,8 @@ def main() -> int:
         lines[name] = {**res["closest"], "max_abs_err": max(
             res["closest"]["max_abs_err"], res["any_hit"]["max_abs_err"])}
     by_path = {"smallscene": {"cornell": k1_launches,
-                              "shapes": geom_launches["shapes"][0]},
+                              "shapes": geom_launches["shapes"][0],
+                              "cornell_lens": lens_launches},
                "sweep": {"instanced_field": k3_launches,
                          "motion": geom_launches["motion"][1]}}
     entries = [
@@ -3968,4 +4516,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-sampler-digests"]:
+        sys.path.insert(0, ROOT)
+        _cpu_sampler_digests(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

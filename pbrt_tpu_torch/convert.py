@@ -24,6 +24,11 @@ MediumStack. The moving instances ("anim.xforms.<i>.<field>", each
 instance's keyframes decomposed, with the static "anim.ranges",
 "anim.time0" and "anim.time1") are carried as the port's
 AnimatedInstances, and a camera's "motion.*" as its AnimatedTransform.
+`camera_from_arrays` carries every camera class (perspective, realistic
+and omni with their lens stacks, exit-pupil bounds and microlens arrays,
+the human eye, RTF, orthographic and spherical), dispatched on the
+reference camera's class name; `sampler_from_arrays` and
+`filter_from_arrays` carry a Sampler's fields and a Filter's table.
 """
 
 from __future__ import annotations
@@ -105,21 +110,43 @@ def _section(cls, prefix: str, arrays: dict, static: dict, item_of=None,
     return cls(**kwargs, **extra)
 
 
-def _nested(cls, prefix: str, arrays: dict):
-    """Build a nest of port dataclasses from the `prefix`-ed entries, field
-    by field; floats (a distribution's range) stay Python floats."""
+def _unwrap(kind):
+    """T of Optional[T]."""
+    args = [a for a in typing.get_args(kind) if a is not type(None)]
+    return args[0] if typing.get_origin(kind) is typing.Union and args else kind
+
+
+def _tree(cls, prefix: str, arrays: dict, static: dict):
+    """Build a port tensorclass (and the tensorclasses nested in it) from
+    the `prefix`-ed entries, removing the ones it takes: static fields
+    from `static`, tensors from `arrays` (floats as Python floats), a
+    nested tensorclass from its own prefix, a None from a static None.
+    Derived (init=False) fields are rebuilt, never carried."""
     hints = typing.get_type_hints(cls)
     kwargs = {}
     for f in dataclasses.fields(cls):
+        if not f.init:
+            continue
         path = prefix + f.name
-        kind = hints[f.name]
-        if dataclasses.is_dataclass(kind):
-            kwargs[f.name] = _nested(kind, path + ".", arrays)
-        elif kind is float:
-            kwargs[f.name] = float(arrays.pop(path))
-        else:
-            kwargs[f.name] = _tensor(arrays.pop(path))
+        kind = _unwrap(hints[f.name])
+        if path in static:
+            value = static.pop(path)
+            if value is not None or not f.metadata.get("static", False):
+                kwargs[f.name] = value
+            continue
+        if dataclasses.is_dataclass(kind) and any(
+                p.startswith(path + ".") for p in list(arrays) + list(static)):
+            kwargs[f.name] = _tree(kind, path + ".", arrays, static)
+        elif path in arrays:
+            value = arrays.pop(path)
+            kwargs[f.name] = float(value) if kind is float else _tensor(value)
     return cls(**kwargs)
+
+
+def _leftover(what: str, arrays: dict, static: dict) -> None:
+    extra = sorted(list(arrays) + list(static))
+    if extra:
+        raise ValueError(f"unknown {what} fields {extra}")
 
 
 def _env_from_arrays(arrays: dict):
@@ -130,9 +157,8 @@ def _env_from_arrays(arrays: dict):
     if not env:
         return None
     cls = PortalLight if "lights.env.corners" in env else EnvironmentMap
-    out = _nested(cls, "lights.env.", env)
-    if env:
-        raise ValueError(f"unknown environment light fields {sorted(env)}")
+    out = _tree(cls, "lights.env.", env, {})
+    _leftover("environment light", env, {})
     return out
 
 
@@ -208,19 +234,61 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
     return Scene(geom=geom, materials=materials, lights=lights, **optional)
 
 
-def camera_from_arrays(arrays: dict[str, np.ndarray],
-                       static: dict) -> PerspectiveCamera:
-    """Build the port's PerspectiveCamera from a reference camera's
-    flattened fields ("camera_to_world.m", "camera_to_world.m_inv",
-    "motion.*" and the static "resolution", "fov_deg", ...)."""
-    c2w = Transform(m=_tensor(arrays["camera_to_world.m"]),
-                    m_inv=_tensor(arrays["camera_to_world.m_inv"]))
-    extra = {"camera_to_world": c2w}
+def _camera_classes() -> dict:
+    from .cameras.humaneye import HumanEyeCamera
+    from .cameras.realistic import RealisticCamera
+    from .cameras.rtf import RTFCamera
+    from .cameras.simple import OrthographicCamera, SphericalCamera
+
+    return {c.__name__: c for c in (
+        PerspectiveCamera, RealisticCamera, HumanEyeCamera, RTFCamera,
+        OrthographicCamera, SphericalCamera)}
+
+
+def camera_from_arrays(arrays: dict[str, np.ndarray], static: dict,
+                       kind: str = "PerspectiveCamera"):
+    """Build the port's camera of class `kind` (the reference camera's
+    class name) from the reference camera's flattened fields
+    ("camera_to_world.m", the lens stack's "lens.vertex_z", ...,
+    "pupil_bounds", "microlens.stack.*", "microlens.offsets", an RTF
+    camera's "coeffs" and "powers", "motion.*", and the static
+    "resolution", "fov_deg", "diffraction", "microlens.dims", ...)."""
+    classes = _camera_classes()
+    if kind not in classes:
+        raise ValueError(f"unknown camera class {kind!r}; the port has "
+                         f"{sorted(classes)}")
+    arrays, static = dict(arrays), dict(static)
+    extra = {}
     if any(k.startswith("motion.") for k in arrays):
         extra["motion"] = _xform("motion", arrays, static)
-    arrays = {"camera." + k: v for k, v in arrays.items()
-              if not k.startswith(("camera_to_world.", "motion."))}
-    static = {"camera." + k: v for k, v in static.items()
-              if not k.startswith("motion.")}
-    return _section(PerspectiveCamera, "camera", arrays, static,
-                    lambda n: 14, **extra)
+        for k in [k for k in list(arrays) + list(static)
+                  if k.startswith("motion.")]:
+            arrays.pop(k, None)
+            static.pop(k, None)
+    cam = _tree(classes[kind], "", arrays, static)
+    _leftover(kind, arrays, static)
+    return cam.replace(**extra) if extra else cam
+
+
+def sampler_from_arrays(arrays: dict[str, np.ndarray], static: dict):
+    """The port's Sampler from a reference Sampler's flattened fields (the
+    "seed" array and the static kind, spp, nx and log2_res)."""
+    from .samplers.samplers import Sampler
+
+    arrays, static = dict(arrays), dict(static)
+    seed = int(arrays.pop("seed"))
+    fields = {k: static.pop(k) for k in ("kind", "spp", "nx", "log2_res")}
+    _leftover("sampler", arrays, static)
+    return Sampler(seed=seed, **fields)
+
+
+def filter_from_arrays(arrays: dict[str, np.ndarray], static: dict):
+    """The port's Filter from a reference Filter's flattened fields (its
+    table "values", its distribution "dist.*" and the static kind, radius
+    and integral ratio)."""
+    from .filters.filters import Filter
+
+    arrays, static = dict(arrays), dict(static)
+    filt = _tree(Filter, "", arrays, static)
+    _leftover("filter", arrays, static)
+    return filt

@@ -96,7 +96,15 @@ def fma(a, b, c) -> torch.Tensor:
     and the float64 sum is rounded to float32 (a second rounding that
     changes the result only when the float64 sum lands on a float32
     half-way point)."""
-    return (a.double() * b.double() + c.double()).float()
+    return (torch.as_tensor(a).double() * torch.as_tensor(b).double()
+            + torch.as_tensor(c).double()).float()
+
+
+def recip(x) -> float:
+    """1 / x as the float32 by which the reference's jitted code multiplies
+    where it divides by the constant x (XLA's CPU build rewrites a
+    division by a constant so)."""
+    return float(np.float32(1.0) / np.float32(x))
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-""".pbrt scene-description parser -> (Scene, PerspectiveCamera, settings).
+""".pbrt scene-description parser -> (Scene, camera, settings).
 
 Port of pbrt_tpu/io/parser.py, numpy only up to the builders: the same
 tokens, parameter lists, float64 graphics state and instancing rules, so a
@@ -9,7 +9,12 @@ reference. The directive subset:
               CoordinateSystem CoordSysTransform TransformTimes ActiveTransform
   state:      AttributeBegin/End TransformBegin/End ObjectBegin/End
               ObjectInstance ReverseOrientation WorldBegin/End Include Import
-  options:    Camera "perspective", Film "rgb", Sampler independent/random,
+  options:    Camera "perspective", and "realistic" / "omni" with a
+              "lensfile" (.dat, or an omni .json with its microlens
+              block; "filmdiag", "diffractionEnabled",
+              "microlenssensoroffset", "microlenssimulationradius"),
+              Film "rgb", Sampler independent / random, stratified,
+              sobol, paddedsobol, zsobol, halton and pmj02bn,
               Integrator path/simplepath/volpath/simplevolpath (a path
               integrator becomes volpath when the scene has media, with
               the reference's warning), bdpt, mlt, sppm, lightpath and
@@ -47,8 +52,8 @@ reference. The directive subset:
               inside / outside stack indices; a grid-like medium binds the
               scene level)
 
-A feature the port lacks (another camera, sampler or integrator, Ptex,
-NanoVDB media, image formats other than PFM) raises NotImplementedError
+A feature the port lacks (Ptex, NanoVDB media, image formats other than
+PFM) raises NotImplementedError
 naming its ROADMAP Queue 1 item, at parse or build time; nothing renders
 without it. A texture-typed material parameter other than the
 reflectance raises ValueError: the reference has none (its parser takes
@@ -62,7 +67,14 @@ reference renders the light with its constant I or L), an unknown Texture
 class (the reference binds 0.5 gray), an imagemap whose image cannot be
 read (the reference binds a 0.5 gray image), a measured material with no
 readable table (the reference binds a gray table) and a mix that names
-an undefined material (the reference falls back to diffuse). A seventh
+an undefined material (the reference falls back to diffuse). Four more
+raise ValueError where the reference renders something else: a camera
+type other than perspective, realistic and omni (the reference loads it
+as perspective with a warning), a realistic or omni camera without a
+lensfile or whose lens file does not load (the reference warns and
+renders the perspective camera), a film type other than rgb (the
+reference reads it as rgb) and an unknown sampler name (the reference
+renders the independent sampler). Another
 raises ValueError where the reference renders a fault: an analytic shape
 (a non-emissive sphere, disk, cylinder or bilinear mesh, or a curve)
 inside ObjectBegin, which the reference draws once in world space under
@@ -121,6 +133,13 @@ from ..textures.buffers import TextureBuffers
 from .image import read_image_rgb
 from .ply import read_ply
 
+
+# Sampler names and the kinds they build (the reference's mapping).
+SAMPLERS = {
+    "independent": "independent", "random": "independent",
+    "stratified": "stratified", "sobol": "sobol", "paddedsobol": "padded",
+    "zsobol": "zsobol", "halton": "halton", "pmj02bn": "pmj02bn",
+}
 
 # Integrator names the parser builds: the reference's, and pbrt-v4's
 # ambientocclusion and randomwalk.
@@ -320,6 +339,7 @@ class PbrtParser:
         self.integrator_params = {}
         self.sampler_kind = "independent"
         self.spp = 16
+        self.camera_type = "perspective"
         # objects (instancing): name -> [(tris, material, area light)]
         self.objects = {}
         self.cur_object = None
@@ -436,16 +456,23 @@ class PbrtParser:
     def _d_Sampler(self, ts):
         kind = ts.next()[1:-1]
         p = _parse_params(ts)
-        if kind not in ("independent", "random"):
-            raise _unported(f"Sampler {kind!r}", 14)
-        self.sampler_kind = "independent"
+        if kind not in SAMPLERS:
+            # The reference renders an unknown name with the independent
+            # sampler (pbrt_tpu/io/parser.py:306).
+            raise ValueError(f"unknown Sampler {kind!r}; the samplers are "
+                             f"{sorted(SAMPLERS)}")
+        self.sampler_kind = SAMPLERS[kind]
         self.spp = int(_get(p, "pixelsamples", 16))
 
     def _d_Film(self, ts):
         kind = ts.next()[1:-1]
         p = _parse_params(ts)
         if kind != "rgb":
-            raise _unported(f"Film {kind!r}", 14)
+            # The reference reads any film type as an RGB film
+            # (pbrt_tpu/io/parser.py:309-310).
+            raise ValueError(f"Film {kind!r}: the file entry develops an "
+                             "RGB film only; render a GBuffer with "
+                             "films/gbuffer.py::render_aovs")
         self.resolution = (
             int(_get(p, "xresolution", 256)),
             int(_get(p, "yresolution", 256)),
@@ -467,8 +494,13 @@ class PbrtParser:
     def _d_Camera(self, ts):
         kind = ts.next()[1:-1]
         self.camera_params = _parse_params(ts)
-        if kind != "perspective":
-            raise _unported(f"Camera {kind!r}", 14)
+        if kind not in ("perspective", "realistic", "omni"):
+            # The reference loads another type as perspective with a
+            # warning (pbrt_tpu/io/parser.py:1634-1638).
+            raise ValueError(f"Camera {kind!r}: the file entry builds the "
+                             "perspective, realistic and omni cameras; build "
+                             "the others from pbrt_tpu_torch.cameras")
+        self.camera_type = kind
         self.world_to_camera = self.ctm.copy()
 
     # -- transforms and graphics state -----------------------------------------
@@ -1459,6 +1491,50 @@ class PbrtParser:
                 out[key + "_mat"] = np.asarray([m for _, m in rows], np.int32)
         return out
 
+    def _lens_camera(self, c2w):
+        """Camera "realistic" / "omni" with a lensfile (.dat, or an omni
+        .json with an optional microlens block): the port's
+        RealisticCamera, as the reference builds it
+        (pbrt_tpu/io/parser.py:1581-1627)."""
+        from ..cameras.lens import load_lens_file
+        from ..cameras.realistic import RealisticCamera, load_lens_json
+
+        p = self.camera_params
+        lensfile = _get(p, "lensfile")
+        if not lensfile:
+            # The reference renders the perspective camera with a warning
+            # (pbrt_tpu/io/parser.py:1629-1633).
+            raise ValueError(f"Camera {self.camera_type!r} needs a "
+                             "\"string lensfile\"")
+        path = os.path.join(self.base_dir, lensfile)
+        microlens = None
+        try:
+            if lensfile.endswith(".json"):
+                lens, microlens = load_lens_json(
+                    path,
+                    # pbrt takes metres; the lens math keeps mm.
+                    microlens_sensor_offset_mm=float(
+                        _get(p, "microlenssensoroffset", 0.001)) * 1000.0,
+                    sim_radius=int(_get(p, "microlenssimulationradius", 0)))
+            else:
+                lens = load_lens_file(path)
+        except (OSError, ValueError, KeyError, TypeError, IndexError) as e:
+            # The reference falls back to the perspective camera with a
+            # warning (pbrt_tpu/io/parser.py:1624-1628).
+            raise ValueError(f"lensfile {lensfile!r}: {e}") from e
+        camera = RealisticCamera.create(
+            camera_to_world=c2w, lens=lens, resolution=self.resolution,
+            film_diag_mm=float(_get(p, "filmdiag", 35.0)),
+            # No exit-pupil bounds behind a microlens relay
+            # (OmniCamera::BoundExitPupil's early out).
+            exit_pupil=microlens is None,
+        ).replace(microlens=microlens,
+                  diffraction=bool(_get(p, "diffractionEnabled", False)))
+        if _get(p, "aperturediameter"):
+            self.warnings.append("aperturediameter override not applied; "
+                                 "edit the lens file's stop row instead")
+        return camera
+
     def build(self):
         """Returns (scene, camera, settings dict), on the CPU."""
         inst_tables = self._build_instances()
@@ -1521,12 +1597,14 @@ class PbrtParser:
         else:
             scene = scene.with_accel()
 
-        c2w = np.linalg.inv(self.world_to_camera)
-        camera = PerspectiveCamera(
-            camera_to_world=tfm.Transform.from_matrix(c2w.astype(np.float32)),
-            resolution=self.resolution,
-            fov_deg=float(_get(self.camera_params, "fov", 90.0)),
-        )
+        c2w = tfm.Transform.from_matrix(
+            np.linalg.inv(self.world_to_camera).astype(np.float32))
+        if self.camera_type == "perspective":
+            camera = PerspectiveCamera(
+                camera_to_world=c2w, resolution=self.resolution,
+                fov_deg=float(_get(self.camera_params, "fov", 90.0)))
+        else:
+            camera = self._lens_camera(c2w)
         integrator = self._integrator(self.scene_medium is not None
                                       or media_stack is not None)
         settings = {

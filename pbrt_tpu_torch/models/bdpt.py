@@ -34,7 +34,7 @@ from ..films.rgb import spectrum_to_rgb
 from ..lights.buffers import eval_emission
 from ..materials import bxdf
 from ..samplers.samplers import Sampler, as_sampler
-from .lightpath import splat_add
+from .lightpath import require_pinhole, splat_add
 from .path import _frame, refuse_gradient
 
 _EPS = 1e-20
@@ -460,6 +460,7 @@ def render_bdpt(scene, camera, spp: int = 16, max_depth: int = 5,
 
     if spp % samples_per_pass != 0:
         raise ValueError("spp must divide by samples_per_pass")
+    require_pinhole(camera, "BDPT")
     scene, camera = on_device(scene, camera, device)
     integ = BDPTIntegrator(max_depth=max_depth)
     nx, ny = camera.resolution

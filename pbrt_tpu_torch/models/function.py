@@ -3,9 +3,8 @@ pbrt_tpu/models/function.py; FunctionIntegrator of pbrt-v4's
 cpu/integrators.cpp).
 
 Every pixel Monte-Carlo-integrates a known 2D test function with the
-sampler, so error images compare samplers directly. Only the independent
-sampler is ported; another kind raises NotImplementedError (ROADMAP
-Queue 1 item 14), from samplers/samplers.py.
+sampler, so error images compare samplers directly: every kind of
+samplers/samplers.py.
 """
 
 from __future__ import annotations

@@ -38,6 +38,17 @@ from ..samplers.samplers import Sampler, as_sampler
 from .path import _frame, refuse_gradient
 
 
+def require_pinhole(camera, who: str) -> None:
+    """The light tracers connect to the camera through the perspective
+    camera's `project` and `pixel_solid_angle_base`; another camera raises
+    ValueError (the reference fails on it with an AttributeError)."""
+    from ..cameras.perspective import PerspectiveCamera
+
+    if not isinstance(camera, PerspectiveCamera):
+        raise ValueError(f"{who} connects paths to the perspective camera "
+                         f"only, not to a {type(camera).__name__}")
+
+
 def splat_rows(camera, p, rgb, cos_p, r2, n_paths, ok, mis=None):
     """The film rows of connections to the pinhole: (pixel (N,), RGB (N,
     3)) of `rgb` arriving from points p, with the light-tracing measure
@@ -165,6 +176,7 @@ def render_lightpath(scene, camera, n_paths_total: int = 1 << 20,
     paths_per_pass light paths into an image (ny, nx, 3) on `device`."""
     from ..render import on_device
 
+    require_pinhole(camera, "the light path integrator")
     scene, camera = on_device(scene, camera, device)
     integ = LightPathIntegrator(max_depth=max_depth)
     sampler = Sampler(seed=int(seed), kind="independent", spp=1)

@@ -7,8 +7,10 @@ its own camera (a factory band_centre_nm -> camera is the dispersion hook:
 an eye or lens camera rebuilt at the band's centre wavelength) and its own
 hero wavelengths restricted to the band, and the film keeps each band's
 spectral radiance. The bands are a Python loop around one band render.
-Eye and lens cameras wait for ROADMAP Queue 1 item 14; the hook takes any
-camera the port has.
+The hook takes every camera of the port; with the eye or a lens camera
+(`lambda c: HumanEyeCamera.navarro(..., wavelength_nm=c)`) each band
+traces its own dispersed stack, and a camera with `diffraction` on
+deflects at the stop by the band's hero wavelengths (render.py).
 """
 
 from __future__ import annotations

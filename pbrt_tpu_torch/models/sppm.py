@@ -44,6 +44,7 @@ from ..core.vecmath import coordinate_system, dot, from_local, to_local
 from ..films.rgb import spectrum_to_rgb
 from ..lights.buffers import eval_emission
 from ..materials import bxdf
+from .lightpath import require_pinhole
 from .path import _frame, refuse_gradient
 
 # Material tables shared by every ray (not per-ray rows) in the params.
@@ -406,6 +407,7 @@ class SPPMIntegrator:
         from ..render import on_device
 
         refuse_gradient(scene, "SPPMIntegrator")
+        require_pinhole(camera, "SPPM")
         scene, camera = on_device(scene, camera, device)
         state = self.start(scene, camera)
         for it in range(n_iterations):

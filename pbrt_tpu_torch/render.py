@@ -7,10 +7,13 @@ waves, so memory stays O(pixels x samples_per_pass) in-flight rays.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .core import spectrum
 from .films.rgb import RGBFilm, spectrum_to_rgb
+from .filters.filters import Filter
 from .samplers.samplers import Sampler, as_sampler
 
 
@@ -18,34 +21,48 @@ def camera_rays_full(camera, pixel, sample_idx, sampler, jitter: bool = True,
                      filt=None, n_spectrum: int = spectrum.N_SPECTRUM_DEFAULT):
     """Primary rays + wavelengths + camera weight for pixel ids.
 
+    Every camera family: the perspective, orthographic and spherical
+    cameras return (o, d); the lens cameras (realistic / omni, the human
+    eye, RTF) also a per-ray weight, 0 where the lens vignettes.
     pixel, sample_idx: (N,) integer tensors (sample_idx may be an int);
-    sampler: a Sampler or an int seed. Only the box filter (filt=None) is
-    ported. Returns (o, d, wl, w).
+    sampler: a Sampler or an int seed; filt: a filters.Filter whose
+    importance-sampled offset and sign weight replace the box jitter (the
+    box keeps the jitter). Returns (o, d, wl, w).
     """
-    if filt is not None and getattr(filt, "kind", "box") != "box":
-        raise NotImplementedError(
-            "non-box reconstruction filters are not ported yet (ROADMAP "
-            "Queue 1 item 14)"
-        )
     sampler = as_sampler(sampler)
     nx, _ = camera.resolution
     jx, jy = sampler.get_2d(pixel, sample_idx, 0)
+    w_filter = None
     if not jitter:
         jx = torch.full_like(jx, 0.5)
         jy = torch.full_like(jy, 0.5)
+    elif filt is not None and filt.kind != "box":
+        fs = filt.sample(torch.stack([jx, jy], dim=-1))
+        jx = 0.5 + fs.p[..., 0]
+        jy = 0.5 + fs.p[..., 1]
+        w_filter = fs.weight
     px = (pixel % nx).to(torch.float32) + jx
     py = torch.div(pixel, nx, rounding_mode="floor").to(torch.float32) + jy
     p_film = torch.stack([px, py], dim=-1)
     ul0, ul1 = sampler.get_2d(pixel, sample_idx, 2)
-    time = None
-    if camera.motion is not None:
+    kw = {}
+    if getattr(camera, "motion", None) is not None:
         # The shutter time (dim 5) moves the camera.
-        time = camera.sample_time(sampler.get_1d(pixel, sample_idx, 5))
+        kw["time"] = camera.sample_time(sampler.get_1d(pixel, sample_idx, 5))
     u_wl = sampler.get_1d(pixel, sample_idx, 4)
     wl = spectrum.sample_visible(u_wl, n_spectrum)
-    o, d = camera.generate_rays(p_film, torch.stack([ul0, ul1], dim=-1),
-                                time)
-    return o, d, wl, torch.ones_like(px)
+    if getattr(camera, "diffraction", False):
+        # HURB needs the hero wavelength inside the lens trace.
+        kw["wavelength_nm"] = wl.lam[..., 0]
+    out = camera.generate_rays(p_film, torch.stack([ul0, ul1], dim=-1), **kw)
+    if len(out) == 3:
+        o, d, w = out
+    else:
+        o, d = out
+        w = torch.ones_like(px)
+    if w_filter is not None:
+        w = w * w_filter
+    return o, d, wl, w
 
 
 def camera_rays(camera, pixel, sample_idx, sampler, jitter: bool = True,
@@ -93,11 +110,9 @@ def render(scene, camera, integrator, spp: int = 16, seed: int = 0,
     [sample_offset, sample_offset + spp) of a total_spp-sample render.
     """
     device = torch.device(device)
+    filt = None
     if filter_kind != "box":
-        raise NotImplementedError(
-            f"filter {filter_kind!r} is not ported yet (ROADMAP Queue 1 "
-            "item 14)"
-        )
+        filt = Filter.create(filter_kind).to(device)
     if spp % samples_per_pass != 0:
         raise ValueError("spp must divide by samples_per_pass")
     scene, camera = on_device(scene, camera, device)
@@ -116,7 +131,7 @@ def render(scene, camera, integrator, spp: int = 16, seed: int = 0,
             first, first + k, dtype=torch.int64, device=device
         ).repeat_interleave(npix)
         o, d, wl, w = camera_rays_full(
-            camera, pixel_b, sample_b, sampler, jitter, None, n_spectrum
+            camera, pixel_b, sample_b, sampler, jitter, filt, n_spectrum
         )
         radiance = integrator.trace(scene, o, d, wl, pixel_b, sample_b, sampler)
         rgb = spectrum_to_rgb(radiance, wl) * w[:, None]  # (k*npix, 3)
@@ -133,6 +148,26 @@ def render(scene, camera, integrator, spp: int = 16, seed: int = 0,
         )
         film = film.add_sample_image(rgb_img, w_img)
     return film.image()
+
+
+def render_chunked(scene, camera, integrator, spp: int = 64, seed: int = 0,
+                   samples_per_pass: int = 4, chunk_spp: int = 8, *, device,
+                   **kw) -> torch.Tensor:
+    """render() split into calls of chunk_spp samples each, the sample
+    indices continuing across chunks, so the result is the one-call
+    render's up to the order of the sums."""
+    chunk_spp = max(samples_per_pass, chunk_spp - chunk_spp % samples_per_pass)
+    imgs = []
+    done = 0
+    while done < spp:
+        cur = min(chunk_spp, spp - done)
+        # A tail chunk may not divide by samples_per_pass: the gcd does.
+        imgs.append(render(scene, camera, integrator, spp=cur, seed=seed,
+                           samples_per_pass=math.gcd(samples_per_pass, cur),
+                           sample_offset=done, total_spp=spp, device=device,
+                           **kw) * cur)
+        done += cur
+    return sum(imgs) / spp
 
 
 def render_file(scene, camera, settings, spp: int | None = None, seed: int = 0,

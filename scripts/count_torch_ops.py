@@ -22,6 +22,13 @@ one kernel launch each on the card).
   motion    tests/data/torch_port/motion.pbrt likewise; K3's twin split
             out (with its ray sorts and attribute resolution), and the
             animated pass
+  lens      chip_smoke.py's cornell_lens pass (the Cornell box through
+            the doublet with its exit pupil, zsobol, a gaussian filter) at
+            32x32, 1 spp, depth 5, 8 lanes; the camera, its lens trace and
+            the sampler's draws split out, K1's twin as "k1"
+  lens:KIND the same pass with the sampler KIND (independent,
+            stratified, sobol, zsobol, halton, padded, pmj02bn), and
+            persp:independent the Cornell box's own camera and sampler
 
 Usage (from the repository root; --root runs another checkout's port,
 e.g. the parent commit unpacked into an ignored directory):
@@ -65,6 +72,12 @@ def _pass(name: str, root: str):
 
         return cs.lt_pass(name, torch.device("cpu"), 48 if name == "mlt"
                           else 32)
+    if name.startswith(("lens", "persp")):
+        import torch
+
+        kind = name.split(":")[1] if ":" in name else "zsobol"
+        return cs.lens_pass(torch.device("cpu"), 32, 1, 8, kind,
+                            perspective=name.startswith("persp"))
     if name in ("shapes", "motion"):
         from pbrt_tpu_torch.accel import dense
 
@@ -90,6 +103,15 @@ def _layers(name: str):
 
     if name in ("lightpath", "bdpt", "sppm", "mlt"):
         return [(api, "smallscene_intersect", "k1")]
+    if name.startswith(("lens", "persp")):
+        from pbrt_tpu_torch import render as render_mod
+        from pbrt_tpu_torch.cameras import realistic
+        from pbrt_tpu_torch.samplers.samplers import Sampler
+
+        return [(api, "smallscene_intersect", "k1"),
+                (render_mod, "camera_rays_full", "camera"),
+                (realistic, "trace_through_stack", "lens_trace"),
+                (Sampler, "get_1d", "sampler"), (Sampler, "get_2d", "sampler")]
     if name in ("shapes", "motion"):
         return [(api, "smallscene_intersect", "k1"),
                 (api, "sweep_intersect", "k3"),
@@ -125,6 +147,7 @@ def count(name: str, root: str) -> dict:
     from pbrt_tpu_torch.materials import bxdf
 
     render_pass = _pass(name, root)
+    innermost = name.startswith(("lens", "persp"))
     stack = []
     counts = collections.Counter()
     calls = collections.Counter()
@@ -132,7 +155,10 @@ def count(name: str, root: str) -> dict:
     class Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if str(func.overloadpacket) not in VIEWS:
-                counts[stack[0] if stack else "other"] += 1
+                # The lens passes' layers nest (the camera's draws and lens
+                # trace inside the camera): ops go to the innermost.
+                layer = stack[-1 if innermost else 0] if stack else "other"
+                counts[layer] += 1
             return func(*args, **(kwargs or {}))
 
     def wrap(layer, fn):
@@ -145,7 +171,7 @@ def count(name: str, root: str) -> dict:
             else:
                 layer_ = layer
             stack.append(layer_)
-            if len(stack) == 1:
+            if len(stack) == 1 or (innermost and layer_ == "k1"):
                 calls[layer_] += 1
             try:
                 return fn(*args, **kw)

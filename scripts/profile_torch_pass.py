@@ -71,14 +71,16 @@ def kernel_view(lanes: int, render_pass, out_dir: str) -> dict:
 
     render_pass()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # Device activity only: the view reads kernel events, and the
+    # operators' host events would double what the profiler aggregates.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, rays = render_pass()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # Kernel events only: operator events (aten::mul, ...) also carry the
-    # device time of the kernels they launch and would count it twice.
-    # One aggregation serves both views (a pass holds up to ~2e5 launches).
+    # Kernel events only (operator events would carry the device time of
+    # the kernels they launch twice). One aggregation serves both views (a
+    # pass holds up to ~2e5 launches).
     averages = prof.key_averages()
     kern = sorted(
         ((e.key, e.self_device_time_total / 1e3, e.count)

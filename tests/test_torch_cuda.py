@@ -982,3 +982,72 @@ def test_mlt_on_card_matches_cpu(card):
     assert b1 == pytest.approx(b2, rel=1e-5)
     assert torch.equal(u1, u2)
     assert float((a1 == a2).float().mean(dim=1).min()) >= 0.99
+
+
+@pytest.mark.parametrize("kind", ["independent", "stratified", "sobol",
+                                  "zsobol", "halton", "padded", "pmj02bn"])
+def test_sampler_draws_on_card_equal_cpu(card, kind):
+    """Every sampler kind's get_1d, get_2d and get_1d_run on the card, bit
+    for bit the CPU's (uint32 arithmetic in int64, the byte-table Sobol'
+    matrices, the pmj02 tables)."""
+    from pbrt_tpu_torch.samplers.samplers import Sampler
+
+    from .torch_port_cameras import SAMPLER_CFGS, draw_lanes, draws
+
+    cfg = SAMPLER_CFGS["c"]
+    s = Sampler.create(kind, spp=cfg["spp"], seed=cfg["seed"], nx=cfg["nx"],
+                       log2_res=cfg["log2_res"])
+    pixel, sample = (torch.from_numpy(a.astype(np.int64))
+                     for a in draw_lanes(1 << 16, cfg))
+    cpu = draws(s, pixel, sample, 12)
+    gpu = draws(s, pixel.to(card), sample.to(card), 12)
+    for i, (a, b) in enumerate(zip(cpu, gpu)):
+        assert torch.equal(a, b.cpu()), divmod(i, 3)
+    assert torch.equal(s.get_1d_run(pixel, sample, 3, 6),
+                       s.get_1d_run(pixel.to(card), sample.to(card), 3,
+                                    6).cpu())
+
+
+@pytest.mark.parametrize("name", ["lens", "omni", "ortho", "spherical",
+                                  "rtf"])
+def test_camera_render_on_card_matches_cpu(card, name):
+    """The Cornell box through each camera (tests/torch_port_cameras.py) on
+    the card against the same render on the CPU: >= 99% of the values
+    within rtol 1e-3 / atol 1e-5, K1 answering every query."""
+    import os
+
+    from .torch_port_cameras import CFG, GOLDEN, RENDERS, port_camera
+    from .torch_port_helpers import share_close
+
+    golden = np.load(GOLDEN)
+    scene, _ = cornell_box(resolution=(32, 32))
+    cam = port_camera(name, golden)
+    kind, filt = RENDERS[name]
+    kw = dict(spp=CFG["spp"], samples_per_pass=CFG["spp"], sampler_kind=kind,
+              filter_kind=filt, n_spectrum=CFG["n_spectrum"])
+    integ = PathIntegrator(max_depth=CFG["max_depth"])
+    STATS.reset()
+    gpu = render(scene.with_accel(), cam, integ, device=card, **kw).cpu()
+    assert STATS.launches == 11
+    cpu = render(scene.with_accel(), cam, integ, device="cpu", **kw)
+    share, _ = share_close(gpu.numpy(), cpu.numpy(), rtol=1e-3, atol=1e-5)
+    assert share >= 0.99 and float(gpu.mean()) > 0.0
+    assert os.path.exists(GOLDEN)
+
+
+def test_gbuffer_on_card_matches_cpu(card):
+    """render_aovs on the card (its first-hit query K1) against the CPU's."""
+    from pbrt_tpu_torch.films.gbuffer import render_aovs
+
+    from .torch_port_helpers import share_close
+
+    scene, camera = cornell_box(resolution=(16, 16))
+    kw = dict(spp=2, spectral_buckets=4, n_spectrum=8)
+    gpu = render_aovs(scene.with_accel(), camera, PathIntegrator(), device=card,
+                      **kw)
+    cpu = render_aovs(scene.with_accel(), camera, PathIntegrator(),
+                      device="cpu", **kw)
+    for k in cpu:
+        share, _ = share_close(gpu[k].cpu().numpy(), cpu[k].numpy(),
+                               rtol=1e-3, atol=1e-5)
+        assert share >= 0.99, k

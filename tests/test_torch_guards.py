@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from pbrt_tpu_torch.accel.bvh import build_bvh
+from pbrt_tpu_torch.filters.filters import Filter
 from pbrt_tpu_torch.io.image import read_image_rgb
 from pbrt_tpu_torch.io.parser import load_pbrt_string
 from pbrt_tpu_torch.lights.buffers import LightBuffers
@@ -54,7 +55,12 @@ def test_import_loads_no_jax():
         "pbrt_tpu_torch.models.function, "
         "pbrt_tpu_torch.models.spectralpath, pbrt_tpu_torch.accel.instances, "
         "pbrt_tpu_torch.core.quaternion, pbrt_tpu_torch.shapes.curve, "
-        "pbrt_tpu_torch.shapes.subdiv; "
+        "pbrt_tpu_torch.shapes.subdiv, pbrt_tpu_torch.samplers.sobol, "
+        "pbrt_tpu_torch.samplers.pmj02, pbrt_tpu_torch.filters.filters, "
+        "pbrt_tpu_torch.cameras.lens, pbrt_tpu_torch.cameras.realistic, "
+        "pbrt_tpu_torch.cameras.humaneye, pbrt_tpu_torch.cameras.rtf, "
+        "pbrt_tpu_torch.cameras.simple, pbrt_tpu_torch.films.sensor, "
+        "pbrt_tpu_torch.films.gbuffer, pbrt_tpu_torch.films.checkpoint; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pbrt_tpu' or m.startswith('pbrt_tpu.')]; "
         "sys.exit(1 if bad else 0)"
@@ -117,15 +123,26 @@ def _albedo_gradient(scene):
     PathIntegrator().trace(scene.with_accel(), o, d, wl, pixel, 0, 0)
 
 
+def _value_error(build, match):
+    """A departure: `build` raises ValueError matching `match`."""
+    build.raises = (ValueError, match)
+    return build
+
+
 @pytest.mark.parametrize("build", [
     # Training over a device mesh waits for torch.distributed (item 15).
     lambda: training_step(*cornell_box(resolution=(2, 2)), PathIntegrator(),
                           torch.arange(4), torch.zeros(4, 3), mesh=object()),
     # Every shape family, shape alpha and moving instance is ported
     # (tests/test_torch_shapes.py, test_torch_alpha.py,
-    # test_torch_motion.py); other cameras and films are not (item 14).
-    lambda: load_pbrt_string('Camera "realistic"', device="cpu"),
-    lambda: load_pbrt_string('Film "gbuffer"', device="cpu"),
+    # test_torch_motion.py), and every camera and film (item 14,
+    # tests/test_torch_cameras.py, test_torch_films.py); the file entry
+    # refuses a lens camera without its lens and a film other than rgb,
+    # where the reference renders a perspective camera or an RGB film.
+    _value_error(lambda: load_pbrt_string('Camera "realistic"', device="cpu"),
+                 "lensfile"),
+    _value_error(lambda: load_pbrt_string('Film "gbuffer"', device="cpu"),
+                 "Film 'gbuffer'"),
     # Every light type and light sampler is ported (the exhaustive one
     # here); SampleLe's origin, for the light-tracing integrators, only on
     # emissive geometry, as in the reference (item 16).
@@ -146,7 +163,9 @@ def _albedo_gradient(scene):
         materials=MaterialBuffers.build([{"kind": MAT_DIFFUSE},
                                          {"kind": MAT_RETRO}]),
         lights=LightBuffers.build())),
-    lambda: Sampler(kind="sobol"),
+    # Every sampler kind of the reference is ported
+    # (tests/test_torch_samplers.py); another name raises.
+    _value_error(lambda: Sampler(kind="owen"), "unknown sampler kind"),
     # A NanoVDB medium is not ported (item 15).
     lambda: load_pbrt_string('MakeNamedMedium "v" "string type" "nanovdb" '
                              '"string filename" "v.nvdb"', device="cpu"),
@@ -160,7 +179,9 @@ def _albedo_gradient(scene):
         "referenced_conductor", "sobol_sampler", "nanovdb_medium",
         "mesh_gallery_dielectric"])
 def test_unsupported_features_raise(build):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    exc, match = getattr(build, "raises",
+                         (NotImplementedError, "ROADMAP Queue 1 item"))
+    with pytest.raises(exc, match=match):
         build()
 
 
@@ -243,13 +264,12 @@ def test_cuda_device_does_not_fall_back():
 
 
 def test_non_box_filter_raises():
+    """The reference's five filters are ported (tests/test_torch_filters.py);
+    a kind it lacks raises ValueError."""
     scene, camera = cornell_box(resolution=(4, 4))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="unknown filter kind 'sinc'"):
         render(scene.with_accel(), camera, PathIntegrator(), spp=1,
-               device="cpu", filter_kind="gaussian")
-
-    class Gaussian:
-        kind = "gaussian"
-
-    with pytest.raises(NotImplementedError, match="item 14"):
-        camera_rays_full(camera, torch.arange(4), 0, 0, filt=Gaussian())
+               device="cpu", filter_kind="sinc")
+    _, _, _, w = camera_rays_full(camera, torch.arange(4), 0, 0,
+                                  filt=Filter.create("gaussian"))
+    assert torch.equal(w, torch.ones(4))

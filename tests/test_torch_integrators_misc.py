@@ -7,7 +7,8 @@ integrators, the parser's Integrator directive and the scene-file entry
   scripts/make_torch_port_golden_lighttransport.py): >= 99% of the values
   within rtol 1e-3 / atol 1e-5 (AO reads 100%: a visibility test).
 - FunctionIntegrator, every test function at 8x8, 4 spp: equal to the
-  reference's within rtol 1e-6; another sampler raises (item 14).
+  reference's within rtol 1e-6, and with the halton sampler against the
+  reference's halton render.
 - render_spectral on the room at 16x16, 4 bands, 2 spp a band: the RGB
   and the bands against the reference's, the same gate; the band-limited
   hero wavelengths within 1e-4 nm; tests/test_spectralpath.py's gate on
@@ -100,9 +101,14 @@ def test_function_integrator_matches_reference():
         np.testing.assert_allclose(est.numpy(), z[name], rtol=1e-6,
                                    atol=1e-7, err_msg=name)
         assert exact == float(z[name + "_exact"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        FunctionIntegrator().render((4, 4), 4, sampler_kind="halton",
-                                    device="cpu")
+    from pbrt_tpu.models.function import FunctionIntegrator as JaxFunction
+
+    est, exact = FunctionIntegrator().render((4, 4), 4, sampler_kind="halton",
+                                             device="cpu")
+    want, want_exact = JaxFunction().render((4, 4), 4, sampler_kind="halton")
+    np.testing.assert_allclose(est.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-7)
+    assert exact == want_exact
     with pytest.raises(ValueError, match="unknown function"):
         FunctionIntegrator(func="cubic")
 

@@ -220,3 +220,25 @@ def test_lightpath_refuses_gradient():
                                          paths_per_pass=64, n_spectrum=4,
                                          device="cpu")
     assert bool(torch.isfinite(img).all())
+
+
+@pytest.mark.parametrize("tracer", ["lightpath", "bdpt", "sppm"])
+def test_light_tracers_refuse_a_lens_camera(tracer):
+    """The light tracers connect through the perspective camera's project;
+    a lens camera raises ValueError (the reference: an AttributeError)."""
+    from pbrt_tpu_torch.models.bdpt import render_bdpt
+    from pbrt_tpu_torch.models.lightpath import render_lightpath
+    from pbrt_tpu_torch.models.sppm import SPPMIntegrator
+    from pbrt_tpu_torch.scenes.cornell import cornell_box
+
+    from .torch_port_cameras import lens_camera
+
+    scene, _ = cornell_box(resolution=(4, 4))
+    cam = lens_camera("pbrt_tpu_torch", 4, exit_pupil=False)
+    run = {"lightpath": lambda: render_lightpath(scene, cam, 16,
+                                                 device="cpu"),
+           "bdpt": lambda: render_bdpt(scene, cam, spp=1, device="cpu"),
+           "sppm": lambda: SPPMIntegrator().render(scene, cam, 1,
+                                                   device="cpu")}[tracer]
+    with pytest.raises(ValueError, match="perspective camera only"):
+        run()

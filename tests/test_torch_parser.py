@@ -183,9 +183,13 @@ _TRI = ('Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
 
 
 @pytest.mark.parametrize("text, item", [
-    ('Camera "realistic"', 14),
-    ('Film "gbuffer"', 14),
-    ('Sampler "sobol"', 14),
+    # Every camera, film and sampler of the reference is ported (item 14);
+    # the file entry refuses a lens camera without its lens, a film other
+    # than rgb and a sampler name the reference lacks (the reference
+    # renders perspective, RGB and independent instead).
+    ('Camera "realistic"', 'needs a "string lensfile"'),
+    ('Film "gbuffer"', "Film 'gbuffer'"),
+    ('Sampler "owen"', "unknown Sampler 'owen'"),
     # Every integrator of the reference builds
     # (tests/test_torch_integrators_misc.py); a name the reference renders
     # as a path trace raises ValueError.
@@ -220,7 +224,7 @@ _TRI = ('Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
     ('ObjectBegin "s" Shape "curve" "point3 P" [0 0 0 0 1 0 0 2 0 0 3 0] '
      'ObjectEnd', "inside ObjectBegin"),
     ('ObjectBegin "s" Shape "disk" ObjectEnd', "inside ObjectBegin"),
-    ('Camera "orthographic"', 14),
+    ('Camera "orthographic"', "Camera 'orthographic'"),
 ], ids=["camera", "film", "sampler", "integrator", "texture",
         "texture_param", "dielectric", "coated_conductor", "envmap",
         "medium", "medium_interface", "sphere", "bilinear", "curve_in_object",
@@ -482,3 +486,66 @@ def test_cuda_device_does_not_fall_back():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA"):
         load_pbrt_string(_TRI)
+
+
+@pytest.mark.parametrize("name", ["independent", "random", "stratified",
+                                  "sobol", "paddedsobol", "zsobol", "halton",
+                                  "pmj02bn"])
+def test_sampler_names_map_as_reference(name):
+    text = f'Sampler "{name}" "integer pixelsamples" 8\n'
+    _, _, want = jax_load_pbrt_string(text)
+    _, _, got = load_pbrt_string(text, device="cpu")
+    assert (got["sampler"], got["spp"]) == (want["sampler"], want["spp"])
+
+
+# The lens works in mm: the world-to-camera transform scales by 1000.
+_LENS_SCENE = """
+Scale 1000 1000 1000
+LookAt 0.5 0.5 -1.45  0.5 0.5 0.5  0 1 0
+Camera "{kind}" "string lensfile" "{lens}" "float filmdiag" 30
+    {extra}
+Sampler "zsobol" "integer pixelsamples" 4
+Film "rgb" "integer xresolution" 8 "integer yresolution" 8
+WorldBegin
+AreaLightSource "diffuse" "rgb L" [4 4 4]
+Shape "trianglemesh" "point3 P" [0 1 0  1 1 0  1 1 1  0 1 1]
+    "integer indices" [0 1 2 0 2 3]
+Material "diffuse" "rgb reflectance" [0.6 0.5 0.4]
+Shape "trianglemesh" "point3 P" [-1 0 -1  2 0 -1  2 0 2  -1 0 2  -1 0 2  2 0 2  2 2 2  -1 2 2]
+    "integer indices" [0 2 1 0 3 2 4 5 6 4 6 7]
+"""
+
+
+@pytest.mark.parametrize("lens", ["doublet.dat", "omni_microlens.json"])
+def test_lens_camera_file_matches_reference(lens):
+    from pbrt_tpu_torch.convert import camera_from_arrays
+    from pbrt_tpu_torch.render import render_file
+
+    kind = "omni" if lens.endswith(".json") else "realistic"
+    extra = ('"bool diffractionEnabled" true "float microlenssensoroffset" '
+             '0.002 "float aperturediameter" 5' if kind == "omni" else "")
+    text = _LENS_SCENE.format(kind=kind, lens=lens, extra=extra)
+    data = os.path.join(ROOT, "tests", "data", "torch_port")
+    _, jcam, jset = jax_load_pbrt_string(text, data)
+    scene, cam, settings = load_pbrt_string(text, data, device="cpu")
+    assert type(cam).__name__ == type(jcam).__name__ == "RealisticCamera"
+    assert settings["sampler"] == "zsobol"
+    assert (cam.diffraction, cam.microlens is None) == (
+        jcam.diffraction, jcam.microlens is None)
+    assert any("aperturediameter" in w for w in settings["warnings"]) == (
+        kind == "omni")
+    conv = camera_from_arrays(*flatten_jax(jcam), kind="RealisticCamera")
+    r = np.random.default_rng(6)
+    pf = torch.from_numpy(r.uniform(0, 8, (2048, 2)).astype(np.float32))
+    ul = torch.from_numpy(r.uniform(0, 1, (2048, 2)).astype(np.float32))
+    for a, b in zip(cam.generate_rays(pf, ul), conv.generate_rays(pf, ul)):
+        assert torch.equal(a, b)
+    img = render_file(scene, cam, settings, n_spectrum=8, device="cpu")
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+    assert float(img.mean()) > 0.0
+
+
+def test_lens_file_that_does_not_load_raises():
+    text = _LENS_SCENE.format(kind="realistic", lens="missing.dat", extra="")
+    with pytest.raises(ValueError, match="lensfile 'missing.dat'"):
+        load_pbrt_string(text, device="cpu")

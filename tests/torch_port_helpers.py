@@ -45,7 +45,8 @@ def port_scene_and_camera(jax_scene, jax_camera):
     from pbrt_tpu_torch.convert import camera_from_arrays, scene_from_arrays
 
     scene = scene_from_arrays(*flatten_jax(jax_scene))
-    camera = camera_from_arrays(*flatten_jax(jax_camera))
+    camera = camera_from_arrays(*flatten_jax(jax_camera),
+                                kind=type(jax_camera).__name__)
     return scene, camera
 
 
