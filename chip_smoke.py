@@ -1460,15 +1460,15 @@ def make_pass(scene, camera, res: int, k: int, lanes: int, depth: int = 5,
     res x res, `lanes` wavelengths, depth `depth`, no Russian roulette,
     the integrator's sorted_shading (or the given integrator), the
     independent sampler of seed 0 and the box filter unless `sampler` (a
-    samplers.Sampler) and `filt` (a filters.Filter) say otherwise; a lens
-    camera's weights (0 where vignetted) weigh its samples. Returns
+    samplers.Sampler) and `filt` (a filters.Filter) say otherwise; the
+    camera weight (the filter's sign weight, and a lens camera's 0 where
+    vignetted) weighs every sample, as in render(). Returns
     render_pass(pass_idx) -> (mean RGB image, traced rays)."""
     import torch
 
     # Module attributes are looked up at each call, so a profiler that
     # wraps them (scripts/profile_torch_pass.py) sees the camera and film.
     from pbrt_tpu_torch import render as render_mod
-    from pbrt_tpu_torch.cameras.perspective import PerspectiveCamera
     from pbrt_tpu_torch.films import rgb as film_mod
     from pbrt_tpu_torch.models.path import PathIntegrator
 
@@ -1478,7 +1478,6 @@ def make_pass(scene, camera, res: int, k: int, lanes: int, depth: int = 5,
                                     sorted_shading=sorted_shading)
     npix = res * res
     pixel_b = torch.arange(npix, device=dev).repeat(k)
-    weighted = not isinstance(camera, PerspectiveCamera)
 
     def render_pass(pass_idx: int = 0):
         sample_b = torch.arange(
@@ -1489,9 +1488,7 @@ def make_pass(scene, camera, res: int, k: int, lanes: int, depth: int = 5,
         radiance, stats = integrator.trace_with_stats(
             scene, o, d, wl, pixel_b, sample_b, sampler
         )
-        rgb = film_mod.spectrum_to_rgb(radiance, wl)
-        if weighted:
-            rgb = rgb * w[:, None]
+        rgb = film_mod.spectrum_to_rgb(radiance, wl) * w[:, None]
         return torch.mean(rgb.reshape(k, res, res, 3), dim=0), stats["rays"]
 
     return render_pass
@@ -2801,11 +2798,11 @@ def phase_timed_cloud(dev, smi: str) -> int:
     in passes of 8 (131,072 camera rays a pass), depth 6, the DDA walk,
     Russian roulette from 3, 8 lanes: Mrays/s as bench.py counts rays, K1
     launches per pass, the walks' host reads per pass, peak memory, the
-    layers' device ms, the kernel launches of one pass and the device's
-    busy share (torch.profiler, a 64x64 pass), the delta walk's live lanes per step at
-    bounce 0; then the compacted walks against the lockstep walks
-    (compact_walks=False), in turns, the first pass's image of each
-    bit-equal."""
+    layers' device ms, the kernel launches and the device's busy share of
+    one profiled 64x64 pass (torch.profiler; the keys end in _64x64), the
+    delta walk's live lanes per step at bounce 0; then the compacted walks
+    against the lockstep walks (compact_walks=False), in turns, the first
+    pass's image of each bit-equal."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -2847,12 +2844,13 @@ def phase_timed_cloud(dev, smi: str) -> int:
          rays_per_pass_camera=res * res * k, **out,
          k1_launches_per_pass=out["k1_launches"] / passes,
          walk_host_reads_per_pass=reads, scene_build_seconds=build_s,
-         first_pass_seconds=first_s, layers=layers, profiled_resolution=64,
-         kernel_launches_per_pass=kern["kernel_launches"],
-         device_busy_share=kern["device_busy_share"],
-         device_kernel_ms=kern["device_kernel_ms"],
-         profiled_pass_wall_ms=kern["wall_ms"], top_kernels=kern["top"],
-         walk_decay_bounce0=decay, nvidia_smi=smi)
+         first_pass_seconds=first_s, layers=layers,
+         kernel_launches_per_pass_64x64=kern["kernel_launches"],
+         device_busy_share_64x64=kern["device_busy_share"],
+         device_kernel_ms_64x64=kern["device_kernel_ms"],
+         profiled_pass_wall_ms_64x64=kern["wall_ms"],
+         top_kernels_64x64=kern["top"], walk_decay_bounce0=decay,
+         nvidia_smi=smi)
     runs, first = {True: [], False: []}, {}
     for compact_walks in (True, False, False, True):
         rp = make_pass(scene, camera, res, k, c["lanes"],
@@ -4279,8 +4277,9 @@ def phase_timed_cameras(dev, smi: str) -> int:
     the sampler's draws), kernel launches and busy share a pass
     (torch.profiler); then one timed pass with each sampler kind, and the
     perspective camera with the independent sampler (e's pass at this
-    shape), each with its sampler ms, and its kernel launches from a
-    profiled 64x64 pass (the launches do not depend on the width).
+    shape), each with its sampler ms and its kernel launches from a
+    profiled pass of the same shape (zsobol's digits, and so its
+    launches, grow with the resolution).
     eye_bands: the Navarro eye with diffraction through render_spectral,
     8 bands x 8 spp a band at 256x256: Mrays/s, the eye trace's ms, K1
     launches, peak memory. Returns cornell_lens's K1 launches."""
@@ -4330,8 +4329,7 @@ def phase_timed_cameras(dev, smi: str) -> int:
         rp(0)  # warm-up
         one = timed_forward(rp, 1, {"k1": STATS})
         lay = _lens_layers(rp)
-        small = lens_pass(dev, 64, 1, c["lanes"], kind, perspective=persp)
-        kv = ptp.kernel_view(c["lanes"], small, out_dir)
+        kv = ptp.kernel_view(c["lanes"], rp, out_dir)
         kinds[label] = {"pass_ms": one["seconds"] * 1e3,
                         "mrays_per_s": one["mrays_per_s"],
                         "sampler_ms": lay["sampler_ms_all_draws"],

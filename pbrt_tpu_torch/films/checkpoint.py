@@ -19,7 +19,7 @@ def save_checkpoint(path: str, rgb_sum, spp_done: int, total_spp: int,
              total_spp=total_spp, seed=seed)
 
 
-def load_checkpoint(path: str, device="cpu"):
+def load_checkpoint(path: str, *, device):
     """(rgb_sum on `device`, spp_done, total_spp, seed)."""
     z = np.load(path)
     return (torch.from_numpy(z["rgb_sum"]).to(device), int(z["spp_done"]),
@@ -35,7 +35,8 @@ def render_resumable(scene, camera, integrator, spp: int, checkpoint_path: str,
 
     nx, ny = camera.resolution
     if os.path.exists(checkpoint_path):
-        rgb_sum, done, total, seed = load_checkpoint(checkpoint_path, device)
+        rgb_sum, done, total, seed = load_checkpoint(checkpoint_path,
+                                                     device=device)
         if total != spp:
             raise ValueError(f"the checkpoint {checkpoint_path!r} belongs to a "
                              f"{total}-spp render, not {spp}")

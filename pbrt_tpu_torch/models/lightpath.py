@@ -39,9 +39,10 @@ from .path import _frame, refuse_gradient
 
 
 def require_pinhole(camera, who: str) -> None:
-    """The light tracers connect to the camera through the perspective
-    camera's `project` and `pixel_solid_angle_base`; another camera raises
-    ValueError (the reference fails on it with an AttributeError)."""
+    """The light path and BDPT connect to the camera through the
+    perspective camera's `project` and `pixel_solid_angle_base`; another
+    camera raises ValueError (the reference fails on it with an
+    AttributeError)."""
     from ..cameras.perspective import PerspectiveCamera
 
     if not isinstance(camera, PerspectiveCamera):

@@ -37,6 +37,9 @@ import torch
 
 from ..accel import api as accel_api
 from ..accel.dense import offset_ray_origin, shadow_segment
+from ..cameras.humaneye import HumanEyeCamera
+from ..cameras.realistic import RealisticCamera
+from ..cameras.rtf import RTFCamera
 from ..core import rng, spectrum
 from ..core.sampling import power_heuristic, sample_cosine_hemisphere
 from ..core.tensorclass import static_field, tensorclass
@@ -44,11 +47,21 @@ from ..core.vecmath import coordinate_system, dot, from_local, to_local
 from ..films.rgb import spectrum_to_rgb
 from ..lights.buffers import eval_emission
 from ..materials import bxdf
-from .lightpath import require_pinhole
 from .path import _frame, refuse_gradient
 
 # Material tables shared by every ray (not per-ray rows) in the params.
 _SHARED = ("measured_coeffs", "measured_scale")
+
+
+def require_film_rays(camera) -> None:
+    """The camera pass makes its rays from film points alone, as the
+    reference's does (`camera.generate_rays(p_film)`): the perspective,
+    orthographic and spherical cameras. A lens camera (realistic / omni,
+    the human eye, RTF) needs a lens sample and raises ValueError (the
+    reference fails on it with a TypeError in generate_rays)."""
+    if isinstance(camera, (RealisticCamera, HumanEyeCamera, RTFCamera)):
+        raise ValueError("SPPM makes its camera rays from film points alone; "
+                         f"a {type(camera).__name__} needs a lens sample")
 
 
 def _rows(params, n):
@@ -407,7 +420,7 @@ class SPPMIntegrator:
         from ..render import on_device
 
         refuse_gradient(scene, "SPPMIntegrator")
-        require_pinhole(camera, "SPPM")
+        require_film_rays(camera)
         scene, camera = on_device(scene, camera, device)
         state = self.start(scene, camera)
         for it in range(n_iterations):

@@ -17,13 +17,17 @@ box through each camera family, the reference's dense tester answering
   the port carries across: the doublet's exit-pupil bounds
   ("lens_pupil_bounds") and the RTF fit ("rtf_coeffs", "rtf_powers",
   "rtf_front_z_mm", "rtf_pupil_radius_mm").
+- sppm_ortho16.npz: SPPMIntegrator.render of the Cornell box through the
+  orthographic camera at 16 x 16 (SPPM_CFG: 2 iterations of 4,096
+  photons, depth 5, seed 0): the image ("image"), the radii ("radius")
+  and the photon counts n ("n").
 - sampler_draws.npz: for each sampler kind and settings a and b, the
   jitted get_1d and get_2d of dimensions 0-40 at 4,096 lanes: the sha256
   prefix of every draw's float32 bits ("<kind>_<cfg>_digest", (123,))
   and the first 64 lanes whole ("<kind>_<cfg>_head", (123, 64)).
 
 Usage (from the repository root; ~5 minutes; name parts to make only
-those: cameras, samplers):
+those: cameras, sppm, samplers):
     JAX_PLATFORMS=cpu PBRT_TPU_NSPECTRUM=8 python scripts/make_torch_port_golden_cameras.py [part ...]
 """
 
@@ -120,6 +124,24 @@ def cameras() -> dict:
     return out
 
 
+def sppm() -> dict:
+    _jax()
+    from pbrt_tpu.models.sppm import SPPMIntegrator
+
+    scene, _ = _cornell()
+    cfg = C.SPPM_CFG
+    integ = SPPMIntegrator(max_depth=cfg["max_depth"],
+                           photons_per_iteration=cfg["photons"])
+    img, stats = integ.render(scene, C.ortho_camera("pbrt_tpu", cfg["res"]),
+                              n_iterations=cfg["iterations"],
+                              seed=cfg["seed"], return_stats=True)
+    out = {"image": np.asarray(img, np.float32),
+           "radius": np.asarray(stats["radius"], np.float32),
+           "n": np.asarray(stats["n"], np.float32)}
+    print(f"sppm_ortho: mean {out['image'].mean():.6f}", flush=True)
+    return out
+
+
 def samplers() -> dict:
     jax = _jax()
     import jax.numpy as jnp
@@ -143,7 +165,7 @@ def samplers() -> dict:
 
 
 def main() -> None:
-    parts = sys.argv[1:] or ["cameras", "samplers"]
+    parts = sys.argv[1:] or ["cameras", "sppm", "samplers"]
     if "cameras" in parts:
         out = cameras()
         if not all(np.all(np.isfinite(v)) for v in out.values()
@@ -151,6 +173,12 @@ def main() -> None:
             raise SystemExit("non-finite camera golden")
         np.savez(C.GOLDEN, **out)
         print(f"wrote {C.GOLDEN}")
+    if "sppm" in parts:
+        out = sppm()
+        if not all(np.all(np.isfinite(v)) for v in out.values()):
+            raise SystemExit("non-finite SPPM golden")
+        np.savez(C.SPPM_GOLDEN, **out)
+        print(f"wrote {C.SPPM_GOLDEN}")
     if "samplers" in parts:
         np.savez(C.SAMPLER_GOLDEN, **samplers())
         print(f"wrote {C.SAMPLER_GOLDEN}")

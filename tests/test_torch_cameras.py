@@ -8,9 +8,13 @@ the CPU, from numpy-seeded film and pupil samples (8,192 rays at 32 x 32).
   eye with and without diffraction (per-ray wavelengths) and the RTF
   camera fitted to the doublet, against the reference's jitted ones: the
   weight > 0 mask agrees on >= 99.9% of the rays, and on the rays valid
-  in both o within 1e-5 mm-scaled units, d within 1e-5 (HURB's deflected
-  d within 2e-3 at the 99.9th percentile: its Gaussian angles take
-  log, sin and cos), the weight within 1e-6. The lens's reference-side
+  in both o within 1e-5 mm-scaled units, d within 1e-5, the weight
+  within 1e-6. HURB's deflected d: the bulk within 1e-6 at the 99th
+  percentile (a few ulps; the deflections it checks are ~4e-5 (doublet)
+  and ~9e-5 (eye) at the median, 1e-5 to 2e-4 between the 10th and
+  90th percentiles), and the tail within 2e-3 at the 99.9th (rays at an
+  aperture edge, whose Gaussian angles take log, sin and cos, may be
+  deflected on another side of the edge). The lens's reference-side
   exit-pupil bounds are carried across, as the renders do.
 - The .dat and .json loaders build the reference's stacks bit for bit;
   the exit-pupil bounds of the doublet and of a biconvex singlet: the
@@ -146,6 +150,7 @@ def test_generate_rays_match_reference(name, tmp_path):
     np.testing.assert_allclose(to[0][both], jo[0][both], rtol=0, atol=1e-5)
     derr = np.abs(to[1][both] - jo[1][both]).max(axis=-1)
     if name.endswith("hurb"):
+        assert np.quantile(derr, 0.99) < 1e-6, np.quantile(derr, 0.99)
         assert np.quantile(derr, 0.999) < 2e-3, np.quantile(derr, 0.999)
     else:
         assert derr.max() < 1e-5, derr.max()

@@ -121,8 +121,10 @@ def test_checkpoint_resume_is_bit_equal(tmp_path):
                    filter_kind="gaussian", n_spectrum=8, device="cpu")
     path = str(tmp_path / "resumed.npz")
     save_checkpoint(path, first * 4, 4, 12, 2)
-    rgb_sum, done, total, seed = load_checkpoint(path)
+    rgb_sum, done, total, seed = load_checkpoint(path, device="cpu")
     assert (done, total, seed) == (4, 12, 2)
+    with pytest.raises(TypeError, match="device"):
+        load_checkpoint(path)  # no default device: the caller names it
     assert torch.equal(rgb_sum, first * 4)
     resumed = render_resumable(scene, camera, integ, 12, path, **kw)
     assert torch.equal(resumed, whole)

@@ -224,8 +224,10 @@ def test_lightpath_refuses_gradient():
 
 @pytest.mark.parametrize("tracer", ["lightpath", "bdpt", "sppm"])
 def test_light_tracers_refuse_a_lens_camera(tracer):
-    """The light tracers connect through the perspective camera's project;
-    a lens camera raises ValueError (the reference: an AttributeError)."""
+    """The light path and BDPT connect through the perspective camera's
+    project, and SPPM makes its camera rays from film points alone: a lens
+    camera raises ValueError in each (the reference: an AttributeError, in
+    SPPM a TypeError)."""
     from pbrt_tpu_torch.models.bdpt import render_bdpt
     from pbrt_tpu_torch.models.lightpath import render_lightpath
     from pbrt_tpu_torch.models.sppm import SPPMIntegrator
@@ -240,5 +242,8 @@ def test_light_tracers_refuse_a_lens_camera(tracer):
            "bdpt": lambda: render_bdpt(scene, cam, spp=1, device="cpu"),
            "sppm": lambda: SPPMIntegrator().render(scene, cam, 1,
                                                    device="cpu")}[tracer]
-    with pytest.raises(ValueError, match="perspective camera only"):
+    match = {"lightpath": "perspective camera only",
+             "bdpt": "perspective camera only",
+             "sppm": "needs a lens sample"}[tracer]
+    with pytest.raises(ValueError, match=match):
         run()

@@ -18,6 +18,12 @@ on the CPU.
   port's path trace of the Cornell box (the mean within 15%, the images'
   correlation above 0.85, the radii contracted), up to the blur of a
   finite radius.
+- SPPM through the orthographic camera (tests/torch_port_cameras.py's
+  sppm_ortho: the Cornell box at 16x16, 2 iterations of 4,096 photons)
+  against the reference's render (committed by
+  scripts/make_torch_port_golden_cameras.py): the radii and n within
+  rtol 1e-5, the image on >= 99% of its values within rtol 1e-3 / atol
+  1e-5, lit.
 - A gradient request through SPPM raises (item 5).
 """
 
@@ -175,6 +181,27 @@ def test_sppm_converges_to_path_cornell():
     tv = scene.geom.tri_verts.reshape(-1, 3).numpy()
     r0 = 2.0 * float(np.linalg.norm(tv.max(0) - tv.min(0))) / 16
     assert float(stats["radius"].mean()) < r0
+
+
+def test_sppm_orthographic_matches_reference():
+    from . import torch_port_cameras as C
+
+    z = np.load(C.SPPM_GOLDEN)
+    cfg = C.SPPM_CFG
+    scene, _ = cornell_box(resolution=(cfg["res"], cfg["res"]))
+    integ = SPPMIntegrator(max_depth=cfg["max_depth"],
+                           photons_per_iteration=cfg["photons"])
+    img, stats = integ.render(scene.with_accel(),
+                              C.ortho_camera("pbrt_tpu_torch", cfg["res"]),
+                              n_iterations=cfg["iterations"], seed=cfg["seed"],
+                              return_stats=True,
+                              n_spectrum=C.CFG["n_spectrum"], device="cpu")
+    np.testing.assert_allclose(stats["radius"].numpy(), z["radius"],
+                               rtol=1e-5)
+    np.testing.assert_allclose(stats["n"].numpy(), z["n"], rtol=1e-5)
+    share, n_bad = share_close(img.numpy(), z["image"], 1e-3, 1e-5)
+    assert share >= 0.99, n_bad
+    assert z["image"].mean() > 0.05
 
 
 def test_sppm_refuses_gradient():

@@ -15,7 +15,9 @@ and in the port (`pkg="pbrt_tpu_torch"`).
   mitchell filter;
 - spherical: the spherical camera at the box's centre with pmj02bn;
 - rtf: an RTF camera fitted to the doublet (full rear disk), stratified
-  and a lanczos filter.
+  and a lanczos filter;
+- sppm_ortho: SPPM through the orthographic camera (SPPM makes its camera
+  rays from film points alone, so it takes the cameras without a lens).
 
 Lens math is in millimetres: a lens camera's camera_to_world is the
 Cornell camera's look-at times a 1e-3 scale. This module imports numpy
@@ -34,6 +36,7 @@ DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
 DOUBLET = os.path.join(DATA, "doublet.dat")
 OMNI_JSON = os.path.join(DATA, "omni_microlens.json")
 GOLDEN = os.path.join(DATA, "cameras32.npz")
+SPPM_GOLDEN = os.path.join(DATA, "sppm_ortho16.npz")
 
 EYE = (0.5, 0.5, -1.45)
 TARGET = (0.5, 0.5, 0.5)
@@ -52,6 +55,7 @@ RENDERS = {
 CFG = dict(res=32, spp=4, max_depth=5, n_spectrum=8, seed=0)
 EYE_CFG = dict(n_bands=4, spp_per_band=2, max_depth=5)
 AOV_CFG = dict(spp=4, spectral_buckets=8)
+SPPM_CFG = dict(res=16, iterations=2, photons=4096, max_depth=5, seed=0)
 
 
 def _mod(pkg: str, name: str):
