@@ -3,9 +3,10 @@
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
-It builds every CUDA kernel of the port from the sources in the checkout,
+(--seed: the seed of phase e14's generated inputs, 0 by default.) It
+builds every CUDA kernel of the port from the sources in the checkout,
 checks each against its plain PyTorch twin, renders the Cornell box (on
 the small tier and on the kd-tree), the killeroo-class mesh scene (on the
 cluster tier and on the BVH tier), the instanced field (a .pbrt file
@@ -17,9 +18,10 @@ measured, mix and retroreflective materials), the light tracers (the
 light path, BDPT, AO, the spectral bands), the shapes box (every shape
 family and shape alpha), the moving instanced field and the Cornell box
 through every camera family (lens, omni, eye, orthographic, spherical,
-RTF; the GBuffer's channels) on the card against the committed JAX
-goldens, holds every sampler kind's draws bit for bit against the CPU's
-and the JAX package's, renders
+RTF; the GBuffer's channels) and the io scenes (EXR, PNG, QOI and Ptex
+textures, an EXR environment map, a NanoVDB medium) on the card against
+the committed JAX goldens, holds every sampler kind's draws bit for bit
+against the CPU's and the JAX package's, renders
 the golden scene files conductor.pbrt, plymesh.pbrt, spot.pbrt,
 envmap.pbrt, box.pbrt, dielectric.pbrt, spheres.pbrt, texture.pbrt,
 imagetex.pbrt, fog.pbrt, bdpt.pbrt, sppm.pbrt and mlt.pbrt (the last
@@ -34,7 +36,7 @@ times the forward render of each timed
 configuration (the mesh gallery's glass torus, texture.pbrt, bench's
 many-light hall, bench's volumetric cloud, the families box, BDPT,
 SPPM, MLT, the shapes box, the moving field, the Cornell box through a
-lens and the eye's spectral bands among them) and the
+lens, the eye's spectral bands and the io scenes among them) and the
 Cornell
 forward+backward pass, and takes three training steps. Each phase prints one JSON line;
 any failure raises, so the script exits non-zero and never prints the
@@ -275,8 +277,8 @@ Phases:
       walks, lights, phase, BxDF, RNG, film), kernel launches per pass and
       the busy share (profiled at 64x64), the delta walk's live lanes per
       step at bounce 0;
-      then the compacted walks against the lockstep walks in turns, the
-      first pass's image of each bit-equal
+      then the compacted walks against the lockstep walks in turns of one
+      timed pass, the first pass's image of each bit-equal
   e10 the families box timed at 512x512, 8 spp in passes of 4, depth 5
       without Russian roulette, 8 lanes, seed 0: Mrays/s, K1 launches per
       pass, peak memory, the first pass's seconds, the layers' device ms
@@ -355,11 +357,32 @@ Phases:
       profiled pass); eye_bands: the Navarro eye with diffraction
       through render_spectral, 8 bands x 8 spp at 256x256: Mrays/s, the
       eye trace's ms, K1 launches, peak memory
+  c11 K1 vs its twin on every query of one pass of each io scene
+      (tests/data/torch_port/io: io_surfaces.pbrt, EXR, PNG and QOI
+      imagemaps, an EXR environment map and Ptex textures, 11 queries;
+      io_smoke.pbrt, a NanoVDB medium and a Ptex wall, 17 queries; 32x32, 4
+      spp, the file's integrator), launches counted from zero, each query
+      bit-equal key by key, kernel and twin timed, with the bound
+  d28 both io scenes at 32x32, 4 spp, 8 lanes, the file's integrator
+      (io_smoke's medium entry inset, tests/torch_port_media.py) against
+      the JAX goldens of scripts/make_torch_port_golden_io.py: d's gate, a
+      lit image, 11 / 17 K1 launches per pass
+  e14 the io slice at full width: the inputs written at run time by the
+      port's writers from --seed (tests/torch_port_io.py FULL: 1024^2
+      imagemaps, 64^2 Ptex faces, a 128^3 ZIP NanoVDB grid; a 2048^2 half
+      ZIP EXR map read for its reader's seconds, the scene's sky at 128^2,
+      see that module), each writer's and reader's host seconds, each
+      scene's load-to-Scene seconds, then io_surfaces (256x256, 16 spp in
+      passes of 4) and io_smoke (256x256, 8 spp in passes of 4) at depth 5
+      without Russian roulette, 8 lanes: Mrays/s, K1 launches a pass,
+      kernel launches a pass and the busy share (torch.profiler), peak
+      memory, the card's name and power limit
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
-  f   the kernels line (K1's launches those of e, e12's shapes box and
-      e13's cornell_lens, K3's those of e3 and e12's moving field, by
-      path), the nvidia-smi line and the final result line
+  f   the kernels line (K1's launches those of e, e12's shapes box,
+      e13's cornell_lens and e14's io scenes, K3's those of e3 and e12's
+      moving field, by path), the nvidia-smi line and the final result
+      line
 """
 
 from __future__ import annotations
@@ -2851,13 +2874,16 @@ def phase_timed_cloud(dev, smi: str) -> int:
          profiled_pass_wall_ms_64x64=kern["wall_ms"],
          top_kernels_64x64=kern["top"], walk_decay_bounce0=decay,
          nvidia_smi=smi)
+    # One timed pass a turn; each variant's first turn warms it up and
+    # keeps its first image.
     runs, first = {True: [], False: []}, {}
     for compact_walks in (True, False, False, True):
         rp = make_pass(scene, camera, res, k, c["lanes"],
                        integrator=integ.replace(compact_walks=compact_walks))
-        first.setdefault(compact_walks, rp(0))  # the warm-up pass
+        if compact_walks not in first:
+            first[compact_walks] = rp(0)
         runs[compact_walks].append(
-            timed_forward(rp, passes, {"k1": STATS})["mrays_per_s"])
+            timed_forward(rp, 1, {"k1": STATS})["mrays_per_s"])
     equal = (torch.equal(first[True][0], first[False][0])
              and bool(first[True][1] == first[False][1]))
     emit("e9_compacted_vs_lockstep", compacted_mrays_per_s=runs[True],
@@ -4380,6 +4406,191 @@ def phase_timed_cameras(dev, smi: str) -> int:
     return k1_launches
 
 
+IO = dict(res=256, k=4, depth=5, lanes=8,
+          spp={"io_surfaces": 16, "io_smoke": 8})
+# K1 queries a pass at depth 5: the path's closest and shadow query a
+# bounce and the terminal closest; the volumetric path's closest and two
+# ratio-tracking transmittance queries a bounce and the terminal pair.
+IO_QUERIES = {"io_surfaces": 2 * IO["depth"] + 1,
+              "io_smoke": 3 * IO["depth"] + 2}
+IO_SEED = 0
+
+
+def _io():
+    from tests import torch_port_io
+
+    return torch_port_io
+
+
+def io_scene(dev, name: str, in_dir=None):
+    """(scene, camera, settings) of an io scene file on the card."""
+    from pbrt_tpu_torch.io.parser import load_pbrt
+
+    return load_pbrt(os.path.join(in_dir or _io().IO_DIR, name + ".pbrt"),
+                     device=dev)
+
+
+def _io_inset(name: str):
+    import contextlib
+
+    return inset_entry() if _io().INSET[name] else contextlib.nullcontext()
+
+
+def phase_k1_io_vs_twin(dev):
+    """c11: K1 against its twin on every query of one pass of each io
+    scene (32x32, 4 spp, the file's integrator), launches counted from
+    zero, each query bit-equal key by key, kernel and twin timed, with
+    the bound."""
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import STATS
+
+    out = {}
+    for name in _io().SCENES:
+        scene, camera, settings = io_scene(dev, name)
+        rp = make_pass(scene, camera.replace(resolution=(32, 32)), 32, 4,
+                       IO["lanes"], integrator=settings["integrator"])
+        STATS.reset()
+        queries = _k1_queries(rp)
+        torch.cuda.synchronize()
+        launches = STATS.launches
+        want = IO_QUERIES[name]
+        if launches != want or len(queries) != launches:
+            raise AssertionError(f"{name}: {launches} K1 launches, "
+                                 f"{len(queries)} queries, {want} expected")
+        out[name] = {"launches": launches,
+                     **_hold_k1(scene.small, queries, name)}
+        STATS.reset()
+    emit("c11_k1_io_vs_twin", **out)
+    return out
+
+
+def phase_golden_io_jax(dev):
+    """d28: io_surfaces.pbrt and io_smoke.pbrt (entry inset) at 32x32, 4
+    spp, 8 lanes, the file's integrator, against the JAX goldens of
+    scripts/make_torch_port_golden_io.py with d's gate; a lit image and
+    11 / 17 K1 launches per pass."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import STATS
+    from pbrt_tpu_torch.render import render
+
+    g = _io().IMAGE
+    for name in _io().SCENES:
+        golden = np.load(os.path.join(GOLDEN_DATA, f"{name}32_spp4.npy"))
+        scene, camera, settings = io_scene(dev, name)
+        STATS.reset()
+        with _io_inset(name):
+            img = render(scene, camera.replace(resolution=(g["resolution"],) * 2),
+                         settings["integrator"], spp=g["spp"],
+                         samples_per_pass=g["spp"], seed=g["seed"],
+                         n_spectrum=g["n_spectrum"], device=dev)
+        torch.cuda.synchronize()
+        launches = STATS.launches
+        share, fields = _golden_gate(img.cpu().numpy(), golden)
+        emit("d28_golden_io_jax", scene=name, resolution=g["resolution"],
+             spp=g["spp"], lanes=g["n_spectrum"],
+             max_depth=settings["integrator"].max_depth, **fields,
+             k1_launches=launches, expected_k1=IO_QUERIES[name])
+        if share < 0.99 or not fields["mean"] > 0.0:
+            raise AssertionError(f"{name}: {share:.4f} of pixel values match "
+                                 f"the JAX golden, mean {fields['mean']}")
+        if launches != IO_QUERIES[name]:
+            raise AssertionError(f"{name}: {launches} K1 launches, "
+                                 f"{IO_QUERIES[name]} expected")
+
+
+def phase_timed_io(dev, smi: str, seed: int) -> dict:
+    """e14: the io slice at full width. Writes tests/torch_port_io.py's
+    FULL inputs with the port's writers from `seed` into a temporary
+    directory beside the two scene files, and a 2048^2 half ZIP EXR map
+    whose read is timed (the scene's sky is FULL's); reads each input back
+    (host seconds), loads each scene onto the card (load-to-Scene
+    seconds: the parse, the reads and the tables' builds and upload),
+    then times io_surfaces (256x256, 16 spp in passes of 4) and io_smoke
+    (8 spp in passes of 4) at depth 5 without Russian roulette, 8 lanes,
+    the exact medium entry: Mrays/s, K1 launches a pass, peak memory,
+    kernel launches a pass and the busy share (torch.profiler). Returns
+    each scene's K1 launches of its timed passes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import profile_torch_pass as ptp
+
+    from pbrt_tpu_torch.io import image
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.models.volpath import VolPathIntegrator
+    from pbrt_tpu_torch.ops import smallscene
+
+    io = _io()
+    full = io.FULL
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="io_full_")
+    launches = {}
+    try:
+        for name in io.SCENES:
+            shutil.copy(os.path.join(io.IO_DIR, name + ".pbrt"), tmp)
+        write_s = io.write_inputs("pbrt_tpu_torch", tmp, full, seed)
+        n = full["env_read"]
+        env = np.random.default_rng(seed).uniform(
+            0.0, 4.0, (n, n, 3)).astype(np.float32)
+        env_path = os.path.join(tmp, "env_read.exr")
+        t0 = time.perf_counter()
+        image.write_exr(env_path, env, compression="zip", half=True)
+        write_s["env_read.exr"] = time.perf_counter() - t0
+        reads = io.read_inputs("pbrt_tpu_torch", tmp)
+        read_s = {k: v[1] for k, v in reads.items()}
+        if not np.array_equal(reads["env_read.exr"][0],
+                              env.astype(np.float16).astype(np.float32)):
+            raise AssertionError("e14: the 2048^2 half EXR did not read back")
+        del reads, env
+        sizes = {k: os.path.getsize(os.path.join(tmp, k))
+                 for k in sorted(os.listdir(tmp))}
+        emit("e14_io_inputs", seed=seed, size=full, writer_seconds=write_s,
+             reader_seconds=read_s, file_bytes=sizes)
+        res, k = IO["res"], IO["k"]
+        for name in io.SCENES:
+            t0 = time.perf_counter()
+            scene, camera, _ = io_scene(dev, name, tmp)
+            load_s = time.perf_counter() - t0
+            cls = PathIntegrator if name == "io_surfaces" else VolPathIntegrator
+            integ = cls(max_depth=IO["depth"], rr_start_depth=IO["depth"])
+            render_pass = make_pass(scene, camera.replace(resolution=(res, res)),
+                                    res, k, IO["lanes"], integrator=integ)
+            t0 = time.perf_counter()
+            render_pass(0)  # warm-up
+            first_s = time.perf_counter() - t0
+            passes = IO["spp"][name] // k
+            out = timed_forward(render_pass, passes, {"k1": smallscene.STATS})
+            if out["k1_launches"] != IO_QUERIES[name] * passes:
+                raise AssertionError(f"timed {name}: {out['k1_launches']} K1 "
+                                     f"launches over {passes} passes")
+            if not out["image_mean"] > 0.0:
+                raise AssertionError(f"timed {name}: an unlit image, {out}")
+            launches[name] = out["k1_launches"]
+            kern = ptp.kernel_view(IO["lanes"], render_pass, out_dir)
+            emit(f"e14_timed_{name}", lanes=IO["lanes"], resolution=res,
+                 spp=IO["spp"][name], samples_per_pass=k,
+                 max_depth=IO["depth"], rays_per_pass_camera=res * res * k,
+                 load_to_scene_seconds=load_s, first_pass_seconds=first_s,
+                 **out, wall_ms_per_pass=out["seconds"] * 1e3 / passes,
+                 k1_launches_per_pass=out["k1_launches"] / passes,
+                 kernel_launches_per_pass=kern["kernel_launches"],
+                 device_busy_share=kern["device_busy_share"],
+                 device_kernel_ms=kern["device_kernel_ms"],
+                 profiled_pass_wall_ms=kern["wall_ms"], top_kernels=kern["top"],
+                 nvidia_smi=smi)
+            del scene, render_pass
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, k):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source,
@@ -4387,7 +4598,7 @@ def _kernel_entry(name, source, replaces, launches, k):
             **{key: k[key] for key in keys}, "library_ms": None}
 
 
-def main() -> int:
+def main(seed: int = IO_SEED) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -4403,14 +4614,14 @@ def main() -> int:
     smi = phase_device()
     cpu_digests = start_cpu_sampler_digests()
     try:
-        return _run(dev, smi, cpu_digests)
+        return _run(dev, smi, cpu_digests, seed)
     finally:
         if cpu_digests.poll() is None:
             cpu_digests.kill()
             cpu_digests.wait()
 
 
-def _run(dev, smi, cpu_digests) -> int:
+def _run(dev, smi, cpu_digests, seed: int) -> int:
     import torch
 
     builds = phase_build()
@@ -4457,6 +4668,8 @@ def _run(dev, smi, cpu_digests) -> int:
     phase_k1_cameras_vs_twin(dev)
     phase_golden_cameras_jax(dev)
     phase_samplers_and_resume(dev, cpu_digests)
+    phase_k1_io_vs_twin(dev)
+    phase_golden_io_jax(dev)
     k1_launches = phase_timed(dev, 8)
     phase_timed(dev, 32)
     phase_timed_fwdbwd(dev, smi)
@@ -4473,12 +4686,14 @@ def _run(dev, smi, cpu_digests) -> int:
     phase_timed_lighttransport(dev, smi)
     geom_launches = phase_timed_geometry(dev, smi)
     lens_launches = phase_timed_cameras(dev, smi)
+    io_launches = phase_timed_io(dev, smi, seed)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     # No single PyTorch call computes a ray/triangle intersection, so no
     # kernel has a library yardstick. K2's, K3's and K4's errors are those
     # of the 1,048,576-ray comparisons, both modes. K1's launches are those
-    # of the Cornell (e), shapes (e12) and cornell_lens (e13) main paths,
+    # of the Cornell (e), shapes (e12), cornell_lens (e13) and io (e14)
+    # main paths,
     # K3's of the
     # instanced field (e3) and motion.pbrt (e12), each counted from zero
     # around its timed passes.
@@ -4488,7 +4703,7 @@ def _run(dev, smi, cpu_digests) -> int:
             res["closest"]["max_abs_err"], res["any_hit"]["max_abs_err"])}
     by_path = {"smallscene": {"cornell": k1_launches,
                               "shapes": geom_launches["shapes"][0],
-                              "cornell_lens": lens_launches},
+                              "cornell_lens": lens_launches, **io_launches},
                "sweep": {"instanced_field": k3_launches,
                          "motion": geom_launches["motion"][1]}}
     entries = [
@@ -4518,4 +4733,6 @@ if __name__ == "__main__":
         sys.path.insert(0, ROOT)
         _cpu_sampler_digests(sys.argv[2])
         sys.exit(0)
-    sys.exit(main())
+    # --seed N: the seed of e14's generated inputs (default 0).
+    sys.exit(main(int(sys.argv[sys.argv.index("--seed") + 1])
+                  if "--seed" in sys.argv else IO_SEED))

@@ -279,13 +279,15 @@ def _hurb_deflect(p, d, aperture_r: float, wavelength_mm, noise):
                                   new_s * sn + new_l * cs, new_u], dim=-1))
 
 
-def trace_through_stack(stack: LensStack, o, d, hurb_noise=None,
-                        wavelength_nm=550.0):
+def trace_through_stack(stack: LensStack, o, d, eta_start=1.0,
+                        hurb_noise=None, wavelength_nm=550.0):
     """Trace rays (film side, travelling +z) through every surface.
 
     o, d: (N, 3). Returns (o_out, d_out, valid). hurb_noise: optional
     (N, 2) standard normals enabling HURB diffraction at the planar
-    aperture stops; wavelength_nm is a scalar or a per-ray (N,) tensor."""
+    aperture stops; wavelength_nm is a scalar or a per-ray (N,) tensor.
+    eta_start is taken and, as in the reference, not read: each surface
+    carries the indices on both its sides."""
     if isinstance(wavelength_nm, torch.Tensor):
         wl_mm = wavelength_nm.to(torch.float32) * 1e-6
     else:

@@ -15,9 +15,8 @@ distribution's tables. The light BVH ("lights.bvh.*") is carried as the
 port's LightBVH, and the exhaustive sampler's records ("lights.exh_recs")
 as a tensor. Every material field is carried (the measured tables and
 the mix columns included), so an unknown one is a ValueError. The
-texture tables ("textures.*", the flat texel table included) are
-carried as the port's TextureBuffers; one with a Ptex row
-raises (ROADMAP Queue 1 item 15). The scene-level medium ("medium.*",
+texture tables ("textures.*", the flat texel table and the Ptex tables
+included) are carried as the port's TextureBuffers. The scene-level medium ("medium.*",
 its static "medium.kind") and the interior-media stack ("media_stack.*")
 are carried member for member as the port's MediumBuffers and
 MediumStack. The moving instances ("anim.xforms.<i>.<field>", each
@@ -219,7 +218,7 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
     optional = {}
     if any(p.startswith("textures.") for p in list(arrays) + list(static)):
         optional["textures"] = _section(TextureBuffers, "textures", arrays,
-                                      static, lambda n: 15)
+                                        static)
     for member, cls in (("medium", MediumBuffers),
                         ("media_stack", MediumStack)):
         if any(p.startswith(member + ".") for p in list(arrays) + list(static)):

@@ -32,8 +32,8 @@ reference. The directive subset:
               "" / "none" / "interface", the material-less boundary), a
               texture-typed "reflectance" or "albedo",
               Texture (constant, checkerboard, scale, mix, directionmix,
-              bilerp, dots, fbm, wrinkled, windy, marble, imagemap), Shape
-              trianglemesh, plymesh, sphere (analytic outside objects; an
+              bilerp, dots, fbm, wrinkled, windy, marble, imagemap, ptex),
+              Shape trianglemesh, plymesh, sphere (analytic outside objects; an
               emissive one is a sphere light, or an icosphere when reversed
               or inside an object, as in the reference), disk (analytic;
               64 segments when emissive or under an anisotropic scale),
@@ -44,30 +44,35 @@ reference. The directive subset:
               (a float or a float texture), AreaLightSource "diffuse"
   lights:     LightSource point, spot, distant, projection, goniometric and
               infinite (uniform "rgb L", an image "string filename", a
-              "point3 portal" over either); light and texture images are PFM
+              "point3 portal" over either); light and texture images are
+              EXR, PFM, PNG or QOI (io/image.py, the reference's readers)
   media:      MakeNamedMedium homogeneous (without p0/p1 an interior-media
               stack entry, with them the scene-level AABB medium),
-              uniformgrid / grid (with Le, Lescale), cloud and rgbgrid;
+              uniformgrid / grid (with Le, Lescale), cloud, rgbgrid and
+              nanovdb (a density grid read from a .nvdb file, its world
+              bounds through the CTM);
               MediumInterface (per-shape material clones carrying the
               inside / outside stack indices; a grid-like medium binds the
               scene level)
 
-A feature the port lacks (Ptex, NanoVDB media, image formats other than
-PFM) raises NotImplementedError
-naming its ROADMAP Queue 1 item, at parse or build time; nothing renders
-without it. A texture-typed material parameter other than the
-reflectance raises ValueError: the reference has none (its parser takes
-float() of the texture's name). Where the reference approximates and
+Triangle meshes' buffers and PLY reads go through the reference's
+BufferCache (io/buffercache.py), which shares repeated ones. A
+texture-typed material parameter other than the reflectance raises
+ValueError: the reference has none (its parser takes float() of the
+texture's name). Where the reference approximates and
 warns ("material X approximated as diffuse", unknown directives and
 shapes, a texture used before it is defined), the port does the same,
-since that is the reference's behaviour. Six departures raise where the
+since that is the reference's behaviour. Eight departures raise where the
 reference warns and renders something else: an unknown light type
 (pbrt-v4 stops on one too), a light image that cannot be read (the
 reference renders the light with its constant I or L), an unknown Texture
 class (the reference binds 0.5 gray), an imagemap whose image cannot be
-read (the reference binds a 0.5 gray image), a measured material with no
-readable table (the reference binds a gray table) and a mix that names
-an undefined material (the reference falls back to diffuse). Four more
+read (the reference binds a 0.5 gray image), a Ptex texture whose .ptx
+file cannot be read (the reference binds one 0.5 gray face), a "nanovdb"
+medium whose .nvdb file or grid cannot be read (the reference warns and
+skips the medium), a measured material with no readable table (the
+reference binds a gray table) and a mix that names an undefined material
+(the reference falls back to diffuse). Four more
 raise ValueError where the reference renders something else: a camera
 type other than perspective, realistic and omni (the reference loads it
 as perspective with a warning), a realistic or omni camera without a
@@ -78,9 +83,7 @@ renders the independent sampler). Another
 raises ValueError where the reference renders a fault: an analytic shape
 (a non-emissive sphere, disk, cylinder or bilinear mesh, or a curve)
 inside ObjectBegin, which the reference draws once in world space under
-the ObjectBegin transform and no instance carries. A "nanovdb" medium
-raises (item 15) where the reference reads the file, or warns and skips
-the medium when the read fails.
+the ObjectBegin transform and no instance carries.
 
 Instancing is true instancing: an instanced prototype's triangles are
 stored once in object space and the sweep accelerator (ops/sweep.py, K3)
@@ -94,6 +97,8 @@ into world-space copies, with the reference's warning.
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
 import numpy as np
 import torch
@@ -130,8 +135,10 @@ from ..shapes.curve import build_curve_segments
 from ..shapes.geometry import GeometryBuffers
 from ..shapes.subdiv import loop_subdivide
 from ..textures.buffers import TextureBuffers
+from .buffercache import BufferCache
 from .image import read_image_rgb
-from .ply import read_ply
+from .nanovdb import read_nanovdb
+from .ptex import read_ptex
 
 
 # Sampler names and the kinds they build (the reference's mapping).
@@ -141,17 +148,15 @@ SAMPLERS = {
     "zsobol": "zsobol", "halton": "halton", "pmj02bn": "pmj02bn",
 }
 
+# What a reader raises on a file it cannot read: missing, of an unknown
+# format, truncated or corrupt, or without the named grid.
+_READ_ERRORS = (OSError, ValueError, KeyError, struct.error, zlib.error)
+
 # Integrator names the parser builds: the reference's, and pbrt-v4's
 # ambientocclusion and randomwalk.
 INTEGRATORS = ("path", "simplepath", "volpath", "simplevolpath", "bdpt",
                "mlt", "sppm", "lightpath", "function", "ambientocclusion",
                "randomwalk")
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
-    )
 
 
 def tokenize(text: str):
@@ -285,6 +290,8 @@ class PbrtParser:
         self.ctm = np.eye(4)
         self.stack = []
         self.named_ctm = {}
+        # Mesh-buffer dedup (the reference's BufferCache, util/buffercache.h).
+        self.buffer_cache = BufferCache()
         # graphics state
         self.cur_material = 0
         self.cur_area_light = None
@@ -885,7 +892,9 @@ class PbrtParser:
             spec.update(kind="image",
                         rgb_image=img * float(_get(p, "scale", 1.0)))
         elif tclass == "ptex":
-            raise _unported("Texture \"ptex\"", 15)
+            spec.update(kind="ptex",
+                        ptex_faces=self._ptex_faces(_get(p, "filename")),
+                        f0=float(_get(p, "scale", 1.0)))
         else:
             return None
         return spec
@@ -897,12 +906,23 @@ class PbrtParser:
             raise ValueError("imagemap texture without a \"filename\"")
         try:
             return read_image_rgb(os.path.join(self.base_dir, fname))
-        except (OSError, ValueError) as e:
+        except _READ_ERRORS as e:
             raise ValueError(f"texture image {fname!r} cannot be read: {e}") from e
+
+    def _ptex_faces(self, fname):
+        """A Ptex texture's faces. A .ptx file that cannot be read raises
+        (the reference binds one 0.5 gray face and warns)."""
+        if not fname:
+            raise ValueError("ptex texture without a \"filename\"")
+        try:
+            return read_ptex(os.path.join(self.base_dir, fname))[0]
+        except _READ_ERRORS as e:
+            raise ValueError(f"ptex file {fname!r} cannot be read: {e}") from e
 
     def _d_MakeNamedMedium(self, ts):
         """MakeNamedMedium "name" "string type" ... (media.cpp
-        Medium::Create's homogeneous, uniformgrid, cloud and rgbgrid)."""
+        Medium::Create's homogeneous, uniformgrid, cloud, rgbgrid and
+        nanovdb)."""
         name = ts.next()[1:-1]
         p = _parse_params(ts)
         mtype = _get(p, "type", "homogeneous")
@@ -967,8 +987,26 @@ class PbrtParser:
                 grid(_get_vec(p, "sigma_a"), sa),
                 grid(_get_vec(p, "sigma_s"), ss), blo, bhi, g=g, scale=scale)
         elif mtype == "nanovdb":
-            raise _unported(f"MakeNamedMedium {name!r} of type \"nanovdb\" "
-                            "(io/nanovdb.py)", 15)
+            # NanoVDBMedium (media.h): the density grid from the .nvdb
+            # file; its world bounds come from the grid, then the CTM.
+            fn = _get(p, "filename")
+            if not fn:
+                self.warnings.append(f"medium {name}: nanovdb needs filename")
+                return
+            gname = _get(p, "gridname", "density")
+            try:
+                nv = read_nanovdb(os.path.join(self.base_dir, fn), gname)
+            except _READ_ERRORS as e:
+                raise ValueError(f"medium {name!r}: the grid {gname!r} of "
+                                 f"{fn!r} cannot be read: {e}") from e
+            corners = self._pts(np.asarray([nv.world_min, nv.world_max],
+                                           np.float64))
+            med = MediumBuffers.grid(
+                np.asarray(nv.values, np.float32), sa, ss,
+                np.minimum(corners[0], corners[1]),
+                np.maximum(corners[0], corners[1]), g=g, scale=scale,
+                le_scale=float(_get(p, "LeScale", 1.0)),
+            )
         else:
             self.warnings.append(f"medium type {mtype} unsupported; skipped")
             return
@@ -1127,7 +1165,7 @@ class PbrtParser:
             return None
         try:
             return read_image_rgb(os.path.join(self.base_dir, fname))
-        except (OSError, ValueError) as e:
+        except _READ_ERRORS as e:
             raise ValueError(f"light image {fname!r} cannot be read: {e}") from e
 
     # -- shapes --------------------------------------------------------------
@@ -1189,8 +1227,9 @@ class PbrtParser:
                 self.cur_alpha = (1.0, -1)
         analytic = self.cur_area_light is None
         if stype == "trianglemesh":
-            pts = _get_vec(p, "P").reshape(-1, 3)
-            idx = np.asarray(p["indices"][1], np.int64).reshape(-1, 3)
+            pts = self.buffer_cache.canonical(_get_vec(p, "P").reshape(-1, 3))
+            idx = self.buffer_cache.canonical(
+                np.asarray(p["indices"][1], np.int64).reshape(-1, 3))
             tris = self._pts(pts)[idx]
             uv = _get_vec(p, "uv")
             if uv is None:
@@ -1198,7 +1237,8 @@ class PbrtParser:
             if uv is not None:
                 self._pending_uv = np.asarray(uv, np.float32).reshape(-1, 2)[idx]
         elif stype == "plymesh":
-            verts, faces = read_ply(os.path.join(self.base_dir, _get(p, "filename")))
+            verts, faces = self.buffer_cache.read_ply(
+                os.path.join(self.base_dir, _get(p, "filename")))
             tris = self._pts(verts)[faces]
         elif stype == "sphere":
             self._sphere(p)
@@ -1537,6 +1577,7 @@ class PbrtParser:
 
     def build(self):
         """Returns (scene, camera, settings dict), on the CPU."""
+        self.buffer_stats = self.buffer_cache.report_stats()
         inst_tables = self._build_instances()
 
         def cat(parts, shape, dtype):

@@ -539,9 +539,17 @@ def surface_params(scene, isect, lam=None):
     if scene.textures is not None:
         from ..textures.buffers import evaluate_albedo_coeffs
 
+        face = None
+        n_tri = scene.geom.num_triangles
+        if scene.textures.has_ptex and n_tri > 0:
+            # Ptex faceIndex: the triangle's index within its source shape
+            # (textures.cpp PtexTexture::Evaluate); analytic hits take 0.
+            ti = torch.clamp(isect.prim, 0, n_tri - 1)
+            face = torch.where(isect.prim < n_tri,
+                               take(scene.geom.tri_face, ti), 0)
         params["albedo_coeffs"] = evaluate_albedo_coeffs(
             scene.textures, params["albedo_tex"], isect.uv, isect.p,
-            params["albedo_coeffs"],
+            params["albedo_coeffs"], face=face,
         )
     if params["any_hair"]:
         # pbrt-v4's hair.h: h = -1 + 2 uv[1].

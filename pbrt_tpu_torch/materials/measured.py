@@ -118,12 +118,13 @@ class MeasuredBRDF:
                       base, wo, wi, lam)
 
 
-def bake_measured(f_rgb_fn) -> np.ndarray:
+def bake_measured(f_rgb_fn, n_quad: int = 64) -> np.ndarray:
     """Bake a BRDF into the (N_TH, N_TD, N_PD, 3) table, on the host.
 
     f_rgb_fn(wo, wi) -> (..., 3) RGB BRDF values, local frame z up; it
     is given float32 CPU tensors. Each cell is evaluated at the (wo, wi)
-    pair of its centre."""
+    pair of its centre. n_quad is taken and, as in the reference, not
+    read: one evaluation per cell, no quadrature."""
     # Cell centres of the sqrt-warped theta_h axis: the lookup coordinate
     # is x = sqrt(th / (pi/2)) * N_TH, so centre i sits at ((i+.5)/N)^2.
     th = (((np.arange(N_TH) + 0.5) / N_TH) ** 2) * (np.pi / 2)

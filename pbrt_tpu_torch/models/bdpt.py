@@ -164,12 +164,14 @@ class BDPTIntegrator:
 
     # ---- the estimator -----------------------------------------------------
 
-    def trace(self, scene, camera, wl, pixel, sample_idx, sampler):
+    def trace(self, scene, camera, wl, pixel, sample_idx, sampler,
+              n_paths=None):
         """One BDPT sample per entry of `pixel` (sample_idx an int or (N,)).
 
         Returns (L (N, S) radiance of the t >= 2 strategies, splat
         (npix, 3) RGB film splats of the t == 1 strategies, normalised by
-        N, N)."""
+        N, N). n_paths is taken and, as in the reference, not read: the
+        splats are normalised by the N paths of this call."""
         from ..render import camera_rays_full
 
         refuse_gradient(scene, "BDPTIntegrator")

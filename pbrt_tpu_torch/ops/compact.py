@@ -106,11 +106,17 @@ def masked_loop(body, inputs, state, max_steps: int, draws=None):
 
 
 def staged_masked_loop(body, inputs, state, mask_of, max_steps: int,
-                       draws=None, compact: bool = True):
+                       draws=None, compact: bool = True, stages=None):
     """Run `state = body(inputs, it, state, u)` until mask_of(state) is all
     False or max_steps steps, compacting to the live lanes at each stage
     boundary (compact=False: the lockstep loop, full width throughout,
     with the same exit reads).
+
+    stages: the reference's plan of (width divisor, steps) pairs, by
+    default `default_stages(max_steps)`. Its steps set the stage
+    boundaries and, summed, the steps in all; its divisors are not read,
+    since each stage is as wide as its live lanes. The body changes only
+    live lanes, so the boundaries change no result.
 
     body: (inputs, it, state, u) -> state; it changes only lanes where
         mask_of(state) (the masked-update discipline), u is the step's
@@ -119,7 +125,10 @@ def staged_masked_loop(body, inputs, state, mask_of, max_steps: int,
     state: dict of per-ray loop state (leading dim N).
     mask_of: state -> (N,) bool, the still-walking mask.
     """
-    stages = default_stages(max_steps) if compact else [(1, max_steps)]
+    if stages is None:
+        stages = default_stages(max_steps) if compact else [(1, max_steps)]
+    elif not compact:
+        stages = [(1, sum(max(k, 0) for _, k in stages))]
     it = 0
     for _, iters in stages:
         if iters <= 0:

@@ -4,17 +4,16 @@ pbrt_tpu/textures/buffers.py; the reference renderer's textures.h).
 One row per texture. Evaluation computes every family present for every
 ray and selects on the kind tag: constant, checkerboard, marble, fBm,
 wrinkled, windy, bilerp, dots and image (a MIP pyramid in one flat texel
-table), and the families that reference other textures (scale, mix,
-directionmix, checkerboard with texture arms) through two static levels
-of sub-texture ids. The texture coordinates come from the uv, spherical,
-cylindrical or planar mapping. Values are linear RGB; a material's
-textured albedo is fitted per ray to sigmoid coefficients
-(core/rgb2spec.py `fit_albedo_rays`).
+table), Ptex (per-face texel sets resampled to one shared R x R grid,
+looked up by the hit's face id) and the families that reference other
+textures (scale, mix, directionmix, checkerboard with texture arms)
+through two static levels of sub-texture ids. The texture coordinates
+come from the uv, spherical, cylindrical or planar mapping. Values are
+linear RGB; a material's textured albedo is fitted per ray to sigmoid
+coefficients (core/rgb2spec.py `fit_albedo_rays`).
 
-Ptex textures (per-face texel sets) are not ported: a table with a Ptex
-row raises NotImplementedError (ROADMAP Queue 1 item 15). The tables are
-built on the host in numpy, bit-equal to the reference's; no tensor here
-is trainable.
+The tables are built on the host in numpy, bit-equal to the reference's;
+no tensor here is trainable.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ import torch
 from ..core import mipmap as mip
 from ..core import noise, rgb2spec
 from ..core import rng
+from ..core.floats import fma
 from ..core.take import take
 from ..core.tensorclass import static_field, tensorclass
 
@@ -62,10 +62,9 @@ _MAP_NAMES = {
     "uv": MAP_UV, "spherical": MAP_SPHERICAL,
     "cylindrical": MAP_CYLINDRICAL, "planar": MAP_PLANAR,
 }
-_PTEX_ITEM = "ROADMAP Queue 1 item 15"
 _ROW_KEYS = ("kind", "rgb0", "rgb1", "rgb2", "rgb3", "f0", "sub0", "sub1",
              "sub2", "mapping", "uscale", "vscale", "udelta", "vdelta",
-             "aux0", "aux1", "img_index")
+             "aux0", "aux1", "img_index", "ptex_index")
 
 
 def _resample(im, h, w):
@@ -85,6 +84,33 @@ def _resample(im, h, w):
         + im[y1][:, x0] * fy * (1 - fx)
         + im[y1][:, x1] * fy * fx
     )
+
+
+def _ptex_tables(stacks):
+    """Every face of every Ptex texture resampled (nearest texel) onto one
+    shared R x R grid, R the largest face side as a power of two in
+    [4, 64], as the reference does: (flat, base, nfaces, R)."""
+    if not stacks:
+        return (np.zeros((0, 1, 1, 3), np.float32), np.zeros((0,), np.int32),
+                np.zeros((0,), np.int32), 1)
+    res = 4
+    for st in stacks:
+        for f in st:
+            res = max(res, f.shape[0], f.shape[1])
+    res = min(1 << (res - 1).bit_length(), 64)
+    rows, bases, counts = [], [], []
+    for st in stacks:
+        bases.append(len(rows))
+        counts.append(len(st))
+        for f in st:
+            f = np.asarray(f, np.float32)
+            if f.shape[-1] == 1:
+                f = np.repeat(f, 3, axis=-1)
+            yy = np.clip(np.arange(res) * f.shape[0] // res, 0, f.shape[0] - 1)
+            xx = np.clip(np.arange(res) * f.shape[1] // res, 0, f.shape[1] - 1)
+            rows.append(f[yy][:, xx, :3])
+    return (np.ascontiguousarray(np.stack(rows), np.float32),
+            np.asarray(bases, np.int32), np.asarray(counts, np.int32), int(res))
 
 
 @tensorclass
@@ -110,11 +136,12 @@ class TextureBuffers:
     # pyramid flattened; image i's texels start at row i of img_flat.
     img_index: torch.Tensor  # (T,) int32 image id or -1
     img_flat: torch.Tensor  # (I, TX, 3)
-    # The reference's Ptex tables: carried empty (a Ptex row raises).
-    ptex_index: torch.Tensor  # (T,) int32, all -1
-    ptex_flat: torch.Tensor  # (0, 1, 1, 3)
-    ptex_base: torch.Tensor  # (0,) int32
-    ptex_nfaces: torch.Tensor  # (0,) int32
+    # Ptex textures (textures.h PtexTexture): every face of every Ptex
+    # texture resampled to one shared R x R grid (R = ptex_res).
+    ptex_index: torch.Tensor  # (T,) int32 Ptex id or -1
+    ptex_flat: torch.Tensor  # (total faces, R, R, 3)
+    ptex_base: torch.Tensor  # (P,) int32 first face row of each Ptex texture
+    ptex_nfaces: torch.Tensor  # (P,) int32 face count of each
     img_offsets: tuple = static_field(default=())
     img_widths: tuple = static_field(default=())
     img_heights: tuple = static_field(default=())
@@ -130,9 +157,6 @@ class TextureBuffers:
     img_levels: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
-        if self.has_ptex:
-            raise NotImplementedError(
-                f"Ptex textures are not ported yet ({_PTEX_ITEM})")
         object.__setattr__(self, "img_levels", mip.level_table(
             self.img_offsets, self.img_widths, self.img_heights,
             self.img_flat.device))
@@ -141,7 +165,8 @@ class TextureBuffers:
     def build(specs) -> "TextureBuffers":
         """specs: list of dicts with keys kind (name), rgb0..rgb3, f0,
         sub0/sub1/sub2 (texture ids), mapping (name), uscale/vscale/
-        udelta/vdelta, aux0/aux1, and rgb_image ((H, W, 3)) for images."""
+        udelta/vdelta, aux0/aux1, rgb_image ((H, W, 3)) for images and
+        ptex_faces (a list of (h, w, c) arrays, one per face) for Ptex."""
         n = len(specs)
         kinds = np.asarray([_KIND_NAMES[s["kind"]] for s in specs], np.int32)
         maps = np.asarray([_MAP_NAMES[s.get("mapping", "uv")] for s in specs],
@@ -153,6 +178,14 @@ class TextureBuffers:
                 images.append(np.asarray(s["rgb_image"], np.float32))
             else:
                 img_idx.append(-1)
+        ptex_idx, ptex_stacks = [], []
+        for s in specs:
+            if s["kind"] == "ptex":
+                ptex_idx.append(len(ptex_stacks))
+                ptex_stacks.append(s["ptex_faces"])
+            else:
+                ptex_idx.append(-1)
+        ptex_flat, ptex_base, ptex_nfaces, ptex_res = _ptex_tables(ptex_stacks)
 
         if images:
             h = 1 << (max(im.shape[0] for im in images) - 1).bit_length()
@@ -197,15 +230,17 @@ class TextureBuffers:
             aux1=vec3("aux1", (0.0, 1.0, 0.0)),
             img_index=torch.from_numpy(np.asarray(img_idx, np.int32).reshape(n)),
             img_flat=torch.from_numpy(np.ascontiguousarray(img_flat, np.float32)),
-            ptex_index=torch.full((n,), -1, dtype=torch.int32),
-            ptex_flat=torch.zeros((0, 1, 1, 3)),
-            ptex_base=torch.zeros((0,), dtype=torch.int32),
-            ptex_nfaces=torch.zeros((0,), dtype=torch.int32),
+            ptex_index=torch.from_numpy(
+                np.asarray(ptex_idx, np.int32).reshape(n)),
+            ptex_flat=torch.from_numpy(ptex_flat),
+            ptex_base=torch.from_numpy(ptex_base),
+            ptex_nfaces=torch.from_numpy(ptex_nfaces),
+            ptex_res=ptex_res,
             img_offsets=tuple(offs),
             img_widths=tuple(ws),
             img_heights=tuple(hs),
             n_textures=n,
-            has_ptex=bool(np.any(kinds == TEX_PTEX)),  # raises
+            has_ptex=bool(ptex_stacks),
             families=tuple(sorted(set(int(k) for k in kinds))),
             has_refs=any(
                 int(s.get("sub0", -1)) >= 0 or int(s.get("sub1", -1)) >= 0
@@ -296,9 +331,10 @@ def _image_lookup(tex, row, u, v, width):
     return bil(l0) * (1 - f) + bil(l0 + 1) * f
 
 
-def _eval_leaf(tex, tid, uv, p_world, width):
+def _eval_leaf(tex, tid, uv, p_world, width, face=None):
     """RGB of the families that reference no other texture, at each ray.
-    Families absent from tex.families are not traced."""
+    Families absent from tex.families are not traced. face: the hit's
+    Ptex face id (None: face 0)."""
     fam = set(tex.families) if tex.families else set(range(12))
     row = _gather_row(tex, tid)
     kind = row["kind"]
@@ -376,17 +412,53 @@ def _eval_leaf(tex, tid, uv, p_world, width):
     if tex.img_flat.shape[0] > 0:
         img = _image_lookup(tex, row, u, v, width)
         out = torch.where((kind == TEX_IMAGE)[..., None], img, out)
+
+    if tex.has_ptex:
+        out = torch.where((kind == TEX_PTEX)[..., None],
+                          _ptex_lookup(tex, row, u, v, face), out)
     return out
 
 
-def _eval(tex, tid, uv, p_world, width, n_shade, depth):
+def _ptex_lookup(tex, row, u, v, face):
+    """Bilinear lookup in the hit face's texels with clamp addressing at
+    the face's borders (the reference's; no cross-face filtering), times
+    the row's scale. face None is face 0."""
+    pi = torch.clamp(row["ptex_index"], 0, tex.ptex_base.shape[0] - 1).long()
+    fbase = tex.ptex_base[pi]
+    nf = tex.ptex_nfaces[pi]
+    fid = torch.zeros_like(fbase) if face is None else face.to(fbase.dtype)
+    fi = fbase + torch.minimum(torch.clamp(fid, min=0), nf - 1)
+    R = tex.ptex_res
+    flat = tex.ptex_flat.reshape(-1, 3)
+    x = torch.clamp(u, 0.0, 1.0) * R - 0.5
+    y = torch.clamp(v, 0.0, 1.0) * R - 0.5
+    x0 = torch.floor(x).to(torch.int32)
+    y0 = torch.floor(y).to(torch.int32)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+
+    def ptx(xi, yi):
+        xi = torch.clamp(xi, 0, R - 1)
+        yi = torch.clamp(yi, 0, R - 1)
+        return flat[((fi * R + yi) * R + xi).long()]
+
+    # The reference's jitted sum, whose adds XLA's CPU build contracts
+    # into multiply-adds (bit-equal on random uv and faces,
+    # tests/test_torch_io.py).
+    acc = fma(ptx(x0, y0) * (1 - fx), 1 - fy, ptx(x0 + 1, y0) * fx * (1 - fy))
+    acc = fma(ptx(x0, y0 + 1) * (1 - fx), fy, acc)
+    acc = fma(ptx(x0 + 1, y0 + 1) * fx, fy, acc)
+    return acc * row["f0"][..., None]
+
+
+def _eval(tex, tid, uv, p_world, width, n_shade, depth, face=None):
     """Evaluate with `depth` static levels of sub-texture indirection left:
     scale, mix, directionmix and checkerboard with texture arms resolve
     their sub ids one level down; at depth 0 their constant colors stand
     in."""
     row = _gather_row(tex, tid)
     kind = row["kind"]
-    out = _eval_leaf(tex, tid, uv, p_world, width)
+    out = _eval_leaf(tex, tid, uv, p_world, width, face)
 
     fam = set(tex.families) if tex.families else set(range(12))
     if not (tex.has_refs or fam & {TEX_SCALE, TEX_MIX, TEX_DIRECTIONMIX}):
@@ -396,7 +468,7 @@ def _eval(tex, tid, uv, p_world, width, n_shade, depth):
         if depth == 0:
             return const_rgb
         sid = torch.clamp(sub_id, 0, tex.n_textures - 1)
-        val = _eval(tex, sid, uv, p_world, width, n_shade, depth - 1)
+        val = _eval(tex, sid, uv, p_world, width, n_shade, depth - 1, face)
         return torch.where((sub_id >= 0)[..., None], val, const_rgb)
 
     v0 = sub_val(row["sub0"], row["rgb0"])
@@ -424,36 +496,40 @@ def _eval(tex, tid, uv, p_world, width, n_shade, depth):
     return torch.where(((kind == TEX_CHECKER) & has_sub)[..., None], chk, out)
 
 
-def evaluate_rgb(tex, tex_id, uv, p_world, width=None, n_shade=None):
+def evaluate_rgb(tex, tex_id, uv, p_world, width=None, n_shade=None,
+                 face=None):
     """Linear-RGB texture value per ray; rows of tex_id -1 evaluate
     texture 0 (callers mask them). width: the screen footprint in uv units
-    that picks the mip level (0: the finest)."""
+    that picks the mip level (0: the finest); face: the Ptex face id per
+    ray (None: face 0)."""
     if tex is None or tex.n_textures == 0:
         return torch.zeros(uv.shape[:-1] + (3,), dtype=torch.float32,
                            device=uv.device)
     if width is None:
         width = torch.zeros(uv.shape[:-1], dtype=torch.float32, device=uv.device)
     tid = torch.clamp(tex_id, 0, tex.n_textures - 1)
-    return _eval(tex, tid, uv, p_world, width, n_shade, depth=2)
+    return _eval(tex, tid, uv, p_world, width, n_shade, depth=2, face=face)
 
 
 def evaluate_albedo_coeffs(tex, tex_id, uv, p_world, base_coeffs, width=None,
-                           n_shade=None):
+                           n_shade=None, face=None):
     """Per-ray albedo sigmoid coefficients with textures applied: tex_id
     (N,) texture id per ray (-1 keeps base_coeffs (N, 3)), uv (N, 2),
     p_world (N, 3). The fit runs for every ray, as in the reference."""
     if tex is None or tex.n_textures == 0:
         return base_coeffs
     rgb = torch.clamp(
-        evaluate_rgb(tex, tex_id, uv, p_world, width, n_shade), 0.0, 1.0)
+        evaluate_rgb(tex, tex_id, uv, p_world, width, n_shade, face), 0.0, 1.0)
     coeffs = rgb2spec.fit_albedo_rays(rgb, iters=12)
     return torch.where((tex_id >= 0)[..., None], coeffs, base_coeffs)
 
 
-def evaluate_float(tex, tex_id, uv, p_world, base_value, width=None):
+def evaluate_float(tex, tex_id, uv, p_world, base_value, width=None,
+                   face=None):
     """A float texture channel (roughness and the like): the mean of the
     RGB value."""
     if tex is None or tex.n_textures == 0:
         return base_value
-    val = torch.mean(evaluate_rgb(tex, tex_id, uv, p_world, width), dim=-1)
+    val = torch.mean(
+        evaluate_rgb(tex, tex_id, uv, p_world, width, face=face), dim=-1)
     return torch.where(tex_id >= 0, val, base_value)

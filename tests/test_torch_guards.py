@@ -60,7 +60,9 @@ def test_import_loads_no_jax():
         "pbrt_tpu_torch.cameras.lens, pbrt_tpu_torch.cameras.realistic, "
         "pbrt_tpu_torch.cameras.humaneye, pbrt_tpu_torch.cameras.rtf, "
         "pbrt_tpu_torch.cameras.simple, pbrt_tpu_torch.films.sensor, "
-        "pbrt_tpu_torch.films.gbuffer, pbrt_tpu_torch.films.checkpoint; "
+        "pbrt_tpu_torch.films.gbuffer, pbrt_tpu_torch.films.checkpoint, "
+        "pbrt_tpu_torch.io.image, pbrt_tpu_torch.io.ptex, "
+        "pbrt_tpu_torch.io.nanovdb, pbrt_tpu_torch.io.buffercache; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pbrt_tpu' or m.startswith('pbrt_tpu.')]; "
         "sys.exit(1 if bad else 0)"
@@ -123,10 +125,15 @@ def _albedo_gradient(scene):
     PathIntegrator().trace(scene.with_accel(), o, d, wl, pixel, 0, 0)
 
 
+def _raises(build, exc, match):
+    """`build` raises `exc` matching `match`."""
+    build.raises = (exc, match)
+    return build
+
+
 def _value_error(build, match):
     """A departure: `build` raises ValueError matching `match`."""
-    build.raises = (ValueError, match)
-    return build
+    return _raises(build, ValueError, match)
 
 
 @pytest.mark.parametrize("build", [
@@ -149,12 +156,16 @@ def _value_error(build, match):
     lambda: LightBuffers.build(points=[{"p": (0, 1, 0), "rgb": (1, 1, 1)}],
                                sampler="exhaustive").sample_le_origin(
                                    torch.zeros(4), torch.zeros(4, 2)),
-    # The image-based infinite light reads PFM only.
-    lambda: read_image_rgb("sky.exr"),
+    # Every image format of the reference is read (EXR, PFM, PNG, QOI;
+    # tests/test_torch_io.py); a missing file raises, naming it.
+    _raises(lambda: read_image_rgb("sky.exr"), OSError, "sky.exr"),
     # The light BVH renders; a gradient of its node table is refused.
     _light_bvh_gradient,
-    # Textures are ported but for Ptex.
-    lambda: TextureBuffers.build([{"kind": "ptex"}]),
+    # Every texture family is ported, Ptex included; a Ptex texture whose
+    # file cannot be read raises, naming it (the reference binds gray).
+    _value_error(lambda: load_pbrt_string(
+        'Texture "t" "spectrum" "ptex" "string filename" "t.ptx"',
+        device="cpu"), "ptex file 't.ptx' cannot be read"),
     # The plain, coated and retroreflective conductors render
     # (tests/test_torch_coated.py, tests/test_torch_families.py); a
     # gradient through the retroreflective one is refused (item 5).
@@ -166,9 +177,11 @@ def _value_error(build, match):
     # Every sampler kind of the reference is ported
     # (tests/test_torch_samplers.py); another name raises.
     _value_error(lambda: Sampler(kind="owen"), "unknown sampler kind"),
-    # A NanoVDB medium is not ported (item 15).
-    lambda: load_pbrt_string('MakeNamedMedium "v" "string type" "nanovdb" '
-                             '"string filename" "v.nvdb"', device="cpu"),
+    # A NanoVDB medium builds (tests/test_torch_io.py); one whose file
+    # cannot be read raises, naming it (the reference warns and skips it).
+    _value_error(lambda: load_pbrt_string(
+        'MakeNamedMedium "v" "string type" "nanovdb" '
+        '"string filename" "v.nvdb"', device="cpu"), "'v.nvdb' cannot be read"),
     # The gallery's glass torus is shaded (tests/test_torch_dielectric.py),
     # and so are a diffuse-transmission one (tests/test_torch_coated.py)
     # and a subsurface one; a gradient through the subsurface one is

@@ -23,6 +23,8 @@ from .torch_port_instanced import SMALL, field_text, write_field_meshes
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOKE_NVDB = os.path.join(ROOT, "tests", "data", "torch_port", "io",
+                          "smoke.nvdb")
 GOLDENS = sorted(os.path.basename(p) for p in
                  glob.glob(os.path.join(ROOT, "tests", "goldens", "*.pbrt")))
 # What each golden scene needs that the port lacks: its ROADMAP Queue 1
@@ -194,7 +196,12 @@ _TRI = ('Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
     # (tests/test_torch_integrators_misc.py); a name the reference renders
     # as a path trace raises ValueError.
     ('Integrator "aov"', "unknown Integrator 'aov'"),
-    ('Texture "t" "spectrum" "ptex" "string filename" "t.ptx"', 15),
+    # Ptex textures, every image format and NanoVDB media are read
+    # (tests/test_torch_io.py); a file that cannot be read raises ValueError
+    # naming it, where the reference binds gray, renders the light's
+    # constant L or skips the medium.
+    ('Texture "t" "spectrum" "ptex" "string filename" "t.ptx"',
+     "ptex file 't.ptx' cannot be read"),
     # The reference has no texture-typed material parameter but the
     # albedo: its parser takes float() of the texture's name, and the
     # port's raises ValueError.
@@ -207,14 +214,16 @@ _TRI = ('Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
     ('Texture "r" "float" "constant" "float value" 0.2 '
      'Material "coatedconductor" "texture interface.roughness" "r"',
      ValueError),
-    ('LightSource "infinite" "string filename" "sky.exr"', 15),
-    # Homogeneous, grid, cloud and rgbgrid media build
-    # (tests/test_torch_volpath.py); a NanoVDB grid does not, nor a
-    # MediumInterface naming one.
+    ('LightSource "infinite" "string filename" "sky.exr"',
+     "light image 'sky.exr' cannot be read"),
+    # Every medium kind builds (tests/test_torch_volpath.py,
+    # tests/test_torch_io.py); a NanoVDB file that cannot be read raises,
+    # and so does one without the grid a MediumInterface's medium names.
     ('MakeNamedMedium "fog" "string type" "nanovdb" '
-     '"string filename" "fog.nvdb"', 15),
-    ('MakeNamedMedium "v" "string type" "nanovdb" MediumInterface "v" ""',
-     15),
+     '"string filename" "fog.nvdb"', "'fog.nvdb' cannot be read"),
+    ('MakeNamedMedium "v" "string type" "nanovdb" "string filename" '
+     f'"{SMOKE_NVDB}" "string gridname" "temperature" MediumInterface "v" ""',
+     "the grid 'temperature'"),
     # Every shape family builds (tests/test_torch_shapes.py), but no
     # analytic one inside an object: the reference draws it once in world
     # space, carried by no instance (a departure, ROADMAP Queue 3).

@@ -108,7 +108,7 @@ def test_convert_refuses_unported_members(jax_cornell):
     js = jax_cornell[0]
     # The clusters (tests/test_torch_meshes.py), the BVH, the kd-tree
     # (tests/test_torch_bvh.py, tests/test_torch_kdtree.py) and the texture
-    # tables (tests/test_torch_parser.py) convert; a Ptex row does not.
+    # tables (tests/test_torch_parser.py) convert, Ptex tables included.
     tri = ('Shape "trianglemesh" "point3 P" [0 0 0 1 0 0 0 1 0] '
            '"integer indices" [0 1 2]')
     textured, _, _ = jax_load_pbrt_string(
@@ -119,8 +119,11 @@ def test_convert_refuses_unported_members(jax_cornell):
         'Texture "t" "spectrum" "ptex" "string filename" "missing.ptx" '
         'Material "diffuse" "texture reflectance" "t" ' + tri)
     assert ptex.textures.has_ptex
-    with pytest.raises(NotImplementedError, match="item 15"):
-        scene_from_arrays(*flatten_jax(ptex))
+    carried = scene_from_arrays(*flatten_jax(ptex)).textures
+    assert carried.has_ptex and carried.ptex_res == ptex.textures.ptex_res
+    for key in ("ptex_index", "ptex_flat", "ptex_base", "ptex_nfaces"):
+        np.testing.assert_array_equal(getattr(carried, key).numpy(),
+                                      np.asarray(getattr(ptex.textures, key)))
     # The light BVH and the exhaustive sampler's records convert, table
     # for table.
     from pbrt_tpu.lights import bvh as jax_light_bvh

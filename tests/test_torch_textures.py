@@ -235,8 +235,13 @@ def test_albedo_coeffs_overlay_matches(tables):
 
 
 def test_ptex_rows_raise():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tex.TextureBuffers.build([{"kind": "ptex", "ptex_faces": [np.ones((2, 2, 3))]}])
+    """A Ptex row builds its tables (tests/test_torch_io.py holds them and
+    the lookup against the reference); one without its faces raises."""
+    built = tex.TextureBuffers.build(
+        [{"kind": "ptex", "ptex_faces": [np.ones((2, 2, 3))]}])
+    assert built.has_ptex and built.ptex_res == 4
+    with pytest.raises(KeyError, match="ptex_faces"):
+        tex.TextureBuffers.build([{"kind": "ptex"}])
 
 
 @pytest.mark.parametrize("name", ["texture.pbrt", "imagetex.pbrt"])
