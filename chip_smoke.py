@@ -377,12 +377,37 @@ Phases:
       without Russian roulette, 8 lanes: Mrays/s, K1 launches a pass,
       kernel launches a pass and the busy share (torch.profiler), peak
       memory, the card's name and power limit
+  g8  the textured Cornell box (tests/torch_port_grad.py: a 4x4 image
+      texture on material 0; 16x16, 2 spp, depth 5, 8 lanes) under the
+      default estimator: the bench loss's gradients with respect to
+      albedo_coeffs, area_scale and textures.img_flat against
+      tests/data/torch_port/grad_modes16.npz (scripts/
+      make_torch_port_golden_grad.py --which modes) with g's tolerance;
+      in each of g8-g11 the K1 launches of one forward+backward pass are
+      counted from zero: 0 in the backward, the primal's in the forward
+  g9  the Cornell box with material 1 a rough dielectric under the
+      attached estimator (replay_grad=False): albedo_coeffs, area_scale
+      and materials.eta against the same file
+  g10 g8's box under grad_mode="cvjp" with replay_remat "full", "dots"
+      and "none": each against its golden, and against the remat
+      estimator's loss (bit-equal) and gradients on the card
+  g11 the families box (16x16, 2 spp, the mix hash on coarse keys; the
+      attached estimator, as it holds a subsurface block): albedo_coeffs
+      and area_scale against tests/data/torch_port/families16_grad.npz;
+      16 K1 launches in the forward
+  e15 cornell_fwdbwd_8lane's shape (256x256, passes of 2 spp, 8 lanes,
+      depth 5, no Russian roulette) under every estimator (remat,
+      attached, cvjp full / dots / none), then the textured Cornell box
+      and the families box under their default estimators: fwd+bwd
+      Mrays/s over 4 passes, the backward's share, peak memory, kernel
+      launches in the forward and in the backward (torch.profiler), K1
+      launches in each
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
   f   the kernels line (K1's launches those of e, e12's shapes box,
-      e13's cornell_lens and e14's io scenes, K3's those of e3 and e12's
-      moving field, by path), the nvidia-smi line and the final result
-      line
+      e13's cornell_lens, e14's io scenes and the loss and gradient calls
+      of g8-g11, K3's those of e3 and e12's moving field, by path), the
+      nvidia-smi line and the final result line
 """
 
 from __future__ import annotations
@@ -2069,38 +2094,42 @@ def phase_grad_file(dev, phase, name, tol):
 
 
 def make_grad_pass(scene, camera, res: int, k: int, lanes: int,
-                   depth: int = 5, target: float = 0.25):
+                   depth: int = 5, target: float = 0.25, integrator=None,
+                   leaves=("materials.albedo_coeffs", "lights.area_scale")):
     """bench.py's cornell_fwdbwd pass on the scene's device: k samples per
     pixel over res x res, `lanes` wavelengths, depth `depth` without
-    Russian roulette. Returns (grad_pass, forward_pass):
-    grad_pass(pass_idx, events=None) -> (loss, grads), the loss's value
-    and gradient with respect to albedo_coeffs and area_scale, appending
-    CUDA events (start, forward done, backward done) to `events` if given;
+    Russian roulette (or the given integrator). Returns (grad_pass,
+    forward_pass): grad_pass(pass_idx, events=None) -> (loss, grads), the
+    loss's value and gradient with respect to `leaves` (albedo_coeffs and
+    area_scale by default), appending CUDA events (start, forward done,
+    backward done) to `events` if given and calling mark() after the
+    forward and after the backward, the forward and the backward inside
+    profiler ranges "forward" and "backward";
     forward_pass(pass_idx) -> (rgb, traced rays) under torch.no_grad()."""
     import torch
 
     from pbrt_tpu_torch.films.rgb import spectrum_to_rgb
     from pbrt_tpu_torch.models.path import PathIntegrator
-    from pbrt_tpu_torch.parallel.train import _set_paths
+    from pbrt_tpu_torch.parallel.train import _get_path, _set_paths
     from pbrt_tpu_torch.render import camera_rays
 
     dev = scene.geom.tri_verts.device
-    integrator = PathIntegrator(max_depth=depth, rr_start_depth=depth)
+    if integrator is None:
+        integrator = PathIntegrator(max_depth=depth, rr_start_depth=depth)
     npix = res * res
     pixel_b = torch.arange(npix, device=dev).repeat(k)
     tgt = torch.full((npix * k, 3), target, device=dev)
-    leaves = (scene.materials.albedo_coeffs, scene.lights.area_scale)
+    values = [_get_path(scene, name) for name in leaves]
 
     def samples(p):
         return torch.arange(p * k, (p + 1) * k,
                             device=dev).repeat_interleave(npix)
 
-    def grad_pass(p, events=None):
+    def grad_pass(p, events=None, mark=None):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        params = [x.detach().requires_grad_(True) for x in leaves]
-        s = _set_paths(scene, {"materials.albedo_coeffs": params[0],
-                               "lights.area_scale": params[1]})
+        params = [x.detach().requires_grad_(True) for x in values]
+        s = _set_paths(scene, dict(zip(leaves, params)))
         sb = samples(p)
         o, d, wl = camera_rays(camera, pixel_b, sb, 0, n_spectrum=lanes)
         with torch.profiler.record_function("forward"):
@@ -2108,9 +2137,13 @@ def make_grad_pass(scene, camera, res: int, k: int, lanes: int,
                 integrator.trace(s, o, d, wl, pixel_b, sb, 0), wl)
             loss = torch.mean((rgb - tgt) ** 2)
         ev[1].record()
+        if mark is not None:
+            mark()
         with torch.profiler.record_function("backward"):
             grads = torch.autograd.grad(loss, params)
         ev[2].record()
+        if mark is not None:
+            mark()
         if events is not None:
             events.append(ev)
         return loss.detach(), grads
@@ -2229,6 +2262,320 @@ def phase_train(dev):
     if not finite or min(moved.values()) <= 0.0 or not on_card:
         raise AssertionError("training steps: non-finite, unmoved or moved "
                              "off the card")
+
+
+GRAD_MODES_FILE = os.path.join(ROOT, "tests", "data", "torch_port",
+                               "grad_modes16.npz")
+FAMILIES_GRAD_FILE = os.path.join(ROOT, "tests", "data", "torch_port",
+                                  "families16_grad.npz")
+
+
+def _k1_split(scene, camera, integrator, leaves, res: int, k: int) -> dict:
+    """K1 launches of one forward+backward pass of the bench loss, counted
+    from zero before it: in the forward, in the backward, and in the
+    primal (no_grad) trace of the same pass."""
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import STATS
+
+    camera = camera.replace(resolution=(res, res)).to(
+        scene.geom.tri_verts.device)
+    grad_pass, forward_pass = make_grad_pass(
+        scene, camera, res, k, 8, integrator=integrator, leaves=leaves)
+    marks = []
+    STATS.reset()
+    grad_pass(0, mark=lambda: marks.append(STATS.launches))
+    torch.cuda.synchronize()
+    STATS.reset()
+    forward_pass(0)
+    torch.cuda.synchronize()
+    primal = STATS.launches
+    STATS.reset()
+    return {"forward": marks[0], "backward": marks[1] - marks[0],
+            "primal": primal}
+
+
+def _grad_vs_golden(phase, scene, camera, integrator, leaves, res, k,
+                    want_loss, want, **fields):
+    """The bench loss and its gradients with respect to `leaves` on the
+    card (parallel.train.render_loss_and_grad, one pass), gated against
+    (want_loss, want) at phase g's tolerance (tests/torch_port_grad.py);
+    zero K1 launches in the backward and as many in the forward as in the
+    primal. Returns (loss, grads, K1 launches of the loss and gradient
+    call)."""
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import STATS
+    from tests.torch_port_grad import grad_errors, pass_loss_and_grads
+
+    STATS.reset()
+    loss, grads = pass_loss_and_grads(scene, camera, integrator, leaves,
+                                      res, k)
+    torch.cuda.synchronize()
+    launches = STATS.launches
+    split = _k1_split(scene, camera, integrator, leaves, res, k)
+    errs = grad_errors(loss, grads, want_loss, want)
+    emit(phase, resolution=res, spp=k, lanes=8,
+         max_depth=integrator.max_depth,
+         estimator=integrator.estimator(scene), loss=loss,
+         golden_loss=want_loss, vs_jax=errs, k1_launches=launches,
+         k1_split=split, tolerance={"grad_of_max": GRAD_RTOL_OF_MAX,
+                                    "loss_rel": LOSS_RTOL}, **fields)
+    if not errs["ok"]:
+        raise AssertionError(f"{phase}: gradients disagree with the JAX "
+                             f"golden: {errs}")
+    if split["backward"] != 0 or split["forward"] != split["primal"] \
+            or launches != split["primal"]:
+        raise AssertionError(f"{phase}: K1 launches {split}, {launches} in "
+                             "the loss and gradient call")
+    return loss, grads, launches
+
+
+def _modes_golden(dev, name: str):
+    """(scene on the card, camera, golden file) of grad_modes16.npz's
+    textured ("texel") or dielectric box."""
+    import numpy as np
+
+    from tests import torch_port_grad as tg
+
+    z = np.load(GRAD_MODES_FILE)
+    res = int(z["resolution"])
+    build = tg.texel_cornell if name == "texel" else tg.dielectric_cornell
+    scene, camera = build(res)
+    return scene.with_accel().to(dev), camera, z
+
+
+def phase_grad_texel(dev) -> int:
+    """g8: the textured Cornell box (a 4x4 image texture on material 0;
+    16x16, 2 spp, depth 5, 8 lanes) under the default estimator: the bench
+    loss's gradients with respect to albedo_coeffs, area_scale and
+    textures.img_flat (the texel gathers through core/take.py) against
+    the JAX golden (grad_modes16.npz, "remat"), 11 K1 launches in the
+    forward, 0 in the backward."""
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from tests.torch_port_grad import TEXEL_LEAVES, golden
+
+    scene, camera, z = _modes_golden(dev, "texel")
+    res, k = int(z["resolution"]), int(z["spp"])
+    integ = PathIntegrator(max_depth=int(z["max_depth"]),
+                           rr_start_depth=int(z["rr_start_depth"]))
+    return _grad_vs_golden("g8_grad_texel", scene, camera, integ,
+                           TEXEL_LEAVES, res, k,
+                           *golden(z, "remat", TEXEL_LEAVES))[2]
+
+
+def phase_grad_attached(dev) -> int:
+    """g9: the Cornell box with material 1 a rough dielectric (roughness
+    0.25, eta 1.5; 16x16, 2 spp, depth 5) under the attached estimator
+    (replay_grad=False): albedo_coeffs, area_scale and materials.eta
+    against the JAX golden (grad_modes16.npz, "attached": forward-mode,
+    the reference's reverse mode being NaN on eta), 11 K1 launches in the
+    forward, 0 in the backward."""
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from tests.torch_port_grad import ATTACHED_LEAVES, golden
+
+    scene, camera, z = _modes_golden(dev, "dielectric")
+    res, k = int(z["resolution"]), int(z["spp"])
+    integ = PathIntegrator(max_depth=int(z["max_depth"]),
+                           rr_start_depth=int(z["rr_start_depth"]),
+                           replay_grad=False)
+    return _grad_vs_golden("g9_grad_attached", scene, camera, integ,
+                           ATTACHED_LEAVES, res, k,
+                           *golden(z, "attached", ATTACHED_LEAVES))[2]
+
+
+def phase_grad_cvjp(dev) -> int:
+    """g10: the textured box of g8 under grad_mode="cvjp" with each
+    replay_remat ("full", "dots", "none"): against the JAX golden of the
+    same mode, and against the remat estimator's loss (bit-equal) and
+    gradients (within phase g's tolerance) on the card; 11 K1 launches in
+    the forward, 0 in the backward. Returns the K1 launches of the three
+    loss and gradient calls."""
+    import numpy as np
+
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from tests.torch_port_grad import (
+        TEXEL_LEAVES,
+        TEXEL_MODES,
+        golden,
+        grad_errors,
+        pass_loss_and_grads,
+    )
+
+    scene, camera, z = _modes_golden(dev, "texel")
+    res, k = int(z["resolution"]), int(z["spp"])
+    depth, rr = int(z["max_depth"]), int(z["rr_start_depth"])
+    remat_loss, remat = pass_loss_and_grads(
+        scene, camera, PathIntegrator(max_depth=depth, rr_start_depth=rr),
+        TEXEL_LEAVES, res, k)
+    total = 0
+    for mode, kw in TEXEL_MODES[1:]:
+        integ = PathIntegrator(max_depth=depth, rr_start_depth=rr, **kw)
+        loss, grads, launches = _grad_vs_golden(
+            f"g10_grad_{mode}", scene, camera, integ, TEXEL_LEAVES, res, k,
+            *golden(z, mode, TEXEL_LEAVES), replay_remat=kw["replay_remat"])
+        total += launches
+        vs_remat = grad_errors(loss, grads, remat_loss, remat)
+        emit("g10_cvjp_vs_remat", replay_remat=kw["replay_remat"],
+             loss_bit_equal=loss == remat_loss, vs_remat=vs_remat)
+        if loss != remat_loss or not vs_remat["ok"] or not all(
+                np.all(np.isfinite(g)) for g in grads.values()):
+            raise AssertionError(f"cvjp {kw['replay_remat']}: against remat "
+                                 f"{vs_remat}, loss {loss} vs {remat_loss}")
+    return total
+
+
+def phase_grad_families(dev) -> int:
+    """g11: the families box (hair, subsurface, measured, mix and
+    retroreflective surfaces; 16x16, 2 spp, depth 5, the mix hash on
+    coarse keys) under its estimator (the attached one: it holds a
+    subsurface block): albedo_coeffs and area_scale against the JAX golden
+    (families16_grad.npz), 16 K1 launches in the forward (the subsurface
+    probes among them), 0 in the backward."""
+    import numpy as np
+
+    from tests.torch_port_grad import DEFAULT_LEAVES, golden
+
+    scene, camera, integ = families_on(dev)
+    z = np.load(FAMILIES_GRAD_FILE)
+    res, k = int(z["resolution"]), int(z["spp"])
+    with coarse_mix_keys():
+        return _grad_vs_golden("g11_grad_families", scene, camera, integ,
+                               DEFAULT_LEAVES, res, k,
+                               *golden(z, "families", DEFAULT_LEAVES))[2]
+
+
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
+
+
+def _profiled_launches(grad_pass) -> dict:
+    """CUDA kernel launches in the forward and in the backward of one more
+    pass of `grad_pass`: two CUDA-only torch.profiler sessions, switched
+    at the forward's end, counting the launch calls of each ("not
+    measured" where a session holds none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sessions = [profile(activities=[ProfilerActivity.CUDA])
+                for _ in range(2)]
+    done = []
+
+    def switch():
+        torch.cuda.synchronize()
+        sessions[len(done)].stop()
+        done.append(True)
+        if len(done) == 1:
+            sessions[1].start()
+
+    sessions[0].start()
+    grad_pass(0, mark=switch)
+    counts = []
+    for prof in sessions:
+        try:
+            events = prof.profiler.kineto_results.events()
+            n = sum(1 for e in events if e.name() in _LAUNCH_CALLS)
+        except AttributeError:
+            n = sum(1 for e in prof.events() if e.name in _LAUNCH_CALLS)
+        counts.append(n if n else "not measured")
+    return {"forward": counts[0], "backward": counts[1]}
+
+
+# e15's shape: bench.py's cornell_fwdbwd_8lane resolution, timed passes.
+ESTIMATOR_RES, ESTIMATOR_PASSES = 256, 4
+
+
+def phase_timed_fwdbwd_estimators(dev, smi: str):
+    """e15: bench.py's cornell_fwdbwd_8lane shape (256x256, passes of 2
+    spp, 131,072 camera rays, 8 lanes, depth 5, no Russian roulette) under
+    every estimator: remat, attached (replay_grad=False), and cvjp with
+    replay_remat "full", "dots" and "none"; then the textured Cornell box
+    (g8's scene; img_flat among the leaves) and the families box under
+    their default estimators, at the same shape. For each: fwd+bwd Mrays/s
+    over ESTIMATOR_PASSES passes (a forward pass's traced rays per pass
+    over the wall time), the backward's share (CUDA events), peak device
+    memory, CUDA kernel launches in the forward and in the backward
+    (torch.profiler sessions over one more pass), and K1 launches in each
+    timed pass (0 in the backward, the primal's in the forward)."""
+    import torch
+
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.ops.smallscene import STATS
+    from pbrt_tpu_torch.scenes.cornell import cornell_box
+    from tests import torch_port_grad as tg
+
+    res, k, lanes, passes = ESTIMATOR_RES, 2, 8, ESTIMATOR_PASSES
+    cornell, camera = cornell_box(resolution=(res, res))
+    cornell = cornell.with_accel().to(dev)
+    camera = camera.to(dev)
+    texel, _ = tg.texel_cornell(res)
+    texel = texel.with_accel().to(dev)
+    families, fam_camera, _ = families_on(dev)
+    fam_camera = fam_camera.replace(resolution=(res, res)).to(dev)
+    configs = [
+        ("cornell", "remat", cornell, camera, {}, tg.DEFAULT_LEAVES),
+        ("cornell", "attached", cornell, camera, {"replay_grad": False},
+         tg.DEFAULT_LEAVES),
+        *(("cornell", mode, cornell, camera, kw, tg.DEFAULT_LEAVES)
+          for mode, kw in tg.TEXEL_MODES[1:]),
+        ("texel", "remat", texel, camera, {}, tg.TEXEL_LEAVES),
+        ("families", "attached", families, fam_camera, {},
+         tg.DEFAULT_LEAVES),
+    ]
+    out = {}
+    for scene_name, mode, scene, cam, kw, leaves in configs:
+        integ = PathIntegrator(max_depth=5, rr_start_depth=5, **kw)
+        grad_pass, forward_pass = make_grad_pass(
+            scene, cam, res, k, lanes, integrator=integ, leaves=leaves)
+        STATS.reset()
+        rays_pass = float(forward_pass(0)[1])  # warm-up
+        primal = STATS.launches
+        grad_pass(0)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        STATS.reset()
+        events, marks = [], []
+        t0 = time.perf_counter()
+        acc = None
+        for p in range(passes):
+            loss, grads = grad_pass(
+                p, events, mark=lambda: marks.append(STATS.launches))
+            acc = loss if acc is None else acc + loss
+        acc = float(acc)  # synchronizes
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        bwd_ms = sum(b.elapsed_time(c) for _, b, c in events)
+        # K1 launches of each forward (mark after it) and each backward.
+        k1_fwd = {marks[2 * i] - (marks[2 * i - 1] if i else 0)
+                  for i in range(passes)}
+        k1_bwd = {marks[2 * i + 1] - marks[2 * i] for i in range(passes)}
+        split = {"forward": max(k1_fwd), "backward": max(k1_bwd),
+                 "primal": primal}
+        launches = _profiled_launches(grad_pass)
+        finite = acc == acc and all(bool(torch.isfinite(g).all())
+                                    for g in grads)
+        key = f"{scene_name}_{mode}"
+        out[key] = rays_pass * passes / seconds / 1e6
+        emit("e15_timed_fwdbwd_estimators", scene=scene_name,
+             estimator=integ.estimator(scene), mode=mode,
+             leaves=list(leaves), resolution=res, samples_per_pass=k,
+             lanes=lanes, max_depth=5, passes=passes,
+             rays_per_pass=rays_pass, seconds=seconds,
+             mrays_per_s=out[key], backward_ms=bwd_ms,
+             backward_share=bwd_ms / (seconds * 1e3), peak_bytes=peak,
+             launches_forward=launches["forward"],
+             launches_backward=launches["backward"],
+             k1_launches_forward=split["forward"],
+             k1_launches_backward=split["backward"],
+             k1_launches_primal=split["primal"], mean_loss=acc / passes,
+             nvidia_smi=smi)
+        if not finite:
+            raise AssertionError(f"{key}: non-finite loss or gradient")
+        if k1_bwd != {0} or k1_fwd != {primal}:
+            raise AssertionError(f"{key}: K1 launches a pass: forward "
+                                 f"{k1_fwd}, backward {k1_bwd}, primal "
+                                 f"{primal}")
+    return out
 
 
 # The many-light hall (bench.py manylight_fwd: scenes/manylight.py, 1,024
@@ -4653,12 +5000,16 @@ def _run(dev, smi, cpu_digests, seed: int) -> int:
     phase_grad_file(dev, "g4_grad_spheres", "spheres",
                     SPHERES_GRAD_RTOL_OF_MAX)
     phase_grad_coated(dev)
+    grad_launches = {"grad_texel": phase_grad_texel(dev),
+                     "grad_attached": phase_grad_attached(dev),
+                     "grad_cvjp": phase_grad_cvjp(dev)}
     phase_k1_volpath_vs_twin(dev)
     phase_fog_box(dev)
     phase_golden_volpath_jax(dev)
     phase_grad_fog_box(dev)
     phase_k1_families_vs_twin(dev)
     phase_golden_families_jax(dev)
+    grad_launches["grad_families"] = phase_grad_families(dev)
     phase_k1_lighttransport_vs_twin(dev)
     phase_golden_mc(dev)
     phase_golden_lighttransport_jax(dev)
@@ -4673,6 +5024,7 @@ def _run(dev, smi, cpu_digests, seed: int) -> int:
     k1_launches = phase_timed(dev, 8)
     phase_timed(dev, 32)
     phase_timed_fwdbwd(dev, smi)
+    phase_timed_fwdbwd_estimators(dev, smi)
     phase_train(dev)
     k2_launches = phase_timed_killeroo(dev, builds["cluster"]["seconds"])
     k3_launches = phase_timed_instanced(dev, field[3])
@@ -4693,7 +5045,8 @@ def _run(dev, smi, cpu_digests, seed: int) -> int:
     # kernel has a library yardstick. K2's, K3's and K4's errors are those
     # of the 1,048,576-ray comparisons, both modes. K1's launches are those
     # of the Cornell (e), shapes (e12), cornell_lens (e13) and io (e14)
-    # main paths,
+    # main paths and of the gradient estimators' loss and gradient calls
+    # (g8-g11),
     # K3's of the
     # instanced field (e3) and motion.pbrt (e12), each counted from zero
     # around its timed passes.
@@ -4703,7 +5056,8 @@ def _run(dev, smi, cpu_digests, seed: int) -> int:
             res["closest"]["max_abs_err"], res["any_hit"]["max_abs_err"])}
     by_path = {"smallscene": {"cornell": k1_launches,
                               "shapes": geom_launches["shapes"][0],
-                              "cornell_lens": lens_launches, **io_launches},
+                              "cornell_lens": lens_launches, **io_launches,
+                              **grad_launches},
                "sweep": {"instanced_field": k3_launches,
                          "motion": geom_launches["motion"][1]}}
     entries = [

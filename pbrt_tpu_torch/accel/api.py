@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from ..core.floats import grad_flows
 from ..core.vecmath import cross, normalize
 from ..ops.cluster import cluster_intersect
 from ..ops.smallscene import smallscene_intersect
@@ -285,6 +286,18 @@ def _tri_closest(scene, o, d, tmax):
     return res
 
 
+def _finite_t(valid, t, o, d):
+    """t, and under a gradient 0 on the lanes not `valid` (inf on a miss),
+    so that the gradient of o + t d through o and d is finite there."""
+    return torch.where(valid, t, 0.0) if grad_flows(o, d, t) else t
+
+
+def hit_point(valid, o, d, t):
+    """o + t d on valid lanes, 0 elsewhere."""
+    return torch.where(valid[:, None],
+                       o + _finite_t(valid, t, o, d)[:, None] * d, 0.0)
+
+
 def _merge_spheres(geom, o, d, tmax, t, prim, u, v, ng, mat, light):
     """Fold the nearest sphere hit into the triangle hit where it is
     closer: prim becomes num_triangles + sphere index, uv the spherical
@@ -294,7 +307,8 @@ def _merge_spheres(geom, o, d, tmax, t, prim, u, v, ng, mat, light):
     better = t_s < t
     safe = torch.clamp(s_idx, 0, geom.num_spheres - 1).long()
     sc = geom.sph[safe]
-    n_s = normalize(o + t_s[:, None] * d - sc[:, :3])
+    n_s = normalize(o + _finite_t(better, t_s, o, d)[:, None] * d
+                    - sc[:, :3])
     phi = torch.atan2(n_s[:, 1], n_s[:, 0])
     u_s = torch.where(phi < 0, phi + 2 * math.pi, phi) / (2 * math.pi)
     v_s = 1.0 - torch.arccos(torch.clamp(n_s[:, 2], -1.0, 1.0)) / math.pi
@@ -345,7 +359,8 @@ def _merge_disk_cyl(geom, o, d, isect: Interaction) -> Interaction:
         b3 = better[:, None]
         isect = isect.replace(
             valid=isect.valid | better,
-            p=torch.where(b3, o + t_f[:, None] * d, isect.p),
+            p=torch.where(b3, o + _finite_t(better, t_f, o, d)[:, None] * d,
+                          isect.p),
             n=torch.where(b3, ng, isect.n),
             t=torch.where(better, t_f, isect.t),
             uv=torch.where(b3, torch.stack([u_f, v_f], -1), isect.uv),
@@ -389,7 +404,7 @@ def closest(scene, o, d, tmax=None, time=None) -> Interaction:
         t, prim, u, v, ng, mat, light, dpdu = _merge_curves(
             geom, o, d, tmax, t, prim, u, v, ng, mat, light, dpdu)
     valid = prim >= 0
-    p = torch.where(valid[:, None], o + t[:, None] * d, 0.0)
+    p = hit_point(valid, o, d, t)
     return _merge_disk_cyl(geom, o, d, Interaction(
         valid=valid,
         t=t,

@@ -25,7 +25,7 @@ import math
 import torch
 
 from ..core.floats import difference_of_products as dop
-from ..core.floats import fma, sqrt
+from ..core.floats import fma, grad_flows, scalar, sqrt
 from ..core.interval import Interval
 from ..core.vecmath import cross, dot, normalize
 from ..shapes.geometry import Interaction
@@ -38,7 +38,10 @@ _CHUNK_ELEMS = 1 << 25  # most elements of one (rays, block) temporary
 def offset_ray_origin(p, n, d):
     """Spawn-ray origin offset to avoid self-intersection: a scale-aware
     epsilon along the geometric normal, signed toward the outgoing side."""
-    scale = torch.clamp(torch.amax(torch.abs(p), dim=-1, keepdim=True), min=1.0)
+    # maximum, not clamp: a tie with 1 passes half the gradient, as the
+    # reference's jnp.maximum does (the attached estimator moves p).
+    scale = torch.maximum(torch.amax(torch.abs(p), dim=-1, keepdim=True),
+                          scalar(1.0, p.device))
     eps = 1e-4 * scale
     sign = torch.where(dot(n, d, keepdims=True) >= 0.0, 1.0, -1.0)
     return p + sign * eps * n
@@ -414,7 +417,10 @@ def assemble_interaction(geom, o, d, best) -> Interaction:
     t, idx, u, v = best
     valid = idx >= 0
     idx_safe = torch.clamp(idx, min=0).long()
-    p = torch.where(valid[:, None], o + t[:, None] * d, 0.0)
+    # Under a gradient t is 0 in the product on a miss (inf there), so
+    # that the gradient through o and d stays finite.
+    t_p = torch.where(valid, t, 0.0) if grad_flows(o, d, t) else t
+    p = torch.where(valid[:, None], o + t_p[:, None] * d, 0.0)
     n = o.shape[0]
     is_tri = valid & (idx < n_tri)
     if n_tri > 0:

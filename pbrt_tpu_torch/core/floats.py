@@ -31,6 +31,7 @@ sample moves a chain's path, so the port takes the reference's bits.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -90,6 +91,22 @@ def difference_of_products(a, b, c, d):
     return (p1 - p2) + (e1 - e2)
 
 
+def grad_flows(*xs) -> bool:
+    """Whether autograd will differentiate through one of the tensors xs:
+    the gradient-safe forms (a where in front of a division or a sqrt, so
+    that a lane a where drops passes 0 and not 0 * inf) run only then,
+    and a render without a gradient launches none of their kernels."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+@functools.cache
+def scalar(value: float, device: torch.device) -> torch.Tensor:
+    """A float32 0-d tensor of `value` on `device`, made once: an operand
+    of torch.maximum / minimum (whose ties pass half the gradient, as
+    jnp.maximum's do) without a host copy at every call."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
 def fma(a, b, c) -> torch.Tensor:
     """a * b + c of float32 tensors with one rounding, as the multiply-adds
     that XLA's CPU compiler contracts: the product is exact in float64,
@@ -114,7 +131,28 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
 
 def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The angle of (x, y) in [-pi, pi], signed zeros and the axes as
-    torch.atan2 (the value an ulp or so apart), by lane alone."""
+    torch.atan2 (the value an ulp or so apart), by lane alone. Its
+    gradient is atan2's, (x, -y) / (x^2 + y^2), and 0 at the origin."""
+    if torch.is_grad_enabled() and (y.requires_grad or x.requires_grad):
+        return _Atan2.apply(y, x)
+    return _atan2(y, x)
+
+
+class _Atan2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, x):
+        ctx.save_for_backward(y, x)
+        return _atan2(y, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, x = ctx.saved_tensors
+        r2 = x * x + y * y
+        k = torch.where(r2 > 0.0, g / torch.where(r2 > 0.0, r2, 1.0), 0.0)
+        return k * x, -k * y
+
+
+def _atan2(y, x):
     pi = torch.where(torch.signbit(y), -math.pi, math.pi)
     left = torch.signbit(x)
     a = torch.atan(y / x)  # y / +-0 = +-inf: +-pi/2 on the y axis

@@ -17,6 +17,7 @@ import math
 import numpy as np
 import torch
 
+from .take import take
 from .tensorclass import static_field, tensorclass
 
 
@@ -104,7 +105,7 @@ class MIPMap:
         """Texels at per-ray integer levels, through flat index math."""
         off, w, h = self._level(level_idx)
         idx = off + self._wrap(y, h) * w + self._wrap(x, w)
-        return self.flat[idx.long()], w, h
+        return take(self.flat, idx.long()), w, h
 
     def _bilerp_level(self, level_idx, uv):
         """Bilinear lookup at per-ray levels (MIPMap::Bilerp)."""
@@ -118,7 +119,7 @@ class MIPMap:
 
         def tx(xi, yi):
             idx = off + self._wrap(yi, h) * w + self._wrap(xi, w)
-            return self.flat[idx.long()]
+            return take(self.flat, idx.long())
 
         return (
             tx(x0, y0) * (1 - fx) * (1 - fy)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from . import cie, colorspace
+from .floats import grad_flows, scalar
 
 # Quadrature grid for the round-trip projection (2 nm over the render range).
 _QUAD_N = 156
@@ -128,7 +129,13 @@ def _solve3(m, b):
     c01 = m[..., 1, 2] * m[..., 2, 0] - m[..., 1, 0] * m[..., 2, 2]
     c02 = m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0]
     det = m[..., 0, 0] * c00 + m[..., 0, 1] * c01 + m[..., 0, 2] * c02
-    inv_det = torch.where(torch.abs(det) > 1e-20, 1.0 / det, 0.0)
+    ok = torch.abs(det) > 1e-20
+    if grad_flows(det):
+        # The division sees 1 where det is singular, so that its gradient
+        # there is 0 and not 0 * inf (the reference's where passes NaN;
+        # its damped Newton matrices are never singular).
+        det = torch.where(ok, det, 1.0)
+    inv_det = torch.where(ok, 1.0 / det, 0.0)
     c10 = m[..., 0, 2] * m[..., 2, 1] - m[..., 0, 1] * m[..., 2, 2]
     c11 = m[..., 0, 0] * m[..., 2, 2] - m[..., 0, 2] * m[..., 2, 0]
     c12 = m[..., 0, 1] * m[..., 2, 0] - m[..., 0, 0] * m[..., 2, 1]
@@ -139,6 +146,16 @@ def _solve3(m, b):
     x1 = c01 * b[..., 0] + c11 * b[..., 1] + c21 * b[..., 2]
     x2 = c02 * b[..., 0] + c12 * b[..., 1] + c22 * b[..., 2]
     return torch.stack([x0, x1, x2], dim=-1) * inv_det[..., None]
+
+
+def _clip(x, lo: float, hi: float):
+    """jnp.clip: the values of torch.clamp, but under a gradient a tie
+    with a bound passes half of it, as the reference's minimum(maximum(x,
+    lo), hi) does (torch.clamp passes all of it)."""
+    if not grad_flows(x):
+        return torch.clamp(x, lo, hi)
+    return torch.minimum(torch.maximum(x, scalar(lo, x.device)),
+                         scalar(hi, x.device))
 
 
 @functools.cache
@@ -162,15 +179,17 @@ def fit_albedo_rays(rgb: torch.Tensor, cs_name: str = "srgb",
     traced `_fit_albedo_jnp`. The Jacobian M diag(sigmoid'(z)) [x^2 x 1]
     is one (N, K) x (K, 9) product; sums run in another order than XLA's
     einsums, so coefficients agree with the reference's to a tolerance,
-    not bit for bit."""
+    not bit for bit. Autograd differentiates through the 12 steps as JAX
+    does through the reference's."""
     dev = rgb.device
     basis_t, proj_t, jac = _fit_tables(cs_name, dev)
     shape = rgb.shape
-    target = torch.clamp(rgb.to(torch.float32), 1e-4, 0.9999).reshape(-1, 3)
+    target = _clip(rgb.to(torch.float32), 1e-4, 0.9999).reshape(-1, 3)
 
     # Start from the constant spectrum matching the channel mean.
-    m = torch.clamp(torch.mean(target, dim=-1, keepdim=True), 1e-3, 0.999)
-    z0 = (m - 0.5) / torch.sqrt(torch.clamp(m * (1.0 - m), min=1e-6))
+    m = _clip(torch.mean(target, dim=-1, keepdim=True), 1e-3, 0.999)
+    z0 = (m - 0.5) / torch.sqrt(torch.maximum(m * (1.0 - m),
+                                              scalar(1e-6, dev)))
     c = torch.cat([torch.zeros_like(z0), torch.zeros_like(z0), z0], dim=-1)
     damp = 1e-6 * torch.eye(3, dtype=torch.float32, device=dev)
     for _ in range(iters):
@@ -180,7 +199,7 @@ def fit_albedo_rays(rgb: torch.Tensor, cs_name: str = "srgb",
         J = (ds @ jac).reshape(-1, 3, 3)
         JtJ = torch.sum(J[:, :, :, None] * J[:, :, None, :], dim=1) + damp
         Jtr = torch.sum(J * r[:, :, None], dim=1)
-        c = c - torch.clamp(_solve3(JtJ, Jtr), -50.0, 50.0)
+        c = c - _clip(_solve3(JtJ, Jtr), -50.0, 50.0)
     return c.reshape(shape)
 
 

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from . import floats
+
 
 def dot(a, b, keepdims: bool = False):
     return torch.sum(a * b, dim=-1, keepdim=keepdims)
@@ -73,8 +75,17 @@ def from_local(v, t1, t2, n):
     return v[..., 0:1] * t1 + v[..., 1:2] * t2 + v[..., 2:3] * n
 
 
-def _safe_sqrt(x):
-    return torch.sqrt(torch.clamp(x, min=0.0))
+def safe_sqrt(x):
+    """sqrt(max(x, 0)). Under a gradient its gradient is 0 where x <= 0
+    (the clamped sqrt's is 0 * inf = NaN there, which would reach an
+    attached estimator's gradient through lanes that a where drops)."""
+    if not floats.grad_flows(x):
+        return torch.sqrt(torch.clamp(x, min=0.0))
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+_safe_sqrt = safe_sqrt
 
 
 def refract(wi, n, eta):

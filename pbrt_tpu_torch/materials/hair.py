@@ -17,6 +17,7 @@ import math
 import torch
 
 from ..core import floats
+from ..core.vecmath import safe_sqrt as _safe_sqrt
 
 P_MAX = 3
 _EPS = 1e-7
@@ -38,10 +39,6 @@ def _ipow(x, n: int):
         if n > 0:
             x = x * x
     return acc
-
-
-def _safe_sqrt(x):
-    return torch.sqrt(torch.clamp(x, min=0.0))
 
 
 def _safe_asin(x):
@@ -75,15 +72,26 @@ def _mp(cos_ti, cos_to, sin_ti, sin_to, v):
     """Longitudinal scattering lobe (bxdfs.h Mp), with the stable small-v
     form."""
     v = torch.clamp(v, min=1e-5)
-    a = cos_ti * cos_to / v
-    b = sin_ti * sin_to / v
-    small_v = torch.exp(_log_i0(a) - b - 1.0 / v + 0.6931
-                        + torch.log(1.0 / (2.0 * v)))
+    small = v <= 0.1
+    vs = vb = v
+    if floats.grad_flows(cos_ti, cos_to, sin_ti, sin_to, v):
+        # Each form sees a v of its own range (the same values on the
+        # lanes that take it): the other form's overflow would reach the
+        # gradient as 0 * inf.
+        vs = torch.where(small, v, 0.1)
+        vb = torch.where(small, 1.0, v)
+    a = cos_ti * cos_to / vs
+    b = sin_ti * sin_to / vs
+    small_v = torch.exp(_log_i0(a) - b - 1.0 / vs + 0.6931
+                        + torch.log(1.0 / (2.0 * vs)))
+    if vb is not vs:
+        a = cos_ti * cos_to / vb
+        b = sin_ti * sin_to / vb
     # sinh(1/v) overflows for small v; the unused branch's argument is
     # clamped.
-    inv_v = torch.clamp(1.0 / v, max=30.0)
-    big_v = torch.exp(-b) * _i0(a) / (floats.sinh(inv_v) * 2.0 * v)
-    return torch.where(v <= 0.1, small_v, big_v)
+    inv_v = torch.clamp(1.0 / vb, max=30.0)
+    big_v = torch.exp(-b) * _i0(a) / (floats.sinh(inv_v) * 2.0 * vb)
+    return torch.where(small, small_v, big_v)
 
 
 def _logistic(x, s):

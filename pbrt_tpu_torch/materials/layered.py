@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..core import rng
-from ..core.vecmath import normalize
+from ..core.vecmath import normalize, safe_sqrt
 from . import scattering as sc
 
 _EPS = 1e-7
@@ -69,7 +69,7 @@ def _interface_refract(wo, wm, eta):
     eta_r = torch.where(wo[..., 2] > 0.0, eta, 1.0 / eta)
     sin2_t = torch.clamp(1.0 - cos_i * cos_i, min=0.0) / (eta_r * eta_r)
     tir = sin2_t >= 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    cos_t = safe_sqrt(1.0 - sin2_t)
     wi = -wo / eta_r[..., None] + (cos_i / eta_r - cos_t)[..., None] * wm_f
     return normalize(wi), ~tir
 

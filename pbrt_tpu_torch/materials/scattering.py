@@ -15,13 +15,9 @@ import math
 import torch
 
 from ..core.sampling import sample_uniform_disk_concentric
-from ..core.vecmath import cross, length_squared, normalize
+from ..core.vecmath import cross, length_squared, normalize, safe_sqrt
 
 _EPS = 1e-9
-
-
-def safe_sqrt(x):
-    return torch.sqrt(torch.clamp(x, min=0.0))
 
 
 def cos2_theta(w):

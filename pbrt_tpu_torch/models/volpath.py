@@ -53,11 +53,18 @@ from ..core.sampling import power_heuristic
 from ..core.tensorclass import static_field, tensorclass
 from ..core.vecmath import dot, from_local, shading_frame, to_local
 from ..materials import bxdf
-from ..materials.buffers import MAT_INTERFACE
+from ..materials.buffers import (
+    MAT_HAIR,
+    MAT_INTERFACE,
+    MAT_MEASURED,
+    MAT_MIX,
+    MAT_RETRO,
+    MAT_SUBSURFACE,
+)
 from ..media import phase as ph
 from ..media.medium import MED_KEEP
 from ..ops.compact import masked_loop, staged_masked_loop
-from .path import _ITEM5, _tensors, refuse_forward_only
+from .path import _ITEM5, _tensors
 
 _CAM_DIMS = 8
 _BOUNCE_DIMS = 512  # wide stride: walk iterations consume many dims
@@ -65,6 +72,11 @@ _BIG = 1e30
 
 # The scene leaves a gradient may be asked of, with differentiable=True.
 VOLPATH_TRAINABLE = ("medium.sigma_a_scale", "medium.sigma_s_scale")
+# Material kinds whose gradients through the volumetric path have no gate
+# (ROADMAP Queue 1 item 5e): a request on a scene whose geometry
+# references one raises.
+_UNGATED_KINDS = frozenset(
+    {MAT_HAIR, MAT_SUBSURFACE, MAT_MEASURED, MAT_MIX, MAT_RETRO})
 
 
 def _run_draws(sampler, dim0: int, stride: int):
@@ -127,8 +139,13 @@ class VolPathIntegrator:
                     f"{name} requires grad: only {VOLPATH_TRAINABLE} have "
                     f"ported gradients through media ({_ITEM5})")
             asked = True
-        if asked:
-            refuse_forward_only(scene)
+        kinds = sorted(scene.shaded_kinds & _UNGATED_KINDS)
+        if asked and kinds:
+            raise NotImplementedError(
+                f"the geometry references material kind(s) {kinds} (hair 7, "
+                "subsurface 8, measured 9, mix 10, retroreflective 11), "
+                "whose gradients through the volumetric path have no gate "
+                "(ROADMAP Queue 1 item 5e); render under torch.no_grad()")
         return asked
 
     def _majorants(self, med, lam):

@@ -4,9 +4,9 @@ Port of the single-device part of pbrt_tpu/parallel/train.py. The
 inverse-rendering training step renders a batch of pixels, compares it
 with a target image and differentiates the loss with respect to
 continuous scene parameters (albedo sigmoid coefficients, light emission
-scales) through the path integrator's remat gradient path
-(models/path.py). The reference's pixel sharding and gradient all-reduce
-over a device mesh are not ported (ROADMAP Queue 1 item 15).
+scales, texels, the dielectric's IOR) through the integrator's gradient
+estimator (models/path.py). The reference's pixel sharding and gradient
+all-reduce over a device mesh are not ported (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import torch
 from ..core import spectrum
 from ..films.rgb import spectrum_to_rgb
 from ..models.path import DEFAULT_TRAINABLE
+from ..models.path import get_leaf as _get_path
+from ..models.path import with_leaves as _set_paths
 from ..render import camera_rays
 
 __all__ = ["DEFAULT_TRAINABLE", "render_loss_and_grad", "training_step"]
@@ -29,33 +31,15 @@ def _render_pixels(scene, camera, integrator, pixel, sample_idx, seed,
     return spectrum_to_rgb(radiance, wl)  # (N, 3)
 
 
-def _get_path(scene, path):
-    obj = scene
-    for part in path.split("."):
-        obj = getattr(obj, part)
-    return obj
-
-
-def _set_paths(scene, updates):
-    """Return scene with dotted-path leaves replaced (depth-2 paths)."""
-    by_child = {}
-    for path, value in updates.items():
-        child, leaf = path.split(".", 1)
-        by_child.setdefault(child, {})[leaf] = value
-    reps = {}
-    for child, leaves in by_child.items():
-        reps[child] = getattr(scene, child).replace(**leaves)
-    return scene.replace(**reps)
-
-
 def render_loss_and_grad(scene, camera, integrator, pixel, target_rgb,
                          sample_idx, seed, trainable=DEFAULT_TRAINABLE,
                          n_spectrum: int = spectrum.N_SPECTRUM_DEFAULT):
     """L2 image loss and its gradients with respect to `trainable`, dotted
-    scene paths within DEFAULT_TRAINABLE (any other raises, ROADMAP Queue 1
-    item 5). Geometry and discrete events are detached. Everything runs on
-    the device of the scene's tensors, where the gradients land too.
-    Returns (loss, {path: grad})."""
+    scene paths that the integrator's estimator differentiates (for the
+    path integrator, models/path.py TRAINABLE; a leaf outside it raises
+    NotImplementedError naming it). The queries are detached. Everything
+    runs on the device of the scene's tensors, where the gradients land
+    too. Returns (loss, {path: grad})."""
     params = {p: _get_path(scene, p).detach().requires_grad_(True)
               for p in trainable}
     with torch.enable_grad():

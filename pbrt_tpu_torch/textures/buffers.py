@@ -317,7 +317,7 @@ def _image_lookup(tex, row, u, v, width):
         def tx(xi, yi):
             # Floor-mod wrap (jnp.mod): x0 - 1 may be -1 at the left edge.
             idx = base + offs + torch.remainder(yi, h) * w + torch.remainder(xi, w)
-            return flat[idx.long()]
+            return take(flat, idx.long())
 
         return (
             tx(x0, y0) * (1 - fx) * (1 - fy)
@@ -440,7 +440,7 @@ def _ptex_lookup(tex, row, u, v, face):
     def ptx(xi, yi):
         xi = torch.clamp(xi, 0, R - 1)
         yi = torch.clamp(yi, 0, R - 1)
-        return flat[((fi * R + yi) * R + xi).long()]
+        return take(flat, ((fi * R + yi) * R + xi).long())
 
     # The reference's jitted sum, whose adds XLA's CPU build contracts
     # into multiply-adds (bit-equal on random uv and faces,

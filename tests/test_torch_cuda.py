@@ -3,8 +3,9 @@
 lights, the dielectric BxDFs, the textures, the coated materials, the
 many-light hall, the families box and the light tracers (BDPT, the
 light path, SPPM, MLT's first steps) among them) against the same
-renders on the CPU, and the sorted shading dispatch against the lockstep
-chain on the card.
+renders on the CPU, the sorted shading dispatch against the lockstep
+chain on the card, each gradient estimator's gradients against the
+CPU's, and the texel gathers' take against plain indexing.
 
 These tests need a CUDA device and skip without one. They import neither
 jax nor pbrt_tpu, so they run on a machine that has only the port's
@@ -1051,3 +1052,75 @@ def test_gbuffer_on_card_matches_cpu(card):
         share, _ = share_close(gpu[k].cpu().numpy(), cpu[k].numpy(),
                                rtol=1e-3, atol=1e-5)
         assert share >= 0.99, k
+
+
+@pytest.mark.parametrize("mode", ["remat", "cvjp_full", "cvjp_dots",
+                                  "cvjp_none", "attached", "families"])
+def test_grad_estimator_on_card_matches_cpu(card, mode):
+    """Each gradient estimator on the card against the same pass on the
+    CPU (the goldens' scenes, 16x16, 2 spp, depth 5): every gradient
+    within 1e-3 of the CPU's largest entry, and no K1 launch in the
+    backward (the forward's as many as the primal's)."""
+    from .torch_port_families import coarse_mix_keys
+    from .torch_port_grad import (
+        ATTACHED_LEAVES,
+        DEFAULT_LEAVES,
+        TEXEL_LEAVES,
+        TEXEL_MODES,
+        dielectric_cornell,
+        families_box,
+        grad_errors,
+        pass_loss_and_grads,
+        texel_cornell,
+    )
+    from pbrt_tpu_torch.materials import bxdf
+
+    res, spp = 16, 2
+    if mode == "families":
+        scene, camera, integ = families_box(res)
+        leaves = DEFAULT_LEAVES
+    else:
+        if mode == "attached":
+            scene, camera = dielectric_cornell(res)
+            kw, leaves = {"replay_grad": False}, ATTACHED_LEAVES
+        else:
+            scene, camera = texel_cornell(res)
+            kw, leaves = dict(TEXEL_MODES)[mode], TEXEL_LEAVES
+        scene = scene.with_accel()
+        integ = PathIntegrator(max_depth=5, rr_start_depth=5, **kw)
+    with coarse_mix_keys(bxdf):
+        cpu = pass_loss_and_grads(scene, camera, integ, leaves, res, spp)
+        on_card = scene.to(card)
+        with torch.no_grad():
+            STATS.reset()
+            pixel = torch.arange(res * res, device=card).repeat(spp)
+            sample = torch.arange(spp, device=card).repeat_interleave(res * res)
+            o, d, wl, _ = camera_rays_full(camera.to(card), pixel, sample, 0,
+                                           n_spectrum=8)
+            integ.trace(on_card, o, d, wl, pixel, sample, 0)
+            primal = STATS.launches
+        STATS.reset()
+        gpu = pass_loss_and_grads(on_card, camera, integ, leaves, res, spp)
+        torch.cuda.synchronize()
+    errs = grad_errors(*gpu, *cpu)
+    assert errs["ok"], errs
+    assert STATS.launches == primal > 0
+
+
+def test_take_on_card_equals_indexing(card):
+    """The texel gathers' take (core/take.py) on the card: the rows of
+    table[idx] bit for bit, and its backward the indexing's sums."""
+    from pbrt_tpu_torch.core.take import take
+
+    rng = np.random.default_rng(0)
+    table = torch.tensor(rng.normal(size=(21, 3)), dtype=torch.float32,
+                         device=card, requires_grad=True)
+    idx = torch.from_numpy(rng.integers(0, 20, 131072)).to(card)
+    w = torch.tensor(rng.normal(size=(131072, 3)), dtype=torch.float32,
+                     device=card)
+    got, want = take(table, idx), table[idx]
+    assert torch.equal(got, want)
+    g_got, = torch.autograd.grad(torch.sum(got * w), table)
+    g_want, = torch.autograd.grad(torch.sum(want * w), table)
+    torch.testing.assert_close(g_got, g_want, rtol=1e-5, atol=1e-3)
+    assert torch.all(g_got[-1] == 0.0)

@@ -2,7 +2,8 @@
 bench's image loss and its gradients with respect to the default trainable
 set (materials.albedo_coeffs, lights.area_scale) through the remat path,
 the port's own finite-difference gates, the checkpointing (equal to plain
-autograd, and no query in the backward pass) and training_step.
+autograd), no query in the backward pass of any estimator, and
+training_step.
 
 One jax.value_and_grad of the reference (its default grad_mode="remat",
 its dense tester answering the queries on the CPU) serves every
@@ -185,7 +186,15 @@ def test_checkpointed_gradients_equal_plain_autograd(reference, monkeypatch):
         assert torch.equal(grads[name], plain[name]), name
 
 
-def test_backward_pass_runs_no_query(reference, monkeypatch):
+@pytest.mark.parametrize("mode", [
+    {}, {"replay_grad": False}, {"grad_mode": "cvjp"},
+    {"grad_mode": "cvjp", "replay_remat": "dots"},
+    {"grad_mode": "cvjp", "replay_remat": "none"},
+], ids=["remat", "attached", "cvjp_full", "cvjp_dots", "cvjp_none"])
+def test_backward_pass_runs_no_query(reference, monkeypatch, mode):
+    """Under every estimator the forward runs the primal's queries and the
+    backward none: remat recomputes shading only, cvjp replays it from
+    the recorded hits, the attached estimator keeps its activations."""
     scene, camera = reference["port"]
     calls = {"closest": 0, "any_hit": 0}
     for name in calls:
@@ -198,7 +207,7 @@ def test_backward_pass_runs_no_query(reference, monkeypatch):
         monkeypatch.setattr(accel_api, name, counted)
     x = scene.materials.albedo_coeffs.clone().requires_grad_(True)
     s = scene.replace(materials=scene.materials.replace(albedo_coeffs=x))
-    integ = PathIntegrator(max_depth=DEPTH, rr_start_depth=DEPTH)
+    integ = PathIntegrator(max_depth=DEPTH, rr_start_depth=DEPTH, **mode)
     loss = _mean_image(s, camera, integ, spp=SPP)
     assert calls == {"closest": DEPTH + 1, "any_hit": DEPTH}
     loss.backward()

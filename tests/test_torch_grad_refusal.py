@@ -1,12 +1,16 @@
-"""Gradient requests that the port does not answer raise (ROADMAP Queue 1
-item 5): with autograd on, a scene tensor outside the default trainable
-set (materials.albedo_coeffs, lights.area_scale), the ray origins or
-directions, or the wavelengths that require grad raise NotImplementedError
-at entry, and so does a gradient asked through an unported gradient mode
-or of a texture table, or through a hair, subsurface, measured, mix or
-retroreflective material. Under torch.no_grad() the render is what it was
-without a request."""
+"""Gradient requests: what the port answers and what it refuses (ROADMAP
+Queue 1 item 5). With autograd on, a scene tensor outside the
+estimator's trainable set (models/path.py TRAINABLE: albedo_coeffs,
+area_scale and img_flat under every estimator, eta under the attached
+one), the ray origins or directions, or the wavelengths that require grad
+raise NotImplementedError at entry; so do the texture tables other than
+img_flat and conductor roughness. Each estimator (remat, cvjp with every
+replay_remat, attached) and each of the hair, subsurface, measured, mix
+and retroreflective families answers, held against the reference's
+gradients in committed goldens (scripts/make_torch_port_golden_grad.py).
+Under torch.no_grad() the render is what it was without a request."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,6 +19,24 @@ from pbrt_tpu_torch.models.path import PathIntegrator
 from pbrt_tpu_torch.parallel.train import render_loss_and_grad, training_step
 from pbrt_tpu_torch.render import camera_rays_full, render
 from pbrt_tpu_torch.scenes.cornell import cornell_box
+
+from .torch_port_families import coarse_mix_keys
+from .torch_port_grad import (
+    ATTACHED_LEAVES,
+    DEFAULT_LEAVES,
+    FAMILIES_GRAD,
+    GRAD_MODES,
+    GRAD_RTOL_OF_MAX,
+    LOSS_RTOL,
+    TEXEL_LEAVES,
+    TEXEL_MODES,
+    dielectric_cornell,
+    families_box,
+    golden,
+    grad_errors,
+    pass_loss_and_grads,
+    texel_cornell,
+)
 
 torch.set_num_threads(2)
 
@@ -57,23 +79,6 @@ def test_trace_with_a_grad_request_raises(cornell8, which):
         PathIntegrator(max_depth=5).trace(scene, o, d, wl, pixel, 0, 0)
 
 
-@pytest.mark.parametrize("mode", [
-    {"grad_mode": "cvjp"}, {"replay_grad": False}, {"replay_remat": "dots"},
-])
-def test_unported_grad_mode_raises(cornell8, mode):
-    scene, camera = cornell8
-    pixel = torch.arange(64)
-    o, d, wl, _ = camera_rays_full(camera, pixel, 0, 0)
-    integ = PathIntegrator(max_depth=5, **mode)
-    asked = _with_grad(scene, "materials", "albedo_coeffs")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        integ.trace(asked, o, d, wl, pixel, 0, 0)
-    # Without a gradient request the mode changes nothing.
-    got = integ.trace(scene, o, d, wl, pixel, 0, 0)
-    want = PathIntegrator(max_depth=5).trace(scene, o, d, wl, pixel, 0, 0)
-    assert torch.equal(got, want)
-
-
 def test_training_step_over_a_mesh_raises(cornell8):
     scene, camera = cornell8
     pixel = torch.arange(64)
@@ -101,9 +106,10 @@ def imagetex8():
     return scene, camera.replace(resolution=(8, 8)), settings["integrator"]
 
 
-@pytest.mark.parametrize("field", ["rgb0", "f0", "img_flat"])
+@pytest.mark.parametrize("field", ["rgb0", "f0"])
 def test_texture_grad_request_raises(imagetex8, field):
-    """Texture tables are not trainable: a request raises (item 5)."""
+    """Of the texture tables only img_flat trains: a request for another
+    raises (item 5)."""
     scene, camera, integrator = imagetex8
     scene = _with_grad(scene, "textures", field)
     with pytest.raises(NotImplementedError, match="item 5"):
@@ -151,12 +157,108 @@ def test_medium_grad_request_raises(differentiable, member, field):
         integ.trace(asked, o, d, wl, pixel, 0, 0)
 
 
+
+
+def test_roughness_grad_request_raises_under_every_estimator(cornell8):
+    """Conductor roughness stays refused (the reference's gradient is
+    NaN, ROADMAP Queue 3), and eta outside the attached estimator."""
+    scene, camera = cornell8
+    pixel = torch.arange(64)
+    o, d, wl, _ = camera_rays_full(camera, pixel, 0, 0, n_spectrum=8)
+    for kw in ({}, {"grad_mode": "cvjp"}, {"replay_grad": False}):
+        asked = _with_grad(scene, "materials", "roughness")
+        with pytest.raises(NotImplementedError, match="roughness.*Queue 3"):
+            PathIntegrator(max_depth=2, **kw).trace(asked, o, d, wl, pixel,
+                                                    0, 0)
+    for kw in ({}, {"grad_mode": "cvjp"}):
+        asked = _with_grad(scene, "materials", "eta")
+        with pytest.raises(NotImplementedError, match="eta.*replay_grad"):
+            PathIntegrator(max_depth=2, **kw).trace(asked, o, d, wl, pixel,
+                                                    0, 0)
+
+
+@pytest.mark.parametrize("mode", ["remat", "cvjp_full", "cvjp_dots",
+                                  "cvjp_none", "attached"])
+def test_grad_mode_matches_golden(mode):
+    """Each estimator against the reference's gradients
+    (tests/data/torch_port/grad_modes16.npz; 16x16, 2 spp, depth 5, the
+    bench loss): the textured Cornell box's albedo_coeffs, area_scale and
+    img_flat under remat and cvjp with each replay_remat, and the rough
+    dielectric box's albedo_coeffs, area_scale and eta under the attached
+    estimator; each gradient within 1e-3 of its golden's largest entry,
+    the loss within a relative 1e-4."""
+    z = np.load(GRAD_MODES)
+    res, spp = int(z["resolution"]), int(z["spp"])
+    if mode == "attached":
+        scene, camera = dielectric_cornell(res)
+        kw, leaves = {"replay_grad": False}, ATTACHED_LEAVES
+    else:
+        scene, camera = texel_cornell(res)
+        kw, leaves = dict(TEXEL_MODES)[mode], TEXEL_LEAVES
+    integ = PathIntegrator(max_depth=int(z["max_depth"]),
+                           rr_start_depth=int(z["rr_start_depth"]), **kw)
+    assert integ.estimator(scene) == mode.split("_")[0]
+    loss, grads = pass_loss_and_grads(scene.with_accel(), camera, integ,
+                                      leaves, res, spp)
+    errs = grad_errors(loss, grads, *golden(z, mode, leaves))
+    assert errs["ok"], errs
+
+
+@pytest.fixture(scope="module")
+def families_grads():
+    """The families box's loss and gradients (the attached estimator: it
+    holds a subsurface block) at the golden's shape, on coarse mix keys
+    as the golden was made."""
+    from pbrt_tpu_torch.materials import bxdf
+
+    z = np.load(FAMILIES_GRAD)
+    res, spp = int(z["resolution"]), int(z["spp"])
+    scene, camera, integ = families_box(res)
+    assert integ.estimator(scene) == "attached"
+    with coarse_mix_keys(bxdf):
+        loss, grads = pass_loss_and_grads(scene, camera, integ,
+                                          DEFAULT_LEAVES, res, spp)
+    return scene, golden(z, "families", DEFAULT_LEAVES), loss, grads
+
+
+@pytest.mark.parametrize("kind", [7, 8, 9, 10, 11],
+                         ids=["hair", "subsurface", "measured", "mix",
+                              "retroreflective"])
+def test_family_gradient_matches_golden(families_grads, kind):
+    """Each family answers the default trainable set (item 5d): on the
+    families box (tests/data/torch_port/families16_grad.npz) the loss, the
+    area_scale gradient and the albedo rows of the family's material (a
+    mix's with its two sub-materials') within 1e-3 of the golden's
+    largest entry; and on a quad of the family alone under the default
+    estimator, finite gradients."""
+    scene, (want_loss, want), loss, grads = families_grads
+    kinds = scene.materials.kind
+    rows = [int(m) for m in torch.nonzero(kinds == kind)]
+    if kind == 10:
+        m = scene.materials
+        rows += [int(m.mix_m0[rows[0]]), int(m.mix_m1[rows[0]])]
+    picked = {"materials.albedo_coeffs": rows, "lights.area_scale": None}
+    for name, g in grads.items():
+        scale = float(np.max(np.abs(want[name])))
+        sel = slice(None) if picked[name] is None else picked[name]
+        err = np.abs(g[sel] - want[name][sel])
+        assert np.all(np.isfinite(g)) and np.all(err <= GRAD_RTOL_OF_MAX
+                                                 * scale), (name, err, scale)
+    assert abs(loss - want_loss) <= LOSS_RTOL * abs(want_loss)
+
+    _, camera = cornell_box(resolution=(8, 8))
+    quad = _family_quad(kind)
+    pixel = torch.arange(64)
+    _, grads = render_loss_and_grad(quad, camera, PathIntegrator(max_depth=2),
+                                    pixel, torch.full((64, 3), 0.25), 0, 0,
+                                    n_spectrum=8)
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
 def _family_quad(kind):
     """A quad of material `kind` (a mix over two diffuse rows for kind 10;
-    a measured row without a table reads none, which the refusal does not
-    need) beside Cornell's camera."""
-    import numpy as np
-
+    a measured row without a table reads none) before Cornell's camera,
+    lit by a point light on the camera's side."""
     from pbrt_tpu_torch.lights.buffers import LightBuffers
     from pbrt_tpu_torch.materials.buffers import MaterialBuffers
     from pbrt_tpu_torch.scene import Scene
@@ -168,25 +270,6 @@ def _family_quad(kind):
     return Scene(geom=GeometryBuffers.build(
                      tri_verts=quad, tri_mat=np.array([2, 2], np.int32)),
                  materials=MaterialBuffers.build(mats),
-                 lights=LightBuffers.build()).with_accel()
-
-
-@pytest.mark.parametrize("kind", [7, 8, 9, 10, 11],
-                         ids=["hair", "subsurface", "measured", "mix",
-                              "retroreflective"])
-def test_forward_only_family_grad_request_raises(cornell8, kind):
-    """The families of the hair / subsurface / measured / mix /
-    retroreflective slice render forward only: with autograd on, a request
-    for even a default trainable raises (item 5); under torch.no_grad()
-    the same trace runs."""
-    _, camera = cornell8
-    scene = _family_quad(kind)
-    assert kind in scene.shaded_kinds
-    pixel = torch.arange(64)
-    o, d, wl, _ = camera_rays_full(camera, pixel, 0, 0, n_spectrum=8)
-    asked = _with_grad(scene, "materials", "albedo_coeffs")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PathIntegrator(max_depth=2).trace(asked, o, d, wl, pixel, 0, 0)
-    with torch.no_grad():
-        L = PathIntegrator(max_depth=2).trace(asked, o, d, wl, pixel, 0, 0)
-    assert torch.isfinite(L).all()
+                 lights=LightBuffers.build(points=[{
+                     "p": (0.5, 0.5, -0.5), "rgb": (1.0, 1.0, 1.0),
+                     "scale": 4.0}])).with_accel()

@@ -113,12 +113,12 @@ def _gallery_with_torus_kind(kind):
     return scene.replace(materials=scene.materials.replace(kind=kinds))
 
 
-def _albedo_gradient(scene):
-    """A request for the albedo's gradient, the default trainable, through
+def _material_gradient(scene, field):
+    """A request for the gradient of the materials' `field` through
     `scene` (the rays of a 2x2 Cornell camera)."""
     m = scene.materials
     scene = scene.replace(materials=m.replace(
-        albedo_coeffs=m.albedo_coeffs.clone().requires_grad_(True)))
+        **{field: getattr(m, field).clone().requires_grad_(True)}))
     pixel = torch.arange(4)
     o, d, wl = camera_rays(cornell_box(resolution=(2, 2))[1], pixel, 0, 0,
                            n_spectrum=8)
@@ -167,13 +167,14 @@ def _value_error(build, match):
         'Texture "t" "spectrum" "ptex" "string filename" "t.ptx"',
         device="cpu"), "ptex file 't.ptx' cannot be read"),
     # The plain, coated and retroreflective conductors render
-    # (tests/test_torch_coated.py, tests/test_torch_families.py); a
-    # gradient through the retroreflective one is refused (item 5).
-    lambda: _albedo_gradient(Scene(
+    # (tests/test_torch_coated.py, tests/test_torch_families.py) and carry
+    # the default gradients (tests/test_torch_grad_refusal.py); a gradient
+    # of the roughness is refused: the reference's is NaN (item 5).
+    lambda: _material_gradient(Scene(
         geom=GeometryBuffers.build(**_quad_geom(mat=1)),
         materials=MaterialBuffers.build([{"kind": MAT_DIFFUSE},
                                          {"kind": MAT_RETRO}]),
-        lights=LightBuffers.build())),
+        lights=LightBuffers.build()), "roughness"),
     # Every sampler kind of the reference is ported
     # (tests/test_torch_samplers.py); another name raises.
     _value_error(lambda: Sampler(kind="owen"), "unknown sampler kind"),
@@ -184,9 +185,10 @@ def _value_error(build, match):
         '"string filename" "v.nvdb"', device="cpu"), "'v.nvdb' cannot be read"),
     # The gallery's glass torus is shaded (tests/test_torch_dielectric.py),
     # and so are a diffuse-transmission one (tests/test_torch_coated.py)
-    # and a subsurface one; a gradient through the subsurface one is
-    # refused (item 5).
-    lambda: _albedo_gradient(_gallery_with_torus_kind(MAT_SUBSURFACE)),
+    # and a subsurface one, which carries the default gradients; a
+    # gradient of its mean free path has no gate and is refused (item 5).
+    lambda: _material_gradient(_gallery_with_torus_kind(MAT_SUBSURFACE),
+                               "ss_mfp_coeffs"),
 ], ids=["device_mesh", "realistic_camera", "gbuffer_film",
         "point_light", "infinite_light", "light_bvh", "texture",
         "referenced_conductor", "sobol_sampler", "nanovdb_medium",
