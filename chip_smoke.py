@@ -38,7 +38,10 @@ many-light hall, bench's volumetric cloud, the families box, BDPT,
 SPPM, MLT, the shapes box, the moving field, the Cornell box through a
 lens, the eye's spectral bands and the io scenes among them) and the
 Cornell
-forward+backward pass, and takes three training steps. Each phase prints one JSON line;
+forward+backward pass, takes three training steps, and renders box.pbrt
+and plymesh.pbrt through the render CLI (against the C++ goldens and
+render_file) and times its first image from a shell. Each phase prints
+one JSON line;
 any failure raises, so the script exits non-zero and never prints the
 final line. Without a CUDA device it exits non-zero at
 once. It never imports JAX.
@@ -49,6 +52,21 @@ Phases:
       K3 (csrc/sweep.cu) and K4 (csrc/traverse.cu), started together, with
       their ptxas summaries (registers, shared memory and spills of every
       template instance)
+  d29 the render CLI (pbrt_tpu_torch.tools.pbrt_render.main, --device
+      cuda) on box.pbrt (K1; 512 spp) and plymesh.pbrt (K2; 256 spp) at
+      their own 64x64 in passes of 32: each EXR within d10's / d7's
+      bounds of the C++ golden and bit-equal to render_file's image of the
+      same file and arguments, the kernel's CLI launches counted from
+      zero; `--gbuffer --spectral-buckets 6` on box.pbrt equal to
+      render_aovs (the spectral buckets, atomic sums, within rtol 1e-5);
+      `--debugstart 3,5,1` within rtol 1e-4 of the CPU's record
+  e16 the CLI's time to first image from a shell: `python -m
+      pbrt_tpu_torch.tools.pbrt_render tests/goldens/box.pbrt --spp 64
+      --device cuda` in a child (-X importtime; kernels built by b): wall
+      to exit and to the written EXR, the parse and render seconds it
+      prints, torch's import seconds, no jax in the child; then one CLI
+      render inside utils/profile.capture with the scope "cli/render":
+      the Chrome trace holds the scope and K1's kernel
   c   K1 vs its twin on 4,194,304 rays (the Cornell pass's query shape):
       camera rays, random rays inside the box, dead lanes (tmax = 0),
       axis-parallel rays and NEE shadow segments; closest and any-hit
@@ -405,9 +423,10 @@ Phases:
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
   f   the kernels line (K1's launches those of e, e12's shapes box,
-      e13's cornell_lens, e14's io scenes and the loss and gradient calls
-      of g8-g11, K3's those of e3 and e12's moving field, by path), the
-      nvidia-smi line and the final result line
+      e13's cornell_lens, e14's io scenes, the loss and gradient calls
+      of g8-g11 and d29's box.pbrt, K2's those of e2 and d29's
+      plymesh.pbrt, K3's those of e3 and e12's moving field, by path),
+      the nvidia-smi line and the final result line
 """
 
 from __future__ import annotations
@@ -1349,16 +1368,33 @@ def _downsample(img, f=4):
         h // f, f, w // f, f, c).mean(axis=(1, 3))
 
 
+def _cxx_errors(img, name):
+    """(relative mean error, MSE, q95 cell error, the golden) of a host
+    image of tests/goldens/<name>.pbrt against its pbrt-v4 C++ golden."""
+    import numpy as np
+
+    from pbrt_tpu_torch.io.image import read_pfm
+
+    ref = read_pfm(os.path.join(GOLDEN_FILES, name + "_ref.pfm"))
+    if img.shape != ref.shape or not np.isfinite(img).all():
+        raise AssertionError(f"bad render: shape {img.shape}, finite "
+                             f"{bool(np.isfinite(img).all())}")
+    rel = float(abs(img.mean() - ref.mean()) / ref.mean())
+    mse = float(np.mean((img - ref) ** 2))
+    a, b = _downsample(img), _downsample(ref)
+    q95 = float(np.quantile(np.abs(a - b) / (np.abs(b) + 0.05 * ref.mean()),
+                            0.95))
+    return rel, mse, q95, ref
+
+
 def phase_golden_cxx(dev, phase, name, spp, per_pass, bounds, kernel):
     """A golden scene file through the port's parser on the card against
     the pbrt-v4 C++ golden (4096 spp), with
     tests/test_reference_parity.py's gate and this file's bounds there:
     relative mean error, MSE and the 95th percentile of the 4x4-cell
     relative error. `kernel` ("k1" or "k2") must launch."""
-    import numpy as np
     import torch
 
-    from pbrt_tpu_torch.io.image import read_pfm
     from pbrt_tpu_torch.io.parser import load_pbrt
     from pbrt_tpu_torch.ops import cluster, smallscene
     from pbrt_tpu_torch.render import render
@@ -1374,15 +1410,7 @@ def phase_golden_cxx(dev, phase, name, spp, per_pass, bounds, kernel):
                  device=dev)
     img = img.cpu().numpy()
     seconds = time.perf_counter() - t0
-    ref = read_pfm(os.path.join(GOLDEN_FILES, name + "_ref.pfm"))
-    if img.shape != ref.shape or not np.isfinite(img).all():
-        raise AssertionError(f"bad render: shape {img.shape}, finite "
-                             f"{bool(np.isfinite(img).all())}")
-    rel = float(abs(img.mean() - ref.mean()) / ref.mean())
-    mse = float(np.mean((img - ref) ** 2))
-    a, b = _downsample(img), _downsample(ref)
-    q95 = float(np.quantile(np.abs(a - b) / (np.abs(b) + 0.05 * ref.mean()),
-                            0.95))
+    rel, mse, q95, ref = _cxx_errors(img, name)
     emit(phase, spheres=scene.geom.num_spheres,
          triangles=scene.geom.num_triangles, lights=scene.lights.n_lights,
          spp=spp, samples_per_pass=per_pass, seconds=seconds,
@@ -4938,6 +4966,250 @@ def phase_timed_io(dev, smi: str, seed: int) -> dict:
     return launches
 
 
+# ---- PR: the command line (d29, e16) ------------------------------------
+# d29: the render CLI on the C++-golden files with d10's and d7's rows of
+# CXX_GOLDENS (spp, samples per pass, bounds, kernel); the GBuffer run's
+# spp and the --debugstart sample.
+CLI_GOLDENS = ("box", "plymesh")
+CLI_GBUFFER_SPP = 8
+CLI_DEBUGSTART = "3,5,1"
+# e16: the CLI's time to first image from a shell, and the profiled run.
+CLI_FIRST_SPP = 64
+CLI_PROFILED_SPP = 8
+
+
+def _cli_main(argv):
+    """pbrt_render.main(argv) with its stdout captured: (rc, stdout)."""
+    import contextlib
+    import io
+
+    from pbrt_tpu_torch.tools import pbrt_render
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = pbrt_render.main([str(a) for a in argv])
+    return rc, buf.getvalue()
+
+
+def _exr_rgb(path):
+    import numpy as np
+
+    from pbrt_tpu_torch.io.image import read_exr
+
+    img, chans, meta = read_exr(path)
+    return np.stack([img[..., chans.index(c)] for c in "RGB"], -1), meta
+
+
+def phase_cli_golden(dev) -> dict:
+    """d29: `pbrt_tpu_torch.tools.pbrt_render.main` on the card. box.pbrt
+    (K1) and plymesh.pbrt (K2) at their own 64x64 with d10's and d7's spp
+    and passes of 32: each EXR read back against the C++ golden with those
+    phases' bounds, and bit-equal to render_file's image of the same file
+    and arguments on the card; the triangle kernel launched by the CLI's
+    render, counted from zero. Then `--gbuffer --spectral-buckets 6` on
+    box.pbrt: every GBuffer channel equal to render_aovs' of the same
+    arguments, the spectral buckets within rtol 1e-5 (their sums are
+    atomics); and `--debugstart 3,5,1`, its record within rtol 1e-4 (atol
+    1e-6 for exact zeros) of the same record on the CPU. Returns each
+    file's CLI launches."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.films.gbuffer import render_aovs
+    from pbrt_tpu_torch.io.image import read_exr
+    from pbrt_tpu_torch.io.parser import load_pbrt
+    from pbrt_tpu_torch.ops import cluster, smallscene
+    from pbrt_tpu_torch.render import render_file
+    from pbrt_tpu_torch.tools.pbrt_render import AOV_CHANNELS
+
+    rows = {row[1]: row for row in CXX_GOLDENS}
+    counters = {"k1": smallscene.STATS, "k2": cluster.STATS}
+    tmp = tempfile.mkdtemp(prefix="cli_")
+    launches = {}
+    try:
+        for name in CLI_GOLDENS:
+            _, _, spp, per_pass, bounds, kernel = rows[name]
+            path = os.path.join(GOLDEN_FILES, name + ".pbrt")
+            out = os.path.join(tmp, name + ".exr")
+            for c in counters.values():
+                c.reset()
+            t0 = time.perf_counter()
+            rc, _ = _cli_main([path, "--outfile", out, "--spp", spp,
+                               "--samples-per-pass", per_pass, "--quiet",
+                               "--device", str(dev)])
+            seconds = time.perf_counter() - t0
+            cli_launches = {k: c.launches for k, c in counters.items()}
+            img, meta = _exr_rgb(out)
+            rel, mse, q95, ref = _cxx_errors(img, name)
+            scene, camera, settings = load_pbrt(path, device=dev)
+            want = render_file(scene, camera, settings, spp=spp, seed=0,
+                               samples_per_pass=per_pass,
+                               device=dev).cpu().numpy()
+            n_diff = int(np.sum(img != want))
+            emit(f"d29_cli_golden_{name}", rc=rc, spp=spp,
+                 samples_per_pass=per_pass, cli_seconds=seconds,
+                 exr_metadata=meta, rel_mean_err=rel, mse=mse,
+                 q95_cell_rel_err=q95, mean=float(img.mean()),
+                 golden_mean=float(ref.mean()),
+                 bounds=dict(zip(("rel_mean_err", "mse", "q95_cell_rel_err"),
+                                 bounds)),
+                 values_unequal_to_render_file=n_diff,
+                 **{f"{k}_launches": v for k, v in cli_launches.items()})
+            if rc != 0 or meta.get("samplesPerPixel") != str(spp):
+                raise AssertionError(f"d29 {name}: rc {rc}, metadata {meta}")
+            if not (rel < bounds[0] and mse < bounds[1] and q95 < bounds[2]):
+                raise AssertionError(f"d29 {name}.pbrt off the C++ golden: "
+                                     f"rel {rel}, MSE {mse}, q95 {q95}")
+            if n_diff:
+                raise AssertionError(f"d29 {name}: {n_diff} values differ "
+                                     "from render_file's image")
+            if cli_launches[kernel] == 0:
+                raise AssertionError(f"d29 {name}: the CLI launched no "
+                                     f"{kernel.upper()}")
+            launches[name] = cli_launches[kernel]
+            del scene, want
+
+        path = os.path.join(GOLDEN_FILES, "box.pbrt")
+        out = os.path.join(tmp, "aov.exr")
+        rc, _ = _cli_main([path, "--outfile", out, "--spp", CLI_GBUFFER_SPP,
+                           "--samples-per-pass", CLI_GBUFFER_SPP, "--quiet",
+                           "--gbuffer", "--spectral-buckets", 6,
+                           "--device", str(dev)])
+        aov, chans, _ = read_exr(os.path.join(tmp, "aov_aov.exr"))
+        spectral, _, _ = read_exr(os.path.join(tmp, "aov_spectral.exr"))
+        scene, camera, settings = load_pbrt(path, device=dev)
+        want = render_aovs(scene, camera, settings["integrator"],
+                           spp=CLI_GBUFFER_SPP, seed=0, spectral_buckets=6,
+                           device=dev)
+        want = {k: v.cpu().numpy() for k, v in want.items()}
+        want_chans = np.concatenate(
+            [want["p"], want["n"], want["albedo_rgb"],
+             want["depth"][..., None], want["material_id"][..., None],
+             want["prim_id"][..., None], want["variance"][..., None]], -1)
+        unequal = {c: int(np.sum(aov[..., chans.index(c)]
+                                 != want_chans[..., i]))
+                   for i, c in enumerate(AOV_CHANNELS)}
+        spec_err = float(np.max(np.abs(spectral - want["spectral"])
+                                / (np.abs(want["spectral"]) + 1e-6)))
+        emit("d29_cli_gbuffer", rc=rc, spp=CLI_GBUFFER_SPP,
+             channels_unequal=unequal, spectral_max_rel_err=spec_err)
+        if rc != 0 or any(unequal.values()) or not spec_err <= 1e-5:
+            raise AssertionError(f"d29 gbuffer: rc {rc}, unequal {unequal}, "
+                                 f"spectral {spec_err}")
+
+        recs = {}
+        for key, device in (("card", str(dev)), ("cpu", "cpu")):
+            rc, stdout = _cli_main([path, "--debugstart", CLI_DEBUGSTART,
+                                    "--quiet", "--device", device])
+            if rc != 0:
+                raise AssertionError(f"d29 debugstart on {device}: rc {rc}")
+            recs[key] = _json.loads(stdout.strip().splitlines()[-1])
+        card, cpu = recs["card"], recs["cpu"]
+        errs = {k: float(np.max(np.abs(np.asarray(card[k], float)
+                                       - np.asarray(cpu[k], float))))
+                for k in cpu}
+        ok = set(card) == set(cpu) and all(
+            np.allclose(np.asarray(card[k], float), np.asarray(cpu[k], float),
+                        rtol=1e-4, atol=1e-6) for k in cpu)
+        emit("d29_cli_debugstart", sample=CLI_DEBUGSTART, keys=list(cpu),
+             max_abs_diff=errs, card_L_sum=float(np.sum(card["L"])),
+             rays=card["rays"])
+        if not ok:
+            raise AssertionError(f"d29 debugstart: card {card} against CPU "
+                                 f"{cpu}")
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def phase_cli_first_image(smi: str) -> None:
+    """e16: `python -m pbrt_tpu_torch.tools.pbrt_render
+    tests/goldens/box.pbrt --spp 64 --device cuda` in a child process (the
+    kernels already built by phase b, read from pbrt_tpu_torch/_build/),
+    run with -X importtime: its wall from launch to exit and to the
+    EXR's write, the parse and render seconds it prints to stderr, the
+    import seconds of torch and of the port, and whether jax was
+    imported. Then one in-process CLI render (CLI_PROFILED_SPP) inside
+    utils/profile.capture with profile.scope("cli/render") around it: the
+    exported Chrome trace must hold the scope's name and K1's kernel."""
+    import re
+    import shutil
+    import tempfile
+
+    from pbrt_tpu_torch.utils import profile
+
+    tmp = tempfile.mkdtemp(prefix="cli_first_")
+    try:
+        out = os.path.join(tmp, "first.exr")
+        cmd = [sys.executable, "-X", "importtime", "-m",
+               "pbrt_tpu_torch.tools.pbrt_render",
+               os.path.join("tests", "goldens", "box.pbrt"), "--spp",
+               str(CLI_FIRST_SPP), "--device", "cuda", "--outfile", out]
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        launch = time.time()
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0 or not os.path.exists(out):
+            raise AssertionError(f"e16: rc {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        to_file = os.path.getmtime(out) - launch
+        # -X importtime: "import time: self [us] | cumulative | name",
+        # the name indented two spaces more per level of nesting (one
+        # space at the top level).
+        imports, top = {}, 0.0
+        for line in proc.stderr.splitlines():
+            m = re.match(r"import time:\s+\d+ \|\s+(\d+) \|( +)(\S+)$",
+                         line)
+            if m:
+                imports[m.group(3)] = int(m.group(1)) / 1e6
+                if len(m.group(2)) == 1:
+                    top += int(m.group(1)) / 1e6
+        loaded_jax = any(k == "jax" or k.startswith(("jax.", "pbrt_tpu."))
+                         or k == "pbrt_tpu" for k in imports)
+        said = [ln for ln in proc.stderr.splitlines()
+                if not ln.startswith("import time:")]
+        parse = re.search(r"^parsed .*\(([\d.]+)s\)$", "\n".join(said), re.M)
+        rendered = re.search(r"^rendered \d+ spp in ([\d.]+)s", "\n".join(said),
+                             re.M)
+        emit("e16_cli_first_image", command=" ".join(cmd[3:]),
+             wall_seconds_to_exit=wall, wall_seconds_to_written_file=to_file,
+             parse_seconds=float(parse.group(1)) if parse else None,
+             render_seconds=float(rendered.group(1)) if rendered else None,
+             import_torch_seconds=imports.get("torch"),
+             import_seconds_total=top,
+             child_imported_jax=loaded_jax, stderr=said[-4:],
+             nvidia_smi=smi)
+        if loaded_jax or parse is None or rendered is None:
+            raise AssertionError(f"e16: jax {loaded_jax}, stderr {said}")
+
+        logdir = os.path.join(tmp, "trace")
+        with profile.capture(logdir):
+            with profile.scope("cli/render"):
+                rc, _ = _cli_main([
+                    os.path.join(GOLDEN_FILES, "box.pbrt"), "--outfile",
+                    os.path.join(tmp, "profiled.exr"), "--spp",
+                    CLI_PROFILED_SPP, "--samples-per-pass", CLI_PROFILED_SPP,
+                    "--quiet", "--device", "cuda"])
+        with open(os.path.join(logdir, profile.TRACE_FILE)) as f:
+            trace = json.load(f)
+        names = [e.get("name", "") for e in trace.get("traceEvents", [])]
+        k1 = sorted({n for n in names if "smallscene_kernel" in n})
+        emit("e16_cli_profiled", rc=rc, spp=CLI_PROFILED_SPP,
+             trace_events=len(names), scope_events=names.count("cli/render"),
+             k1_kernel_events=sum(n in k1 for n in names), k1_names=k1)
+        if rc != 0 or "cli/render" not in names or not k1:
+            raise AssertionError("e16: the trace lacks the scope or K1")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _kernel_entry(name, source, replaces, launches, k):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source,
@@ -4972,6 +5244,8 @@ def _run(dev, smi, cpu_digests, seed: int) -> int:
     import torch
 
     builds = phase_build()
+    cli_launches = phase_cli_golden(dev)
+    phase_cli_first_image(smi)
     k1 = phase_kernel_vs_twin(dev)
     killeroo = killeroo_on(dev)
     k2 = phase_k2_vs_twin(dev, killeroo)
@@ -5045,11 +5319,11 @@ def _run(dev, smi, cpu_digests, seed: int) -> int:
     # kernel has a library yardstick. K2's, K3's and K4's errors are those
     # of the 1,048,576-ray comparisons, both modes. K1's launches are those
     # of the Cornell (e), shapes (e12), cornell_lens (e13) and io (e14)
-    # main paths and of the gradient estimators' loss and gradient calls
-    # (g8-g11),
-    # K3's of the
-    # instanced field (e3) and motion.pbrt (e12), each counted from zero
-    # around its timed passes.
+    # main paths, of the gradient estimators' loss and gradient calls
+    # (g8-g11) and of the render CLI on box.pbrt (d29); K2's of killeroo
+    # (e2) and of the CLI on plymesh.pbrt (d29); K3's of the instanced
+    # field (e3) and motion.pbrt (e12), each counted from zero around its
+    # timed passes or its CLI call.
     lines = {}
     for name, res in (("cluster", k2), ("sweep", k3), ("traverse", k4)):
         lines[name] = {**res["closest"], "max_abs_err": max(
@@ -5057,14 +5331,17 @@ def _run(dev, smi, cpu_digests, seed: int) -> int:
     by_path = {"smallscene": {"cornell": k1_launches,
                               "shapes": geom_launches["shapes"][0],
                               "cornell_lens": lens_launches, **io_launches,
-                              **grad_launches},
+                              **grad_launches,
+                              "cli_box": cli_launches["box"]},
+               "cluster": {"killeroo": k2_launches,
+                           "cli_plymesh": cli_launches["plymesh"]},
                "sweep": {"instanced_field": k3_launches,
                          "motion": geom_launches["motion"][1]}}
     entries = [
         _kernel_entry("smallscene", K1_SOURCE, K1_REPLACES,
                       sum(by_path["smallscene"].values()), k1),
-        _kernel_entry("cluster", K2_SOURCE, K2_REPLACES, k2_launches,
-                      lines["cluster"]),
+        _kernel_entry("cluster", K2_SOURCE, K2_REPLACES,
+                      sum(by_path["cluster"].values()), lines["cluster"]),
         _kernel_entry("sweep", K3_SOURCE, K3_REPLACES,
                       sum(by_path["sweep"].values()), lines["sweep"]),
         _kernel_entry("traverse", K4_SOURCE, K4_REPLACES, k4_launches,

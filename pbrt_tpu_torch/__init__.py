@@ -47,6 +47,12 @@ gradient path):
   scenes/    the Cornell box (diffuse variant), the procedural meshes, the
              furnace (analytic.py), the many-light hall and the cloud and
              fog box (cloud.py)
+  tools/     the command line: the render CLI (pbrt_render.py, `python
+             -m pbrt_tpu_torch.tools.pbrt_render scene.pbrt`), imgtool,
+             format_scene, plytool, lenstool, pspec, cyhair2pbrt and
+             nanovdb2pbrt
+  utils/     stats, progress, the tev client, the denoiser, FLIP, the sky
+             models, torch.profiler scopes and capture, the HTTP viewer
 
 Anything outside that slice raises NotImplementedError at parse, build or
 convert time, naming the ROADMAP Queue 1 item that will port it.

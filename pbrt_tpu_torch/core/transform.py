@@ -1,5 +1,6 @@
 """Homogeneous transforms (port of core/transform.py: Transform, translate,
-scale, rotate, look_at, AnimatedTransform).
+scale, rotate, rotate_x / _y / _z, look_at, perspective,
+AnimatedTransform).
 
 The builders make their float32 matrices with the reference's numpy code,
 so the parser's float64 CTM (io/parser.py) is the same to the bit.
@@ -23,12 +24,20 @@ class Transform:
     m_inv: torch.Tensor  # (4, 4)
 
     @staticmethod
+    def identity() -> "Transform":
+        eye = torch.eye(4, dtype=torch.float32)
+        return Transform(m=eye, m_inv=eye)
+
+    @staticmethod
     def from_matrix(m) -> "Transform":
         m = torch.as_tensor(np.asarray(m, np.float32))
         return Transform(m=m, m_inv=torch.linalg.inv(m))
 
     def inverse(self) -> "Transform":
         return Transform(m=self.m_inv, m_inv=self.m)
+
+    def __matmul__(self, other: "Transform") -> "Transform":
+        return Transform(m=self.m @ other.m, m_inv=other.m_inv @ self.m_inv)
 
     def apply_point(self, p):
         r = p @ self.m[:3, :3].T + self.m[:3, 3]
@@ -37,6 +46,16 @@ class Transform:
 
     def apply_vector(self, v):
         return v @ self.m[:3, :3].T
+
+    def apply_normal(self, n):
+        # Normals transform by the inverse transpose.
+        return n @ self.m_inv[:3, :3]
+
+    def apply_ray(self, o, d):
+        return self.apply_point(o), self.apply_vector(d)
+
+    def swaps_handedness(self):
+        return torch.linalg.det(self.m[:3, :3]) < 0.0
 
 
 def _pair(m, mi) -> Transform:
@@ -75,6 +94,18 @@ def rotate(axis, angle_deg: float) -> Transform:
     return _pair(m, mi)
 
 
+def rotate_x(angle_deg: float) -> Transform:
+    return rotate((1.0, 0.0, 0.0), angle_deg)
+
+
+def rotate_y(angle_deg: float) -> Transform:
+    return rotate((0.0, 1.0, 0.0), angle_deg)
+
+
+def rotate_z(angle_deg: float) -> Transform:
+    return rotate((0.0, 0.0, 1.0), angle_deg)
+
+
 def look_at(eye, target, up) -> Transform:
     """Camera-to-world transform, pbrt LookAt convention (left-handed:
     camera looks down +z; transform.cpp LookAt)."""
@@ -95,6 +126,24 @@ def look_at(eye, target, up) -> Transform:
     m[:3, 2] = dir_
     m[:3, 3] = eye
     return Transform.from_matrix(m)
+
+
+def perspective(fov_deg: float, z_near: float = 1e-2,
+                z_far: float = 1000.0) -> Transform:
+    """Perspective projection, pbrt convention (camera space -> NDC
+    depth)."""
+    inv_tan = 1.0 / np.tan(np.deg2rad(fov_deg) / 2.0)
+    persp = np.array(
+        [
+            [1, 0, 0, 0],
+            [0, 1, 0, 0],
+            [0, 0, z_far / (z_far - z_near), -z_far * z_near / (z_far - z_near)],
+            [0, 0, 1, 0],
+        ],
+        dtype=np.float32,
+    )
+    s = np.diag([inv_tan, inv_tan, 1.0, 1.0]).astype(np.float32)
+    return Transform.from_matrix(s @ persp)
 
 
 def _decompose(m):

@@ -10,9 +10,8 @@ under many transforms, so the dedup is large on production scenes.
 
 The cache lives at parse time only (device buffers are fused per-scene
 tables, already unique); deduping here shares host numpy arrays and skips
-repeated PLY parses. The port has no stats registry yet (ROADMAP item
-15b), so `report_stats` returns the counters the reference adds to its
-own.
+repeated PLY parses. `report_stats` adds the counters to the stats
+registry (utils/stats.py) under the reference's names and returns them.
 """
 
 from __future__ import annotations
@@ -71,10 +70,16 @@ class BufferCache:
         return verts, faces
 
     def report_stats(self) -> dict:
-        """The reference's counters, by the names it gives them."""
-        return {
+        """Add the reference's counters, by the names it gives them, to
+        utils.stats.STATS, and return them."""
+        from ..utils.stats import STATS
+
+        counters = {
             "buffercache/lookups": self.lookups,
             "buffercache/hits": self.hits,
             "buffercache/redundant MB":
                 int(self.redundant_bytes / (1024 * 1024)),
         }
+        for name, value in counters.items():
+            STATS.add(name, value)
+        return counters

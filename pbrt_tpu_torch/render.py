@@ -171,7 +171,7 @@ def render_chunked(scene, camera, integrator, spp: int = 64, seed: int = 0,
 
 
 def render_file(scene, camera, settings, spp: int | None = None, seed: int = 0,
-                samples_per_pass: int = 1,
+                samples_per_pass: int = 1, jitter: bool = True,
                 n_spectrum: int = spectrum.N_SPECTRUM_DEFAULT, *, device):
     """Render a parsed scene file (io/parser.py's (scene, camera,
     settings)) with the integrator it names, as pbrt_tpu's
@@ -179,7 +179,9 @@ def render_file(scene, camera, settings, spp: int | None = None, seed: int = 0,
     loops, the rest go through render(). `spp` (default the file's) is the
     samples per pixel of render() and BDPT, SPPM's iterations, MLT's
     mutations per pixel, the light path's paths per pixel and the function
-    integrator's samples. Returns the (ny, nx, 3) linear-RGB image."""
+    integrator's samples. `jitter` (False: pixel centres, the CLI's
+    --disable-pixel-jitter) reaches render() only, as in the CLI. Returns
+    the (ny, nx, 3) linear-RGB image."""
     from .models.bdpt import BDPTIntegrator, render_bdpt
     from .models.function import FunctionIntegrator
     from .models.lightpath import LightPathIntegrator, render_lightpath
@@ -209,5 +211,5 @@ def render_file(scene, camera, settings, spp: int | None = None, seed: int = 0,
         return render_lightpath(scene, camera, n_paths_total=spp * nx * ny,
                                 max_depth=integ.max_depth, seed=seed, **kw)
     return render(scene, camera, integ, spp=spp, seed=seed,
-                  samples_per_pass=samples_per_pass,
+                  samples_per_pass=samples_per_pass, jitter=jitter,
                   sampler_kind=settings["sampler"], **kw)

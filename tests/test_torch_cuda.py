@@ -16,6 +16,7 @@ conftest.py imports jax, hence --noconftest):
         tests/test_torch_cuda.py
 """
 
+import os
 import tempfile
 
 import numpy as np
@@ -1124,3 +1125,34 @@ def test_take_on_card_equals_indexing(card):
     g_want, = torch.autograd.grad(torch.sum(want * w), table)
     torch.testing.assert_close(g_got, g_want, rtol=1e-5, atol=1e-3)
     assert torch.all(g_got[-1] == 0.0)
+
+
+def test_cli_box_on_card_equals_render_file(card, tmp_path):
+    """The render CLI on box.pbrt at 16x16 (4 spp in passes of 2) on the
+    card: its EXR bit-equal to render_file's image of the same file and
+    arguments on the card, with K1 launched by the CLI's render."""
+    import contextlib
+    import io
+
+    from pbrt_tpu_torch.io.image import read_exr
+    from pbrt_tpu_torch.render import render_file
+    from pbrt_tpu_torch.tools import pbrt_render
+
+    with open(os.path.join(os.path.dirname(__file__), "goldens",
+                           "box.pbrt")) as f:
+        text = f.read().replace("[64]", "[16]")
+    path = str(tmp_path / "box.pbrt")
+    with open(path, "w") as f:
+        f.write(text)
+    out = str(tmp_path / "box.exr")
+    STATS.reset()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = pbrt_render.main([path, "--outfile", out, "--spp", "4",
+                               "--samples-per-pass", "2", "--quiet"])
+    assert rc == 0 and STATS.launches > 0
+    img, chans, _ = read_exr(out)
+    img = np.stack([img[..., chans.index(c)] for c in "RGB"], -1)
+    scene, camera, settings = load_pbrt(path, device=card)
+    want = render_file(scene, camera, settings, spp=4, samples_per_pass=2,
+                       device=card).cpu().numpy()
+    assert np.array_equal(img, want)

@@ -62,7 +62,16 @@ def test_import_loads_no_jax():
         "pbrt_tpu_torch.cameras.simple, pbrt_tpu_torch.films.sensor, "
         "pbrt_tpu_torch.films.gbuffer, pbrt_tpu_torch.films.checkpoint, "
         "pbrt_tpu_torch.io.image, pbrt_tpu_torch.io.ptex, "
-        "pbrt_tpu_torch.io.nanovdb, pbrt_tpu_torch.io.buffercache; "
+        "pbrt_tpu_torch.io.nanovdb, pbrt_tpu_torch.io.buffercache, "
+        "pbrt_tpu_torch.utils, pbrt_tpu_torch.utils.stats, "
+        "pbrt_tpu_torch.utils.display, pbrt_tpu_torch.utils.denoise, "
+        "pbrt_tpu_torch.utils.flip, pbrt_tpu_torch.utils.sky, "
+        "pbrt_tpu_torch.utils.profile, pbrt_tpu_torch.utils.gui, "
+        "pbrt_tpu_torch.tools.pbrt_render, pbrt_tpu_torch.tools.imgtool, "
+        "pbrt_tpu_torch.tools.format_scene, pbrt_tpu_torch.tools.plytool, "
+        "pbrt_tpu_torch.tools.lenstool, pbrt_tpu_torch.tools.pspec, "
+        "pbrt_tpu_torch.tools.cyhair2pbrt, "
+        "pbrt_tpu_torch.tools.nanovdb2pbrt; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pbrt_tpu' or m.startswith('pbrt_tpu.')]; "
         "sys.exit(1 if bad else 0)"
@@ -71,6 +80,28 @@ def test_import_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_cli_help_loads_no_jax():
+    """`python -m pbrt_tpu_torch.tools.pbrt_render --help` runs with
+    neither jax nor pbrt_tpu in the process."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['pbrt_render', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('pbrt_tpu_torch.tools.pbrt_render',"
+        " run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'pbrt_tpu')]\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout and "--debugstart" in proc.stdout
 
 
 def test_package_sources_never_import_jax():
