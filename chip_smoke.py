@@ -220,13 +220,13 @@ Phases:
       t = 1 splats; 32), an SPPM iteration (sppm.pbrt, 128x128, its glass
       sphere answered by the sphere block after K1: 15) and an MLT step
       (mlt.pbrt, 256 chains: 11)
-  d23 bdpt.pbrt (256 spp in passes of 16), sppm.pbrt (64 iterations) and
-      mlt.pbrt (1,024 mutations per pixel) through the parser and
+  d23 bdpt.pbrt (256 spp in passes of 16), sppm.pbrt (32 iterations) and
+      mlt.pbrt (256 mutations per pixel) through the parser and
       render.render_file, seed 1, against the pbrt-v4 C++ goldens with
-      tests/test_reference_parity.py's MC_CASES gate (relative mean error
-      and MSE); MLT runs the file's 256 chains unless their 9,216 steps
-      would take more than 240 s at the time of the first steps, and then
-      4,096 (the phase prints which)
+      tests/test_reference_parity.py's MC_CASES bounds (relative mean
+      error and MSE); MLT runs the file's 256 chains unless their 2,304
+      steps would take more than 60 s at the time of the first steps, and
+      then 4,096 (the phase prints which)
   d24 the light path, BDPT, AO and the spectral bands on the room at
       16x16 against the JAX goldens of
       scripts/make_torch_port_golden_lighttransport.py: d's gate
@@ -240,7 +240,8 @@ Phases:
       diffuse walls, a coated gold conductor; tests/torch_port_coated.py),
       32x32, 4 spp in passes of 2, depth 5, 8 lanes, coarse walk keys,
       against tests/data/torch_port/coated_cornell32_grad.npz and the
-      port's CPU pass with g's tolerance; 11 K1 launches per
+      port's CPU pass (computed by a child process started after e16)
+      with g's tolerance; 11 K1 launches per
       forward+backward pass, a forward's
   e   timed Cornell forward at its benchmark configuration (256x256, 128
       spp in passes of 64, depth 5, no Russian roulette) at 8 and 32 lanes
@@ -285,8 +286,8 @@ Phases:
       the coated walk split from the BxDF's and light selection from the
       lights' (and the sorted dispatch's whole call), kernel launches per
       pass and the device's busy share (torch.profiler); then the power
-      pass with sorted_shading=False against the sorted default, in turns,
-      the first pass's image of each bit-equal
+      pass with sorted_shading=False against the sorted default, in four
+      turns of one timed pass, the first pass's image of each bit-equal
   e9  bench.py's cloud_fwd timed: the cloud at 128x128, 16 spp in passes
       of 8 (131,072 camera rays a pass), depth 6, the DDA walk, Russian
       roulette from 3, 8 lanes: Mrays/s as bench.py counts rays, K1
@@ -295,8 +296,8 @@ Phases:
       walks, lights, phase, BxDF, RNG, film), kernel launches per pass and
       the busy share (profiled at 64x64), the delta walk's live lanes per
       step at bounce 0;
-      then the compacted walks against the lockstep walks in turns of one
-      timed pass, the first pass's image of each bit-equal
+      then the compacted walks against the lockstep walks, one timed pass
+      each after a warm-up, the first pass's image of each bit-equal
   e10 the families box timed at 512x512, 8 spp in passes of 4, depth 5
       without Russian roulette, 8 lanes, seed 0: Mrays/s, K1 launches per
       pass, peak memory, the first pass's seconds, the layers' device ms
@@ -417,7 +418,7 @@ Phases:
       depth 5, no Russian roulette) under every estimator (remat,
       attached, cvjp full / dots / none), then the textured Cornell box
       and the families box under their default estimators: fwd+bwd
-      Mrays/s over 4 passes, the backward's share, peak memory, kernel
+      Mrays/s over 2 passes, the backward's share, peak memory, kernel
       launches in the forward and in the backward (torch.profiler), K1
       launches in each
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
@@ -1849,14 +1850,18 @@ def _texture_layer(render_pass):
             torch.cuda.synchronize()
     finally:
         tex.evaluate_albedo_coeffs = fn
-    events = prof.events()
-    spans = [(e.time_range.start, e.time_range.end) for e in events
-             if e.name == "texture_layer"]
+    # The raw kineto events (prof.events() builds a Python event and its
+    # tree for each, tens of seconds for a pass's 1e5 launches).
+    try:
+        events = [(e.name(), e.start_ns(), e.end_ns())
+                  for e in prof.profiler.kineto_results.events()]
+    except AttributeError:
+        events = [(e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events()]
+    spans = [(a, b) for name, a, b in events if name == "texture_layer"]
     launches = sum(
-        1 for e in events
-        if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                      "cuLaunchKernel", "cuLaunchKernelEx")
-        and any(a <= e.time_range.start <= b for a, b in spans))
+        1 for name, start, _ in events
+        if name in _LAUNCH_CALLS and any(a <= start <= b for a, b in spans))
     return {"texture_ms": ms, "texture_calls": calls,
             "texture_launches": launches if launches else "not measured"}
 
@@ -2510,7 +2515,7 @@ def _profiled_launches(grad_pass) -> dict:
 
 
 # e15's shape: bench.py's cornell_fwdbwd_8lane resolution, timed passes.
-ESTIMATOR_RES, ESTIMATOR_PASSES = 256, 4
+ESTIMATOR_RES, ESTIMATOR_PASSES = 256, 2
 
 
 def phase_timed_fwdbwd_estimators(dev, smi: str):
@@ -2691,13 +2696,40 @@ def phase_golden_hall(dev, hall):
                                  f"{exact.mean()} against {golden.mean()}")
 
 
-def phase_grad_coated(dev):
+def _coated_shape(z):
+    """g5's (res, samples per pass, lanes, passes, depth) from its golden."""
+    res, k = int(z["resolution"]), int(z["samples_per_pass"])
+    return res, k, int(z["n_spectrum"]), int(z["spp"]) // k, int(z["max_depth"])
+
+
+def _cpu_coated_grads(path: str) -> None:
+    """g5's CPU pass, run in a background process started after e16: the loss and gradients of the coated Cornell box on the CPU,
+    saved to `path`."""
+    import numpy as np
+    import torch
+
+    from tests.torch_port_coated import coated_cornell
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(2)
+    res, k, lanes, passes, depth = _coated_shape(np.load(GOLDEN_COATED_GRAD))
+    scene, camera = coated_cornell("pbrt_tpu_torch", (res, res))
+    with coarse_keys():
+        loss, grads = grad_passes(scene.with_accel(), camera, res, k, lanes,
+                                  passes, depth)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, loss=loss, child_seconds=time.perf_counter() - t0, **grads)
+    os.replace(tmp, path)
+
+
+def phase_grad_coated(dev, cpu_coated):
     """g5: the bench's loss and gradients on the coated Cornell box
     (tests/torch_port_coated.py: coated diffuse, coated gold conductor),
     32x32, 4 spp in passes of 2, depth 5, 8 lanes, walk on coarse keys, on
     the card against the JAX golden
     (tests/data/torch_port/coated_cornell32_grad.npz) and against the
-    port's CPU pass, with phase g's tolerance; K1 launches per
+    port's CPU pass (the child process _cpu_coated_grads, started after
+    e16), with phase g's tolerance; K1 launches per
     forward+backward pass equal to a forward's (2 x depth + 1)."""
     import numpy as np
     import torch
@@ -2706,25 +2738,29 @@ def phase_grad_coated(dev):
     from tests.torch_port_coated import coated_cornell
 
     z = np.load(GOLDEN_COATED_GRAD)
-    res, k, lanes = int(z["resolution"]), int(z["samples_per_pass"]), \
-        int(z["n_spectrum"])
-    passes, depth = int(z["spp"]) // k, int(z["max_depth"])
+    res, k, lanes, passes, depth = _coated_shape(z)
     if int(z["rr_start_depth"]) != depth:
         raise AssertionError("the golden's Russian roulette is not off")
     want = {"materials.albedo_coeffs": z["grad_albedo_coeffs"],
             "lights.area_scale": z["grad_area_scale"]}
     scene, camera = coated_cornell("pbrt_tpu_torch", (res, res))
-    scene = scene.with_accel()
+    scene = scene.with_accel().to(dev)
     with coarse_keys():
         STATS.reset()
         t0 = time.perf_counter()
-        loss, grads = grad_passes(scene.to(dev), camera, res, k, lanes,
+        loss, grads = grad_passes(scene, camera, res, k, lanes,
                                   passes, depth)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
         launches = STATS.launches
-        cpu_loss, cpu_grads = grad_passes(scene, camera, res, k, lanes, passes,
-                                          depth)
+    t0 = time.perf_counter()
+    rc = cpu_coated.wait(timeout=900)
+    wait_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"g5: the CPU pass's process exited {rc}")
+    z_cpu = np.load(COATED_CPU_FILE)
+    cpu_loss = float(z_cpu["loss"])
+    cpu_grads = {name: z_cpu[name] for name in want}
     vs_jax = _grad_compare(loss, grads, float(z["loss"]), want)
     vs_cpu = _grad_compare(loss, grads, cpu_loss, cpu_grads)
     emit("g5_grad_coated", resolution=res, spp=int(z["spp"]),
@@ -2733,6 +2769,8 @@ def phase_grad_coated(dev):
          vs_jax=vs_jax, vs_cpu=vs_cpu, k1_launches=launches, passes=passes,
          k1_launches_per_pass=launches / passes,
          expected_per_pass=2 * depth + 1, card_seconds=card_s,
+         cpu_wait_seconds=wait_s,
+         cpu_child_seconds=float(z_cpu["child_seconds"]),
          tolerance={"grad_of_max": GRAD_RTOL_OF_MAX, "loss_rel": LOSS_RTOL})
     if not (vs_jax["ok"] and vs_cpu["ok"]):
         raise AssertionError("coated Cornell gradients disagree with the "
@@ -2770,7 +2808,7 @@ def _hall_layers(render_pass) -> dict:
         for (owner, attr, fn), (_, _, name) in zip(saved, targets):
             setattr(owner, attr, inner[name].wrap(name, fn))
         try:
-            render_pass()  # warm-up
+            # The caller's timed passes have warmed render_pass.
             torch.cuda.synchronize()
             for t in (timer, *inner.values()):
                 t.events.clear()
@@ -2831,7 +2869,7 @@ def phase_timed_hall(dev, smi: str, hall):
                                  f"{out['k2_launches']} K2 and "
                                  f"{out['k1_launches']} K1 launches")
         layers = _hall_layers(render_pass)
-        kern = ptp.kernel_view(lanes, render_pass, out_dir)
+        kern = ptp.kernel_view(lanes, render_pass, out_dir, warm=False)
         emit("e8_timed_hall", sampler=sampler, lanes=lanes, resolution=res,
              spp=spp, samples_per_pass=k, max_depth=depth,
              rays_per_pass_camera=res * res * k, **out,
@@ -2849,10 +2887,11 @@ def phase_timed_hall(dev, smi: str, hall):
             for sort in ("auto", False, False, "auto"):
                 rp = make_pass(scene, camera, res, k, lanes, depth=depth,
                                sorted_shading=sort)
-                # The warm-up pass; the first of each mode is kept.
-                first.setdefault(sort == "auto", rp(0))
+                # Each mode's first turn warms it up and keeps its image.
+                if (sort == "auto") not in first:
+                    first[sort == "auto"] = rp(0)
                 runs[sort == "auto"].append(
-                    timed_forward(rp, passes, stats)["mrays_per_s"])
+                    timed_forward(rp, 1, stats)["mrays_per_s"])
             equal = (torch.equal(first[True][0], first[False][0])
                      and bool(first[True][1] == first[False][1]))
             emit("e8_sorted_vs_lockstep", sampler=sampler,
@@ -3129,7 +3168,7 @@ def _volpath_layers(render_pass) -> dict:
             saved.append((owner, attr, fn))
             setattr(owner, attr, timer.wrap(name, fn))
     try:
-        render_pass()  # warm-up
+        # The caller's timed passes have warmed render_pass.
         torch.cuda.synchronize()
         timer.events.clear()
         t0 = time.perf_counter()
@@ -3199,8 +3238,8 @@ def phase_timed_cloud(dev, smi: str) -> int:
     layers' device ms, the kernel launches and the device's busy share of
     one profiled 64x64 pass (torch.profiler; the keys end in _64x64), the
     delta walk's live lanes per step at bounce 0; then the compacted walks
-    against the lockstep walks (compact_walks=False), in turns, the first
-    pass's image of each bit-equal."""
+    against the lockstep walks (compact_walks=False), one timed pass each
+    after a warm-up, the first pass's image of each bit-equal."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -3249,10 +3288,9 @@ def phase_timed_cloud(dev, smi: str) -> int:
          profiled_pass_wall_ms_64x64=kern["wall_ms"],
          top_kernels_64x64=kern["top"], walk_decay_bounce0=decay,
          nvidia_smi=smi)
-    # One timed pass a turn; each variant's first turn warms it up and
-    # keeps its first image.
+    # One timed pass a turn after a warm-up pass that keeps its first image.
     runs, first = {True: [], False: []}, {}
-    for compact_walks in (True, False, False, True):
+    for compact_walks in (True, False):
         rp = make_pass(scene, camera, res, k, c["lanes"],
                        integrator=integ.replace(compact_walks=compact_walks))
         if compact_walks not in first:
@@ -3483,7 +3521,7 @@ def _families_layers(render_pass) -> dict:
         path_mod._subsurface_step = step.wrap("subsurface_step", step_fn)
         path_mod.subsurface_exit = exit_
         try:
-            render_pass()  # warm-up
+            # The caller's timed passes have warmed render_pass.
             torch.cuda.synchronize()
             for t in (timer, families, step, probe):
                 t.events.clear()
@@ -3536,7 +3574,8 @@ def phase_timed_families(dev, smi: str) -> int:
         raise AssertionError(f"timed families: {out['k1_launches']} K1 "
                              "launches")
     layers = _families_layers(render_pass)
-    kern = ptp.kernel_view(f["lanes"], render_pass, out_dir)
+    kern = ptp.kernel_view(f["lanes"], render_pass, out_dir,
+                           warm=False)
     emit("e10_timed_families", lanes=f["lanes"], resolution=res,
          spp=f["spp"], samples_per_pass=k, max_depth=f["depth"],
          rays_per_pass_camera=res * res * k, **out,
@@ -3552,7 +3591,8 @@ def phase_timed_families(dev, smi: str) -> int:
     for sort in ("auto", False, False, "auto"):
         rp = make_pass(scene, camera, res, k, f["lanes"], depth=f["depth"],
                        sorted_shading=sort)
-        first.setdefault(sort == "auto", rp(0))  # the warm-up pass
+        if (sort == "auto") not in first:  # the mode's warm-up pass
+            first[sort == "auto"] = rp(0)
         runs[sort == "auto"].append(
             timed_forward(rp, passes, {"k1": STATS})["mrays_per_s"])
     equal = (torch.equal(first[True][0], first[False][0])
@@ -3579,15 +3619,19 @@ LT_MLT = os.path.join(GOLDEN_FILES, "mlt.pbrt")
 # closest a photon bounce; an MLT step, a depth-5 path trace.
 LT_K1_PER_PASS = {"lightpath": 11, "bdpt": 32, "sppm": 15, "mlt": 11}
 # d23: tests/test_reference_parity.py's MC_CASES rows (file, spp or
-# iterations or mutations per pixel as that test passes them, bounds on
-# the relative mean error and the MSE), copied, not imported; its seed 1.
-MC_GOLDENS = (("bdpt", 256, (0.06, 0.02)), ("sppm", 64, (0.10, 0.03)),
-              ("mlt", 1024, (0.10, 0.03)))
+# iterations or mutations per pixel, bounds on the relative mean error and
+# the MSE), copied, not imported; its seed 1. BDPT at that test's 256 spp;
+# SPPM and MLT cut in depth to fit the script's time (the test's 64
+# iterations and 1,024 mutations per pixel took 45 and 52 s on the
+# H100), the
+# bounds kept.
+MC_GOLDENS = (("bdpt", 256, (0.06, 0.02)), ("sppm", 32, (0.10, 0.03)),
+              ("mlt", 256, (0.10, 0.03)))
 MC_SEED = 1
-# d23's MLT runs the file's 256 chains unless their steps (9,216 at 1,024
+# d23's MLT runs the file's 256 chains unless their steps (2,304 at 256
 # mutations per pixel over 48x48) would take longer than this, timed on
 # the first steps; then the reference parser's default of 4,096 chains.
-MLT_STEPS_BUDGET_S = 240.0
+MLT_STEPS_BUDGET_S = 60.0
 MLT_DEFAULT_CHAINS = 4096
 # e11's configurations.
 E11 = dict(res=256, bdpt_spp=8, bdpt_k=4, sppm_iterations=4, mlt_steps=16,
@@ -3748,8 +3792,8 @@ def phase_k1_lighttransport_vs_twin(dev):
 
 
 def _mlt_chains(dev, spp: int) -> dict:
-    """d23's chain count: the file's 256 unless its 1,024 mutations per
-    pixel (9,216 steps over 48x48) would exceed MLT_STEPS_BUDGET_S at the
+    """d23's chain count: the file's 256 unless `spp` mutations per pixel
+    over 48x48 (spp * 9 steps) would exceed MLT_STEPS_BUDGET_S at the
     time of the first steps (timed after a warm-up step), then the
     reference parser's default."""
     import torch
@@ -3773,8 +3817,8 @@ def _mlt_chains(dev, spp: int) -> dict:
 
 
 def phase_golden_mc(dev):
-    """d23: bdpt.pbrt (256 spp in passes of 16), sppm.pbrt (64
-    iterations) and mlt.pbrt (1,024 mutations per pixel) through the
+    """d23: bdpt.pbrt (256 spp in passes of 16), sppm.pbrt (32
+    iterations) and mlt.pbrt (256 mutations per pixel) through the
     port's parser and its file entry (render.render_file) on the card,
     seed 1, against the pbrt-v4 C++ goldens with
     tests/test_reference_parity.py's MC_CASES gate (relative mean error,
@@ -3911,7 +3955,7 @@ def _lt_layers(kind: str, render_pass) -> dict:
         setattr(owner, attr, staticmethod(wrapped)
                 if isinstance(raw, staticmethod) else wrapped)
     try:
-        render_pass(1)
+        # The caller's timed passes have warmed render_pass.
         torch.cuda.synchronize()
         for t in (timer, inner):
             t.events.clear()
@@ -3960,7 +4004,8 @@ def _lt_timed(kind: str, render_pass, passes: int, per_pass: str,
     peak = torch.cuda.max_memory_allocated()
     layers = _lt_layers(kind, render_pass)
     kern = ptp.kernel_view(f"{kind}_{fields.get('chains', '')}",
-                           lambda: render_pass(passes + 3), out_dir)
+                           lambda: render_pass(passes + 3), out_dir,
+                           warm=False)
     out = {"passes": passes, per_pass: work, "seconds": seconds,
            f"{per_pass}_per_s": work / seconds,
            "passes_per_s": passes / seconds, "first_pass_seconds": first_s,
@@ -4235,7 +4280,7 @@ def _geometry_layers(render_pass) -> dict:
         for timer, name, attr in wraps:
             setattr(api, attr, timer.wrap(name, getattr(api, attr)))
         try:
-            render_pass()  # warm-up
+            # The caller's timed passes have warmed render_pass.
             torch.cuda.synchronize()
             for t in (outer, mid, inner):
                 t.events.clear()
@@ -4289,7 +4334,8 @@ def phase_timed_geometry(dev, smi: str) -> dict:
                                  f"{out['k3_launches']} K3 launches")
         launches[name] = (out["k1_launches"], out["k3_launches"])
         layers = _geometry_layers(render_pass)
-        kern = ptp.kernel_view(g["lanes"], render_pass, out_dir)
+        kern = ptp.kernel_view(g["lanes"], render_pass, out_dir,
+                               warm=False)
         emit(f"e12_timed_{name}", lanes=g["lanes"], resolution=res,
              spp=g["spp"], samples_per_pass=k, max_depth=g["depth"],
              rays_per_pass_camera=res * res * k, **out,
@@ -4489,6 +4535,7 @@ def phase_golden_cameras_jax(dev):
 
 
 SAMPLER_DIMS_FILE = os.path.join(ROOT, "chiprun_out", "sampler_cpu_digests.npz")
+COATED_CPU_FILE = os.path.join(ROOT, "chiprun_out", "coated_cpu_grads.npz")
 
 
 def _cpu_sampler_digests(path: str) -> None:
@@ -4502,6 +4549,7 @@ def _cpu_sampler_digests(path: str) -> None:
 
     from pbrt_tpu_torch.samplers.samplers import Sampler
 
+    t0 = time.perf_counter()
     cams = _cameras()
     torch.set_num_threads(4)
     cfg = cams.SAMPLER_CFGS["c"]
@@ -4516,18 +4564,19 @@ def _cpu_sampler_digests(path: str) -> None:
         run = s.get_1d_run(pixel, sample, 3, 6)
         out[kind + "_run"] = cams.digests(run[:, j].numpy() for j in range(6))
     tmp = path + ".tmp.npz"
-    np.savez(tmp, **out)
+    np.savez(tmp, child_seconds=time.perf_counter() - t0, **out)
     os.replace(tmp, path)
 
 
-def start_cpu_sampler_digests():
-    """Start _cpu_sampler_digests in a child process; returns it."""
-    os.makedirs(os.path.dirname(SAMPLER_DIMS_FILE), exist_ok=True)
-    if os.path.exists(SAMPLER_DIMS_FILE):
-        os.remove(SAMPLER_DIMS_FILE)
+def start_cpu_child(flag: str, path: str):
+    """Start this script with `flag path` (--cpu-sampler-digests or
+    --cpu-coated-grads) in a child process at the lowest priority; returns
+    it."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
     return subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                             "--cpu-sampler-digests", SAMPLER_DIMS_FILE],
-                            cwd=ROOT)
+                             flag, path], cwd=ROOT)
 
 
 def phase_samplers_and_resume(dev, cpu_digests):
@@ -4607,7 +4656,9 @@ def phase_samplers_and_resume(dev, cpu_digests):
     equal = bool(torch.equal(whole, resumed))
     emit("d27_samplers_and_resume", lanes=1 << 20, dims=cams.DRAW_DIMS,
          kinds=list(cams.SAMPLER_KINDS), card_seconds=card_s,
-         cpu_wait_seconds=wait_s, draws_bit_equal_to_cpu=True,
+         cpu_wait_seconds=wait_s,
+         cpu_child_seconds=float(cpu["child_seconds"]),
+         draws_bit_equal_to_cpu=True,
          jax_draws_bit_equal=True, resume_bit_equal=equal,
          resume_image_mean=float(whole.mean()))
     if not equal:
@@ -4637,7 +4688,7 @@ def _lens_layers(render_pass) -> dict:
         for timer, name, owner, attr in wraps:
             setattr(owner, attr, timer.wrap(name, getattr(owner, attr)))
         try:
-            render_pass()  # warm-up
+            # The caller's timed passes have warmed render_pass.
             torch.cuda.synchronize()
             for t in (outer, lens_t, samp_t):
                 t.events.clear()
@@ -4707,7 +4758,8 @@ def phase_timed_cameras(dev, smi: str) -> int:
         raise AssertionError(f"timed cornell_lens: {out['k1_launches']} K1 "
                              "launches")
     layers = _lens_layers(render_pass)
-    kern = ptp.kernel_view(c["lanes"], render_pass, out_dir)
+    kern = ptp.kernel_view(c["lanes"], render_pass, out_dir,
+                           warm=False)
     emit("e13_timed_cornell_lens", lanes=c["lanes"], resolution=res,
          spp=c["spp"], samples_per_pass=k, max_depth=c["depth"],
          sampler="zsobol", filter="gaussian",
@@ -4730,7 +4782,7 @@ def phase_timed_cameras(dev, smi: str) -> int:
         rp(0)  # warm-up
         one = timed_forward(rp, 1, {"k1": STATS})
         lay = _lens_layers(rp)
-        kv = ptp.kernel_view(c["lanes"], rp, out_dir)
+        kv = ptp.kernel_view(c["lanes"], rp, out_dir, warm=False)
         kinds[label] = {"pass_ms": one["seconds"] * 1e3,
                         "mrays_per_s": one["mrays_per_s"],
                         "sampler_ms": lay["sampler_ms_all_draws"],
@@ -4948,7 +5000,8 @@ def phase_timed_io(dev, smi: str, seed: int) -> dict:
             if not out["image_mean"] > 0.0:
                 raise AssertionError(f"timed {name}: an unlit image, {out}")
             launches[name] = out["k1_launches"]
-            kern = ptp.kernel_view(IO["lanes"], render_pass, out_dir)
+            kern = ptp.kernel_view(IO["lanes"], render_pass, out_dir,
+                                   warm=False)
             emit(f"e14_timed_{name}", lanes=IO["lanes"], resolution=res,
                  spp=IO["spp"][name], samples_per_pass=k,
                  max_depth=IO["depth"], rays_per_pass_camera=res * res * k,
@@ -5231,21 +5284,25 @@ def main(seed: int = IO_SEED) -> int:
         raise AssertionError("the port imported jax")
     dev = torch.device("cuda", 0)
     smi = phase_device()
-    cpu_digests = start_cpu_sampler_digests()
+    children = {"digests": start_cpu_child("--cpu-sampler-digests",
+                                           SAMPLER_DIMS_FILE)}
     try:
-        return _run(dev, smi, cpu_digests, seed)
+        return _run(dev, smi, children, seed)
     finally:
-        if cpu_digests.poll() is None:
-            cpu_digests.kill()
-            cpu_digests.wait()
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
 
 
-def _run(dev, smi, cpu_digests, seed: int) -> int:
+def _run(dev, smi, children, seed: int) -> int:
     import torch
 
     builds = phase_build()
     cli_launches = phase_cli_golden(dev)
     phase_cli_first_image(smi)
+    # After e16, whose child process times a cold start.
+    children["coated"] = start_cpu_child("--cpu-coated-grads", COATED_CPU_FILE)
     k1 = phase_kernel_vs_twin(dev)
     killeroo = killeroo_on(dev)
     k2 = phase_k2_vs_twin(dev, killeroo)
@@ -5273,7 +5330,7 @@ def _run(dev, smi, cpu_digests, seed: int) -> int:
     phase_grad_file(dev, "g3_grad_spot", "spot", SPOT_GRAD_RTOL_OF_MAX)
     phase_grad_file(dev, "g4_grad_spheres", "spheres",
                     SPHERES_GRAD_RTOL_OF_MAX)
-    phase_grad_coated(dev)
+    phase_grad_coated(dev, children["coated"])
     grad_launches = {"grad_texel": phase_grad_texel(dev),
                      "grad_attached": phase_grad_attached(dev),
                      "grad_cvjp": phase_grad_cvjp(dev)}
@@ -5292,7 +5349,7 @@ def _run(dev, smi, cpu_digests, seed: int) -> int:
     phase_grad_motion(dev)
     phase_k1_cameras_vs_twin(dev)
     phase_golden_cameras_jax(dev)
-    phase_samplers_and_resume(dev, cpu_digests)
+    phase_samplers_and_resume(dev, children["digests"])
     phase_k1_io_vs_twin(dev)
     phase_golden_io_jax(dev)
     k1_launches = phase_timed(dev, 8)
@@ -5360,9 +5417,13 @@ def _run(dev, smi, cpu_digests, seed: int) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--cpu-sampler-digests"]:
+    children = {"--cpu-sampler-digests": _cpu_sampler_digests,
+                "--cpu-coated-grads": _cpu_coated_grads}
+    if sys.argv[1:2] and sys.argv[1] in children:
+        # The card's process has the host first: its phases are host-bound.
+        os.nice(19)
         sys.path.insert(0, ROOT)
-        _cpu_sampler_digests(sys.argv[2])
+        children[sys.argv[1]](sys.argv[2])
         sys.exit(0)
     # --seed N: the seed of e14's generated inputs (default 0).
     sys.exit(main(int(sys.argv[sys.argv.index("--seed") + 1])

@@ -65,33 +65,53 @@ def make_pass(lanes: int):
     return render_pass
 
 
-def kernel_view(lanes: int, render_pass, out_dir: str) -> dict:
+def kernel_totals(prof) -> list:
+    """[name, device ms, launches] of each kernel (and copy) a finished
+    torch.profiler session holds, the longest first. Sums the session's raw
+    kineto events: key_averages() first builds a Python event, and its
+    tree, for every event, which takes tens of seconds for a pass of 1e5
+    launches."""
+    totals = defaultdict(lambda: [0.0, 0])
+    try:
+        events = prof.profiler.kineto_results.events()
+    except AttributeError:
+        return sorted(
+            ([e.key, e.self_device_time_total / 1e3, e.count]
+             for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")),
+            key=lambda x: -x[1])
+    for e in events:
+        if str(e.device_type()).endswith("CUDA"):
+            t = totals[e.name()]
+            t[0] += e.duration_ns() / 1e6
+            t[1] += 1
+    return sorted(([name, ms, n] for name, (ms, n) in totals.items()),
+                  key=lambda x: -x[1])
+
+
+def kernel_view(lanes: int, render_pass, out_dir: str,
+                warm: bool = True) -> dict:
+    """The kernels view of one pass; a warm-up pass first unless the caller
+    has just run render_pass (warm=False)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    render_pass()
+    if warm:
+        render_pass()
     torch.cuda.synchronize()
-    # Device activity only: the view reads kernel events, and the
-    # operators' host events would double what the profiler aggregates.
+    # Device activity only: the view reads kernel events.
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, rays = render_pass()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # Kernel events only (operator events would carry the device time of
-    # the kernels they launch twice). One aggregation serves both views (a
-    # pass holds up to ~2e5 launches).
-    averages = prof.key_averages()
-    kern = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count)
-         for e in averages
-         if str(getattr(e, "device_type", "")).endswith("CUDA")),
-        key=lambda x: -x[1],
-    )
+    kern = kernel_totals(prof)
     device_ms = sum(ms for _, ms, _ in kern)
     k1_ms = sum(ms for name, ms, _ in kern if "smallscene_kernel" in name)
     with open(os.path.join(out_dir, f"profile_pass_{lanes}.txt"), "w") as f:
-        f.write(averages.table(sort_by="self_cuda_time_total", row_limit=80))
+        f.write(f"{'device ms':>12} {'launches':>9}  kernel\n")
+        for name, ms, n in kern[:80]:
+            f.write(f"{ms:12.3f} {n:9d}  {name}\n")
     return {
         "view": "kernels", "lanes": lanes, "rays": float(rays),
         "wall_ms": wall_ms,
