@@ -38,9 +38,11 @@ many-light hall, bench's volumetric cloud, the families box, BDPT,
 SPPM, MLT, the shapes box, the moving field, the Cornell box through a
 lens, the eye's spectral bands and the io scenes among them) and the
 Cornell
-forward+backward pass, takes three training steps, and renders box.pbrt
+forward+backward pass, takes three training steps, renders box.pbrt
 and plymesh.pbrt through the render CLI (against the C++ goldens and
-render_file) and times its first image from a shell. Each phase prints
+render_file) and times its first image from a shell, renders and trains
+over a device mesh and over process groups (gloo and NCCL), and holds
+the native tokenizer and Morton sort against their twins. Each phase prints
 one JSON line;
 any failure raises, so the script exits non-zero and never prints the
 final line. Without a CUDA device it exits non-zero at
@@ -67,6 +69,24 @@ Phases:
       prints, torch's import seconds, no jax in the child; then one CLI
       render inside utils/profile.capture with the scope "cli/render":
       the Chrome trace holds the scope and K1's kernel
+  p1  the single-process mesh [cuda:0, cuda:0] (parallel/): the Cornell
+      box at 64x64, 8 spp, depth 5, 8 lanes; render_tile_sharded
+      bit-equal to the one-device image, render_spp_sharded within rtol
+      2e-5 / atol 2e-6 of it and bit-equal over two calls,
+      training_step(mesh=...) within rtol 2e-4 / atol 1e-7 of the
+      one-device step (loss 1e-5); 11 K1 launches a shard a wave
+  p2  the process groups: two parallel/mp_worker.py processes over gloo
+      and one world of size 1 over NCCL, each with mesh entries [cuda:0,
+      cuda:0], started together (Cornell 64x64, 4 spp, depth 3, 8 lanes,
+      render and training step): the gloo images bit-equal to the NCCL
+      process's, the gradients identical on both ranks and within rtol
+      2e-4 of one process's, K1 launched in every process
+  n1  the native tokenizer and Morton sort (pbrt_tpu_torch/native/,
+      g++): equal to their twins on the 13 C++-golden scene files, the
+      port's scenes and the CLI's, and on every centroid set the
+      killeroo-class and instanced-field builds sort; host seconds of
+      each side, and of the two builds with the twins and with the native
+      code in turns
   c   K1 vs its twin on 4,194,304 rays (the Cornell pass's query shape):
       camera rays, random rays inside the box, dead lanes (tmax = 0),
       axis-parallel rays and NEE shadow segments; closest and any-hit
@@ -425,7 +445,8 @@ Phases:
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
   f   the kernels line (K1's launches those of e, e12's shapes box,
       e13's cornell_lens, e14's io scenes, the loss and gradient calls
-      of g8-g11 and d29's box.pbrt, K2's those of e2 and d29's
+      of g8-g11, d29's box.pbrt, p1's sharded calls and p2's worker
+      processes, K2's those of e2 and d29's
       plymesh.pbrt, K3's those of e3 and e12's moving field, by path),
       the nvidia-smi line and the final result line
 """
@@ -5263,6 +5284,376 @@ def phase_cli_first_image(smi: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# p1 and p2: the Cornell box under the sharded paths (parallel/).
+MESH_RES, MESH_SPP, MESH_LANES, MESH_DEPTH = 64, 8, 8, 5
+MP_RES, MP_SPP, MP_TIMEOUT_S = 64, 4, 300
+
+
+def _grad_delta(scene, new_scene):
+    """start - step of a training step at lr 1: the gradient it applied."""
+    return {name: (getattr(getattr(scene, part), name)
+                   - getattr(getattr(new_scene, part), name)).cpu()
+            for part, name in (("materials", "albedo_coeffs"),
+                               ("lights", "area_scale"))}
+
+
+def phase_mesh(dev) -> dict:
+    """p1: the single-process mesh of two shards on the one card,
+    [cuda:0, cuda:0]. The Cornell box at MESH_RES^2, depth MESH_DEPTH, 8
+    lanes, MESH_SPP spp: render_tile_sharded bit-equal to the one-device
+    image (the same function on the mesh [cuda:0]); render_spp_sharded
+    within rtol 2e-5 / atol 2e-6 of it and bit-equal over two calls;
+    training_step(mesh=...) (pixels twice, samples 0 and 1, target 0.25,
+    lr 1) against the one-device step: the gradients within rtol 2e-4 /
+    atol 1e-7, the loss within rtol 1e-5. K1's launches of each call are
+    counted from zero, and per shard and wave."""
+    import torch
+
+    from pbrt_tpu_torch.models.path import PathIntegrator
+    from pbrt_tpu_torch.ops import smallscene
+    from pbrt_tpu_torch.parallel.mesh import make_mesh
+    from pbrt_tpu_torch.parallel.render import (
+        render_spp_sharded,
+        render_tile_sharded,
+    )
+    from pbrt_tpu_torch.parallel.train import training_step
+    from pbrt_tpu_torch.scenes.cornell import cornell_box
+
+    scene, camera = cornell_box(resolution=(MESH_RES, MESH_RES))
+    scene = scene.with_accel().to(dev)
+    integ = PathIntegrator(max_depth=MESH_DEPTH)
+    mesh2 = make_mesh(devices=[dev, dev])
+    mesh1 = make_mesh(devices=[dev])
+    launches, seconds = {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        smallscene.STATS.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = smallscene.STATS.launches
+        return out
+
+    kw = dict(n_spectrum=MESH_LANES, samples_per_pass=MESH_SPP)
+    one = run("one_device", lambda: render_tile_sharded(
+        scene, camera, integ, mesh1, spp=MESH_SPP, **kw))
+    tile = run("tile", lambda: render_tile_sharded(
+        scene, camera, integ, mesh2, spp=MESH_SPP, **kw))
+    kw_spp = dict(n_spectrum=MESH_LANES, samples_per_pass=MESH_SPP // 2)
+    spp_a = run("spp", lambda: render_spp_sharded(
+        scene, camera, integ, mesh2, spp=MESH_SPP, **kw_spp))
+    spp_b = run("spp_again", lambda: render_spp_sharded(
+        scene, camera, integ, mesh2, spp=MESH_SPP, **kw_spp))
+    npix, k = MESH_RES * MESH_RES, 2
+    args = (scene, camera, integ, torch.arange(npix).repeat(k),
+            torch.full((npix * k, 3), 0.25),
+            torch.arange(k).repeat_interleave(npix), 0)
+    loss_m, new_m = run("train_mesh", lambda: training_step(
+        *args, lr=1.0, mesh=mesh2, n_spectrum=MESH_LANES))
+    loss_1, new_1 = run("train_one_device", lambda: training_step(
+        *args, lr=1.0, n_spectrum=MESH_LANES))
+    g_m, g_1 = _grad_delta(scene, new_m), _grad_delta(scene, new_1)
+    grad_rel = {n: float(torch.max(torch.abs(g_m[n] - g_1[n]))
+                         / torch.max(torch.abs(g_1[n]))) for n in g_m}
+    spp_err = float(torch.max(torch.abs(spp_a - tile)))
+    checks = {
+        "tile_bit_equal_one_device": bool(torch.equal(tile, one)),
+        "spp_close_to_tile": bool(torch.allclose(spp_a, tile, rtol=2e-5,
+                                                 atol=2e-6)),
+        "spp_bit_equal_repeat": bool(torch.equal(spp_a, spp_b)),
+        "train_loss_close": abs(float(loss_m) - float(loss_1))
+        <= 1e-5 * abs(float(loss_1)),
+        "train_grads_close": all(bool(torch.allclose(
+            g_m[n], g_1[n], rtol=2e-4, atol=1e-7)) for n in g_m),
+        "finite_lit": bool(torch.isfinite(tile).all()) and float(
+            tile.mean()) > 0.0,
+        "new_scene_on_card": new_m.materials.albedo_coeffs.device.type
+        == "cuda",
+        # 2 x depth + 1 K1 queries a wave; the backward launches none.
+        "k1_per_shard_wave": launches["tile"] == 2 * (2 * MESH_DEPTH + 1)
+        and launches["train_mesh"] == launches["tile"],
+    }
+    waves = {"one_device": 1, "tile": 2, "spp": 2 * 2, "spp_again": 2 * 2,
+             "train_mesh": 2, "train_one_device": 1}
+    emit("p1_mesh", mesh=[str(d) for d in mesh2.devices],
+         resolution=MESH_RES, spp=MESH_SPP, lanes=MESH_LANES,
+         max_depth=MESH_DEPTH, image_mean=float(tile.mean()),
+         spp_vs_tile_max_abs=spp_err, loss_mesh=float(loss_m),
+         loss_one_device=float(loss_1), grad_max_rel_of_max=grad_rel,
+         k1_launches=launches,
+         k1_launches_per_shard_wave={n: launches[n] / waves[n]
+                                     for n in launches},
+         seconds=seconds, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"p1: {checks}")
+    return {"mesh_tile": launches["tile"], "mesh_spp": launches["spp"]
+            + launches["spp_again"], "mesh_train": launches["train_mesh"]}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_multiprocess(smi: str) -> dict:
+    """p2: the process groups on the one card. Two mp_worker processes
+    over gloo (NCCL refuses two ranks on one GPU), each with the mesh
+    entries [cuda:0, cuda:0], and one world of size 1 over NCCL with the
+    same entries, started together: each renders the Cornell box (MP_RES^2,
+    MP_SPP spp in one wave, depth 3, 8 lanes) pixel-sharded and takes
+    train_step_multiprocess against a flat 0.25 target. Gloo's collectives
+    (all_gather_object of the mesh sizes, all_gather of the film shards
+    and of the per-shard loss and gradients, barrier) take CPU tensors,
+    staged from the card; NCCL's take the card's. Both gloo images
+    bit-equal to the NCCL process's; the gradients and loss identical on
+    both gloo ranks and within rtol 2e-4 / atol 1e-7 (loss 1e-5) of one
+    process's; K1 launched in every process. Each child has
+    MP_TIMEOUT_S; a failed or late one fails the phase."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="mp_worker_")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    layouts = {"gloo": (2, "gloo"), "nccl": (1, None)}
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for name, (nprocs, backend) in layouts.items():
+            port = _free_port()
+            for pid in range(nprocs):
+                cmd = [sys.executable, "-m",
+                       "pbrt_tpu_torch.parallel.mp_worker",
+                       "--coordinator", f"127.0.0.1:{port}",
+                       "--nprocs", str(nprocs), "--pid", str(pid),
+                       "--local-devices", "2", "--mode", "both",
+                       "--res", str(MP_RES), "--spp", str(MP_SPP),
+                       "--n-spectrum", "8", "--samples-per-pass",
+                       str(MP_SPP), "--device", "cuda:0",
+                       "--timeout", str(MP_TIMEOUT_S),
+                       "--out", os.path.join(tmp, name)]
+                if backend:
+                    cmd += ["--backend", backend]
+                procs.append((name, pid, subprocess.Popen(
+                    cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)))
+        deadline = time.monotonic() + MP_TIMEOUT_S
+        errors = []
+        for name, pid, p in procs:
+            try:
+                _, err = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                _, err = p.communicate()
+                errors.append(f"{name}.{pid} timed out: {err[-1500:]}")
+                continue
+            if p.returncode != 0:
+                errors.append(f"{name}.{pid} rc {p.returncode}: {err[-1500:]}")
+        wall = time.perf_counter() - t0
+        if errors:
+            raise AssertionError("p2: " + " | ".join(errors))
+        res = {name: [dict(np.load(os.path.join(tmp, f"{name}.{pid}.npz")))
+                      for pid in range(n)]
+               for name, (n, _) in layouts.items()}
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    one, gloo = res["nccl"][0], res["gloo"]
+    leaves = ("albedo_coeffs", "area_scale")
+    checks = {
+        "images_bit_equal_one_process": all(
+            np.array_equal(r["img"], one["img"]) for r in gloo),
+        "grads_identical_across_ranks": all(
+            np.array_equal(gloo[1][n], gloo[0][n]) for n in leaves + ("loss",)),
+        "grads_close_to_one_process": all(np.allclose(
+            gloo[0][n], one[n], rtol=2e-4, atol=1e-7) for n in leaves),
+        "loss_close_to_one_process": bool(np.isclose(
+            gloo[0]["loss"], one["loss"], rtol=1e-5, atol=0.0)),
+        "backends": [str(gloo[0]["backend"]), str(one["backend"])]
+        == ["gloo", "nccl"],
+        "k1_launched_everywhere": all(int(r["k1_launches"]) > 0
+                                      for r in gloo + [one]),
+        "finite_lit": bool(np.isfinite(one["img"]).all()
+                           and one["img"].mean() > 0),
+    }
+    emit("p2_multiprocess", resolution=MP_RES, spp=MP_SPP, lanes=8,
+         max_depth=3, layouts={n: {"processes": v[0], "backend": v[1] or
+                                   "nccl", "mesh_entries": int(
+                                       res[n][0]["ndev"])}
+                               for n, v in layouts.items()},
+         collectives={"gloo": "all_gather_object, all_gather, barrier on "
+                              "CPU tensors (the card's shards staged "
+                              "through the host)",
+                      "nccl": "all_gather_object, all_gather, barrier on "
+                              "cuda:0 tensors"},
+         wall_seconds=wall,
+         render_seconds={n: [float(r["seconds"]) for r in res[n]]
+                         for n in res},
+         train_seconds={n: [float(r["train_seconds"]) for r in res[n]]
+                        for n in res},
+         k1_launches={n: [int(r["k1_launches"]) for r in res[n]]
+                      for n in res},
+         loss={n: float(res[n][0]["loss"]) for n in res},
+         grad_max_rel_of_max={n: float(np.abs(gloo[0][n] - one[n]).max()
+                                       / np.abs(one[n]).max())
+                              for n in leaves},
+         nvidia_smi=smi, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"p2: {checks}")
+    return {"mp_workers": sum(int(r["k1_launches"]) for r in gloo + [one])}
+
+
+def _best_seconds(fn, reps: int = 3):
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def phase_native(dev) -> None:
+    """n1: the native host code (pbrt_tpu_torch/native/, built by g++ at
+    first use) on the card's host. The tokenizer against its Python twin
+    (io/parser.tokenize_py) on the 13 scene files with C++ goldens, the
+    port's committed scenes, the CLI tests' scenes and the instanced
+    field: equal token for token, with each side's best-of-3 host
+    seconds. The Morton order against its numpy twin
+    (accel/bvh.morton_order_np) on every centroid set the builds sort:
+    the killeroo-class scene's 122,244 triangles (K2's cluster build) and
+    the instanced field's prototypes (K3's sweep build), captured as the
+    builds run: equal index for index, with best-of-3 seconds. Then the
+    builds themselves, twice each in turns, with the twins in the callers'
+    place (the code before native/) and with the native code: the
+    killeroo-class scene's build and the instanced field's parse to a
+    scene on the card, host seconds."""
+    import glob
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch import native
+    from pbrt_tpu_torch.accel import bvh
+    from pbrt_tpu_torch.io import parser
+    from pbrt_tpu_torch.ops import nvcc_build
+    from pbrt_tpu_torch.scenes.meshes import killeroo_class_scene
+    from tests import torch_port_cli
+    from tests.torch_port_instanced import field_text, write_field_meshes
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    load_s = time.perf_counter() - t0
+    build = nvcc_build.BUILD_LOG.get("native")
+    paths = sorted(glob.glob(os.path.join(GOLDEN_FILES, "*.pbrt")))
+    if len(paths) != 13:
+        raise AssertionError(f"n1: {len(paths)} golden scene files")
+    paths += sorted(glob.glob(os.path.join(ROOT, "tests", "data",
+                                           "torch_port", "**", "*.pbrt"),
+                              recursive=True))
+    texts = {os.path.relpath(p, ROOT): open(p).read() for p in paths}
+    for name in ("IMAGE_SCENE", "GBUFFER_SCENE", "DEBUG_SCENE"):
+        texts[f"cli:{name}"] = getattr(torch_port_cli, name)
+    texts["instanced_field"] = field_text()
+    tok = {"native_s": 0.0, "python_s": 0.0, "tokens": 0, "bytes": 0}
+    mismatched = []
+    for name, text in texts.items():
+        s_n, got = _best_seconds(lambda: native.tokenize_native(text))
+        s_p, want = _best_seconds(lambda: parser.tokenize_py(text))
+        tok["native_s"] += s_n
+        tok["python_s"] += s_p
+        tok["tokens"] += len(want)
+        tok["bytes"] += len(text.encode())
+        if got != want:
+            mismatched.append(name)
+
+    captured = []
+    native_order = bvh.morton_order
+
+    def recording(cent):
+        captured.append(np.array(cent, np.float32))
+        return native_order(cent)
+
+    def killeroo_build():
+        scene, _ = killeroo_class_scene(resolution=(64, 64))
+        return scene
+
+    with tempfile.TemporaryDirectory(prefix="n1_field_") as tmp:
+        write_field_meshes("pbrt_tpu_torch", tmp)
+
+        def field_load():
+            scene, _, _ = parser.load_pbrt_string(field_text(), tmp,
+                                                  device=dev)
+            torch.cuda.synchronize()
+            return scene
+
+        bvh.morton_order = recording
+        try:
+            killeroo_build()
+            n_killeroo = len(captured)
+            field_load()
+        finally:
+            bvh.morton_order = native_order
+        sets = {"killeroo": captured[:n_killeroo],
+                "field": captured[n_killeroo:]}
+        morton = {}
+        for key, cents in sets.items():
+            row = {"sets": len(cents), "centroids": [len(c) for c in cents],
+                   "native_s": 0.0, "numpy_s": 0.0, "equal": True}
+            for cent in cents:
+                s_n, got = _best_seconds(lambda: native.morton_order_native(
+                    cent))
+                s_p, want = _best_seconds(lambda: bvh.morton_order_np(cent))
+                row["native_s"] += s_n
+                row["numpy_s"] += s_p
+                row["equal"] &= bool(np.array_equal(got, want))
+            row["speedup"] = row["numpy_s"] / max(row["native_s"], 1e-9)
+            morton[key] = row
+
+        builds = {"killeroo_build_s": {"twins": [], "native": []},
+                  "field_parse_s": {"twins": [], "native": []}}
+        tokenize_native = parser.tokenize
+        for _ in range(2):
+            for mode in ("twins", "native"):
+                if mode == "twins":
+                    bvh.morton_order = bvh.morton_order_np
+                    parser.tokenize = parser.tokenize_py
+                try:
+                    for key, fn in (("killeroo_build_s", killeroo_build),
+                                    ("field_parse_s", field_load)):
+                        t0 = time.perf_counter()
+                        fn()
+                        builds[key][mode].append(time.perf_counter() - t0)
+                finally:
+                    bvh.morton_order = native_order
+                    parser.tokenize = tokenize_native
+    killeroo_n = sum(len(c) for c in sets["killeroo"])
+    checks = {
+        "tokens_equal": not mismatched,
+        "morton_equal": all(r["equal"] for r in morton.values()),
+        "killeroo_centroids": killeroo_n == 122244,
+        "field_sets": len(sets["field"]) >= 2,
+    }
+    emit("n1_native", build_seconds=build[0] if build else None,
+         load_seconds=load_s, scene_texts=len(texts),
+         mismatched=mismatched,
+         tokenizer={**tok, "speedup": tok["python_s"] / max(tok["native_s"],
+                                                           1e-9)},
+         morton=morton, builds=builds, **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"n1: {checks}")
+
+
 def _kernel_entry(name, source, replaces, launches, k):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source,
@@ -5301,6 +5692,9 @@ def _run(dev, smi, children, seed: int) -> int:
     builds = phase_build()
     cli_launches = phase_cli_golden(dev)
     phase_cli_first_image(smi)
+    mesh_launches = phase_mesh(dev)
+    mesh_launches.update(phase_multiprocess(smi))
+    phase_native(dev)
     # After e16, whose child process times a cold start.
     children["coated"] = start_cpu_child("--cpu-coated-grads", COATED_CPU_FILE)
     k1 = phase_kernel_vs_twin(dev)
@@ -5377,7 +5771,8 @@ def _run(dev, smi, children, seed: int) -> int:
     # of the 1,048,576-ray comparisons, both modes. K1's launches are those
     # of the Cornell (e), shapes (e12), cornell_lens (e13) and io (e14)
     # main paths, of the gradient estimators' loss and gradient calls
-    # (g8-g11) and of the render CLI on box.pbrt (d29); K2's of killeroo
+    # (g8-g11), of the render CLI on box.pbrt (d29), of p1's sharded
+    # renders and mesh step and of p2's workers; K2's of killeroo
     # (e2) and of the CLI on plymesh.pbrt (d29); K3's of the instanced
     # field (e3) and motion.pbrt (e12), each counted from zero around its
     # timed passes or its CLI call.
@@ -5389,7 +5784,8 @@ def _run(dev, smi, children, seed: int) -> int:
                               "shapes": geom_launches["shapes"][0],
                               "cornell_lens": lens_launches, **io_launches,
                               **grad_launches,
-                              "cli_box": cli_launches["box"]},
+                              "cli_box": cli_launches["box"],
+                              **mesh_launches},
                "cluster": {"killeroo": k2_launches,
                            "cli_plymesh": cli_launches["plymesh"]},
                "sweep": {"instanced_field": k3_launches,

@@ -6,9 +6,9 @@ PyTorch twin of kernel K4 (`pbrt_tpu_torch/csrc/traverse.cu`, launched by
 The build is the reference's numpy code: triangles in Morton order, packed
 `leaf_size` to a leaf over a complete binary tree of 2^depth leaves in
 heap layout (the children of node i are 2i+1 and 2i+2), padded with
-degenerate triangles at 1e30 that carry prim id -1. The reference may sort
-with its native C++ radix sort (native/accel_build.cpp), which it
-documents as bit-identical to the numpy rule the port keeps.
+degenerate triangles at 1e30 that carry prim id -1. The Morton order
+comes from the native C++ radix sort (native/accel_build.cpp), as in the
+reference, bit-identical to the numpy rule (`morton_order_np`).
 
 Traversal contract (the reference's `bvh_intersect`, per ray):
   - inv_d = 1 / where(|d| < 1e-12, 1e-12, d); the root is on the stack.
@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..core.tensorclass import static_field, tensorclass
+from ..native import morton_order_native
 
 _EPS = 1e-12
 
@@ -61,7 +62,14 @@ def _morton3(x: np.ndarray) -> np.ndarray:
 
 
 def morton_order(cent: np.ndarray) -> np.ndarray:
-    """Stable ascending-Morton permutation of (n, 3) float32 centroids."""
+    """Stable ascending-Morton permutation of (n, 3) float32 centroids, by
+    the native radix sort (native/accel_build.cpp), built on first use; a
+    failed build raises. `morton_order_np` is its plain twin."""
+    return morton_order_native(cent)
+
+
+def morton_order_np(cent: np.ndarray) -> np.ndarray:
+    """morton_order in numpy: the codes, then a stable argsort."""
     lo = cent.min(axis=0)
     hi = cent.max(axis=0)
     norm = (cent - lo) / np.maximum(hi - lo, 1e-12)

@@ -1,4 +1,5 @@
-"""CIE colorimetry: colour matching functions and illuminant D65.
+"""CIE colorimetry: colour matching functions, illuminants D65, A and E,
+Planck's blackbody and the whitepoint chromaticity.
 
 Port of pbrt_tpu/core/cie.py. The CMFs are the Wyman-Sloan-Shirley
 multi-lobe Gaussian fits, evaluated on tensors through the same Chebyshev
@@ -150,3 +151,56 @@ def cie_xyz_np(lam: np.ndarray) -> np.ndarray:
 
 def illuminant_d65_np(lam: np.ndarray) -> np.ndarray:
     return np.interp(lam, _D65_LAMBDAS, _D65_VALUES)
+
+
+def blackbody(lam_nm, temperature_k):
+    """Planck's law: spectral radiance (W / (m^2 sr m)) at lam_nm
+    nanometres (spectrum.h Blackbody). A Python float lam_nm is worked in
+    double up to the exponential, then in float32, as the reference's
+    jnp.exp of a Python float does."""
+    c = 299792458.0
+    h = 6.62606957e-34
+    kb = 1.3806488e-23
+    lam = lam_nm * 1e-9
+    lam5 = lam * lam * lam * lam * lam
+    denom = lam * kb * temperature_k
+    # A Python number over a tensor is the tensor's reciprocal times the
+    # number in PyTorch: a 0-d tensor numerator keeps the one division.
+    if isinstance(denom, torch.Tensor):
+        e = torch.exp(_f32(h * c, denom.device) / denom)
+    else:
+        e = torch.exp(_f32((h * c) / denom, "cpu"))
+    return _f32(2.0 * h * c * c, e.device) / (lam5 * (e - 1.0))
+
+
+def _f32(x: float, device) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def normalized_blackbody(lam_nm, temperature_k):
+    """Blackbody scaled so that its peak (Wien's law) is 1."""
+    lam_max_nm = 2.8977721e-3 / temperature_k * 1e9
+    peak = blackbody(lam_max_nm, temperature_k)
+    return blackbody(lam_nm, temperature_k) / peak.to(
+        torch.as_tensor(lam_nm).device)
+
+
+def illuminant_a(lam):
+    """CIE standard illuminant A: a 2856 K blackbody, 100 at 560 nm."""
+    return 100.0 * blackbody(lam, 2856.0) / blackbody(560.0, 2856.0).to(lam.device)
+
+
+def illuminant_e(lam):
+    """The equal-energy illuminant."""
+    return torch.ones_like(lam) * 100.0
+
+
+def whitepoint_xy(illuminant=None) -> np.ndarray:
+    """Chromaticity (x, y) of an illuminant under the CMF fits (host)."""
+    lam = np.linspace(360.0, 830.0, 941)
+    if illuminant is None or illuminant is illuminant_d65:
+        spd = illuminant_d65_np(lam)
+    else:
+        spd = illuminant(torch.as_tensor(lam, dtype=torch.float32)).numpy()
+    xyz = np.sum(cie_xyz_np(lam) * spd[:, None], axis=0)
+    return xyz[:2] / xyz.sum()

@@ -1,7 +1,8 @@
 """ULP stepping of float32 values (port of the NextFloatUp / NextFloatDown
-pair of pbrt_tpu/core/floats.py; float.h in the reference renderer), and
-the error-free product behind the watertight triangle test's edge
-functions (`two_prod`, `difference_of_products`).
+pair of pbrt_tpu/core/floats.py; float.h in the reference renderer), the
+error bound `gamma`, the error-free sum and product (`two_sum`,
+`two_prod`; `two_prod` is behind the watertight triangle test's edge
+functions, `difference_of_products`) and the Kahan-compensated sum.
 
 The step works on the float's bits viewed as int32: for a non-negative
 float the next one up is bits + 1, for a negative one bits - 1, which is
@@ -38,8 +39,17 @@ import numpy as np
 import torch
 
 
+MACHINE_EPSILON = float(np.finfo(np.float32).eps) * 0.5
+
+
 def _f32(f) -> torch.Tensor:
     return torch.as_tensor(f, dtype=torch.float32)
+
+
+def gamma(n) -> torch.Tensor:
+    """Conservative floating-point error bound factor (float.h gamma(n))."""
+    n = _f32(n)
+    return n * MACHINE_EPSILON / (1.0 - n * MACHINE_EPSILON)
 
 
 def next_float_up(f) -> torch.Tensor:
@@ -60,6 +70,14 @@ def next_float_down(f) -> torch.Tensor:
     b = f0.view(torch.int32)
     down = torch.where(f0 > 0.0, b - 1, b + 1).view(torch.float32)
     return torch.where(torch.isneginf(f), f, down)
+
+
+def two_sum(a, b):
+    """Error-free sum: a + b = s + err exactly (math.h TwoSum)."""
+    s = a + b
+    delta = s - a
+    err = (a - (s - delta)) + (b - delta)
+    return s, err
 
 
 def _dekker_split(a):
@@ -89,6 +107,21 @@ def difference_of_products(a, b, c, d):
     p1, e1 = two_prod(a, b)
     p2, e2 = two_prod(c, d)
     return (p1 - p2) + (e1 - e2)
+
+
+def compensated_sum(values, axis=0) -> torch.Tensor:
+    """Kahan-compensated float32 sum along `axis` (math.h CompensatedSum):
+    a sequential scan, for sums whose bits must not depend on how a
+    reduction is blocked."""
+    values = torch.movedim(_f32(values), axis, 0)
+    s = values.new_zeros(values.shape[1:])
+    c = values.new_zeros(values.shape[1:])
+    for v in values:
+        y = v - c
+        t = s + y
+        c = (t - s) - y
+        s = t
+    return s
 
 
 def grad_flows(*xs) -> bool:

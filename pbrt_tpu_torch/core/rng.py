@@ -37,6 +37,16 @@ def _mul(a, b):
     return (lo + hi) & _M32
 
 
+def hash_u32(x):
+    """lowbias32 finalizer (Wellons): uint32 -> well-mixed uint32 (int64)."""
+    x = _u32(x)
+    x = x ^ (x >> 16)
+    x = _mul(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
 def pcg4d(a, b, c, d):
     """4D -> 4D hash; returns four decorrelated uint32 streams (int64)."""
     v0, v1, v2, v3 = _u32(a), _u32(b), _u32(c), _u32(d)
@@ -75,3 +85,7 @@ def uniform_1d(pixel, sample, dim, seed=0):
 def uniform_2d(pixel, sample, dim, seed=0):
     v0, v1, _, _ = pcg4d(pixel, sample, dim, seed)
     return u32_to_uniform(v0), u32_to_uniform(v1)
+
+
+def uniform_4d(pixel, sample, dim, seed=0):
+    return tuple(u32_to_uniform(v) for v in pcg4d(pixel, sample, dim, seed))

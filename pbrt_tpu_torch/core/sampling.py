@@ -1,6 +1,7 @@
 """Sampling warps and tabulated distributions (port of core/sampling.py:
-the warps the path integrator and the lights use, PiecewiseConstant1D/2D
-and WindowedPiecewiseConstant2D)."""
+the warps and their inverses, the MIS heuristics, SampleDiscrete,
+PiecewiseConstant1D/2D, WindowedPiecewiseConstant2D, VarianceEstimator
+and WeightedReservoirSampler)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 from .tensorclass import tensorclass
 
 INV_PI = 1.0 / math.pi
+INV_2PI = 1.0 / (2.0 * math.pi)
 
 
 def sample_uniform_disk_concentric(u):
@@ -41,6 +43,16 @@ def cosine_hemisphere_pdf(cos_theta):
     return cos_theta * INV_PI
 
 
+def sample_uniform_hemisphere(u):
+    z = u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+UNIFORM_HEMISPHERE_PDF = INV_2PI
+
+
 def sample_uniform_sphere(u):
     z = 1.0 - 2.0 * u[..., 0]
     r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
@@ -61,12 +73,32 @@ def sample_uniform_triangle(u):
     return torch.stack([b0, b1, 1.0 - b0 - b1], dim=-1)
 
 
+def invert_uniform_triangle(b):
+    """The inverse of sample_uniform_triangle: barycentrics -> [0,1]^2."""
+    b0, b1 = b[..., 0], b[..., 1]
+    flip = b0 < b1  # where u0 < u1 in the forward map
+    u0 = torch.where(flip, 2.0 * b0, b0 + b1)
+    u1 = torch.where(flip, b1 + b0, 2.0 * b1)
+    return torch.stack([u0, u1], dim=-1)
+
+
+def sample_exponential(u, a):
+    """t with pdf a exp(-a t) on [0, inf)."""
+    return -torch.log(torch.clamp(1.0 - u, min=1e-38)) / a
+
+
 def power_heuristic(nf, f_pdf, ng, g_pdf):
     """Veach's beta=2 power heuristic (sampling.h PowerHeuristic)."""
     f = nf * f_pdf
     g = ng * g_pdf
     w = f * f / torch.clamp(f * f + g * g, min=1e-38)
     return torch.where(f_pdf > 0.0, w, 0.0)
+
+
+def balance_heuristic(nf, f_pdf, ng, g_pdf):
+    f = nf * f_pdf
+    g = ng * g_pdf
+    return torch.where(f > 0.0, f / torch.clamp(f + g, min=1e-38), 0.0)
 
 
 def sample_uniform_cone(u, cos_theta_max):
@@ -112,6 +144,42 @@ def _cumsum_f32(x: np.ndarray, axis: int = -1) -> np.ndarray:
         out = (inner + before[..., None]).reshape(
             x.shape[:-1] + (m * _SCAN_BLOCK,))[..., :n]
     return np.moveaxis(out, -1, axis)
+
+
+def _cumsum_last(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 prefix sum along the last axis of a tensor, in
+    XLA's CPU order (`_cumsum_f32`'s, on the tensor's device)."""
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        cols = [x[..., 0]]
+        for i in range(1, n):
+            cols.append(cols[-1] + x[..., i])
+        return torch.stack(cols, dim=-1)
+    m = -(-n // _SCAN_BLOCK)
+    pad = x.new_zeros(x.shape[:-1] + (m * _SCAN_BLOCK - n,))
+    blocks = torch.cat([x, pad], -1).reshape(x.shape[:-1] + (m, _SCAN_BLOCK))
+    inner = _cumsum_last(blocks)
+    before = _cumsum_last(inner[..., -1])[..., :-1]
+    before = torch.cat([before.new_zeros(before.shape[:-1] + (1,)), before], -1)
+    out = (inner + before[..., None]).reshape(x.shape[:-1] + (m * _SCAN_BLOCK,))
+    return out[..., :n]
+
+
+def sample_discrete(weights, u):
+    """An index drawn from unnormalized weights along the last axis
+    (SampleDiscrete, sampling.h:72). Returns (index, pmf, u_remapped)."""
+    total = torch.sum(weights, dim=-1, keepdim=True)
+    cdf = _cumsum_last(weights) / torch.clamp(total, min=1e-38)
+    below = u[..., None] >= cdf
+    idx = torch.clamp(torch.sum(below.to(torch.int32), dim=-1),
+                      max=weights.shape[-1] - 1).to(torch.int64)
+    pmf = _gather_last(weights, idx) / torch.clamp(total[..., 0], min=1e-38)
+    lo = torch.where(idx > 0, _gather_last(cdf, torch.clamp(idx - 1, min=0)),
+                     0.0)
+    hi = _gather_last(cdf, idx)
+    u_new = torch.clamp((u - lo) / torch.clamp(hi - lo, min=1e-9), 0.0,
+                        1.0 - 1e-7)
+    return idx, pmf, u_new
 
 
 def _gather_last(table, idx):
@@ -330,3 +398,71 @@ class WindowedPiecewiseConstant2D:
                   & (p[..., 1] >= b[..., 2]) & (p[..., 1] <= b[..., 3]))
         return torch.where(inside & (bint > 0.0),
                            f / torch.clamp(bint, min=1e-38), 0.0)
+
+
+@tensorclass
+class VarianceEstimator:
+    """Welford's online mean and variance (sampling.h VarianceEstimator)."""
+
+    mean: torch.Tensor
+    s: torch.Tensor
+    n: torch.Tensor  # int32
+
+    @staticmethod
+    def zeros(shape=(), dtype=torch.float32, device="cpu") -> "VarianceEstimator":
+        z = torch.zeros(shape, dtype=dtype, device=device)
+        return VarianceEstimator(
+            mean=z, s=z, n=torch.zeros(shape, dtype=torch.int32, device=device))
+
+    def add(self, x) -> "VarianceEstimator":
+        n = self.n + 1
+        delta = x - self.mean
+        mean = self.mean + delta / n.to(x.dtype)
+        s = self.s + delta * (x - mean)
+        return VarianceEstimator(mean=mean, s=s, n=n)
+
+    def variance(self):
+        return torch.where(self.n > 1,
+                           self.s / torch.clamp(self.n - 1, min=1), 0.0)
+
+
+@tensorclass
+class WeightedReservoirSampler:
+    """Streaming weighted reservoir over batched lanes (sampling.h:82):
+    candidates come one at a time, and each lane keeps one survivor with
+    probability proportional to its weight. `merge` combines two
+    reservoirs (the RIS / ReSTIR building block)."""
+
+    value: torch.Tensor  # (..., K) payload of the current survivor
+    weight_sum: torch.Tensor  # (...,) total weight seen
+    survivor_w: torch.Tensor  # (...,) the survivor's own weight
+
+    @staticmethod
+    def empty(shape, k, device="cpu") -> "WeightedReservoirSampler":
+        shape = tuple(shape)
+        return WeightedReservoirSampler(
+            value=torch.zeros(shape + (k,), dtype=torch.float32, device=device),
+            weight_sum=torch.zeros(shape, dtype=torch.float32, device=device),
+            survivor_w=torch.zeros(shape, dtype=torch.float32, device=device),
+        )
+
+    def add(self, value, weight, u) -> "WeightedReservoirSampler":
+        """Consider one candidate per lane; u: fresh uniforms."""
+        new_sum = self.weight_sum + torch.clamp(weight, min=0.0)
+        take = u * new_sum < weight
+        return WeightedReservoirSampler(
+            value=torch.where(take[..., None], value, self.value),
+            weight_sum=new_sum,
+            survivor_w=torch.where(take, weight, self.survivor_w),
+        )
+
+    def merge(self, other, u) -> "WeightedReservoirSampler":
+        """Combine two reservoirs: other's survivor is one candidate
+        carrying other's whole weight sum."""
+        new_sum = self.weight_sum + other.weight_sum
+        take = u * new_sum < other.weight_sum
+        return WeightedReservoirSampler(
+            value=torch.where(take[..., None], other.value, self.value),
+            weight_sum=new_sum,
+            survivor_w=torch.where(take, other.survivor_w, self.survivor_w),
+        )

@@ -8,6 +8,7 @@ package never reads.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import cie
@@ -16,6 +17,7 @@ from .tensorclass import tensorclass
 N_SPECTRUM_DEFAULT = 32
 LAMBDA_MIN = cie.LAMBDA_MIN
 LAMBDA_MAX = cie.LAMBDA_MAX
+_RANGE = LAMBDA_MAX - LAMBDA_MIN
 
 
 @tensorclass
@@ -57,6 +59,18 @@ def _visible_sample(u):
     return _VIS_MU + torch.atanh(float(_T0) + u * float(_T1 - _T0)) / _VIS_A
 
 
+def sample_uniform_hero(u, n_spectrum: int = N_SPECTRUM_DEFAULT):
+    """Hero-wavelength sampling: one uniform hero and n_spectrum - 1
+    rotated strata (SampledWavelengths::SampleUniform, spectrum.h:303).
+    u: (...,) uniforms -> SampledWavelengths of shape (..., n_spectrum)."""
+    lam0 = LAMBDA_MIN + u[..., None] * _RANGE
+    offsets = torch.arange(n_spectrum, dtype=lam0.dtype, device=u.device) * (
+        _RANGE / n_spectrum)
+    lam = lam0 + offsets
+    lam = torch.where(lam > LAMBDA_MAX, lam - _RANGE, lam)
+    return SampledWavelengths(lam=lam, pdf=torch.full_like(lam, 1.0 / _RANGE))
+
+
 def sample_visible(u, n_spectrum: int = N_SPECTRUM_DEFAULT):
     """Hero sampling with the visible-sensitivity importance distribution.
 
@@ -81,3 +95,41 @@ def to_xyz(values, wl: SampledWavelengths):
     cmf = cie.cie_xyz(wl.lam)  # (..., S, 3)
     integrand = safe_div(values, wl.pdf)[..., None] * cmf
     return torch.mean(integrand, dim=-2) / cie.CIE_Y_INTEGRAL
+
+
+def luminance(values, wl: SampledWavelengths):
+    y = cie.cie_y(wl.lam)
+    return torch.mean(safe_div(values, wl.pdf) * y, dim=-1) / cie.CIE_Y_INTEGRAL
+
+
+def average(values):
+    return torch.mean(values, dim=-1)
+
+
+# --- Spectra evaluated at sampled wavelengths ---------------------------------
+
+
+def constant(value, lam):
+    return torch.broadcast_to(
+        torch.as_tensor(value, device=lam.device)[..., None], lam.shape)
+
+
+def piecewise_linear(lams_table, vals_table, lam):
+    """A piecewise-linear spectrum at sampled wavelengths
+    (PiecewiseLinearSpectrum, spectrum.h:478): jnp.interp's rule, the
+    end values held outside the table."""
+    xp = torch.as_tensor(lams_table, dtype=torch.float32, device=lam.device)
+    fp = torch.as_tensor(vals_table, dtype=torch.float32, device=lam.device)
+    i = torch.clamp(torch.searchsorted(xp, lam, right=True), 1, len(xp) - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = lam - xp[i - 1]
+    dx0 = torch.abs(dx) <= float(np.spacing(np.finfo(np.float32).eps))
+    f = torch.where(dx0, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(lam < xp[0], fp[0], f)
+    return torch.where(lam > xp[-1], fp[-1], f)
+
+
+def blackbody_normalized(lam, temperature_k):
+    return cie.normalized_blackbody(lam, temperature_k)

@@ -125,6 +125,7 @@ from ..materials.buffers import (
 from ..media.medium import MED_VACUUM, MediumBuffers, MediumStack
 from ..models.path import PathIntegrator
 from ..models.volpath import VolPathIntegrator
+from ..native import tokenize_native
 from ..lights.envmap import EnvironmentMap
 from ..lights.portal import PortalLight
 from ..ops.sweep import build_sweep
@@ -161,7 +162,14 @@ INTEGRATORS = ("path", "simplepath", "volpath", "simplevolpath", "bdpt",
 
 def tokenize(text: str):
     """pbrt tokens: strings, brackets, numbers/identifiers; # comments.
-    (The reference's pure-Python tokenizer, its behavioural spec.)"""
+    The native C++ pass (native/tokenizer.cpp), built on first use; a
+    failed build raises. `tokenize_py` is its plain twin."""
+    return tokenize_native(text)
+
+
+def tokenize_py(text: str):
+    """tokenize in Python (the reference's pure-Python tokenizer, its
+    behavioural spec)."""
     toks = []
     i, n = 0, len(text)
     while i < n:

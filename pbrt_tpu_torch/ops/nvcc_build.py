@@ -59,6 +59,16 @@ def load_library(name: str) -> ctypes.CDLL:
     key = hashlib.sha256(
         src.read_bytes() + headers + "\0".join((nvcc, *NVCC_FLAGS)).encode()
     ).hexdigest()[:16]
+    lib = build_locked(name, key,
+                       lambda out: [nvcc, *NVCC_FLAGS, "-o", out, str(src)])
+    return ctypes.CDLL(str(lib))
+
+
+def build_locked(name: str, key: str, command) -> Path:
+    """`_build/<name>-<key>.so`, made by `command(output_path)` if it is
+    missing, under a file lock so that concurrent builders make it once;
+    the output is written to a temporary name and renamed into place. A
+    failed build raises with the compiler's output."""
     BUILD_DIR.mkdir(exist_ok=True)
     lib = BUILD_DIR / f"{name}-{key}.so"
     if not lib.exists():
@@ -66,16 +76,17 @@ def load_library(name: str) -> ctypes.CDLL:
             fcntl.flock(lock, fcntl.LOCK_EX)
             if not lib.exists():
                 tmp = BUILD_DIR / f"{name}-{key}.{os.getpid()}.tmp"
-                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+                cmd = command(str(tmp))
                 t0 = time.perf_counter()
                 proc = subprocess.run(cmd, capture_output=True, text=True)
                 if proc.returncode != 0:
                     raise RuntimeError(
-                        f"nvcc failed (exit {proc.returncode}): "
-                        f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                        f"{os.path.basename(cmd[0])} failed (exit "
+                        f"{proc.returncode}): {' '.join(cmd)}\n"
+                        f"{proc.stdout}{proc.stderr}"
                     )
                 os.replace(tmp, lib)
                 BUILD_LOG[name] = (
                     time.perf_counter() - t0, proc.stdout + proc.stderr
                 )
-    return ctypes.CDLL(str(lib))
+    return lib

@@ -1,12 +1,17 @@
-"""Differentiable rendering: image loss, its gradients and one SGD step.
+"""Differentiable rendering: image loss, its gradients and one SGD step,
+on one device or sharded over a device mesh (port of
+pbrt_tpu/parallel/train.py).
 
-Port of the single-device part of pbrt_tpu/parallel/train.py. The
-inverse-rendering training step renders a batch of pixels, compares it
+The inverse-rendering training step renders a batch of pixels, compares it
 with a target image and differentiates the loss with respect to
 continuous scene parameters (albedo sigmoid coefficients, light emission
 scales, texels, the dielectric's IOR) through the integrator's gradient
-estimator (models/path.py). The reference's pixel sharding and gradient
-all-reduce over a device mesh are not ported (ROADMAP Queue 1 item 15).
+estimator (models/path.py). Over a mesh the pixels and the target are
+split into contiguous shards, one per mesh device, and the scene is
+replicated; each shard's loss is its squared error over the global pixel
+count, so the shards' losses and gradients sum to the one-device ones.
+The sums run in mesh order on the mesh's first device, where the
+parameters are updated (the reference's gradient psum).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from ..models.path import DEFAULT_TRAINABLE
 from ..models.path import get_leaf as _get_path
 from ..models.path import with_leaves as _set_paths
 from ..render import camera_rays
+from .mesh import Mesh, one_process, replicate, shard_pixels
 
 __all__ = ["DEFAULT_TRAINABLE", "render_loss_and_grad", "training_step"]
 
@@ -55,30 +61,82 @@ def render_loss_and_grad(scene, camera, integrator, pixel, target_rgb,
 def training_step(scene, camera, integrator, pixel, target_rgb, sample_idx=0,
                   seed=0, lr: float = 1e-2, trainable=DEFAULT_TRAINABLE, *,
                   mesh=None, n_spectrum: int = spectrum.N_SPECTRUM_DEFAULT):
-    """One SGD step on scene parameters on one device. Returns (loss,
-    new_scene) with each trainable leaf p replaced by p - lr * grad.
+    """One SGD step on scene parameters. Returns (loss, new_scene) with
+    each trainable leaf p replaced by p - lr * grad.
 
-    The scene (and so its parameters) stays on its device; pixel and
-    target_rgb are moved there. A device mesh (the reference's first
-    argument: pixel sharding and the gradient psum) raises: multi-device
-    training waits for torch.distributed (ROADMAP Queue 1 item 15).
+    Without a mesh it runs on the device of the scene's tensors; pixel,
+    target_rgb and a sample_idx tensor are moved there. With a mesh
+    (parallel/mesh.py) pixel, target_rgb and a per-pixel sample_idx are
+    sharded over it and the scene replicated; the loss and the gradients
+    are summed in mesh order on the mesh's first device, and the new
+    scene lives there.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "training_step over a device mesh is not ported yet (ROADMAP "
-            "Queue 1 item 15); call it without one"
-        )
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
+        return _mesh_step(scene, camera, integrator, pixel, target_rgb,
+                          sample_idx, seed, lr, trainable, one_process(mesh),
+                          n_spectrum)
     dev = _get_path(scene, trainable[0]).device
     camera = camera.to(dev)
     pixel = torch.as_tensor(pixel, device=dev)
     target_rgb = torch.as_tensor(target_rgb, dtype=torch.float32, device=dev)
+    if isinstance(sample_idx, torch.Tensor):
+        sample_idx = sample_idx.to(dev)
     loss, grads = render_loss_and_grad(
         scene, camera, integrator, pixel, target_rgb, sample_idx, seed,
         trainable=trainable, n_spectrum=n_spectrum,
     )
+    return loss, _sgd(scene, grads, lr, trainable)
+
+
+def _sgd(scene, grads, lr, trainable):
     with torch.no_grad():
-        new_scene = _set_paths(
+        return _set_paths(
             scene, {p: _get_path(scene, p).detach() - lr * grads[p]
                     for p in trainable}
         )
-    return loss, new_scene
+
+
+def _shard_loss_and_grads(scene, camera, integrator, pixel, target_rgb,
+                         sample_idx, seed, n_total, trainable, n_spectrum):
+    """One shard's part of the mesh loss, sum((rgb - target)^2) / n_total
+    with n_total the global count of target values, and its gradients,
+    on the shard's device."""
+    params = {p: _get_path(scene, p).detach().requires_grad_(True)
+              for p in trainable}
+    with torch.enable_grad():
+        s = _set_paths(scene, params)
+        rgb = _render_pixels(s, camera, integrator, pixel, sample_idx, seed,
+                             n_spectrum)
+        loss = torch.sum((rgb - target_rgb) ** 2) / n_total
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True, materialize_grads=True)
+    return loss.detach(), dict(zip(params, grads))
+
+
+def _mesh_step(scene, camera, integrator, pixel, target_rgb, sample_idx,
+               seed, lr, trainable, mesh, n_spectrum):
+    pixel = torch.as_tensor(pixel)
+    target_rgb = torch.as_tensor(target_rgb, dtype=torch.float32)
+    pixels = shard_pixels(pixel, mesh)
+    targets = shard_pixels(target_rgb, mesh)
+    if isinstance(sample_idx, torch.Tensor) and sample_idx.ndim:
+        samples = shard_pixels(sample_idx, mesh)
+    else:
+        samples = [sample_idx] * mesh.local_size
+    parts = [
+        _shard_loss_and_grads(sc, cam, integrator, pix, tgt, smp, seed,
+                             target_rgb.numel(), trainable, n_spectrum)
+        for sc, cam, pix, tgt, smp in zip(replicate(scene, mesh),
+                                          replicate(camera, mesh), pixels,
+                                          targets, samples)
+    ]
+    first = mesh.devices[0]
+    loss = parts[0][0].to(first)
+    grads = {p: parts[0][1][p].to(first) for p in trainable}
+    for part_loss, part_grads in parts[1:]:
+        loss = loss + part_loss.to(first)
+        grads = {p: grads[p] + part_grads[p].to(first) for p in trainable}
+    return loss, _sgd(scene.to(first), grads, lr, trainable)

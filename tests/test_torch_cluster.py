@@ -7,6 +7,12 @@ through any permutation, and a model of its triangle-parallel reduction.
 The kernel itself is held against the twin on a card by
 tests/test_torch_cuda.py.
 
+The Pallas kernel's answers in interpret mode are committed
+(tests/data/torch_port/reference_answers.npz, made from this file's inputs by
+scripts/make_torch_port_golden_answers.py): a digest of the rays and of
+the reference's cluster tables, both built live here, must equal the one
+stored beside them.
+
 The reference gates clusters per tile of 1024 rays and the port per ray;
 the two can differ only where a slab test's rounding and the triangle test
 disagree at a box face. The gates below count such rays (>= 99.9% must
@@ -23,7 +29,6 @@ import torch
 from pbrt_tpu.accel.api import ray_sort_perm as jax_ray_sort_perm
 from pbrt_tpu.accel.api import resolve_tri_attrs as jax_resolve_tri_attrs
 from pbrt_tpu.accel.bvh import morton_order as jax_morton_order
-from pbrt_tpu.ops.cluster import _cluster_intersect_impl
 from pbrt_tpu.ops.cluster import build_clusters as jax_build_clusters
 from pbrt_tpu.shapes.geometry import GeometryBuffers as JGeometryBuffers
 from pbrt_tpu_torch.accel.api import ray_sort_perm, resolve_tri_attrs
@@ -40,14 +45,15 @@ from pbrt_tpu_torch.ops.cluster import (
 from pbrt_tpu_torch.scenes.meshes import fbm_blob
 from pbrt_tpu_torch.shapes.geometry import GeometryBuffers
 
+from .torch_port_helpers import flatten_jax, inputs_digest, reference_answers
+
 torch.set_num_threads(2)
 N_KIND = 256  # rays of each kind; 4 kinds -> 1024 rays
 MODES = {"closest": {}, "any_hit": {"any_hit": True},
          "closest_attrs": {"defer_attrs": False}}
 
 
-@pytest.fixture(scope="module")
-def mesh():
+def build_mesh():
     """fbm_blob(5): 20,480 triangles -> 160 clusters in 5 supers, so the
     super-level culling runs; mixed material and light ids."""
     tris = fbm_blob(5)
@@ -59,9 +65,20 @@ def mesh():
 
 
 @pytest.fixture(scope="module")
+def mesh():
+    return build_mesh()
+
+
+@pytest.fixture(scope="module")
 def accels(mesh):
     jacc = jax_build_clusters(*mesh)
     return jacc, build_clusters(*mesh)
+
+
+def pallas_inputs_digest(jacc, o, d, tmax):
+    """The digest of the reference's cluster tables and the rays that the
+    committed Pallas answers were computed from."""
+    return inputs_digest(flatten_jax(jacc)[0], dict(o=o, d=d, tmax=tmax))
 
 
 def _rays():
@@ -106,10 +123,9 @@ def test_twin_matches_pallas_interpret(accels, any_hit):
     o, d, tmax = _rays()
     # Closest mode: the reference's non-deferred call gives t and prim (the
     # same as the deferred call's) and the in-kernel attributes at once.
-    want = _cluster_intersect_impl(
-        jacc, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax),
-        any_hit=any_hit, interpret=True, defer_attrs=False,
-    )
+    mode = "any_hit" if any_hit else "closest"
+    want = reference_answers(f"k2/{mode}",
+                             pallas_inputs_digest(jacc, o, d, tmax))
     args = (torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tmax))
     jp = np.asarray(want["prim"])
     hits = jp >= 0

@@ -1156,3 +1156,28 @@ def test_cli_box_on_card_equals_render_file(card, tmp_path):
     want = render_file(scene, camera, settings, spp=4, samples_per_pass=2,
                        device=card).cpu().numpy()
     assert np.array_equal(img, want)
+
+
+def test_mesh_on_card_matches_one_device_and_cpu(card):
+    """A mesh of two shards on the card: the tile-sharded Cornell box
+    (16x16, 4 spp, depth 3, 8 lanes) bit-equal to the one-device image,
+    K1 launched 7 times a shard, and the CPU's image on >= 99% of values
+    within rtol 1e-3 / atol 1e-5 (the file's card-against-CPU gate)."""
+    from pbrt_tpu_torch.parallel.mesh import make_mesh
+    from pbrt_tpu_torch.parallel.render import render_tile_sharded
+
+    scene, camera = cornell_box(resolution=(16, 16))
+    scene = scene.with_accel()
+    integ = PathIntegrator(max_depth=3)
+    kw = dict(spp=4, n_spectrum=8, samples_per_pass=4)
+    STATS.reset()
+    two = render_tile_sharded(scene, camera, integ,
+                              make_mesh(devices=[card, card]), **kw)
+    assert STATS.launches == 2 * 7
+    one = render_tile_sharded(scene, camera, integ, make_mesh(devices=[card]),
+                              **kw)
+    assert torch.equal(two, one) and two.device.type == "cuda"
+    cpu = render_tile_sharded(scene, camera, integ,
+                              make_mesh(devices=["cpu"]), **kw)
+    share, n_bad = _share_close(two.cpu().numpy(), cpu.numpy())
+    assert share >= 0.99, n_bad

@@ -4,7 +4,11 @@ refraction, f, pdf and sampling (smooth and rough, wo on both sides, eta
 below and above 1, total internal reflection), the side-dependent IOR of
 surface_params with the exit hits of rays inside a sphere, and per-sample
 renders of spheres.pbrt, dielectric.pbrt and the mesh gallery (subdiv 1)
-at 16x16, 2 spp.
+at 16x16, 2 spp. The reference's per-sample traces are committed
+(tests/data/torch_port/reference_answers.npz, made by
+scripts/make_torch_port_golden_answers.py from this file's inputs; the
+test checks a digest of the reference's scene, camera and settings,
+built live here).
 
 Tolerances: the Fresnel term, refraction and the thin slab within rtol
 1e-5 / atol 1e-6. The rough f and pdf at given directions within rtol
@@ -288,14 +292,22 @@ def test_golden_file_traces_like_jax(name):
     and leave them through the far root."""
     js, jc, ps, pc, depth = _file_pair(name)
     assert ps.small is not None and ps.geom.num_spheres == 2
-    assert_samples_match(*trace_pair(js, jc, ps, pc, depth, res=16, spp=2))
+    assert_samples_match(*trace_pair(f"trace/{name}", js, jc, ps, pc, depth,
+                                     res=16, spp=2))
 
 
 def test_mesh_gallery_traces_like_jax():
     """The glass torus: the dielectric's side from the triangles' winding,
     on the cluster tier (K2's twin); the reference with its dense tester."""
-    js, jc = jax_mesh_gallery(resolution=(16, 16), subdiv=1)
+    js, jc = gallery_reference_inputs()
     ps, pc = mesh_gallery_scene(resolution=(16, 16), subdiv=1)
     assert ps.clusters is not None and ps.shaded_kinds == {0, 1, 2}
-    assert_samples_match(*trace_pair(js.replace(clusters=None), jc, ps, pc,
+    assert_samples_match(*trace_pair("trace/mesh_gallery", js, jc, ps, pc,
                                      5, res=16, spp=2))
+
+
+def gallery_reference_inputs():
+    """The reference's mesh gallery at 16x16, subdiv 1, without its
+    clusters (its dense tester answers)."""
+    js, jc = jax_mesh_gallery(resolution=(16, 16), subdiv=1)
+    return js.replace(clusters=None), jc

@@ -4,7 +4,11 @@ radiance, MIS pdf and NEE samples through LightBuffers, the parser's
 "infinite" forms (a square image, a portal over an image, a portal over
 the constant L), and the renders of the golden files spot.pbrt and
 envmap.pbrt at 16x16, 4 spp, against the reference's renders (its small
-tier answers on the CPU with its dense tester).
+tier answers on the CPU with its dense tester). The reference's renders are committed
+(tests/data/torch_port/reference_answers.npz, made by
+scripts/make_torch_port_golden_answers.py from this file's inputs; the
+test checks a digest of the reference's scene, camera and settings,
+built live here).
 
 Tolerances: tables bit for bit; radiance, pdfs and sampled directions within rtol 1e-4 / atol 1e-6 (wi
 1e-5) on >= 99.5% of the lanes (a lane on a texel's edge may take its
@@ -26,7 +30,6 @@ from pbrt_tpu.io.parser import load_pbrt_string as jax_load_pbrt_string
 from pbrt_tpu.lights import portal as jportal
 from pbrt_tpu.lights.buffers import LightBuffers as JLightBuffers
 from pbrt_tpu.lights.envmap import EnvironmentMap as JEnvironmentMap
-from pbrt_tpu.render import render as jax_render
 from pbrt_tpu_torch.convert import scene_from_arrays
 from pbrt_tpu_torch.core import spectrum
 from pbrt_tpu_torch.io.parser import load_pbrt, load_pbrt_string
@@ -36,7 +39,12 @@ from pbrt_tpu_torch.lights.envmap import EnvironmentMap
 from pbrt_tpu_torch.render import render
 
 from .test_torch_parser import _assert_same_build
-from .torch_port_helpers import flatten_jax, share_close
+from .torch_port_helpers import (
+    flatten_jax,
+    reference_answers,
+    render_digest,
+    share_close,
+)
 
 torch.set_num_threads(2)
 N = 4096
@@ -209,18 +217,27 @@ def test_parser_infinite_forms(light, tmp_path, monkeypatch):
     _same_tables(converted, env)
 
 
+RENDER_KW = dict(spp=4, samples_per_pass=4, seed=0)
+
+
+def render_reference_inputs(name):
+    """The reference's scene, camera at 16x16 and integrator of a golden
+    file (render() with RENDER_KW renders them)."""
+    js, jc, jset = jax_load_pbrt(os.path.join("tests", "goldens", name))
+    return js, jc.replace(resolution=(16, 16)), jset["integrator"]
+
+
 @pytest.mark.parametrize("name", ["spot.pbrt", "envmap.pbrt"])
 def test_golden_file_renders_like_jax(name):
     """16x16, 4 spp of the golden file in both packages (the build itself
     is held bit for bit by tests/test_torch_parser.py)."""
-    path = os.path.join("tests", "goldens", name)
-    js, jc, jset = jax_load_pbrt(path)
-    ps, pc, pset = load_pbrt(path, device="cpu")
-    kw = dict(spp=4, samples_per_pass=4, seed=0)
-    want = np.asarray(jax_render(js, jc.replace(resolution=(16, 16)),
-                                 jset["integrator"], **kw))
+    js, jc, integ = render_reference_inputs(name)
+    ps, pc, pset = load_pbrt(os.path.join("tests", "goldens", name),
+                             device="cpu")
+    want = reference_answers(f"render/{name}", render_digest(
+        js, jc, integ, **RENDER_KW))["img"]
     got = render(ps, pc.replace(resolution=(16, 16)), pset["integrator"],
-                 n_spectrum=S, device="cpu", **kw).numpy()
+                 n_spectrum=S, device="cpu", **RENDER_KW).numpy()
     assert got.shape == want.shape == (16, 16, 3) and np.isfinite(got).all()
     assert got.mean() > 0.01
     share, n_bad = share_close(got, want, rtol=1e-3, atol=1e-5)

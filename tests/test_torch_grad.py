@@ -7,19 +7,18 @@ training_step.
 
 One jax.value_and_grad of the reference (its default grad_mode="remat",
 its dense tester answering the queries on the CPU) serves every
-comparison with the reference in this file.
+comparison with the reference in this file. Its answer is committed
+(tests/data/torch_port/reference_answers.npz, made by
+scripts/make_torch_port_golden_answers.py with jax_loss_and_grads); the
+fixture checks a digest of the reference's scene, camera and batch,
+built live here.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from pbrt_tpu.core.spectrum import N_SPECTRUM
-from pbrt_tpu.films.rgb import spectrum_to_rgb as jax_spectrum_to_rgb
-from pbrt_tpu.models.path import PathIntegrator as JPathIntegrator
-from pbrt_tpu.render import camera_rays as jax_camera_rays
 from pbrt_tpu.scenes.cornell import cornell_box as jax_cornell_box
 from pbrt_tpu_torch.accel import api as accel_api
 from pbrt_tpu_torch.core.take import take
@@ -34,7 +33,12 @@ from pbrt_tpu_torch.parallel.train import (
 from pbrt_tpu_torch.render import camera_rays
 from pbrt_tpu_torch.scenes.cornell import cornell_box
 
-from .torch_port_helpers import port_scene_and_camera
+from .torch_port_helpers import (
+    inputs_digest,
+    port_scene_and_camera,
+    reference_answers,
+    tree_inputs,
+)
 
 torch.set_num_threads(2)
 
@@ -55,9 +59,41 @@ def _batch(res=RES, spp=SPP):
 @pytest.fixture(scope="module")
 def reference():
     """The reference's bench loss and gradients (bench.py
-    _cornell_fwdbwd's loss_fn) on Cornell 8x8, 2 spp, depth 5, no RR."""
+    _cornell_fwdbwd's loss_fn) on Cornell 8x8, 2 spp, depth 5, no RR:
+    jax_loss_and_grads' answer, committed, for the scene built here."""
+    js, jc = reference_inputs()
+    want = reference_answers("grad/cornell8", reference_digest(js, jc))
+    return {
+        "port": port_scene_and_camera(js, jc),
+        "loss": float(want["loss"]),
+        "materials.albedo_coeffs": want["albedo_coeffs"],
+        "lights.area_scale": want["area_scale"],
+    }
+
+
+def reference_inputs():
     js, jc = jax_cornell_box(resolution=(RES, RES))
-    js = js.with_accel()
+    return js.with_accel(), jc
+
+
+def reference_digest(js, jc) -> str:
+    pixel, sample = _batch()
+    return inputs_digest(tree_inputs(js), tree_inputs(jc), dict(
+        pixel=pixel, sample=sample, depth=np.asarray(DEPTH),
+        n_spectrum=np.asarray(N_SPECTRUM)))
+
+
+def jax_loss_and_grads(js, jc) -> dict:
+    """One jax.value_and_grad of the reference's loss, jitted (its default
+    grad_mode="remat", its dense tester answering the queries on the
+    CPU): {"loss", "albedo_coeffs", "area_scale"}."""
+    import jax
+    import jax.numpy as jnp
+
+    from pbrt_tpu.films.rgb import spectrum_to_rgb as jax_spectrum_to_rgb
+    from pbrt_tpu.models.path import PathIntegrator as JPathIntegrator
+    from pbrt_tpu.render import camera_rays as jax_camera_rays
+
     pixel, sample = _batch()
     jpix, jsam = jnp.asarray(pixel), jnp.asarray(sample)
     integ = JPathIntegrator(max_depth=DEPTH, rr_start_depth=DEPTH)
@@ -74,12 +110,8 @@ def reference():
 
     loss, (ga, gs) = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1)))(
         js.materials.albedo_coeffs, js.lights.area_scale)
-    return {
-        "port": port_scene_and_camera(js, jc),
-        "loss": float(loss),
-        "materials.albedo_coeffs": np.asarray(ga),
-        "lights.area_scale": np.asarray(gs),
-    }
+    return {"loss": np.asarray(loss), "albedo_coeffs": np.asarray(ga),
+            "area_scale": np.asarray(gs)}
 
 
 def _port_loss_and_grad(scene, camera, integrator=None):

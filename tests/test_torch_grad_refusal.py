@@ -8,7 +8,8 @@ img_flat and conductor roughness. Each estimator (remat, cvjp with every
 replay_remat, attached) and each of the hair, subsurface, measured, mix
 and retroreflective families answers, held against the reference's
 gradients in committed goldens (scripts/make_torch_port_golden_grad.py).
-Under torch.no_grad() the render is what it was without a request."""
+Under torch.no_grad() the render is what it was without a request. The
+training step runs over a device mesh too."""
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 
 from pbrt_tpu_torch.io.parser import load_pbrt
 from pbrt_tpu_torch.models.path import PathIntegrator
+from pbrt_tpu_torch.parallel.mesh import make_mesh
 from pbrt_tpu_torch.parallel.train import render_loss_and_grad, training_step
 from pbrt_tpu_torch.render import camera_rays_full, render
 from pbrt_tpu_torch.scenes.cornell import cornell_box
@@ -80,11 +82,26 @@ def test_trace_with_a_grad_request_raises(cornell8, which):
 
 
 def test_training_step_over_a_mesh_raises(cornell8):
+    """Training over a device mesh is ported (item 15c,
+    tests/test_torch_parallel.py): a mesh of two CPU entries steps as one
+    device within rtol 2e-4 (the loss is summed shard by shard); what
+    raises is a mesh that is not a parallel.mesh.Mesh."""
     scene, camera = cornell8
     pixel = torch.arange(64)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        training_step(scene, camera, PathIntegrator(max_depth=5), pixel,
-                      torch.zeros((64, 3)), mesh=object())
+    args = (scene, camera, PathIntegrator(max_depth=5), pixel,
+            torch.zeros((64, 3)))
+    loss_m, new_m = training_step(*args, mesh=make_mesh(devices=["cpu"] * 2),
+                                  n_spectrum=8)
+    loss_1, new_1 = training_step(*args, n_spectrum=8)
+    np.testing.assert_allclose(float(loss_m), float(loss_1), rtol=1e-5)
+    for part, name in (("materials", "albedo_coeffs"),
+                       ("lights", "area_scale")):
+        np.testing.assert_allclose(
+            getattr(getattr(new_m, part), name).numpy(),
+            getattr(getattr(new_1, part), name).numpy(), rtol=2e-4,
+            atol=1e-7)
+    with pytest.raises(TypeError, match="Mesh"):
+        training_step(*args, mesh=object())
 
 
 def test_no_grad_renders_as_without_a_request(cornell8):

@@ -23,6 +23,7 @@ from pbrt_tpu_torch.materials.buffers import (
     MaterialBuffers,
 )
 from pbrt_tpu_torch.models.path import PathIntegrator
+from pbrt_tpu_torch.parallel.mesh import make_mesh
 from pbrt_tpu_torch.parallel.train import training_step
 from pbrt_tpu_torch.render import camera_rays, camera_rays_full, render
 from pbrt_tpu_torch.samplers.samplers import Sampler
@@ -71,7 +72,11 @@ def test_import_loads_no_jax():
         "pbrt_tpu_torch.tools.format_scene, pbrt_tpu_torch.tools.plytool, "
         "pbrt_tpu_torch.tools.lenstool, pbrt_tpu_torch.tools.pspec, "
         "pbrt_tpu_torch.tools.cyhair2pbrt, "
-        "pbrt_tpu_torch.tools.nanovdb2pbrt; "
+        "pbrt_tpu_torch.tools.nanovdb2pbrt, pbrt_tpu_torch.parallel, "
+        "pbrt_tpu_torch.parallel.mesh, pbrt_tpu_torch.parallel.render, "
+        "pbrt_tpu_torch.parallel.multiprocess, "
+        "pbrt_tpu_torch.parallel.mp_worker, pbrt_tpu_torch.native; "
+        "pbrt_tpu_torch.native.tokenize_native('Shape [1]'); "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pbrt_tpu' or m.startswith('pbrt_tpu.')]; "
         "sys.exit(1 if bad else 0)"
@@ -136,6 +141,17 @@ def _light_bvh_gradient():
     PathIntegrator().trace(scene, o, d, wl, pixel, 0, 0)
 
 
+def _mesh_step_then_a_card_mesh():
+    scene, camera = cornell_box(resolution=(2, 2))
+    args = (scene.with_accel(), camera, PathIntegrator(max_depth=3),
+            torch.arange(4), torch.zeros(4, 3))
+    loss_m, _ = training_step(*args, mesh=make_mesh(devices=["cpu"] * 2),
+                              n_spectrum=8)
+    loss_1, _ = training_step(*args, n_spectrum=8)
+    assert abs(float(loss_m) - float(loss_1)) <= 1e-5 * abs(float(loss_1))
+    make_mesh()
+
+
 def _gallery_with_torus_kind(kind):
     scene, _ = mesh_gallery_scene(resolution=(8, 8), subdiv=1)
     kinds = scene.materials.kind.clone()
@@ -168,9 +184,10 @@ def _value_error(build, match):
 
 
 @pytest.mark.parametrize("build", [
-    # Training over a device mesh waits for torch.distributed (item 15).
-    lambda: training_step(*cornell_box(resolution=(2, 2)), PathIntegrator(),
-                          torch.arange(4), torch.zeros(4, 3), mesh=object()),
+    # Training over a device mesh is ported (item 15c): a mesh of CPU
+    # entries steps as one device; a mesh of cards without a card raises
+    # (nothing falls back to the CPU).
+    _raises(_mesh_step_then_a_card_mesh, RuntimeError, "no CUDA device"),
     # Every shape family, shape alpha and moving instance is ported
     # (tests/test_torch_shapes.py, test_torch_alpha.py,
     # test_torch_motion.py), and every camera and film (item 14,

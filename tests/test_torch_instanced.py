@@ -8,7 +8,11 @@ flattened into world space (its CPU path without an accelerator):
 jit-compiling its path integrator around the Pallas sweep kernel in
 interpret mode took most of this file's time, and the twin and
 resolve_tri_attrs_inst are held against that kernel and the reference's
-instanced resolution in tests/test_torch_sweep.py. Then a window of the
+instanced resolution in tests/test_torch_sweep.py. The reference's pass
+is committed (tests/data/torch_port/reference_answers.npz,
+scripts/make_torch_port_golden_answers.py); the fixture checks a digest
+of its flattened scene, camera and integrator, built live here. Then a
+window of the
 committed JAX golden of the full-size field (rendered by the reference
 through its sweep kernel), rendered by the port.
 
@@ -18,23 +22,19 @@ The whole 64x64 golden is compared on the card (chip_smoke.py phase d3).
 import os
 import tempfile
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from pbrt_tpu.core.spectrum import N_SPECTRUM
-from pbrt_tpu.films.rgb import spectrum_to_rgb as jax_spectrum_to_rgb
 from pbrt_tpu.io.parser import load_pbrt_string as jax_load_pbrt_string
-from pbrt_tpu.render import camera_rays_full as jax_camera_rays
 from pbrt_tpu.shapes.geometry import GeometryBuffers as JGeometryBuffers
 from pbrt_tpu_torch.films.rgb import spectrum_to_rgb
 from pbrt_tpu_torch.io.parser import load_pbrt_string
 from pbrt_tpu_torch.ops import sweep
 from pbrt_tpu_torch.render import camera_rays_full, render
 
-from .torch_port_helpers import share_close
+from .torch_port_helpers import reference_trace, share_close
 from .torch_port_instanced import (
     FULL,
     SMALL,
@@ -80,35 +80,37 @@ def traced():
     """The reference's and the port's per-sample radiance and ray counts on
     the same pixels and samples (one pass of SPP samples), with the small
     prototypes."""
-    with tempfile.TemporaryDirectory() as tmp:
-        write_field_meshes("pbrt_tpu_torch", tmp, SMALL)
-        js, jc, jset = jax_load_pbrt_string(field_text(), tmp)
-        ps, pc, pset = load_pbrt_string(field_text(), tmp, device="cpu")
-    assert js.sweep.instanced and ps.sweep.instanced
+    (js, jc, j_integ), (ps, pc, pset) = load_pair()
+    assert ps.sweep.instanced
     assert ps.small is None and ps.clusters is None
-    js = _flattened(js)
     assert js.geom.num_triangles == 4 + 18 * (1280 + 720)
-    jc = jc.replace(resolution=(RES, RES))
+    want = reference_trace("trace/instanced12", js, jc, j_integ, RES, SPP)
+    jL, jrgb = want["L"], want["rgb"]
     pc = pc.replace(resolution=(RES, RES))
     npix = RES * RES
     pixel = np.tile(np.arange(npix, dtype=np.int32), SPP)
     sample = np.repeat(np.arange(SPP, dtype=np.int32), npix)
-    jpix, jsam = jnp.asarray(pixel), jnp.asarray(sample)
-    o, d, wl, _ = jax_camera_rays(jc, jpix, jsam, 0)
-    j_integ = jset["integrator"]
-    trace = jax.jit(lambda s, o, d, wl: j_integ.trace_with_stats(
-        s, o, d, wl, jpix, jsam, 0))
-    jL, jstats = trace(js, o, d, wl)
-    jrgb = np.asarray(jax_spectrum_to_rgb(jL, wl))
-
     tpix, tsam = torch.from_numpy(pixel), torch.from_numpy(sample)
     po, pd, pwl, _ = camera_rays_full(pc, tpix, tsam, 0, n_spectrum=N_SPECTRUM)
     sweep.STATS.reset()
     pL, pstats = pset["integrator"].trace_with_stats(ps, po, pd, pwl, tpix,
                                                      tsam, 0)
     assert sweep.STATS.launches == 0  # the CPU path takes the twin
-    return ((np.asarray(jL), float(jstats["rays"]), jrgb),
+    return ((jL, float(want["rays"]), jrgb),
             (pL, float(pstats["rays"])), (ps, pc, pset))
+
+
+def load_pair():
+    """The field with the small prototypes through both parsers: the
+    reference's scene flattened (its dense tester answers), its camera at
+    RES and its integrator; the port's scene, camera and settings."""
+    with tempfile.TemporaryDirectory() as tmp:
+        write_field_meshes("pbrt_tpu_torch", tmp, SMALL)
+        js, jc, jset = jax_load_pbrt_string(field_text(), tmp)
+        ps, pc, pset = load_pbrt_string(field_text(), tmp, device="cpu")
+    assert js.sweep.instanced
+    return ((_flattened(js), jc.replace(resolution=(RES, RES)),
+             jset["integrator"]), (ps, pc, pset))
 
 
 def test_trace_with_stats_per_sample(traced):

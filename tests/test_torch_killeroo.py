@@ -7,6 +7,10 @@ reference answers its queries with its dense tester, its CPU path for a
 scene without an accelerator: jit-compiling its path integrator around
 the Pallas cluster kernel in interpret mode took most of this file's time,
 and the twin is held against that kernel in tests/test_torch_cluster.py.
+The reference's pass is committed (tests/data/torch_port/
+reference_answers.npz, scripts/make_torch_port_golden_answers.py); the
+fixture checks a digest of its scene, camera and integrator, built live
+here.
 
 The same samples also go through the BVH tier (K4's twin, the cluster
 tier dropped), against the same reference answers.
@@ -15,22 +19,18 @@ The full 122,244-triangle scene is rendered against the committed JAX
 golden on the card only (chip_smoke.py phases d2 and d4).
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from pbrt_tpu.core.spectrum import N_SPECTRUM
-from pbrt_tpu.films.rgb import spectrum_to_rgb as jax_spectrum_to_rgb
 from pbrt_tpu.models.path import PathIntegrator as JPathIntegrator
-from pbrt_tpu.render import camera_rays_full as jax_camera_rays
 from pbrt_tpu_torch.accel.bvh import build_bvh
 from pbrt_tpu_torch.models.path import PathIntegrator
 from pbrt_tpu_torch.ops import cluster, traverse
 from pbrt_tpu_torch.render import camera_rays_full, render
 
-from .torch_port_helpers import share_close
+from .torch_port_helpers import reference_trace, share_close
 from .torch_port_killeroo import small_killeroo_class_scene
 
 torch.set_num_threads(2)
@@ -41,22 +41,14 @@ RES, SPP = 12, 2
 def traced():
     """The reference's and the port's per-sample radiance and ray counts on
     the same pixels and samples (one pass of SPP samples)."""
-    js, jc = small_killeroo_class_scene("pbrt_tpu", (RES, RES))
-    js = js.replace(clusters=None)
+    want = reference_trace("trace/killeroo12", *reference_inputs(), RES, SPP)
+    jL, jrgb = want["L"], want["rgb"]
     ps, pc = small_killeroo_class_scene("pbrt_tpu_torch", (RES, RES))
     assert ps.clusters is not None
     assert ps.small is None and ps.lights.has_infinite
     npix = RES * RES
     pixel = np.tile(np.arange(npix, dtype=np.int32), SPP)
     sample = np.repeat(np.arange(SPP, dtype=np.int32), npix)
-    jpix, jsam = jnp.asarray(pixel), jnp.asarray(sample)
-    o, d, wl, _ = jax_camera_rays(jc, jpix, jsam, 0)
-    j_integ = JPathIntegrator(max_depth=5)
-    trace = jax.jit(lambda s, o, d, wl: j_integ.trace_with_stats(
-        s, o, d, wl, jpix, jsam, 0))
-    jL, jstats = trace(js, o, d, wl)
-    jrgb = np.asarray(jax_spectrum_to_rgb(jL, wl))
-
     tpix, tsam = torch.from_numpy(pixel), torch.from_numpy(sample)
     po, pd, pwl, _ = camera_rays_full(pc, tpix, tsam, 0, n_spectrum=N_SPECTRUM)
     cluster.STATS.reset()
@@ -64,7 +56,14 @@ def traced():
         ps, po, pd, pwl, tpix, tsam, 0
     )
     assert cluster.STATS.launches == 0  # the CPU path takes the twin
-    return (np.asarray(jL), float(jstats["rays"]), jrgb), (pL, float(pstats["rays"])), (ps, pc)
+    return (jL, float(want["rays"]), jrgb), (pL, float(pstats["rays"])), (ps, pc)
+
+
+def reference_inputs():
+    """The reference's scene without its clusters (its dense tester
+    answers), camera and integrator."""
+    js, jc = small_killeroo_class_scene("pbrt_tpu", (RES, RES))
+    return js.replace(clusters=None), jc, JPathIntegrator(max_depth=5)
 
 
 def _pixels_and_samples():

@@ -1,13 +1,18 @@
 """K1's plain twin against the Pallas kernel (interpret mode on the CPU), and
 the wrapper's dispatch by device. The kernel itself is held against the
-twin on a card by tests/test_torch_cuda.py."""
+twin on a card by tests/test_torch_cuda.py.
+
+The Pallas kernel's answers in interpret mode are committed
+(tests/data/torch_port/reference_answers.npz, made from this file's inputs by
+scripts/make_torch_port_golden_answers.py): a digest of the rays and of
+the reference's triangle table, both built live here, must equal the one
+stored beside them."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from pbrt_tpu.ops.smallscene import _smallscene_intersect_impl
 from pbrt_tpu.render import camera_rays_full as jax_camera_rays
 from pbrt_tpu.scenes.cornell import cornell_box as jax_cornell_box
 from pbrt_tpu_torch.ops.smallscene import (
@@ -16,6 +21,8 @@ from pbrt_tpu_torch.ops.smallscene import (
     smallscene_intersect,
     smallscene_intersect_ref,
 )
+
+from .torch_port_helpers import inputs_digest, reference_answers
 
 torch.set_num_threads(2)
 
@@ -40,8 +47,7 @@ def _rays(jcam, n_each=128):
     return o, d, tmax
 
 
-@pytest.fixture(scope="module")
-def case():
+def build_case():
     scene, cam = jax_cornell_box(resolution=(16, 16))
     table = np.array(scene.with_accel().small.table)
     accel = SmallTriAccel(table=torch.from_numpy(table), n_tris=table.shape[0])
@@ -50,13 +56,24 @@ def case():
     return accel, jaccel, o, d, tmax
 
 
+@pytest.fixture(scope="module")
+def case():
+    return build_case()
+
+
+def pallas_inputs_digest(jaccel, o, d, tmax):
+    """The digest of the reference's triangle table and the rays that the
+    committed Pallas answers were computed from."""
+    return inputs_digest(dict(table=np.asarray(jaccel.table)),
+                         dict(o=o, d=d, tmax=tmax))
+
+
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_twin_matches_pallas_interpret(case, any_hit):
     accel, jaccel, o, d, tmax = case
-    want = _smallscene_intersect_impl(
-        jaccel, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax),
-        any_hit=any_hit, interpret=True,
-    )
+    mode = "any_hit" if any_hit else "closest"
+    want = reference_answers(f"k1/{mode}",
+                             pallas_inputs_digest(jaccel, o, d, tmax))
     got = smallscene_intersect_ref(
         accel, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tmax),
         any_hit=any_hit,

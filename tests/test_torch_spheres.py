@@ -3,7 +3,11 @@ stepping and interval arithmetic bit for bit, the interval-arithmetic
 sphere test, the sphere merges of closest / any-hit, and the golden scene
 file conductor.pbrt (two conductor spheres over a diffuse floor under a
 triangle area light) built and rendered. chip_smoke.py phase d5 renders
-that file on the card against the pbrt-v4 C++ golden.
+that file on the card against the pbrt-v4 C++ golden. The reference's renders are committed
+(tests/data/torch_port/reference_answers.npz, made by
+scripts/make_torch_port_golden_answers.py from this file's inputs; the
+test checks a digest of the reference's scene, camera and settings,
+built live here).
 """
 
 import jax.numpy as jnp
@@ -19,7 +23,6 @@ from pbrt_tpu.core.spectrum import N_SPECTRUM
 from pbrt_tpu.io.parser import load_pbrt as jax_load_pbrt
 from pbrt_tpu.lights.buffers import LightBuffers as JLightBuffers
 from pbrt_tpu.materials.buffers import MaterialBuffers as JMaterialBuffers
-from pbrt_tpu.render import render as jax_render
 from pbrt_tpu.scene import Scene as JScene
 from pbrt_tpu.shapes.geometry import GeometryBuffers as JGeometryBuffers
 from pbrt_tpu_torch.accel import api, dense
@@ -32,10 +35,12 @@ from pbrt_tpu_torch.render import render
 from pbrt_tpu_torch.scene import Scene
 from pbrt_tpu_torch.shapes.geometry import GeometryBuffers, make_quad
 
-from .torch_port_helpers import share_close
+from .torch_port_helpers import reference_answers, render_digest, share_close
 
 torch.set_num_threads(2)
 CONDUCTOR = "tests/goldens/conductor.pbrt"
+# conductor.pbrt's render against the reference (at 12x12).
+CONDUCTOR_KW = dict(spp=2, samples_per_pass=2, seed=0)
 # Two spheres and a floor, the conductor scene's layout.
 SPHERES = np.array([[-0.8, 0.6, 0.0, 0.6], [0.8, 0.6, 0.0, 0.6]], np.float32)
 
@@ -185,6 +190,13 @@ def test_closest_and_any_hit_merge_spheres():
         js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax))))
 
 
+def conductor_reference_inputs(loaded=None):
+    """The reference's conductor.pbrt scene, camera at 12x12 and
+    integrator (render() with CONDUCTOR_KW renders them)."""
+    js, jc, jset = loaded or jax_load_pbrt(CONDUCTOR)
+    return js, jc.replace(resolution=(12, 12)), jset["integrator"]
+
+
 @pytest.fixture(scope="module")
 def conductor():
     return jax_load_pbrt(CONDUCTOR), load_pbrt(CONDUCTOR, device="cpu")
@@ -195,11 +207,10 @@ def test_conductor_file_renders_like_jax(conductor):
     held bit for bit by tests/test_torch_parser.py)."""
     (js, jc, jset), (ps, pc, pset) = conductor
     assert ps.geom.num_spheres == 2 and ps.small is not None
-    kw = dict(spp=2, samples_per_pass=2, seed=0)
-    want = np.asarray(jax_render(js, jc.replace(resolution=(12, 12)),
-                                 jset["integrator"], **kw))
+    want = reference_answers("render/conductor.pbrt", render_digest(
+        *conductor_reference_inputs((js, jc, jset)), **CONDUCTOR_KW))["img"]
     got = render(ps, pc.replace(resolution=(12, 12)), pset["integrator"],
-                 n_spectrum=N_SPECTRUM, device="cpu", **kw).numpy()
+                 n_spectrum=N_SPECTRUM, device="cpu", **CONDUCTOR_KW).numpy()
     assert got.shape == want.shape == (12, 12, 3) and np.isfinite(got).all()
     share, n_bad = share_close(got, want, rtol=1e-3, atol=1e-5)
     print(f"pixel values disagreeing with the reference: {n_bad}")

@@ -11,6 +11,12 @@ and clusters in order. The two can differ only where a slab test's
 rounding and the triangle test disagree at a box face, or on an exact t
 tie between two clusters: the gates count such rays (none, when they were
 written).
+
+The Pallas kernel's answers in interpret mode are committed
+(tests/data/torch_port/reference_answers.npz, made from this file's inputs by
+scripts/make_torch_port_golden_answers.py): a digest of the rays and of
+the reference's sweep tables, both built live here, must equal the one
+stored beside them.
 """
 
 import re
@@ -21,7 +27,6 @@ import pytest
 import torch
 
 from pbrt_tpu.accel.api import resolve_tri_attrs_inst as jax_resolve_inst
-from pbrt_tpu.ops.sweep import _sweep_intersect_impl
 from pbrt_tpu.ops.sweep import build_sweep as jax_build_sweep
 from pbrt_tpu.shapes.geometry import GeometryBuffers as JGeometryBuffers
 from pbrt_tpu_torch.accel.api import resolve_tri_attrs_inst
@@ -37,7 +42,7 @@ from pbrt_tpu_torch.ops.sweep import (
 from pbrt_tpu_torch.scenes.meshes import fbm_blob
 from pbrt_tpu_torch.shapes.geometry import GeometryBuffers, make_quad
 
-from .torch_port_helpers import flatten_jax
+from .torch_port_helpers import flatten_jax, inputs_digest, reference_answers
 
 torch.set_num_threads(2)
 N_KIND = 256  # rays of each kind; 4 kinds -> 1024 rays
@@ -52,8 +57,7 @@ def _o2w(delta, angle, s):
     return m.numpy()
 
 
-@pytest.fixture(scope="module")
-def builds():
+def build_sweeps():
     """Two sweep builds of a floor quad and fbm_blob(3) (1,280 triangles,
     10 clusters): instanced (the floor as the identity root instance, four
     blob instances, one under a non-uniform scale) and not (everything in
@@ -75,6 +79,17 @@ def builds():
                       build_sweep(tris, **inst)),
         "flat": (tris, jax_build_sweep(tris), build_sweep(tris)),
     }
+
+
+@pytest.fixture(scope="module")
+def builds():
+    return build_sweeps()
+
+
+def pallas_inputs_digest(jacc, o, d, tmax):
+    """The digest of the reference's sweep tables and the rays that the
+    committed Pallas answers were computed from."""
+    return inputs_digest(flatten_jax(jacc)[0], dict(o=o, d=d, tmax=tmax))
 
 
 def _rays():
@@ -128,9 +143,9 @@ def test_tables_bit_equal(builds, kind):
 def test_twin_matches_pallas_interpret(builds, kind, any_hit):
     _, jacc, acc = builds[kind]
     o, d, tmax = _rays()
-    want = _sweep_intersect_impl(jacc, jnp.asarray(o), jnp.asarray(d),
-                                 jnp.asarray(tmax), any_hit=any_hit,
-                                 interpret=True)
+    mode = "any_hit" if any_hit else "closest"
+    want = reference_answers(f"k3/{kind}-{mode}",
+                             pallas_inputs_digest(jacc, o, d, tmax))
     got = sweep_intersect_ref(acc, torch.from_numpy(o), torch.from_numpy(d),
                               torch.from_numpy(tmax), any_hit=any_hit)
     assert set(got) == set(want) == {"t", "prim", "inst"}

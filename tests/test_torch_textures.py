@@ -18,7 +18,11 @@ unconverged, where the trajectory depends on the last bit: the
 reference's own numpy and jitted fits differ there by up to 0.92 (7 of
 4,096 lanes of these inputs), the port's and the jitted by up to 0.997
 (8 lanes). Renders: the same ray count and >= 99% of per-sample values
-within rtol 1e-3 / atol 1e-5.
+within rtol 1e-3 / atol 1e-5. The reference's per-sample traces are committed
+(tests/data/torch_port/reference_answers.npz, made by
+scripts/make_torch_port_golden_answers.py from this file's inputs; the
+test checks a digest of the reference's scene, camera and settings,
+built live here).
 """
 
 import os
@@ -249,10 +253,16 @@ def test_golden_file_traces_like_jax(name):
     """16x16, 2 spp per sample: a checkerboard floor and a scaled
     checkerboard sphere (two levels, spherical uv), and a PFM image over a
     pow2 MIP pyramid; the albedo fit runs for every ray of every bounce."""
-    path = os.path.join(GOLDENS, name)
-    js, jc, jset = jax_load_pbrt(path)
-    ps, pc, pset = load_pbrt(path, device="cpu")
+    js, jc, depth = file_reference_inputs(name)
+    ps, pc, pset = load_pbrt(os.path.join(GOLDENS, name), device="cpu")
     assert ps.textures is not None and ps.small is not None
-    depth = pset["integrator"].max_depth
-    assert_samples_match(*trace_pair(js.replace(small=None), jc, ps, pc,
-                                     depth, res=16, spp=2))
+    assert depth == pset["integrator"].max_depth
+    assert_samples_match(*trace_pair(f"trace/{name}", js, jc, ps, pc, depth,
+                                     res=16, spp=2))
+
+
+def file_reference_inputs(name):
+    """The reference's scene (its small tier dropped, so its dense tester
+    answers), camera and depth of a golden file."""
+    js, jc, jset = jax_load_pbrt(os.path.join(GOLDENS, name))
+    return js.replace(small=None), jc, jset["integrator"].max_depth
