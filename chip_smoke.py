@@ -5434,8 +5434,7 @@ def phase_multiprocess(smi: str) -> dict:
                        "--nprocs", str(nprocs), "--pid", str(pid),
                        "--local-devices", "2", "--mode", "both",
                        "--res", str(MP_RES), "--spp", str(MP_SPP),
-                       "--n-spectrum", "8", "--samples-per-pass",
-                       str(MP_SPP), "--device", "cuda:0",
+                       "--n-spectrum", "8", "--device", "cuda:0",
                        "--timeout", str(MP_TIMEOUT_S),
                        "--out", os.path.join(tmp, name)]
                 if backend:

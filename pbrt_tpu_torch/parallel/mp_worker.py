@@ -3,17 +3,18 @@ pbrt_tpu/parallel/mp_worker.py).
 
     python -m pbrt_tpu_torch.parallel.mp_worker --coordinator HOST:PORT \\
         --nprocs N --pid I [--local-devices 2] [--mode render|train|both] \\
-        [--res 16] [--spp 4] [--n-spectrum 32] [--samples-per-pass 1] \\
-        [--device cuda|cuda:K|cpu] [--backend B] [--threads T] --out PREFIX
+        [--res 16] [--spp 4] [--n-spectrum 32] \\
+        [--device cuda|cuda:K|cpu] [--backend B] --out PREFIX
 
 Each of the N processes joins the process group (parallel/multiprocess.py)
 with --local-devices mesh entries: `cpu` or `cuda:K` repeated, or for
 `cuda` (the default) the process's cards in turn. It renders the Cornell
 box (PathIntegrator(max_depth=3), K1's tier) pixel-sharded over the
 global mesh and/or takes one training step against a flat 0.25 target,
-and writes `<PREFIX>.<pid>.npz`: the image and its seconds (the first
-render, kernel builds included), the loss and gradients, the mesh size,
-the backend and this process's K1 launches. The backend
+tracing a shard's spp samples in one wave, and writes
+`<PREFIX>.<pid>.npz`: the image and its seconds (the first render,
+kernel builds included), the loss and gradients, the mesh size, the
+backend and this process's K1 launches. The backend
 defaults to NCCL on a card and gloo on the CPU. Any failure exits with a
 non-zero code.
 """
@@ -45,21 +46,15 @@ def main(argv=None) -> None:
     ap.add_argument("--res", type=int, default=16)
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--n-spectrum", type=int, default=32)
-    ap.add_argument("--samples-per-pass", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default=None)
-    ap.add_argument("--threads", type=int, default=0,
-                    help="torch CPU threads (0: torch's default)")
     ap.add_argument("--timeout", type=float, default=300.0)
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
 
     import numpy as np
-    import torch
     import torch.distributed as dist
 
-    if args.threads:
-        torch.set_num_threads(args.threads)
     from pbrt_tpu_torch.models.path import PathIntegrator
     from pbrt_tpu_torch.ops.smallscene import STATS
     from pbrt_tpu_torch.parallel.multiprocess import (
@@ -82,8 +77,7 @@ def main(argv=None) -> None:
         integ = PathIntegrator(max_depth=3)
         out = dict(nprocs=args.nprocs, ndev=mesh.size,
                    backend=dist.get_backend())
-        kw = dict(n_spectrum=args.n_spectrum,
-                  samples_per_pass=args.samples_per_pass)
+        kw = dict(n_spectrum=args.n_spectrum, samples_per_pass=args.spp)
         STATS.reset()
         if args.mode in ("render", "both"):
             t0 = time.perf_counter()

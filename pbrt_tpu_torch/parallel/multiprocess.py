@@ -31,10 +31,11 @@ import torch
 import torch.distributed as dist
 
 from ..core import spectrum
-from ..models.path import get_leaf, with_leaves
+from ..models.path import get_leaf
 from ..render import check_device
 from .mesh import Mesh, replicate, shard_pixels
 from .render import accumulate, render_tile_shards
+from .train import loss_and_grad
 
 TRAIN_LEAVES = {"albedo_coeffs": "materials.albedo_coeffs",
                 "area_scale": "lights.area_scale"}
@@ -111,23 +112,6 @@ def render_multiprocess(scene, camera, integrator, mesh: Mesh | None = None,
     return _gather_rows(local).cpu().numpy().reshape(ny, nx, 3)
 
 
-def _shard_partials(scene, camera, integrator, pixel, target, spp, seed,
-                    n_total, n_spectrum, samples_per_pass) -> torch.Tensor:
-    """One shard's [loss, grad of each TRAIN_LEAVES leaf] as one flat
-    vector on its device."""
-    params = {p: get_leaf(scene, p).detach().requires_grad_(True)
-              for p in TRAIN_LEAVES.values()}
-    with torch.enable_grad():
-        s = with_leaves(scene, params)
-        rgb = accumulate(s, camera, integrator, pixel, range(spp), seed,
-                         n_spectrum, samples_per_pass) / spp
-        loss = torch.sum((rgb - target) ** 2) / n_total
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True, materialize_grads=True)
-    return torch.cat([loss.detach().reshape(1)]
-                     + [g.reshape(-1) for g in grads])
-
-
 def train_step_multiprocess(scene, camera, integrator, target_rgb,
                             mesh: Mesh | None = None, spp: int = 1,
                             seed: int = 0,
@@ -146,12 +130,18 @@ def train_step_multiprocess(scene, camera, integrator, target_rgb,
         npix, 3)
     pixels = shard_pixels(torch.arange(npix, dtype=torch.int64), mesh)
     targets = shard_pixels(target, mesh)
-    local = torch.stack([
-        _shard_partials(sc, cam, integrator, pix, tgt, spp, seed, npix * 3,
-                        n_spectrum, samples_per_pass).to(comm_device())
-        for sc, cam, pix, tgt in zip(replicate(scene, mesh),
-                                     replicate(camera, mesh), pixels,
-                                     targets)])
+    rows = []
+    for sc, cam, pix, tgt in zip(replicate(scene, mesh),
+                                 replicate(camera, mesh), pixels, targets):
+        loss, grads = loss_and_grad(
+            sc, lambda s: accumulate(s, cam, integrator, pix, range(spp),
+                                     seed, n_spectrum, samples_per_pass) / spp,
+            tgt, TRAIN_LEAVES.values(), npix * 3)
+        # One shard's [loss, grad of each TRAIN_LEAVES leaf], flat.
+        rows.append(torch.cat([loss.reshape(1)] + [
+            grads[p].reshape(-1) for p in TRAIN_LEAVES.values()
+        ]).to(comm_device()))
+    local = torch.stack(rows)
     partials = _gather_rows(local)  # (mesh.size, K), global mesh order
     total = partials[0]
     for row in partials[1:]:

@@ -26,7 +26,8 @@ from ..models.path import with_leaves as _set_paths
 from ..render import camera_rays
 from .mesh import Mesh, one_process, replicate, shard_pixels
 
-__all__ = ["DEFAULT_TRAINABLE", "render_loss_and_grad", "training_step"]
+__all__ = ["DEFAULT_TRAINABLE", "loss_and_grad", "render_loss_and_grad",
+           "training_step"]
 
 
 def _render_pixels(scene, camera, integrator, pixel, sample_idx, seed,
@@ -37,25 +38,41 @@ def _render_pixels(scene, camera, integrator, pixel, sample_idx, seed,
     return spectrum_to_rgb(radiance, wl)  # (N, 3)
 
 
-def render_loss_and_grad(scene, camera, integrator, pixel, target_rgb,
-                         sample_idx, seed, trainable=DEFAULT_TRAINABLE,
-                         n_spectrum: int = spectrum.N_SPECTRUM_DEFAULT):
-    """L2 image loss and its gradients with respect to `trainable`, dotted
-    scene paths that the integrator's estimator differentiates (for the
-    path integrator, models/path.py TRAINABLE; a leaf outside it raises
-    NotImplementedError naming it). The queries are detached. Everything
-    runs on the device of the scene's tensors, where the gradients land
-    too. Returns (loss, {path: grad})."""
+def loss_and_grad(scene, render, target_rgb, trainable=DEFAULT_TRAINABLE,
+                  n_total: int | None = None):
+    """sum((render(scene') - target_rgb)^2) / n_total, with scene' the scene
+    whose `trainable` leaves are detached copies that require grad, and
+    its gradients with respect to them. n_total defaults to
+    target_rgb.numel() (the mean); a shard of a larger image passes the
+    global count, so that the shards' losses and gradients sum to the
+    whole image's. Returns (loss, {path: grad}) on the scene's device."""
     params = {p: _get_path(scene, p).detach().requires_grad_(True)
               for p in trainable}
+    if n_total is None:
+        n_total = target_rgb.numel()
     with torch.enable_grad():
-        s = _set_paths(scene, params)
-        rgb = _render_pixels(s, camera, integrator, pixel, sample_idx, seed,
-                             n_spectrum)
-        loss = torch.mean((rgb - target_rgb) ** 2)
+        rgb = render(_set_paths(scene, params))
+        loss = torch.sum((rgb - target_rgb) ** 2) / n_total
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True, materialize_grads=True)
     return loss.detach(), dict(zip(params, grads))
+
+
+def render_loss_and_grad(scene, camera, integrator, pixel, target_rgb,
+                         sample_idx, seed, trainable=DEFAULT_TRAINABLE,
+                         n_spectrum: int = spectrum.N_SPECTRUM_DEFAULT, *,
+                         n_total: int | None = None):
+    """L2 image loss of one sample a pixel (loss_and_grad) and its
+    gradients with respect to `trainable`, dotted scene paths that the
+    integrator's estimator differentiates (for the path integrator,
+    models/path.py TRAINABLE; a leaf outside it raises
+    NotImplementedError naming it). The queries are detached. Everything
+    runs on the device of the scene's tensors, where the gradients land
+    too. Returns (loss, {path: grad})."""
+    return loss_and_grad(
+        scene, lambda s: _render_pixels(s, camera, integrator, pixel,
+                                        sample_idx, seed, n_spectrum),
+        target_rgb, trainable, n_total)
 
 
 def training_step(scene, camera, integrator, pixel, target_rgb, sample_idx=0,
@@ -99,23 +116,6 @@ def _sgd(scene, grads, lr, trainable):
         )
 
 
-def _shard_loss_and_grads(scene, camera, integrator, pixel, target_rgb,
-                         sample_idx, seed, n_total, trainable, n_spectrum):
-    """One shard's part of the mesh loss, sum((rgb - target)^2) / n_total
-    with n_total the global count of target values, and its gradients,
-    on the shard's device."""
-    params = {p: _get_path(scene, p).detach().requires_grad_(True)
-              for p in trainable}
-    with torch.enable_grad():
-        s = _set_paths(scene, params)
-        rgb = _render_pixels(s, camera, integrator, pixel, sample_idx, seed,
-                             n_spectrum)
-        loss = torch.sum((rgb - target_rgb) ** 2) / n_total
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True, materialize_grads=True)
-    return loss.detach(), dict(zip(params, grads))
-
-
 def _mesh_step(scene, camera, integrator, pixel, target_rgb, sample_idx,
                seed, lr, trainable, mesh, n_spectrum):
     pixel = torch.as_tensor(pixel)
@@ -127,8 +127,9 @@ def _mesh_step(scene, camera, integrator, pixel, target_rgb, sample_idx,
     else:
         samples = [sample_idx] * mesh.local_size
     parts = [
-        _shard_loss_and_grads(sc, cam, integrator, pix, tgt, smp, seed,
-                             target_rgb.numel(), trainable, n_spectrum)
+        render_loss_and_grad(sc, cam, integrator, pix, tgt, smp, seed,
+                             trainable, n_spectrum,
+                             n_total=target_rgb.numel())
         for sc, cam, pix, tgt, smp in zip(replicate(scene, mesh),
                                           replicate(camera, mesh), pixels,
                                           targets, samples)

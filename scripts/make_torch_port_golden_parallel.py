@@ -13,13 +13,19 @@ wavelength lanes, seed 0.
   arange(256) twice, sample indices 0 and 1 (512 rays), a flat 0.25
   target; "step_loss", and "step_<leaf>" the updated albedo_coeffs (5, 3)
   and area_scale (2,), with "start_<leaf>" the values before the step,
-  so that start - step is the gradient.
+  so that start - step is the gradient;
+- the multi-process entry points run in this one process over the same
+  8-device mesh, with the inputs parallel/mp_worker.py gives them (4 spp,
+  a flat 0.25 target): "mp_img" from render_multiprocess, and "mp_loss",
+  "mp_albedo_coeffs" and "mp_area_scale" (the gradients) from
+  train_step_multiprocess.
 
 It writes tests/data/torch_port/parallel16.npz; tests/test_torch_parallel.py
 holds the port's render_tile_sharded, render_spp_sharded and
-training_step(mesh=...) on a CPU mesh of 8 against it.
+training_step(mesh=...) on a CPU mesh of 8 against it, and
+tests/test_torch_multiprocess.py the port's gloo workers.
 
-Usage (from the repository root, ~2 min):
+Usage (from the repository root, ~3 min):
     JAX_PLATFORMS=cpu PBRT_TPU_NSPECTRUM=8 python scripts/make_torch_port_golden_parallel.py
 """
 
@@ -35,7 +41,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 OUT = os.path.join(ROOT, "tests", "data", "torch_port", "parallel16.npz")
 GOLDEN = dict(resolution=16, max_depth=3, n_spectrum=8, seed=0, n_devices=8,
-              step_samples=2, target=0.25, lr=1.0)
+              step_samples=2, target=0.25, lr=1.0, mp_spp=4)
 
 
 def main() -> None:
@@ -51,6 +57,10 @@ def main() -> None:
     from pbrt_tpu.core.spectrum import N_SPECTRUM
     from pbrt_tpu.models.path import PathIntegrator
     from pbrt_tpu.parallel.mesh import make_mesh
+    from pbrt_tpu.parallel.multiprocess import (
+        render_multiprocess,
+        train_step_multiprocess,
+    )
     from pbrt_tpu.parallel.render import (
         render_spp_sharded,
         render_tile_sharded,
@@ -95,8 +105,19 @@ def main() -> None:
              new_scene.lights.area_scale)):
         out[f"start_{name}"] = np.asarray(old)
         out[f"step_{name}"] = np.asarray(new)
+    t0 = time.perf_counter()
+    out["mp_img"] = render_multiprocess(scene, camera, integ, mesh,
+                                        spp=g["mp_spp"], seed=g["seed"])
+    mp_target = np.full((npix, 3), g["target"], np.float32)
+    mp_loss, mp_grads = train_step_multiprocess(
+        scene, camera, integ, mp_target, mesh, spp=g["mp_spp"],
+        seed=g["seed"])
+    print(f"multi-process entry points {time.perf_counter() - t0:.1f} s")
+    out["mp_loss"] = np.asarray(mp_loss, np.float32)
+    for name, grad in mp_grads.items():
+        out[f"mp_{name}"] = np.asarray(grad)
     np.savez_compressed(OUT, **out)
-    for key in ("tile4", "tile8", "spp8"):
+    for key in ("tile4", "tile8", "spp8", "mp_img"):
         print(key, out[key].shape, float(out[key].mean()))
     print("loss", float(out["step_loss"]), "->", OUT)
 

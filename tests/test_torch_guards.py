@@ -149,6 +149,9 @@ def _mesh_step_then_a_card_mesh():
                               n_spectrum=8)
     loss_1, _ = training_step(*args, n_spectrum=8)
     assert abs(float(loss_m) - float(loss_1)) <= 1e-5 * abs(float(loss_1))
+    if torch.cuda.is_available():
+        assert all(d.type == "cuda" for d in make_mesh().devices)
+        pytest.skip("this machine has a CUDA device: make_mesh() is its cards")
     make_mesh()
 
 

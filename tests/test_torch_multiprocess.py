@@ -6,9 +6,19 @@ entries each), the gradients are identical on every rank of a layout
 and within rtol 2e-4 / atol 1e-7 of one process's (the partial sums
 group differently), and the loss within rtol 1e-5.
 
-Every layout is spawned once for the module, all at once (each process
-renders and takes the training step, one CPU thread each), with its own
-time limit; a rank that fails fails the spawn.
+And against the reference's own render_multiprocess and
+train_step_multiprocess with the same inputs (tests/data/torch_port/
+parallel16.npz, scripts/make_torch_port_golden_parallel.py: 16x16,
+depth 3, 8 lanes, 4 spp, a flat 0.25 target, on its 8-device CPU mesh):
+one process's image has at least 99% of its values within rtol 1e-3 /
+atol 1e-5, its loss is within rtol 1e-3 and its gradients within 1e-3
+of each tensor's largest entry.
+
+Every layout is spawned once for the module (each process renders and
+takes the training step, one CPU thread each), at most four processes at
+a time: the 1- and 2-process layouts and the failing rank together,
+then the 4-process layout; each group has its own time limit, and a
+rank that fails fails the spawn.
 """
 
 import os
@@ -20,9 +30,12 @@ import time
 import numpy as np
 import pytest
 
+from .torch_port_helpers import share_close
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LAYOUTS = (1, 2, 4)
-TIMEOUT_S = 240
+GOLDEN = os.path.join(REPO, "tests", "data", "torch_port", "parallel16.npz")
+GROUPS = ((1, 2), (4,))  # the layouts started together
+TIMEOUT_S = 120
 
 
 def _free_port():
@@ -43,8 +56,7 @@ def _start(nprocs, out, local_devices=2, extra=()):
              "--coordinator", f"127.0.0.1:{port}", "--nprocs", str(nprocs),
              "--pid", str(pid), "--local-devices", str(local_devices),
              "--mode", "both", "--res", "16", "--spp", "4",
-             "--n-spectrum", "8", "--samples-per-pass", "4",
-             "--device", "cpu", "--threads", "1", "--timeout", "120",
+             "--n-spectrum", "8", "--device", "cpu", "--timeout", "120",
              "--out", out, *extra],
             cwd=REPO, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE)
@@ -53,10 +65,10 @@ def _start(nprocs, out, local_devices=2, extra=()):
     return procs, out
 
 
-def _finish(procs, out, deadline):
-    """Wait for a layout's processes until `deadline`; kill them all if it
-    passes. Returns [(returncode, stderr)] and the loaded results of the
-    processes that wrote them."""
+def _finish(procs, out):
+    """Wait for a layout's processes for TIMEOUT_S; kill them all if it
+    passes. Returns [(returncode, stderr)]."""
+    deadline = time.monotonic() + TIMEOUT_S
     outs = []
     for p in procs:
         try:
@@ -77,20 +89,25 @@ def runs(tmp_path_factory):
     codes and errors of a layout whose one rank names an unknown
     backend."""
     tmp = tmp_path_factory.mktemp("mp")
-    started = {n: _start(n, str(tmp / f"r{n}")) for n in LAYOUTS}
-    started["bad"] = _start(1, str(tmp / "bad"),
-                            extra=("--backend", "no-such-backend"))
-    deadline = time.monotonic() + TIMEOUT_S
+    bad = _start(1, str(tmp / "bad"), extra=("--backend", "no-such-backend"))
+    every = list(bad[0])
     out = {}
-    for key, (procs, prefix) in started.items():
-        results = _finish(procs, prefix, deadline)
-        if key == "bad":
-            out[key] = results
-            continue
-        for rc, stderr in results:
-            assert rc == 0, stderr
-        out[key] = [dict(np.load(f"{prefix}.{pid}.npz"))
-                    for pid in range(key)]
+    try:
+        for group in GROUPS:
+            started = {n: _start(n, str(tmp / f"r{n}")) for n in group}
+            every += [p for procs, _ in started.values() for p in procs]
+            for n, (procs, prefix) in started.items():
+                for rc, stderr in _finish(procs, prefix):
+                    assert rc == 0, stderr
+                out[n] = [dict(np.load(f"{prefix}.{pid}.npz"))
+                          for pid in range(n)]
+            if "bad" not in out:
+                out["bad"] = _finish(*bad)
+    finally:
+        for p in every:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
     return out
 
 
@@ -133,3 +150,23 @@ def test_a_failing_rank_fails_the_run(runs):
     ((rc, stderr),) = runs["bad"]
     assert rc != 0
     assert "no-such-backend" in stderr or "backend" in stderr.lower(), stderr
+
+
+def test_one_process_matches_the_reference(runs):
+    """render_multiprocess and train_step_multiprocess against the
+    reference's, on the same inputs."""
+    got, want = runs[1][0], np.load(GOLDEN)
+    assert int(want["mp_spp"]) == 4 and int(want["n_spectrum"]) == 8
+    share, n_off = share_close(got["img"], want["mp_img"], rtol=1e-3,
+                               atol=1e-5)
+    assert share >= 0.99, (share, n_off)
+    np.testing.assert_allclose(got["img"].mean(), want["mp_img"].mean(),
+                               rtol=1e-3)
+    np.testing.assert_allclose(float(got["loss"]), float(want["mp_loss"]),
+                               rtol=1e-3)
+    for name in ("albedo_coeffs", "area_scale"):
+        ref = want[f"mp_{name}"]
+        scale = np.abs(ref).max()
+        assert scale > 0, name
+        np.testing.assert_allclose(got[name], ref, rtol=0, atol=1e-3 * scale,
+                                   err_msg=name)
