@@ -51,9 +51,29 @@ once. It never imports JAX.
 Phases:
   a   device: name, nvidia-smi name and power limit, torch/CUDA versions
   b   build: nvcc builds of K1 (csrc/smallscene.cu), K2 (csrc/cluster.cu),
-      K3 (csrc/sweep.cu) and K4 (csrc/traverse.cu), started together, with
-      their ptxas summaries (registers, shared memory and spills of every
-      template instance)
+      K3 (csrc/sweep.cu), K4 (csrc/traverse.cu) and the micro-benchmarks'
+      kernels (csrc/micro_pairs.cu, micro_mosaic.cu, micro_mosaic2.cu,
+      micro_dyn.cu, micro_entry.cu), started together, with their ptxas
+      summaries (registers, shared memory and spills of every template
+      instance)
+  m1  the micro-benchmarks (pbrt_tpu_torch/micro/, the ports of
+      scripts/micro/'s six pallas_calls) at the probes' full constants:
+      each module's timed run (the main path of `python -m
+      pbrt_tpu_torch.micro.<probe>`), its launches counted from zero;
+      then every kernel in every mode (micro_mosaic2 at n_it 1024)
+      against its plain version on the card, bit-equal with NaN equal
+      (micro_entry's accumulator scratch and its loop's own acc too),
+      with ms, ns per iteration, the plain version's ms and the bound.
+      Where the probe's inputs leave a mode's output saturated or
+      constant, a second comparison at the same shapes whose values are
+      finite and depend on the data: loop reduce and cond on an x whose
+      block max crosses 1e30, micro_dyn matmul_small over 24 iterations
+      (its acc overflows near 34), micro_entry mt_only, no_write, full
+      and while on a table whose triangles every ray hits. A comparison
+      with an output that is entirely non-finite counts for no mode, and
+      m1 fails unless every mode has one that counts. Last, the SASS of
+      micro_dyn keeps dynstore's global store and smemwrite's shared
+      store (more STG than dynload, more STS than smemread)
   d29 the render CLI (pbrt_tpu_torch.tools.pbrt_render.main, --device
       cuda) on box.pbrt (K1; 512 spp) and plymesh.pbrt (K2; 256 spp) at
       their own 64x64 in passes of 32: each EXR within d10's / d7's
@@ -443,7 +463,8 @@ Phases:
       launches in each
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
-  f   the kernels line (K1's launches those of e, e12's shapes box,
+  f   the kernels line (the six micro kernels' launches those of m1's
+      timed runs; K1's launches those of e, e12's shapes box,
       e13's cornell_lens, e14's io scenes, the loss and gradient calls
       of g8-g11, d29's box.pbrt, p1's sharded calls and p2's worker
       processes, K2's those of e2 and d29's
@@ -471,6 +492,23 @@ K3_SOURCE = "pbrt_tpu_torch/csrc/sweep.cu"
 K3_REPLACES = "pbrt_tpu/ops/sweep.py:308"
 K4_SOURCE = "pbrt_tpu_torch/csrc/traverse.cu"
 K4_REPLACES = "pbrt_tpu/ops/traverse.py:65"
+# The micro-benchmarks: kernels-line name -> (module, source, pallas_call).
+MICRO_KERNELS = {
+    "micro_pairs": ("micro_pairs", "pbrt_tpu_torch/csrc/micro_pairs.cu",
+                    "scripts/micro/micro_pairs.py:54"),
+    "micro_mosaic_loop": ("micro_mosaic",
+                          "pbrt_tpu_torch/csrc/micro_mosaic.cu",
+                          "scripts/micro/micro_mosaic.py:77"),
+    "micro_mosaic_dense": ("micro_mosaic",
+                           "pbrt_tpu_torch/csrc/micro_mosaic.cu",
+                           "scripts/micro/micro_mosaic.py:93"),
+    "micro_mosaic2": ("micro_mosaic2", "pbrt_tpu_torch/csrc/micro_mosaic2.cu",
+                      "scripts/micro/micro_mosaic2.py:57"),
+    "micro_dyn": ("micro_dyn", "pbrt_tpu_torch/csrc/micro_dyn.cu",
+                  "scripts/micro/micro_dyn.py:88"),
+    "micro_entry": ("micro_entry", "pbrt_tpu_torch/csrc/micro_entry.cu",
+                    "scripts/micro/micro_entry.py:105"),
+}
 GOLDEN_FILES = os.path.join(ROOT, "tests", "goldens")
 # The C++-golden phases: (phase, scene file, spp, samples per pass, bounds
 # on relative mean error, MSE and q95 cell error, the triangle kernel that
@@ -597,7 +635,8 @@ def phase_build():
 
     from pbrt_tpu_torch.ops import nvcc_build
 
-    names = ("smallscene", "cluster", "sweep", "traverse")
+    names = ("smallscene", "cluster", "sweep", "traverse", "micro_pairs",
+             "micro_mosaic", "micro_mosaic2", "micro_dyn", "micro_entry")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(nvcc_build.load_library, names))
@@ -5653,6 +5692,253 @@ def phase_native(dev) -> None:
         raise AssertionError(f"n1: {checks}")
 
 
+def _timed_once(fn):
+    """(fn(), its device milliseconds), one call between CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _micro_compare(label, got, want) -> tuple[float, bool]:
+    """Raise unless got and want (tensors or tuples of them) are bit-equal
+    with NaN equal. Return the largest absolute difference of their finite
+    entries (0.0), and whether every output has a finite entry."""
+    import torch
+
+    from pbrt_tpu_torch.micro import bits_equal
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err, finite = 0.0, True
+    for g, w in zip(got, want, strict=True):
+        if not bits_equal(g, w):
+            raise AssertionError(f"m1: {label} differs from its plain version")
+        fin = torch.isfinite(w)
+        if bool(fin.any()):
+            err = max(err, float((g[fin] - w[fin]).abs().max()))
+        else:
+            finite = False
+    return err, finite
+
+
+def _sass_stores(lib_path: str) -> dict:
+    """STG and STS counts of each micro_dyn instance in the built library
+    (cuobjdump -sass), by mode index."""
+    import re
+
+    from pbrt_tpu_torch.ops.nvcc_build import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, mode = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*dyn_kernelILi(\d+)ELi\d+E", line)
+        if m:
+            mode = int(m.group(1))
+            counts[mode] = {"STG": 0, "STS": 0}
+        elif "Function :" in line:
+            mode = None
+        elif mode is not None:
+            for op in ("STG", "STS"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[mode][op] += 1
+    return counts
+
+
+def phase_micro(dev) -> dict:
+    """m1: the micro-benchmarks at the probes' full constants. The main
+    path is each module's run() (what `python -m
+    pbrt_tpu_torch.micro.<probe>` times), with every launch counter set to
+    0 before and read after. Then each kernel in each mode against its
+    plain version on the card (those launches are not counted), the
+    bound of each call from its work (FP32 operations and bytes, the
+    modules' `work`) and the SASS check of micro_dyn's stores."""
+    import torch
+
+    from pbrt_tpu_torch.micro import (micro_dyn, micro_entry, micro_mosaic,
+                                      micro_mosaic2, micro_pairs)
+
+    t_phase = time.perf_counter()
+    stats = {"micro_pairs": micro_pairs.STATS,
+             "micro_mosaic_loop": micro_mosaic.LOOP_STATS,
+             "micro_mosaic_dense": micro_mosaic.DENSE_STATS,
+             "micro_mosaic2": micro_mosaic2.STATS,
+             "micro_dyn": micro_dyn.STATS, "micro_entry": micro_entry.STATS}
+    for st in stats.values():
+        st.reset()
+    runs = {m.__name__.rsplit(".", 1)[1]: m.run(dev)
+            for m in (micro_pairs, micro_mosaic, micro_mosaic2, micro_dyn,
+                      micro_entry)}
+    torch.cuda.synchronize()
+    launches = {name: st.launches for name, st in stats.items()}
+    main_seconds = time.perf_counter() - t_phase
+    if not all(launches.values()):
+        raise AssertionError(f"m1: a kernel was never launched: {launches}")
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    modes = {name: [] for name in stats}
+    checks = []  # the comparisons on inputs whose answers stay finite
+    counted = set()  # (kernel, mode) with a comparison that counts
+
+    def add(name, mode, ms, units, got, want, plain_ms, work):
+        bound = _bound(*work)
+        err, finite = _micro_compare(f"{name} {mode}", got, want)
+        if finite:
+            counted.add((name, mode))
+        modes[name].append({
+            "mode": mode, "ms": ms, "ns_per_iter": ms * 1e6 / units,
+            "plain_ms": plain_ms, "max_abs_err": err, "finite": finite,
+            **bound, "share_of_bound": bound["bound_ms"] / ms})
+
+    def check(name, mode, case, got, want):
+        err, finite = _micro_compare(f"{name} {mode} {case}", got, want)
+        if not finite:
+            raise AssertionError(f"m1: {name} {mode} {case}: an output is "
+                                 "entirely non-finite")
+        counted.add((name, mode))
+        checks.append({"kernel": name, "mode": mode, "case": case,
+                       "max_abs_err": err})
+
+    live, rays = (t(a) for a in micro_pairs.inputs())
+    got = micro_pairs.micro_pairs(live, rays)
+    want, plain_ms = _timed_once(lambda: micro_pairs.micro_pairs_ref(live,
+                                                                      rays))
+    count = int(want[2][0, 0])
+    add("micro_pairs", "pairs", runs["micro_pairs"][0]["ms"], max(count, 1),
+        got, want, plain_ms, micro_pairs.work(count))
+
+    x, y = (t(a) for a in micro_mosaic.inputs())
+    by_mode = {r["mode"]: r for r in runs["micro_mosaic"]}
+    g, n = micro_mosaic.GRID, micro_mosaic.N_IT
+    for mode in micro_mosaic.LOOP_MODES:
+        got = micro_mosaic.loop(x, mode=mode)
+        (want, taken), plain_ms = _timed_once(lambda: micro_mosaic.loop_ref(
+            x, mode=mode, return_taken=True))
+        add("micro_mosaic_loop", mode, by_mode[mode]["ms"], g * n, got, want,
+            plain_ms, micro_mosaic.loop_work(mode, taken=taken))
+    # Under the probe's ones the block max never reaches 1e30: reduce's
+    # answer is 0.5 n_it and cond's 0 whatever the max.
+    x_cross = t(micro_mosaic.crossing_inputs())
+    for mode in ("reduce", "cond"):
+        check("micro_mosaic_loop", mode, "crossing_inputs",
+              micro_mosaic.loop(x_cross, mode=mode),
+              micro_mosaic.loop_ref(x_cross, mode=mode))
+    got = micro_mosaic.dense(x, y)
+    want, plain_ms = _timed_once(lambda: micro_mosaic.dense_ref(x, y))
+    add("micro_mosaic_dense", "dense", by_mode["dense"]["ms"],
+        g * micro_mosaic.DENSE_N_IT, got, want, plain_ms,
+        micro_mosaic.dense_work())
+
+    x, tab = (t(a) for a in micro_mosaic2.inputs())
+    by_run = {(r["mode"], r["n_it"], r["body_reps"]): r
+              for r in runs["micro_mosaic2"]}
+    for mode, reps in (("nocond", 12), ("cond", 12), ("cond", 1), ("cond", 4),
+                       ("cond", 36)):
+        got = micro_mosaic2.micro_mosaic2(x, tab, mode=mode, n_it=1024,
+                                          body_reps=reps)
+        (want, taken), plain_ms = _timed_once(
+            lambda: micro_mosaic2.micro_mosaic2_ref(
+                x, tab, mode=mode, n_it=1024, body_reps=reps,
+                return_taken=True))
+        add("micro_mosaic2", f"{mode}_r{reps}",
+            by_run[(mode, 1024, reps)]["ms"], micro_mosaic2.GRID * 1024, got,
+            want, plain_ms, micro_mosaic2.work(mode, 1024, reps, taken=taken))
+
+    tab = t(micro_dyn.inputs())
+    by_mode = {r["mode"]: r for r in runs["micro_dyn"]}
+    for mode in micro_dyn.MODES:
+        got = micro_dyn.micro_dyn(tab, mode=mode)
+        want, plain_ms = _timed_once(lambda: micro_dyn.micro_dyn_ref(
+            tab, mode=mode))
+        add("micro_dyn", mode, by_mode[mode]["ms"],
+            micro_dyn.GRID * micro_dyn.N_IT, got, want, plain_ms,
+            micro_dyn.work(mode))
+    # matmul_small's acc grows about 11-fold an iteration and is NaN at
+    # 2048: over 24 iterations it is about 1e29.
+    check("micro_dyn", "matmul_small", "n_it 24",
+          micro_dyn.micro_dyn(tab, mode="matmul_small", n_it=24),
+          micro_dyn.micro_dyn_ref(tab, mode="matmul_small", n_it=24))
+    smemread = float(micro_dyn.micro_dyn(tab, mode="smemread"))
+    if smemread != 128.0 * (micro_dyn.GRID - 1):
+        raise AssertionError(f"m1: smemread {smemread}")
+
+    # The plain version runs while as full (a loop's bound is no
+    # operation of its own): one plain run serves both.
+    def entry_plain(tri, mode):
+        return micro_entry.micro_entry_ref(
+            tri, mode="full" if mode == "while" else mode, with_scratch=True)
+
+    tri = t(micro_entry.inputs())
+    by_mode = {r["mode"]: r for r in runs["micro_entry"]}
+    plain = {}
+    for mode in micro_entry.MODES:
+        got = micro_entry.micro_entry(tri, mode=mode, with_scratch=True)
+        if mode != "while":
+            plain[mode] = _timed_once(lambda: entry_plain(tri, mode))
+        want, plain_ms = plain["full" if mode == "while" else mode]
+        add("micro_entry", mode, by_mode[mode]["ms"],
+            micro_entry.GRID * micro_entry.N_ENT, got, want, plain_ms,
+            micro_entry.work(mode))
+    # The probe's table gives the rays no hit: mt_only's and no_write's
+    # acc are inf, and full's accumulator keeps its initial values.
+    tri = t(micro_entry.hits_inputs())
+    for mode in ("mt_only", "no_write", "full", "while"):
+        if mode != "while":
+            want = entry_plain(tri, mode)
+        check("micro_entry", mode, "hits_inputs",
+              micro_entry.micro_entry(tri, mode=mode, with_scratch=True),
+              want)
+    uncounted = [f"{name} {r['mode']}" for name, rows in modes.items()
+                 for r in rows if (name, r["mode"]) not in counted]
+    if uncounted:
+        raise AssertionError(f"m1: no comparison with finite outputs for "
+                             f"{uncounted}")
+
+    stores = _sass_stores(micro_dyn._library()._name)
+    dyn_mode = {m: k for k, m in enumerate(
+        ("staticload", "dynload", "dynload8", "dynstore", "smemread",
+         "smemwrite"))}
+    sass = {"dynstore_stg": stores[dyn_mode["dynstore"]]["STG"],
+            "dynload_stg": stores[dyn_mode["dynload"]]["STG"],
+            "smemwrite_sts": stores[dyn_mode["smemwrite"]]["STS"],
+            "smemread_sts": stores[dyn_mode["smemread"]]["STS"]}
+    sass_ok = (sass["dynstore_stg"] > sass["dynload_stg"]
+               and sass["smemwrite_sts"] > sass["smemread_sts"])
+    emit("m1_micro", launches=launches, main_path_seconds=main_seconds,
+         runs=runs, modes=modes, checks=checks, sass=sass,
+         phase_seconds=time.perf_counter() - t_phase)
+    if not sass_ok:
+        raise AssertionError(f"m1: a store nothing reads was dropped: {sass}")
+    result = {}
+    for name, rows in modes.items():
+        ops_binds = sum(r["bound_ms"] for r in rows
+                        if r["bound_by"] == "operations")
+        result[name] = {
+            "launches": launches[name],
+            "max_abs_err": max([r["max_abs_err"] for r in rows]
+                               + [c["max_abs_err"] for c in checks
+                                  if c["kernel"] == name]),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": ("operations" if 2 * ops_binds
+                         >= sum(r["bound_ms"] for r in rows) else "bytes"),
+            "modes": {r["mode"]: {k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                for r in rows},
+        }
+    return result
+
+
 def _kernel_entry(name, source, replaces, launches, k):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source,
@@ -5689,6 +5975,7 @@ def _run(dev, smi, children, seed: int) -> int:
     import torch
 
     builds = phase_build()
+    micro = phase_micro(dev)
     cli_launches = phase_cli_golden(dev)
     phase_cli_first_image(smi)
     mesh_launches = phase_mesh(dev)
@@ -5802,6 +6089,14 @@ def _run(dev, smi, children, seed: int) -> int:
     for entry in entries:
         if entry["name"] in by_path:
             entry["launches_by_path"] = by_path[entry["name"]]
+    # The micro kernels' times, plain times and bounds are sums over their
+    # modes (one call of each, micro_mosaic2 at n_it 1024), each mode's
+    # beside them; no single PyTorch call computes one of their loops.
+    for name, (_, source, replaces) in MICRO_KERNELS.items():
+        m = micro[name]
+        entries.append({**_kernel_entry(name, source, replaces,
+                                        m["launches"], m),
+                        "modes": m["modes"]})
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -75,7 +75,11 @@ def test_import_loads_no_jax():
         "pbrt_tpu_torch.tools.nanovdb2pbrt, pbrt_tpu_torch.parallel, "
         "pbrt_tpu_torch.parallel.mesh, pbrt_tpu_torch.parallel.render, "
         "pbrt_tpu_torch.parallel.multiprocess, "
-        "pbrt_tpu_torch.parallel.mp_worker, pbrt_tpu_torch.native; "
+        "pbrt_tpu_torch.parallel.mp_worker, pbrt_tpu_torch.native, "
+        "pbrt_tpu_torch.micro, pbrt_tpu_torch.micro.micro_pairs, "
+        "pbrt_tpu_torch.micro.micro_mosaic, "
+        "pbrt_tpu_torch.micro.micro_mosaic2, "
+        "pbrt_tpu_torch.micro.micro_dyn, pbrt_tpu_torch.micro.micro_entry; "
         "pbrt_tpu_torch.native.tokenize_native('Shape [1]'); "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pbrt_tpu' or m.startswith('pbrt_tpu.')]; "
