@@ -297,7 +297,7 @@ Phases:
       the upload included; the packing's own seconds beside them), peak
       memory, K4's launches and share
   e_timed_fwdbwd
-      bench.py's cornell_fwdbwd_8lane (256x256, 64 spp in
+      bench.py's cornell_fwdbwd_8lane (256x256, 16 spp, bench's 64 cut, in
       passes of 2, depth 5, no Russian roulette, 8 lanes, value and
       gradient with respect to both parameters): Mrays/s as bench.py counts
       it (a forward pass's rays per pass over the forward+backward wall),
@@ -318,8 +318,8 @@ Phases:
       per pass, peak memory, the texture layer's device ms
       (evaluate_albedo_coeffs with its per-ray fit) and kernel launches in
       one pass, and e5's layers
-  e8  bench.py's manylight_fwd timed: the hall at 256x256, 16 spp in
-      passes of 8 (524,288 camera rays a pass), depth 4 without Russian
+  e8  bench.py's manylight_fwd timed: the hall at 256x256, one pass of 8
+      spp (bench's 16 cut; 524,288 camera rays a pass), depth 4 without Russian
       roulette, 8 lanes, the cluster tier, with the power sampler and with
       the light BVH: Mrays/s as bench.py counts rays, K2 launches per pass
       and K2's share of the wall, peak memory, the layers' device ms with
@@ -328,8 +328,8 @@ Phases:
       pass and the device's busy share (torch.profiler); then the power
       pass with sorted_shading=False against the sorted default, in four
       turns of one timed pass, the first pass's image of each bit-equal
-  e9  bench.py's cloud_fwd timed: the cloud at 128x128, 16 spp in passes
-      of 8 (131,072 camera rays a pass), depth 6, the DDA walk, Russian
+  e9  bench.py's cloud_fwd timed: the cloud at 128x128, one pass of 8 spp
+      (bench's 16 cut; 131,072 camera rays a pass), depth 6, the DDA walk, Russian
       roulette from 3, 8 lanes: Mrays/s as bench.py counts rays, K1
       launches per pass, the walks' host reads per pass, peak memory, the
       layers' device ms (camera, closest, the delta walk, the ratio
@@ -373,8 +373,8 @@ Phases:
       passes of 2, depth 5, 8 lanes, against
       tests/data/torch_port/motion32_grad.npz with g's tolerance; 44 K3
       launches per forward+backward pass
-  e12 the shapes box and the moving field timed at 512x512, 8 spp in
-      passes of 4, depth 5 without Russian roulette, 8 lanes, seed 0:
+  e12 the shapes box and the moving field timed at 512x512, one pass of
+      4 spp, depth 5 without Russian roulette, 8 lanes, seed 0:
       Mrays/s, the wall a pass, K1 / K3 launches a pass, peak memory,
       the layers' device ms with the queries split (the triangle tier
       with its alpha loop, the animated pass, the curve and disk /
@@ -431,8 +431,8 @@ Phases:
       imagemaps, 64^2 Ptex faces, a 128^3 ZIP NanoVDB grid; a 2048^2 half
       ZIP EXR map read for its reader's seconds, the scene's sky at 128^2,
       see that module), each writer's and reader's host seconds, each
-      scene's load-to-Scene seconds, then io_surfaces (256x256, 16 spp in
-      passes of 4) and io_smoke (256x256, 8 spp in passes of 4) at depth 5
+      scene's load-to-Scene seconds, then io_surfaces (256x256, 8 spp in
+      passes of 4) and io_smoke (256x256, one pass of 4 spp) at depth 5
       without Russian roulette, 8 lanes: Mrays/s, K1 launches a pass,
       kernel launches a pass and the busy share (torch.profiler), peak
       memory, the card's name and power limit
@@ -454,21 +454,38 @@ Phases:
       attached estimator, as it holds a subsurface block): albedo_coeffs
       and area_scale against tests/data/torch_port/families16_grad.npz;
       16 K1 launches in the forward
+  g12 the scene leaves of item 5e.1-5e.4 (tests/torch_port_leaves.py:
+      the families and coated boxes' material leaves, texture.pbrt's,
+      leaf_textures.pbrt's and io_surfaces' Ptex texture tables, the
+      spot, point, infinite, image, portal, area, sphere, projection,
+      goniometric and distant lights' tables, the fog box's slab and an
+      8^3 density and RGB grid under the differentiable volumetric path),
+      each scene under one estimator of its golden (attached where it
+      has one, else remat) at the golden's settings, against
+      tests/data/torch_port/leaves_*_grad.npz (scripts/
+      make_torch_port_golden_leaves.py) with g's tolerance, a table
+      along the golden's probe directions; 0 K1 (K2 on plymesh.pbrt)
+      launches in every backward, the primal's in the forward
   e15 cornell_fwdbwd_8lane's shape (256x256, passes of 2 spp, 8 lanes,
       depth 5, no Russian roulette) under every estimator (remat,
       attached, cvjp full / dots / none), then the textured Cornell box
       and the families box under their default estimators: fwd+bwd
-      Mrays/s over 2 passes, the backward's share, peak memory, kernel
+      Mrays/s over one timed pass, the backward's share, peak memory, kernel
       launches in the forward and in the backward (torch.profiler), K1
       launches in each
+  e17 e15's shape and figures (one timed pass) with item 5e's leaves
+      requested: the families box with every material leaf of g12's
+      golden (e15 has it with the default leaves), leaf_lights.pbrt with
+      its light tables and texture.pbrt with its texture tables
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
   f   the kernels line (the six micro kernels' launches those of m1's
       timed runs; K1's launches those of e, e12's shapes box,
       e13's cornell_lens, e14's io scenes, the loss and gradient calls
-      of g8-g11, d29's box.pbrt, p1's sharded calls and p2's worker
-      processes, K2's those of e2 and d29's
-      plymesh.pbrt, K3's those of e3 and e12's moving field, by path),
+      of g8-g12, e17's timed passes, d29's box.pbrt, p1's sharded calls
+      and p2's worker processes, K2's those of e2, d29's plymesh.pbrt
+      and g12's plymesh.pbrt cases, K3's those of e3 and e12's moving
+      field, by path),
       the nvidia-smi line and the final result line
 """
 
@@ -2233,7 +2250,9 @@ def make_grad_pass(scene, camera, res: int, k: int, lanes: int,
         if mark is not None:
             mark()
         with torch.profiler.record_function("backward"):
-            grads = torch.autograd.grad(loss, params)
+            # A leaf the loss does not read (a mix amount) gets zeros.
+            grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                        materialize_grads=True)
         ev[2].record()
         if mark is not None:
             mark()
@@ -2253,8 +2272,8 @@ def make_grad_pass(scene, camera, res: int, k: int, lanes: int,
 
 
 def phase_timed_fwdbwd(dev, smi: str):
-    """e_timed_fwdbwd: bench.py's cornell_fwdbwd_8lane (256x256, 64 spp in
-    passes of 2, depth 5, no Russian roulette, 8 lanes, the loss's value
+    """e_timed_fwdbwd: bench.py's cornell_fwdbwd_8lane (256x256, 16 spp,
+    bench's 64 cut, in passes of 2, depth 5, no Russian roulette, 8 lanes, the loss's value
     and gradient with respect to albedo_coeffs and area_scale), timed on
     the card. Mrays/s as bench.py counts it: a forward pass's traced rays
     per pass over the forward+backward wall time; beside it the forward
@@ -2266,7 +2285,7 @@ def phase_timed_fwdbwd(dev, smi: str):
     from pbrt_tpu_torch.ops.smallscene import STATS
     from pbrt_tpu_torch.scenes.cornell import cornell_box
 
-    res, spp, k, lanes = 256, 64, 2, 8
+    res, spp, k, lanes = 256, 16, 2, 8
     passes = spp // k
     scene, camera = cornell_box(resolution=(res, res))
     grad_pass, forward_pass = make_grad_pass(
@@ -2538,6 +2557,97 @@ def phase_grad_families(dev) -> int:
                                *golden(z, "families", DEFAULT_LEAVES))[2]
 
 
+def phase_grad_leaves(dev) -> dict:
+    """g12: the scene leaves of ROADMAP item 5e.1-5e.4 on the card: each
+    scene of tests/torch_port_leaves.py (at its golden's settings: 16x16,
+    or 8x8 for the media, 2 spp, depth 5, 8 lanes, the bench loss, the
+    scene's hash keys) under one estimator of its golden, the attached
+    one where it has one (every leaf of the scene trains there), else
+    remat, the media's differentiable volumetric path; against the JAX
+    goldens of scripts/make_torch_port_golden_leaves.py: every gradient
+    within g's tolerance of its golden's largest entry (a table held
+    along the golden's probe directions), the loss within 1e-4, every
+    entry finite; the triangle kernel's launches of the forward+backward
+    pass counted from zero: 0 in the backward, and in the forward the
+    primal's (2 queries a bounce and the terminal one; 3 with the
+    subsurface probe; 3 a bounce and 2 more through the volumetric
+    path) (K1; K2 on plymesh.pbrt's 1,282 triangles). The other
+    estimators are held on the CPU (tests/test_torch_grad_leaves.py) and
+    card against CPU (tests/test_torch_cuda.py). Returns each kernel's
+    launches in the forward passes."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.materials.buffers import MAT_SUBSURFACE
+    from pbrt_tpu_torch.ops import cluster, smallscene
+    from tests import torch_port_leaves as TL
+
+    launches = {"smallscene": 0, "cluster": 0}
+    goldens = {}
+    for group, name, ests, leaves in TL.CASES:
+        est = ("attached" if "attached" in ests
+               else "remat" if "remat" in ests else ests[0])
+        if group not in goldens:
+            goldens[group] = np.load(TL.GOLDEN_FILES[group])
+        z = goldens[group]
+        want = TL.answered(z, f"{name}_{est}", leaves)
+        g = TL.settings_of(group)
+        res, k, depth = g["resolution"], g["spp"], g["max_depth"]
+        if name == "families":
+            scene, camera, _ = families_on(dev)
+        else:
+            scene, camera = TL.leaf_scene("pbrt_tpu_torch", name, res,
+                                          device=dev)
+        camera = camera.replace(resolution=(res, res)).to(dev)
+        integ = TL.integrator("pbrt_tpu_torch", est)
+        kernel = "smallscene" if scene.small is not None else "cluster"
+        counter = {"smallscene": smallscene.STATS,
+                   "cluster": cluster.STATS}[kernel]
+        if est == "volpath":
+            primal = 3 * depth + 2
+        else:
+            probe = MAT_SUBSURFACE in scene.shaded_kinds
+            primal = (3 if probe else 2) * depth + 1
+        marks = []
+        with TL.keys("pbrt_tpu_torch", name):
+            grad_pass, _ = make_grad_pass(scene, camera, res, k, 8,
+                                          integrator=integ,
+                                          leaves=tuple(want))
+            counter.reset()
+            loss, grads = grad_pass(
+                0, mark=lambda: marks.append(counter.launches))
+            torch.cuda.synchronize()
+        counter.reset()
+        loss = float(loss)
+        grads = {p: x.detach().cpu().double().numpy()
+                 for p, x in zip(want, grads)}
+        errs = TL.leaf_errors(want, grads)
+        want_loss = float(z[f"{name}_{est}_loss"])
+        loss_rel = abs(loss - want_loss) / abs(want_loss)
+        split = {"forward": marks[0], "backward": marks[1] - marks[0],
+                 "primal": primal}
+        ok = (errs["finite"] and loss_rel <= LOSS_RTOL
+              and all(v <= GRAD_RTOL_OF_MAX for key, v in errs.items()
+                      if key != "finite"))
+        emit("g12_grad_leaves", group=group, scene=name, estimator=est,
+             resolution=res, spp=k, lanes=8, leaves=list(want),
+             held_along_directions=[p for p, (w, _) in want.items()
+                                    if w == "jvp"],
+             loss=loss, golden_loss=want_loss, loss_rel_err=loss_rel,
+             vs_jax=errs, kernel=kernel, launches=split,
+             tolerance={"grad_of_max": GRAD_RTOL_OF_MAX,
+                        "loss_rel": LOSS_RTOL})
+        if not ok:
+            raise AssertionError(f"g12 {name} {est}: gradients disagree "
+                                 f"with the JAX golden: {errs}, loss "
+                                 f"{loss_rel}")
+        if split["backward"] != 0 or split["forward"] != primal:
+            raise AssertionError(f"g12 {name} {est}: {kernel} launches "
+                                 f"{split}")
+        launches[kernel] += split["forward"]
+    return launches
+
+
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx")
 
@@ -2574,8 +2684,76 @@ def _profiled_launches(grad_pass) -> dict:
     return {"forward": counts[0], "backward": counts[1]}
 
 
-# e15's shape: bench.py's cornell_fwdbwd_8lane resolution, timed passes.
-ESTIMATOR_RES, ESTIMATOR_PASSES = 256, 2
+# e15's and e17's shape: bench.py's cornell_fwdbwd_8lane resolution, and
+# their timed passes (each after a profiled pass that warms it up).
+ESTIMATOR_RES, ESTIMATOR_PASSES = 256, 1
+
+
+def _timed_fwdbwd_config(phase, scene_name, mode, scene, cam, integ, leaves,
+                         passes: int, smi: str, keys=None) -> dict:
+    """One configuration of e15 / e17 at ESTIMATOR_RES with passes of 2
+    spp and 8 lanes: fwd+bwd Mrays/s over `passes` passes (a forward
+    pass's traced rays per pass over the wall time), the backward's share
+    (CUDA events), peak device memory, CUDA kernel launches in the
+    forward and in the backward (torch.profiler sessions over one more
+    pass, before the timed ones: it warms the backward up), and K1
+    launches in each timed pass (0 in the backward, the primal's in the
+    forward), inside the context `keys` if given. Emits the phase's line
+    and returns it."""
+    import contextlib
+
+    import torch
+
+    from pbrt_tpu_torch.ops.smallscene import STATS
+
+    res, k, lanes = ESTIMATOR_RES, 2, 8
+    with keys if keys is not None else contextlib.nullcontext():
+        grad_pass, forward_pass = make_grad_pass(
+            scene, cam, res, k, lanes, integrator=integ, leaves=leaves)
+        STATS.reset()
+        rays_pass = float(forward_pass(0)[1])  # warm-up
+        primal = STATS.launches
+        # The profiled pass warms the backward up too.
+        launches = _profiled_launches(grad_pass)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        STATS.reset()
+        events, marks = [], []
+        t0 = time.perf_counter()
+        acc = None
+        for p in range(passes):
+            loss, grads = grad_pass(
+                p, events, mark=lambda: marks.append(STATS.launches))
+            acc = loss if acc is None else acc + loss
+        acc = float(acc)  # synchronizes
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        bwd_ms = sum(b.elapsed_time(c) for _, b, c in events)
+        # Kernel launches of each forward (mark after it) and each backward.
+        fwd = {marks[2 * i] - (marks[2 * i - 1] if i else 0)
+               for i in range(passes)}
+        bwd = {marks[2 * i + 1] - marks[2 * i] for i in range(passes)}
+    finite = acc == acc and all(bool(torch.isfinite(g).all())
+                                for g in grads)
+    line = dict(scene=scene_name, estimator=integ.estimator(scene),
+                mode=mode, leaves=list(leaves), resolution=res,
+                samples_per_pass=k, lanes=lanes, max_depth=integ.max_depth,
+                passes=passes, rays_per_pass=rays_pass, seconds=seconds,
+                mrays_per_s=rays_pass * passes / seconds / 1e6,
+                backward_ms=bwd_ms, backward_share=bwd_ms / (seconds * 1e3),
+                peak_bytes=peak, launches_forward=launches["forward"],
+                launches_backward=launches["backward"],
+                k1_launches_forward=max(fwd), k1_launches_backward=max(bwd),
+                k1_launches_primal=primal, mean_loss=acc / passes,
+                nvidia_smi=smi)
+    emit(phase, **line)
+    key = f"{scene_name}_{mode}"
+    if not finite:
+        raise AssertionError(f"{key}: non-finite loss or gradient")
+    if bwd != {0} or fwd != {primal}:
+        raise AssertionError(f"{key}: K1 launches a pass: forward "
+                             f"{fwd}, backward {bwd}, primal {primal}")
+    return line
 
 
 def phase_timed_fwdbwd_estimators(dev, smi: str):
@@ -2590,14 +2768,11 @@ def phase_timed_fwdbwd_estimators(dev, smi: str):
     memory, CUDA kernel launches in the forward and in the backward
     (torch.profiler sessions over one more pass), and K1 launches in each
     timed pass (0 in the backward, the primal's in the forward)."""
-    import torch
-
     from pbrt_tpu_torch.models.path import PathIntegrator
-    from pbrt_tpu_torch.ops.smallscene import STATS
     from pbrt_tpu_torch.scenes.cornell import cornell_box
     from tests import torch_port_grad as tg
 
-    res, k, lanes, passes = ESTIMATOR_RES, 2, 8, ESTIMATOR_PASSES
+    res, passes = ESTIMATOR_RES, ESTIMATOR_PASSES
     cornell, camera = cornell_box(resolution=(res, res))
     cornell = cornell.with_accel().to(dev)
     camera = camera.to(dev)
@@ -2618,57 +2793,43 @@ def phase_timed_fwdbwd_estimators(dev, smi: str):
     out = {}
     for scene_name, mode, scene, cam, kw, leaves in configs:
         integ = PathIntegrator(max_depth=5, rr_start_depth=5, **kw)
-        grad_pass, forward_pass = make_grad_pass(
-            scene, cam, res, k, lanes, integrator=integ, leaves=leaves)
-        STATS.reset()
-        rays_pass = float(forward_pass(0)[1])  # warm-up
-        primal = STATS.launches
-        grad_pass(0)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        STATS.reset()
-        events, marks = [], []
-        t0 = time.perf_counter()
-        acc = None
-        for p in range(passes):
-            loss, grads = grad_pass(
-                p, events, mark=lambda: marks.append(STATS.launches))
-            acc = loss if acc is None else acc + loss
-        acc = float(acc)  # synchronizes
-        seconds = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        bwd_ms = sum(b.elapsed_time(c) for _, b, c in events)
-        # K1 launches of each forward (mark after it) and each backward.
-        k1_fwd = {marks[2 * i] - (marks[2 * i - 1] if i else 0)
-                  for i in range(passes)}
-        k1_bwd = {marks[2 * i + 1] - marks[2 * i] for i in range(passes)}
-        split = {"forward": max(k1_fwd), "backward": max(k1_bwd),
-                 "primal": primal}
-        launches = _profiled_launches(grad_pass)
-        finite = acc == acc and all(bool(torch.isfinite(g).all())
-                                    for g in grads)
-        key = f"{scene_name}_{mode}"
-        out[key] = rays_pass * passes / seconds / 1e6
-        emit("e15_timed_fwdbwd_estimators", scene=scene_name,
-             estimator=integ.estimator(scene), mode=mode,
-             leaves=list(leaves), resolution=res, samples_per_pass=k,
-             lanes=lanes, max_depth=5, passes=passes,
-             rays_per_pass=rays_pass, seconds=seconds,
-             mrays_per_s=out[key], backward_ms=bwd_ms,
-             backward_share=bwd_ms / (seconds * 1e3), peak_bytes=peak,
-             launches_forward=launches["forward"],
-             launches_backward=launches["backward"],
-             k1_launches_forward=split["forward"],
-             k1_launches_backward=split["backward"],
-             k1_launches_primal=split["primal"], mean_loss=acc / passes,
-             nvidia_smi=smi)
-        if not finite:
-            raise AssertionError(f"{key}: non-finite loss or gradient")
-        if k1_bwd != {0} or k1_fwd != {primal}:
-            raise AssertionError(f"{key}: K1 launches a pass: forward "
-                                 f"{k1_fwd}, backward {k1_bwd}, primal "
-                                 f"{primal}")
+        out[f"{scene_name}_{mode}"] = _timed_fwdbwd_config(
+            "e15_timed_fwdbwd_estimators", scene_name, mode, scene, cam,
+            integ, leaves, passes, smi)["mrays_per_s"]
     return out
+
+
+def phase_timed_fwdbwd_leaves(dev, smi: str) -> int:
+    """e17: e15's shape (256x256, passes of 2 spp, 8 lanes, depth 5, no
+    Russian roulette) with the leaves of item 5e.1-5e.3 requested: the
+    families box with every material leaf of its golden (attached, the
+    mix hash on coarse keys; e15's families line, in this call, has the
+    same box with the default leaves); leaf_lights.pbrt with its light
+    tables (remat); texture.pbrt with its texture tables and its lights'
+    (remat). For each: e15's figures over one timed pass. Returns K1's
+    launches in the timed passes."""
+    from tests import torch_port_leaves as TL
+
+    res, passes = ESTIMATOR_RES, ESTIMATOR_PASSES
+    leaves = {s: lv for _, s, _, lv in TL.CASES}
+    families, fam_camera, _ = families_on(dev)
+    fam_camera = fam_camera.replace(resolution=(res, res)).to(dev)
+    # (scene, which leaves, estimator, scene, camera, leaves)
+    configs = [("families", "material_leaves", "attached", families,
+                fam_camera, leaves["families"])]
+    for name, which in (("lightkinds", "light_leaves"),
+                        ("texture", "texture_leaves")):
+        scene, camera = TL.leaf_scene("pbrt_tpu_torch", name, res,
+                                      device=dev)
+        configs.append((name, which, "remat", scene, camera, leaves[name]))
+    total = 0
+    for name, which, est, scene, camera, asked in configs:
+        line = _timed_fwdbwd_config(
+            "e17_timed_fwdbwd_leaves", name, which, scene, camera,
+            TL.integrator("pbrt_tpu_torch", est), asked, passes, smi,
+            keys=TL.keys("pbrt_tpu_torch", name))
+        total += line["k1_launches_forward"] * passes
+    return total
 
 
 # The many-light hall (bench.py manylight_fwd: scenes/manylight.py, 1,024
@@ -2893,8 +3054,8 @@ def _hall_layers(render_pass) -> dict:
 
 
 def phase_timed_hall(dev, smi: str, hall):
-    """e8: bench.py's manylight_fwd on the card: the hall at 256x256, 16
-    spp in passes of 8 (524,288 camera rays a pass), depth 4 without
+    """e8: bench.py's manylight_fwd on the card: the hall at 256x256, one
+    pass of 8 spp (bench's 16 cut; 524,288 camera rays), depth 4 without
     Russian roulette, 8 lanes, the cluster tier (K2), for the power and the
     light-BVH sampler: Mrays/s as bench.py counts rays, K2 launches per
     pass and K2's share of the wall, peak memory, the layers' device ms
@@ -2910,7 +3071,7 @@ def phase_timed_hall(dev, smi: str, hall):
 
     from pbrt_tpu_torch.ops import cluster, smallscene
 
-    res, spp, k, lanes, depth = 256, 16, 8, 8, 4
+    res, spp, k, lanes, depth = 256, 8, 8, 8, 4
     passes = spp // k
     stats = {"k1": smallscene.STATS, "k2": cluster.STATS}
     out_dir = os.path.join(ROOT, "chiprun_out")
@@ -2972,7 +3133,7 @@ GOLDEN_DATA = os.path.join(ROOT, "tests", "data", "torch_port")
 FOG_FILE = os.path.join(GOLDEN_FILES, "fog.pbrt")
 # bench.py's cloud_fwd: 128x128, 16 spp in passes of 8, depth 6, the DDA
 # walk, Russian roulette from depth 3 (the integrator's default), 8 lanes.
-CLOUD = dict(res=128, spp=16, k=8, depth=6, lanes=8)
+CLOUD = dict(res=128, spp=8, k=8, depth=6, lanes=8)
 
 
 def inset_entry():
@@ -3291,8 +3452,8 @@ def _walk_decay(render_pass, n_camera: int) -> dict:
 
 
 def phase_timed_cloud(dev, smi: str) -> int:
-    """e9: bench.py's cloud_fwd on the card: the cloud at 128x128, 16 spp
-    in passes of 8 (131,072 camera rays a pass), depth 6, the DDA walk,
+    """e9: bench.py's cloud_fwd on the card: the cloud at 128x128, one
+    pass of 8 spp (bench's 16 cut; 131,072 camera rays), depth 6, the DDA walk,
     Russian roulette from 3, 8 lanes: Mrays/s as bench.py counts rays, K1
     launches per pass, the walks' host reads per pass, peak memory, the
     layers' device ms, the kernel launches and the device's busy share of
@@ -4118,7 +4279,7 @@ SHAPES_FILE = os.path.join(GOLDEN_DATA, "shapes.pbrt")
 MOTION_FILE = os.path.join(GOLDEN_DATA, "motion.pbrt")
 GOLDEN_MOTION_GRAD = os.path.join(GOLDEN_DATA, "motion32_grad.npz")
 # e12's configuration (the families box's).
-GEOM = dict(res=512, spp=8, k=4, depth=5, lanes=8)
+GEOM = dict(res=512, spp=4, k=4, depth=5, lanes=8)
 # Triangle-kernel queries of one pass of either file: with alpha in the
 # scene a closest query is the first query and 3 restarts
 # (accel/api.py _ALPHA_ROUNDS), and a shadow query runs the same loop; a
@@ -4360,8 +4521,8 @@ def _geometry_layers(render_pass) -> dict:
 
 
 def phase_timed_geometry(dev, smi: str) -> dict:
-    """e12: shapes.pbrt and motion.pbrt timed at 512x512, 8 spp in passes
-    of 4 (1,048,576 camera rays a pass), depth 5 without Russian roulette,
+    """e12: shapes.pbrt and motion.pbrt timed at 512x512, one pass of 4
+    spp (1,048,576 camera rays), depth 5 without Russian roulette,
     8 lanes, seed 0, the exact alpha keys: Mrays/s, the wall a pass, K1 /
     K3 launches a pass, peak memory, the first pass's seconds, the layers
     (_geometry_layers), kernel launches a pass and the busy share
@@ -4894,7 +5055,7 @@ def phase_timed_cameras(dev, smi: str) -> int:
 
 
 IO = dict(res=256, k=4, depth=5, lanes=8,
-          spp={"io_surfaces": 16, "io_smoke": 8})
+          spp={"io_surfaces": 8, "io_smoke": 4})
 # K1 queries a pass at depth 5: the path's closest and shadow query a
 # bounce and the terminal closest; the volumetric path's closest and two
 # ratio-tracking transmittance queries a bounce and the terminal pair.
@@ -4995,8 +5156,8 @@ def phase_timed_io(dev, smi: str, seed: int) -> dict:
     whose read is timed (the scene's sky is FULL's); reads each input back
     (host seconds), loads each scene onto the card (load-to-Scene
     seconds: the parse, the reads and the tables' builds and upload),
-    then times io_surfaces (256x256, 16 spp in passes of 4) and io_smoke
-    (8 spp in passes of 4) at depth 5 without Russian roulette, 8 lanes,
+    then times io_surfaces (256x256, 8 spp in passes of 4) and io_smoke
+    (one pass of 4 spp) at depth 5 without Russian roulette, 8 lanes,
     the exact medium entry: Mrays/s, K1 launches a pass, peak memory,
     kernel launches a pass and the busy share (torch.profiler). Returns
     each scene's K1 launches of its timed passes."""
@@ -6021,6 +6182,8 @@ def _run(dev, smi, children, seed: int) -> int:
     phase_k1_families_vs_twin(dev)
     phase_golden_families_jax(dev)
     grad_launches["grad_families"] = phase_grad_families(dev)
+    leaf_launches = phase_grad_leaves(dev)
+    grad_launches["grad_leaves"] = leaf_launches["smallscene"]
     phase_k1_lighttransport_vs_twin(dev)
     phase_golden_mc(dev)
     phase_golden_lighttransport_jax(dev)
@@ -6036,6 +6199,7 @@ def _run(dev, smi, children, seed: int) -> int:
     phase_timed(dev, 32)
     phase_timed_fwdbwd(dev, smi)
     phase_timed_fwdbwd_estimators(dev, smi)
+    grad_launches["fwdbwd_leaves"] = phase_timed_fwdbwd_leaves(dev, smi)
     phase_train(dev)
     k2_launches = phase_timed_killeroo(dev, builds["cluster"]["seconds"])
     k3_launches = phase_timed_instanced(dev, field[3])
@@ -6057,9 +6221,10 @@ def _run(dev, smi, children, seed: int) -> int:
     # of the 1,048,576-ray comparisons, both modes. K1's launches are those
     # of the Cornell (e), shapes (e12), cornell_lens (e13) and io (e14)
     # main paths, of the gradient estimators' loss and gradient calls
-    # (g8-g11), of the render CLI on box.pbrt (d29), of p1's sharded
-    # renders and mesh step and of p2's workers; K2's of killeroo
-    # (e2) and of the CLI on plymesh.pbrt (d29); K3's of the instanced
+    # (g8-g12), of e17's timed leaf passes, of the render CLI on box.pbrt
+    # (d29), of p1's sharded renders and mesh step and of p2's workers;
+    # K2's of killeroo (e2), of the CLI on plymesh.pbrt (d29) and of
+    # g12's plymesh.pbrt cases; K3's of the instanced
     # field (e3) and motion.pbrt (e12), each counted from zero around its
     # timed passes or its CLI call.
     lines = {}
@@ -6073,7 +6238,8 @@ def _run(dev, smi, children, seed: int) -> int:
                               "cli_box": cli_launches["box"],
                               **mesh_launches},
                "cluster": {"killeroo": k2_launches,
-                           "cli_plymesh": cli_launches["plymesh"]},
+                           "cli_plymesh": cli_launches["plymesh"],
+                           "grad_leaves": leaf_launches["cluster"]},
                "sweep": {"instanced_field": k3_launches,
                          "motion": geom_launches["motion"][1]}}
     entries = [

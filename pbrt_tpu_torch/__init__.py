@@ -54,8 +54,10 @@ gradient path):
   utils/     stats, progress, the tev client, the denoiser, FLIP, the sky
              models, torch.profiler scopes and capture, the HTTP viewer
 
-Anything outside that slice raises NotImplementedError at parse, build or
-convert time, naming the ROADMAP Queue 1 item that will port it.
+What the port still refuses (the gradients that ROADMAP Queue 1 items
+5e and 5f have left, light paths from lights other than emissive
+geometry) raises NotImplementedError naming its ROADMAP item; a scene
+field that convert.py does not know raises ValueError.
 
 Conventions: float32 everywhere (TF32 matmuls stay off:
 torch.backends.cuda.matmul.allow_tf32 is False, and `render` refuses to run

@@ -6,9 +6,10 @@ arrays ("geom.tri_verts", "materials.albedo_coeffs", "lights.area_scale",
 "small.table", "clusters.boxes", "bvh.node_lo", ...); `static` maps the
 paths of static (non-array) fields to their values ("small.n_tris",
 "lights.sampler", "geom.has_alpha", "bvh.depth", ...).
-A field the port does not carry raises NotImplementedError when it holds
-data (a non-empty, non-zero array, or a static value other than the one
-the port implies), naming the ROADMAP Queue 1 item that will port it. An
+The port carries every field of the reference's scene classes, so a
+field it does not know raises ValueError ("unknown scene field") when it
+holds data (a non-empty, non-zero array, or a static value other than
+None). An
 image-based infinite light ("lights.env.*") is carried as the port's
 EnvironmentMap or, when it has portal corners, PortalLight, with its
 distribution's tables. The light BVH ("lights.bvh.*") is carried as the
@@ -71,24 +72,14 @@ def _carries_data(a) -> bool:
     return a.size > 0 and bool(np.any(a))
 
 
-def _unported(path: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"scene field {path!r} is not ported yet (ROADMAP Queue 1 item {item})"
-    )
-
-
-def _section(cls, prefix: str, arrays: dict, static: dict, item_of=None,
-             **extra):
+def _section(cls, prefix: str, arrays: dict, static: dict, **extra):
     """Build one port dataclass from the `prefix.` entries (plus `extra`
-    keyword fields); entries naming fields the port does not have must
-    carry no data (item_of(name): the ROADMAP item that will port them;
-    None where the port carries every field, and such an entry is
-    unknown). A None for a tensor field keeps its default."""
+    keyword fields); an entry naming a field the port does not have is
+    unknown and must carry no data. A None for a tensor field keeps its
+    default."""
 
-    def refuse(path, name):
-        if item_of is None:
-            return ValueError(f"unknown scene field {path!r}")
-        return _unported(path, item_of(name))
+    def refuse(path):
+        return ValueError(f"unknown scene field {path!r}")
 
     fields = {f.name: f for f in dataclasses.fields(cls)}
     kwargs = {}
@@ -103,9 +94,9 @@ def _section(cls, prefix: str, arrays: dict, static: dict, item_of=None,
             kwargs[name] = value if is_static else _tensor(value)
         elif path in static:
             if value is not None:
-                raise refuse(path, name)
+                raise refuse(path)
         elif _carries_data(value):
-            raise refuse(path, name)
+            raise refuse(path)
     return cls(**kwargs, **extra)
 
 
@@ -227,7 +218,7 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], static: dict) -> Scene:
                         ("sweep", SweepAccel), ("bvh", BVH),
                         ("kdtree", KdTree)):
         if any(p.startswith(member + ".") for p in list(arrays) + list(static)):
-            optional[member] = _section(cls, member, arrays, static, lambda n: 6)
+            optional[member] = _section(cls, member, arrays, static)
     if any(p.startswith("anim.") for p in arrays):
         optional["anim"] = _anim_from_arrays(arrays, static)
     return Scene(geom=geom, materials=materials, lights=lights, **optional)

@@ -76,8 +76,8 @@ def _image_emission(coeffs, scale_tx, illum, light_idx, u, v, lam):
     xi = torch.clamp((torch.clamp(u, 0.0, 1.0) * r).to(torch.int32), 0, r - 1)
     yi = torch.clamp((torch.clamp(v, 0.0, 1.0) * r).to(torch.int32), 0, r - 1)
     fi = ((light_idx * r + yi) * r + xi).long()
-    return eval_emission(coeffs.reshape(-1, 3)[fi], scale_tx.reshape(-1)[fi],
-                         illum[light_idx], lam)
+    return eval_emission(take(coeffs.reshape(-1, 3), fi),
+                         take(scale_tx.reshape(-1), fi), illum[light_idx], lam)
 
 
 def _frame(spec):
@@ -551,7 +551,8 @@ class LightBuffers:
             out = torch.where((light_idx < na)[..., None], L_a, out)
         if nq > 0:
             qi = torch.clamp(light_idx - na, 0, nq - 1)
-            L_q = eval_emission(self.sphl_coeffs[qi], self.sphl_scale[qi],
+            L_q = eval_emission(take(self.sphl_coeffs, qi),
+                                take(self.sphl_scale, qi),
                                 self.sphl_illum[qi], lam)
             out = torch.where((light_idx >= na)[..., None], L_q, out)
         return out
@@ -575,7 +576,8 @@ class LightBuffers:
         if nq > 0:
             qi = torch.clamp(light_idx - na, 0, nq - 1)
             vis = front | self.sphl_two[qi]
-            L_q = eval_emission(self.sphl_coeffs[qi], self.sphl_scale[qi],
+            L_q = eval_emission(take(self.sphl_coeffs, qi),
+                                take(self.sphl_scale, qi),
                                 self.sphl_illum[qi], lam)
             use = (light_idx >= na) & vis
             L = torch.where(use[..., None], L_q, L)
@@ -711,7 +713,8 @@ class LightBuffers:
             pdf_out = 1.0 / torch.clamp(2.0 * math.pi * one_minus, min=_EPS)
             two_q = self.sphl_two[qi]
             emit_ok = (cos_l > _EPS) | (two_q & (torch.abs(cos_l) > _EPS))
-            L_q = eval_emission(self.sphl_coeffs[qi], self.sphl_scale[qi],
+            L_q = eval_emission(take(self.sphl_coeffs, qi),
+                                take(self.sphl_scale, qi),
                                 self.sphl_illum[qi], lam)
             L_q = torch.where(emit_ok[..., None], L_q, 0.0)
             put(base, nq, L_q, wi_q, torch.where(inside, pdf_in, pdf_out), d,
@@ -722,7 +725,8 @@ class LightBuffers:
         if npt > 0:
             pi = torch.clamp(idx - base, 0, npt - 1)
             wi_p, d2, d = toward(self.point_p[pi])
-            I = eval_emission(self.point_coeffs[pi], self.point_scale[pi],
+            I = eval_emission(take(self.point_coeffs, pi),
+                              take(self.point_scale, pi),
                               self.point_illum[pi], lam)
             put(base, npt, I / d2[..., None], wi_p, 1.0, d, True)
         base += npt
@@ -739,7 +743,8 @@ class LightBuffers:
             t_ = torch.clamp((cos_t - c1) / torch.clamp(c0 - c1, min=1e-6),
                              0.0, 1.0)
             falloff = t_ * t_ * (3.0 - 2.0 * t_)
-            I = eval_emission(self.spot_coeffs[si], self.spot_scale[si],
+            I = eval_emission(take(self.spot_coeffs, si),
+                              take(self.spot_scale, si),
                               self.spot_illum[si], lam)
             put(base, nsp, I * (falloff / d2)[..., None], wi_s, 1.0, d, True)
         base += nsp
@@ -777,7 +782,8 @@ class LightBuffers:
         nd = self.n_distant
         if nd > 0:
             di = torch.clamp(idx - base, 0, nd - 1)
-            L_d = eval_emission(self.distant_coeffs[di], self.distant_scale[di],
+            L_d = eval_emission(take(self.distant_coeffs, di),
+                                take(self.distant_scale, di),
                                 self.distant_illum[di], lam)
             put(base, nd, L_d, -self.distant_dir[di], 1.0, float("inf"), True)
         base += nd
@@ -887,8 +893,9 @@ class LightBuffers:
             p0 = torch.where(use[:, None], p_a, p0)
             n0 = torch.where(use[:, None], n_a, n0)
             area = torch.where(use, self.area_area[ai], area)
-            coeffs = torch.where(use[:, None], self.area_coeffs[ai], coeffs)
-            scale = torch.where(use, self.area_scale[ai], scale)
+            coeffs = torch.where(use[:, None], take(self.area_coeffs, ai),
+                                 coeffs)
+            scale = torch.where(use, take(self.area_scale, ai), scale)
             illum = torch.where(use, self.area_illum[ai], illum)
         if nq > 0:
             qi = torch.clamp(idx - na, 0, nq - 1)
@@ -899,8 +906,9 @@ class LightBuffers:
                              p0)
             n0 = torch.where(use[:, None], n_q, n0)
             area = torch.where(use, 4.0 * math.pi * r_q * r_q, area)
-            coeffs = torch.where(use[:, None], self.sphl_coeffs[qi], coeffs)
-            scale = torch.where(use, self.sphl_scale[qi], scale)
+            coeffs = torch.where(use[:, None], take(self.sphl_coeffs, qi),
+                                 coeffs)
+            scale = torch.where(use, take(self.sphl_scale, qi), scale)
             illum = torch.where(use, self.sphl_illum[qi], illum)
         return {"p": p0, "n": n0, "area": area, "pmf": pmf, "coeffs": coeffs,
                 "scale": scale, "illum": illum, "idx": idx}

@@ -17,6 +17,7 @@ import torch
 
 from ..core import rgb2spec
 from ..core.sampling import PiecewiseConstant2D
+from ..core.take import take
 from ..core.tensorclass import tensorclass
 from ..core.vecmath import (
     equal_area_sphere_to_square,
@@ -26,11 +27,12 @@ from ..core.vecmath import (
 _INV_4PI = 1.0 / (4.0 * math.pi)
 
 
-def texel_index(uv, h: int, w: int):
-    """Nearest texel (row, column) of uv in [0,1]^2 on an h x w image."""
+def texel_flat_index(uv, h: int, w: int):
+    """Nearest texel of uv in [0,1]^2 on an h x w image, as a row-major
+    index (row * w + column)."""
     xi = torch.clamp((uv[..., 0] * w).to(torch.int32), 0, w - 1).long()
     yi = torch.clamp((uv[..., 1] * h).to(torch.int32), 0, h - 1).long()
-    return yi, xi
+    return yi * w + xi
 
 
 @tensorclass
@@ -81,9 +83,10 @@ class EnvironmentMap:
         return tuple(self.luminance.shape)
 
     def _radiance_at(self, uv, lam):
-        yi, xi = texel_index(uv, *self.resolution)
-        return rgb2spec.eval_unbounded(self.coeffs[yi, xi],
-                                       self.scale[yi, xi], lam) * self.strength
+        i = texel_flat_index(uv, *self.resolution)
+        return rgb2spec.eval_unbounded(take(self.coeffs.flatten(0, 1), i),
+                                       take(self.scale.flatten(), i),
+                                       lam) * self.strength
 
     def radiance(self, directions, lam):
         """L for rays escaping in `directions`: (N, 3) x (N, S) -> (N, S)."""

@@ -21,9 +21,10 @@ import torch
 
 from ..core import rgb2spec
 from ..core.sampling import WindowedPiecewiseConstant2D
+from ..core.take import take
 from ..core.tensorclass import tensorclass
 from ..core.vecmath import normalize
-from .envmap import texel_index
+from .envmap import texel_flat_index
 
 _PI = math.pi
 
@@ -116,9 +117,9 @@ class PortalLight:
         return torch.where(ok[..., None], b, 0.0), ok
 
     def _texel(self, uv, lam):
-        yi, xi = texel_index(uv, *self.scale_tx.shape)
-        return rgb2spec.eval_unbounded(self.coeffs[yi, xi],
-                                       self.scale_tx[yi, xi],
+        i = texel_flat_index(uv, *self.scale_tx.shape)
+        return rgb2spec.eval_unbounded(take(self.coeffs.flatten(0, 1), i),
+                                       take(self.scale_tx.flatten(), i),
                                        lam) * self.strength
 
     # -- light interface -------------------------------------------------------

@@ -101,7 +101,15 @@ def _logistic(x, s):
 
 
 def _logistic_cdf(x, s):
-    return 1.0 / (1.0 + torch.exp(-x / s))
+    z = -x / s
+    if floats.grad_flows(z):
+        # exp(z) overflows where s is small (the rows that are not hair,
+        # whose beta_n is a coat roughness): the value is kept and its
+        # gradient, 0 * inf on lanes a where drops, is cut there.
+        far = z > 80.0
+        near = 1.0 / (1.0 + torch.exp(torch.where(far, 0.0, z)))
+        return torch.where(far, 1.0 / (1.0 + torch.exp(z.detach())), near)
+    return 1.0 / (1.0 + torch.exp(z))
 
 
 def _trimmed_logistic(x, s, a, b):

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core import floats, rgb2spec
+from ..core.take import take
 from ..core.vecmath import cross
 
 N_TH = 32  # theta_h bins (sqrt warped)
@@ -94,7 +95,8 @@ def lookup(coeffs, scale, base, wo, wi, lam):
     val = 0.0
     for idx, w in trilinear_taps(*_half_diff_angles(wo_u, wi_u)):
         i = base + idx
-        val = val + w[..., None] * rgb2spec.eval_unbounded(coeffs[i], scale[i], lam)
+        val = val + w[..., None] * rgb2spec.eval_unbounded(
+            take(coeffs, i), take(scale, i), lam)
     return torch.where(same[..., None], val, 0.0)
 
 

@@ -14,6 +14,7 @@ import math
 
 import torch
 
+from ..core.floats import grad_flows
 from ..core.sampling import sample_uniform_disk_concentric
 from ..core.vecmath import cross, length_squared, normalize, safe_sqrt
 
@@ -111,15 +112,18 @@ def ggx_sample_wm(wo, u2, alpha):
     up = torch.zeros_like(wh)
     up[..., 2] = 1.0
     t1_raw = cross(up, wh)
-    degenerate = length_squared(t1_raw) < 1e-9
+    len2 = length_squared(t1_raw, keepdims=True)
+    degenerate = len2[..., 0] < 1e-9
+    if grad_flows(wo, alpha):
+        # The degenerate lanes' length is 0, whose sqrt would pass
+        # 0 * inf to the gradient.
+        len2 = torch.where(degenerate[..., None], 1.0, len2)
     x_axis = torch.zeros_like(wh)
     x_axis[..., 0] = 1.0
     t1 = torch.where(
         degenerate[..., None],
         x_axis,
-        t1_raw / torch.clamp(
-            torch.sqrt(length_squared(t1_raw, keepdims=True)), min=1e-12
-        ),
+        t1_raw / torch.clamp(torch.sqrt(len2), min=1e-12),
     )
     t2 = cross(wh, t1)
     p = sample_uniform_disk_concentric(u2)
@@ -153,5 +157,10 @@ def effectively_smooth(alpha):
 
 def roughness_to_alpha(roughness):
     """pbrt-v4 maps user roughness to alpha = sqrt(roughness)
-    (materials.cpp RoughnessToAlpha)."""
+    (materials.cpp RoughnessToAlpha). Under a gradient a smooth row
+    (roughness 0) passes 0, not 0 * inf, where it is not used."""
+    if grad_flows(roughness):
+        rough = roughness > 0.0
+        return torch.where(rough, torch.sqrt(torch.where(rough, roughness,
+                                                         1.0)), 0.0)
     return torch.sqrt(torch.clamp(roughness, min=0.0))

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core import cie, rgb2spec
+from ..core.take import take
 from ..core.tensorclass import static_field, tensorclass
 
 MEDIUM_NONE = "none"
@@ -100,15 +101,15 @@ class MediumStack:
         zero where idx < 0 (vacuum or no medium)."""
         safe = torch.clamp(idx, 0, self.n_media - 1).long()
         inside = (idx >= 0)[..., None]
-        sa = rgb2spec.eval_unbounded(self.sigma_a_coeffs[safe],
-                                     self.sigma_a_scale[safe], lam)
-        ss = rgb2spec.eval_unbounded(self.sigma_s_coeffs[safe],
-                                     self.sigma_s_scale[safe], lam)
+        sa = rgb2spec.eval_unbounded(take(self.sigma_a_coeffs, safe),
+                                     take(self.sigma_a_scale, safe), lam)
+        ss = rgb2spec.eval_unbounded(take(self.sigma_s_coeffs, safe),
+                                     take(self.sigma_s_scale, safe), lam)
         return torch.where(inside, sa, 0.0), torch.where(inside, ss, 0.0)
 
     def g_at(self, idx):
         safe = torch.clamp(idx, 0, self.n_media - 1).long()
-        return torch.where(idx >= 0, self.g[safe], 0.0)
+        return torch.where(idx >= 0, take(self.g, safe), 0.0)
 
 
 def _pool_dilate_max(vox, m):
@@ -317,7 +318,7 @@ class MediumBuffers:
             xi = torch.clamp(gi[..., 0] + dx, 0, nx - 1)
             yi = torch.clamp(gi[..., 1] + dy, 0, ny - 1)
             zi = torch.clamp(gi[..., 2] + dz, 0, nz - 1)
-            return flat[(zi * ny + yi) * nx + xi]
+            return take(flat, (zi * ny + yi) * nx + xi)
 
         fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
         if chan:
@@ -404,7 +405,7 @@ class MediumBuffers:
         bi = torch.clamp(gi.to(torch.int32).long(), min=-1)
         bi = torch.minimum(bi, hi) + 1
         base = (bi[..., 2] * (ny + 1) + bi[..., 1]) * (nx + 1) + bi[..., 0]
-        rows = ctab[base]  # (N, 8)
+        rows = take(ctab, base)  # (N, 8)
         fx, fy, fz = fr[..., 0], fr[..., 1], fr[..., 2]
         wx = (1.0 - fx, fx)
         wy = (1.0 - fy, fy)

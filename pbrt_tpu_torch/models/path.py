@@ -33,8 +33,16 @@ switches (`estimator`):
   plain `_run`; the gradient also flows through the sampled directions
   into the next hit point. Russian roulette's decision stays detached.
 A backward pass never runs a query. Which scene leaves may require grad
-depends on the estimator (TRAINABLE); a request for any other leaf, or
-for o, d or the wavelengths, raises NotImplementedError.
+depends on the estimator (TRAINABLE), each held against the reference's
+gradient under that estimator: every estimator differentiates the
+albedo, the image texels, the conductors' spectra, the coat's thickness,
+the diffuse transmission and the area, sphere, projection, goniometric
+and distant lights' tables; remat and cvjp also the other texture tables
+and the point, spot, uniform infinite, image and portal lights' tables;
+remat and attached the roughness and the coat's roughness; the attached
+estimator eta and the hair, subsurface, measured and mix leaves. A
+request for any other leaf, or for o, d or the wavelengths, raises
+NotImplementedError with its reason (_REFUSED).
 
 RNG dimension layout (per ray; stateless pcg4d streams, core/rng.py):
   dims 0-7            camera: pixel jitter (0,1), lens (2,3), wavelength (4),
@@ -73,26 +81,74 @@ _BOUNCE_DIMS = 8
 # The reference's default trainable set (pbrt_tpu/parallel/train.py).
 DEFAULT_TRAINABLE = ("materials.albedo_coeffs", "lights.area_scale")
 _ITEM5 = "ROADMAP Queue 1 item 5"
+
+
+def _p(part, *names):
+    return tuple(f"{part}.{n}" for n in names)
+
+
+_COND = _p("materials", "cond_eta_coeffs", "cond_eta_scale", "cond_k_coeffs",
+           "cond_k_scale")
+_LIGHT_TABLES = _p("lights", "area_coeffs", "sphl_coeffs", "sphl_scale",
+                   "proj_coeffs", "proj_scale_tx", "gonio_coeffs",
+                   "gonio_scale_tx", "distant_coeffs", "distant_scale")
 # Scene leaves each estimator differentiates, each held against the
-# reference (tests/test_torch_grad*.py). The dielectric's eta bends the
-# sampled directions, which only the attached estimator follows.
-_DETACHED_TRAINABLE = (*DEFAULT_TRAINABLE, "textures.img_flat")
+# reference's gradient under that estimator (tests/test_torch_grad*.py;
+# the goldens of scripts/make_torch_port_golden_grad.py and
+# make_torch_port_golden_leaves.py). The leaves that move the sampled
+# directions (eta, roughness, coat_roughness, hair_alpha) train under the
+# detached estimators only where such a golden was made.
+_DETACHED_TRAINABLE = (
+    *DEFAULT_TRAINABLE, "textures.img_flat", *_COND,
+    *_p("materials", "thickness", "trans_coeffs"),
+    *_p("textures", "rgb0", "rgb1", "rgb2", "rgb3", "f0", "ptex_flat"),
+    *_LIGHT_TABLES,
+    *_p("lights", "point_coeffs", "point_scale", "spot_coeffs", "spot_scale",
+        "infinite_coeffs", "infinite_scale", "env.coeffs", "env.scale",
+        "env.scale_tx", "env.strength"),
+)
 TRAINABLE = {
-    "remat": _DETACHED_TRAINABLE,
+    "remat": (*_DETACHED_TRAINABLE,
+              *_p("materials", "roughness", "coat_roughness")),
     "cvjp": _DETACHED_TRAINABLE,
-    "attached": (*_DETACHED_TRAINABLE, "materials.eta"),
+    "attached": (
+        *DEFAULT_TRAINABLE, "textures.img_flat", "materials.eta", *_COND,
+        *_p("materials", "roughness", "coat_roughness", "thickness",
+            "trans_coeffs", "hair_sigma_coeffs", "hair_sigma_scale",
+            "hair_alpha", "ss_mfp_coeffs", "ss_mfp_scale", "measured_coeffs",
+            "measured_scale", "mix_amount"),
+        *_LIGHT_TABLES),
 }
-# Leaves that stay refused for a stated reason; any other is refused as
-# having no gate.
+# Why a leaf outside TRAINABLE[estimator] is refused, by dotted path or
+# by a prefix ending in "."; any other is refused as having no gate.
 _REFUSED = {
-    "materials.roughness": "the reference's conductor-roughness gradient "
-                           "is NaN (ROADMAP Queue 3)",
+    **{f"materials.{r}": "the reference's reverse-mode gradient of a "
+                         "microfacet roughness is NaN, and cvjp, a custom "
+                         "VJP, has no forward mode to hold it against "
+                         "(ROADMAP Queue 3)"
+       for r in ("roughness", "coat_roughness")},
     "materials.eta": "eta moves the sampled directions, which only the "
                      "attached estimator (replay_grad=False) differentiates",
-    **{f"textures.{t}": "of the texture tables only img_flat has a gate "
-                        "(ROADMAP Queue 1 item 5e)"
-       for t in ("rgb0", "rgb1", "rgb2", "rgb3", "f0")},
+    "lights.env.dist.": "the image light's importance tables are sampling "
+                        "controls, not radiance (ROADMAP Queue 1 item 5e.8)",
+    "lights.env.luminance": "the image light's importance tables are "
+                            "sampling controls, not radiance (ROADMAP Queue "
+                            "1 item 5e.8)",
+    "lights.bvh.": "the light BVH's node table has no gate (ROADMAP Queue 1 "
+                   "item 5e.6)",
+    **{f"lights.select_{t}": "the selection pmf is built on the host "
+                             "from the build-time power, a constant as in "
+                             "the reference" for t in ("pmf", "cdf")},
 }
+
+
+def refusal_reason(refused: dict, name: str, default: str) -> str:
+    """The stated reason of `refused` for a dotted leaf path: its own
+    entry, or that of the longest prefix ending in "." it starts with."""
+    if name in refused:
+        return refused[name]
+    hits = [k for k in refused if k.endswith(".") and name.startswith(k)]
+    return refused[max(hits, key=len)] if hits else default
 
 
 def refuse_gradient(scene, integrator: str) -> None:
@@ -138,8 +194,9 @@ def _requested_leaves(scene, o, d, wl, estimator: str) -> list:
             continue
         name = name.removeprefix("scene.")
         if name not in TRAINABLE[estimator]:
-            why = _REFUSED.get(name, "it has no gate (ROADMAP Queue 1 "
-                                     "item 5e)")
+            why = refusal_reason(_REFUSED, name,
+                                 "it has no gate under this estimator "
+                                 "(ROADMAP Queue 1 item 5e)")
             raise NotImplementedError(
                 f"scene.{name} requires grad under the {estimator} "
                 f"estimator: {why}; it differentiates "

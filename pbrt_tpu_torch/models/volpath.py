@@ -35,12 +35,14 @@ A walk hashes its steps' draws in one batched call per run of steps
 Gradients (the reference's differentiable=True): the walks run as
 fixed-length masked loops with no compaction; majorants are inflated x1.5
 and detached, the absorption event folded into the null weight (pa = 0)
-and the scatter probability detached, so gradients reach the medium's
-sigma_a_scale and sigma_s_scale through the continuous weights. Those two
-are the only trainables; any other gradient request, and any request with
-differentiable=False, or on a scene whose geometry references a hair,
-subsurface, measured, mix or retroreflective material, raises
-NotImplementedError (ROADMAP Queue 1 item 5).
+and the scatter probability detached, so gradients reach the scene-level
+medium's sigma_a and sigma_s (their scales and spectra), the density
+grid and the RGB grid's fits through the continuous weights
+(VOLPATH_TRAINABLE). Any other request raises NotImplementedError with
+its reason (ROADMAP Queue 1 item 5): g (the reference's gradient is NaN),
+the majorants, the interior media's leaves, any request with
+differentiable=False, and any on a scene whose geometry references a
+hair, subsurface, measured, mix or retroreflective material (item 5e.5).
 """
 
 from __future__ import annotations
@@ -64,16 +66,32 @@ from ..materials.buffers import (
 from ..media import phase as ph
 from ..media.medium import MED_KEEP
 from ..ops.compact import masked_loop, staged_masked_loop
-from .path import _ITEM5, _tensors
+from .path import _ITEM5, _tensors, refusal_reason
 
 _CAM_DIMS = 8
 _BOUNCE_DIMS = 512  # wide stride: walk iterations consume many dims
 _BIG = 1e30
 
-# The scene leaves a gradient may be asked of, with differentiable=True.
-VOLPATH_TRAINABLE = ("medium.sigma_a_scale", "medium.sigma_s_scale")
+# The scene leaves a gradient may be asked of, with differentiable=True,
+# each held against the reference's (tests/test_torch_volpath.py,
+# tests/test_torch_grad_leaves.py).
+VOLPATH_TRAINABLE = tuple(f"medium.{n}" for n in (
+    "sigma_a_scale", "sigma_s_scale", "sigma_a_coeffs", "sigma_s_coeffs",
+    "density", "sa_grid_coeffs", "sa_grid_scale", "ss_grid_coeffs",
+    "ss_grid_scale"))
+# Why another leaf is refused (path.refusal_reason's table).
+_VOLPATH_REFUSED = {
+    "medium.g": "the reference's gradient with respect to g is NaN in both "
+                "modes on the media goldens' scenes (ROADMAP Queue 3)",
+    "medium.maj_grid": "the majorants are sampling controls, detached in "
+                       "both packages (ROADMAP Queue 1 item 5e.8)",
+    "medium.max_density": "the majorants are sampling controls, detached "
+                          "in both packages (ROADMAP Queue 1 item 5e.8)",
+    "media_stack.": "the interior media's leaves have no gate yet (ROADMAP "
+                    "Queue 1 item 5e.7)",
+}
 # Material kinds whose gradients through the volumetric path have no gate
-# (ROADMAP Queue 1 item 5e): a request on a scene whose geometry
+# (ROADMAP Queue 1 item 5e.5): a request on a scene whose geometry
 # references one raises.
 _UNGATED_KINDS = frozenset(
     {MAT_HAIR, MAT_SUBSURFACE, MAT_MEASURED, MAT_MIX, MAT_RETRO})
@@ -134,10 +152,13 @@ class VolPathIntegrator:
                     f"{name} requires grad: VolPathIntegrator differentiates "
                     "only with differentiable=True, as in the reference "
                     f"({_ITEM5})")
-            if name.removeprefix("scene.") not in VOLPATH_TRAINABLE:
+            leaf = name.removeprefix("scene.")
+            if leaf not in VOLPATH_TRAINABLE:
+                why = refusal_reason(_VOLPATH_REFUSED, leaf,
+                                     "it has no gate through media")
                 raise NotImplementedError(
-                    f"{name} requires grad: only {VOLPATH_TRAINABLE} have "
-                    f"ported gradients through media ({_ITEM5})")
+                    f"{name} requires grad: {why}; only {VOLPATH_TRAINABLE} "
+                    f"have ported gradients through media ({_ITEM5})")
             asked = True
         kinds = sorted(scene.shaded_kinds & _UNGATED_KINDS)
         if asked and kinds:
@@ -145,7 +166,7 @@ class VolPathIntegrator:
                 f"the geometry references material kind(s) {kinds} (hair 7, "
                 "subsurface 8, measured 9, mix 10, retroreflective 11), "
                 "whose gradients through the volumetric path have no gate "
-                "(ROADMAP Queue 1 item 5e); render under torch.no_grad()")
+                "(ROADMAP Queue 1 item 5e.5); render under torch.no_grad()")
         return asked
 
     def _majorants(self, med, lam):
@@ -327,8 +348,14 @@ class VolPathIntegrator:
 
         def mis(isect, d_cur, o_cur, prev_pdf, specular, prev_p, prev_ns):
             if self.use_mis and self.use_nee:
+                dist = isect.t
+                if self.differentiable:
+                    # A lane that hits no light takes no weight; its t is
+                    # inf on a miss, 0 * inf to a moving direction's
+                    # gradient.
+                    dist = torch.where(isect.light >= 0, dist, 1.0)
                 light_pdf = lights.pdf_li_area(
-                    isect.light, isect.t, dot(isect.n, isect.wo),
+                    isect.light, dist, dot(isect.n, isect.wo),
                     p_ref=prev_p, n_ref=prev_ns)
                 w_l = torch.where(specular, 1.0,
                                   power_heuristic(1, prev_pdf, 1, light_pdf))
@@ -379,9 +406,14 @@ class VolPathIntegrator:
                     pn_s = torch.where(null, pn, 1.0)
                     ps_s = torch.where(scatter, torch.clamp(ps, min=1e-20), 1.0)
                     pa_s = torch.where(absorb, torch.clamp(pa, min=1e-20), 1.0)
-                    w_null = sigma_n / (maj[..., None] * pn_s[..., None])
-                    w_scat = ss / (maj[..., None] * ps_s[..., None])
-                    w_abs = sa / (maj[..., None] * pa_s[..., None])
+                    maj_s = maj
+                    if self.differentiable:
+                        # A cell of majorant 0 is only crossed (no step
+                        # takes its weights).
+                        maj_s = torch.where(maj > 0.0, maj, 1.0)
+                    w_null = sigma_n / (maj_s[..., None] * pn_s[..., None])
+                    w_scat = ss / (maj_s[..., None] * ps_s[..., None])
+                    w_abs = sa / (maj_s[..., None] * pa_s[..., None])
                     step = walking & ~escaped & ~crossed
                     beta_w = torch.where((step & null)[..., None],
                                          beta_w * w_null, beta_w)

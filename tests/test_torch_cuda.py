@@ -4,8 +4,9 @@ lights, the dielectric BxDFs, the textures, the coated materials, the
 many-light hall, the families box and the light tracers (BDPT, the
 light path, SPPM, MLT's first steps) among them) against the same
 renders on the CPU, the sorted shading dispatch against the lockstep
-chain on the card, each gradient estimator's gradients against the
-CPU's, and the texel gathers' take against plain indexing.
+chain on the card, each gradient estimator's gradients and item 5e's
+scene leaves' against the CPU's, and the table gathers' take against
+plain indexing.
 
 These tests need a CUDA device and skip without one. They import neither
 jax nor pbrt_tpu, so they run on a machine that has only the port's
@@ -1108,23 +1109,80 @@ def test_grad_estimator_on_card_matches_cpu(card, mode):
     assert STATS.launches == primal > 0
 
 
-def test_take_on_card_equals_indexing(card):
-    """The texel gathers' take (core/take.py) on the card: the rows of
-    table[idx] bit for bit, and its backward the indexing's sums."""
+@pytest.mark.parametrize("shape, idx_shape", [
+    # a material or texture table by the rays of a bench pass
+    ((21, 3), (131072,)),
+    # a light's 1-D scale, a measured table's flattened cells (8 taps),
+    # the density's corner table (8 taps a row), an env map's texels
+    ((7,), (131072,)),
+    ((32 * 32 * 16 + 1, 3), (8, 4096)),
+    ((9 * 9 * 9 + 1, 8), (65536,)),
+    ((128 * 128 + 1,), (2, 65536)),
+])
+def test_take_on_card_equals_indexing(card, shape, idx_shape):
+    """The table gathers' take (core/take.py: materials, textures,
+    lights, the image and portal lights' texels, the measured tables and
+    the media's grids) on the card: the rows of table[idx] bit for bit,
+    and its backward the indexing's sums; the last row, never gathered,
+    gets zero."""
     from pbrt_tpu_torch.core.take import take
 
     rng = np.random.default_rng(0)
-    table = torch.tensor(rng.normal(size=(21, 3)), dtype=torch.float32,
+    table = torch.tensor(rng.normal(size=shape), dtype=torch.float32,
                          device=card, requires_grad=True)
-    idx = torch.from_numpy(rng.integers(0, 20, 131072)).to(card)
-    w = torch.tensor(rng.normal(size=(131072, 3)), dtype=torch.float32,
-                     device=card)
+    idx = torch.from_numpy(rng.integers(0, shape[0] - 1, idx_shape)).to(card)
+    w = torch.tensor(rng.normal(size=idx_shape + shape[1:]),
+                     dtype=torch.float32, device=card)
     got, want = take(table, idx), table[idx]
     assert torch.equal(got, want)
     g_got, = torch.autograd.grad(torch.sum(got * w), table)
     g_want, = torch.autograd.grad(torch.sum(want * w), table)
     torch.testing.assert_close(g_got, g_want, rtol=1e-5, atol=1e-3)
     assert torch.all(g_got[-1] == 0.0)
+
+
+def _leaf_cases():
+    from .torch_port_leaves import cases
+
+    return [(s, e) for _, s, e, _ in cases()]
+
+
+@pytest.mark.parametrize("name, est", _leaf_cases())
+def test_leaf_gradients_on_card_match_cpu(card, name, est):
+    """Item 5e's scene leaves on the card against the same pass on the
+    CPU (tests/torch_port_leaves.py's cases at their goldens' settings):
+    every gradient within 1e-3 of the CPU's largest entry, the loss within
+    1e-4, and no K1 (K2 on plymesh.pbrt) launch in the backward."""
+    from . import torch_port_leaves as TL
+    from .torch_port_grad import grad_errors, pass_loss_and_grads
+
+    group, leaves = next((g, lv) for g, s, _, lv in TL.CASES if s == name)
+    z = np.load(TL.GOLDEN_FILES[group])
+    asked = tuple(TL.answered(z, f"{name}_{est}", leaves))
+    g = TL.settings_of(group)
+    res, spp = g["resolution"], g["spp"]
+    scene, camera = TL.leaf_scene("pbrt_tpu_torch", name, res)
+    integ = TL.integrator("pbrt_tpu_torch", est)
+    counter = STATS if scene.small is not None else cluster.STATS
+    with TL.keys("pbrt_tpu_torch", name):
+        cpu = pass_loss_and_grads(scene, camera, integ, asked, res, spp)
+        on_card = scene.to(card)
+        counter.reset()
+        gpu = pass_loss_and_grads(on_card, camera, integ, asked, res, spp)
+        torch.cuda.synchronize()
+        launches = counter.launches
+        counter.reset()
+        with torch.no_grad():
+            npix = res * res
+            pixel = torch.arange(npix, device=card).repeat(spp)
+            sample = torch.arange(spp, device=card).repeat_interleave(npix)
+            o, d, wl, _ = camera_rays_full(camera.to(card), pixel, sample, 0,
+                                           n_spectrum=8)
+            integ.trace(on_card, o, d, wl, pixel, sample, 0)
+        torch.cuda.synchronize()
+    errs = grad_errors(*gpu, *cpu)
+    assert errs["ok"], errs
+    assert launches == counter.launches > 0
 
 
 def test_cli_box_on_card_equals_render_file(card, tmp_path):

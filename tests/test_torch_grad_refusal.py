@@ -1,10 +1,12 @@
 """Gradient requests: what the port answers and what it refuses (ROADMAP
 Queue 1 item 5). With autograd on, a scene tensor outside the
-estimator's trainable set (models/path.py TRAINABLE: albedo_coeffs,
-area_scale and img_flat under every estimator, eta under the attached
-one), the ray origins or directions, or the wavelengths that require grad
-raise NotImplementedError at entry; so do the texture tables other than
-img_flat and conductor roughness. Each estimator (remat, cvjp with every
+estimator's trainable set (models/path.py TRAINABLE; the leaves of item
+5e are held in tests/test_torch_grad_leaves.py), the ray origins or
+directions, or the wavelengths that require grad raise
+NotImplementedError at entry, with the reason: a leaf without a golden
+under that estimator (the hair's tilt under remat, the texture tables
+under the attached estimator), conductor roughness under cvjp, a
+medium's majorants. Each estimator (remat, cvjp with every
 replay_remat, attached) and each of the hair, subsurface, measured, mix
 and retroreflective families answers, held against the reference's
 gradients in committed goldens (scripts/make_torch_port_golden_grad.py).
@@ -56,10 +58,11 @@ def _with_grad(scene, member, field):
 
 
 def test_render_with_a_scene_grad_request_raises(cornell8):
-    """Roughness is outside the trainable set: the reference's gradient
-    of it is not finite on a conductor."""
+    """The hair's tilt is outside the default estimator's trainable set:
+    it moves the sampled directions, and its golden was made under the
+    attached estimator only."""
     scene, camera = cornell8
-    scene = _with_grad(scene, "materials", "roughness")
+    scene = _with_grad(scene, "materials", "hair_alpha")
     with pytest.raises(NotImplementedError, match="item 5"):
         render(scene, camera, PathIntegrator(max_depth=5), spp=1,
                device="cpu")
@@ -125,12 +128,16 @@ def imagetex8():
 
 @pytest.mark.parametrize("field", ["rgb0", "f0"])
 def test_texture_grad_request_raises(imagetex8, field):
-    """Of the texture tables only img_flat trains: a request for another
-    raises (item 5)."""
+    """The texture tables train under the detached estimators
+    (tests/test_torch_grad_leaves.py); under the attached estimator, for
+    which no golden of theirs was made, a request raises (item 5e)."""
     scene, camera, integrator = imagetex8
     scene = _with_grad(scene, "textures", field)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        render(scene, camera, integrator, spp=1, device="cpu")
+    attached = integrator.replace(replay_grad=False)
+    with pytest.raises(NotImplementedError,
+                       match=f"{field} requires grad under the attached "
+                             "estimator.*item 5e"):
+        render(scene, camera, attached, spp=1, device="cpu")
 
 
 def test_textured_albedo_rows_get_no_gradient(imagetex8):
@@ -152,16 +159,18 @@ def test_textured_albedo_rows_get_no_gradient(imagetex8):
 @pytest.mark.parametrize("differentiable, member, field", [
     # The reference differentiates media only with differentiable=True.
     (False, "medium", "sigma_a_scale"),
-    # Of the medium's tensors only sigma_a_scale and sigma_s_scale train.
-    (True, "medium", "sigma_a_coeffs"),
+    # The majorants are sampling controls, detached in both packages.
+    (True, "medium", "maj_grid"),
+    # The reference's gradient with respect to g is NaN in both modes.
     (True, "medium", "g"),
     # Nor does any surface parameter through the volumetric path.
     (True, "materials", "albedo_coeffs"),
 ])
 def test_medium_grad_request_raises(differentiable, member, field):
-    """Gradients through media: the fog box's sigma_a_scale and
-    sigma_s_scale with differentiable=True (tests/test_torch_volpath.py);
-    any other request raises (item 5)."""
+    """Gradients through media: the fog box's sigma_a and sigma_s (scales
+    and spectra) and the grids with differentiable=True
+    (tests/test_torch_volpath.py, tests/test_torch_grad_leaves.py); any
+    other request raises (item 5)."""
     from pbrt_tpu_torch.models.volpath import VolPathIntegrator
     from pbrt_tpu_torch.scenes.cloud import fog_box_scene
 
@@ -176,17 +185,23 @@ def test_medium_grad_request_raises(differentiable, member, field):
 
 
 
-def test_roughness_grad_request_raises_under_every_estimator(cornell8):
-    """Conductor roughness stays refused (the reference's gradient is
-    NaN, ROADMAP Queue 3), and eta outside the attached estimator."""
+def test_roughness_and_eta_requests_raise_where_ungated(cornell8):
+    """Conductor roughness trains under remat and the attached estimator
+    (tests/test_torch_grad_leaves.py) and is refused under cvjp: the
+    reference's reverse mode is NaN there (ROADMAP Queue 3), and a custom
+    VJP has no forward mode to hold it against; eta is refused outside
+    the attached estimator."""
     scene, camera = cornell8
     pixel = torch.arange(64)
     o, d, wl, _ = camera_rays_full(camera, pixel, 0, 0, n_spectrum=8)
-    for kw in ({}, {"grad_mode": "cvjp"}, {"replay_grad": False}):
-        asked = _with_grad(scene, "materials", "roughness")
-        with pytest.raises(NotImplementedError, match="roughness.*Queue 3"):
-            PathIntegrator(max_depth=2, **kw).trace(asked, o, d, wl, pixel,
+    asked = _with_grad(scene, "materials", "roughness")
+    with pytest.raises(NotImplementedError, match="roughness.*Queue 3"):
+        PathIntegrator(max_depth=2, grad_mode="cvjp").trace(
+            asked, o, d, wl, pixel, 0, 0)
+    for kw in ({}, {"replay_grad": False}):
+        L = PathIntegrator(max_depth=2, **kw).trace(asked, o, d, wl, pixel,
                                                     0, 0)
+        assert bool(torch.isfinite(L).all())
     for kw in ({}, {"grad_mode": "cvjp"}):
         asked = _with_grad(scene, "materials", "eta")
         with pytest.raises(NotImplementedError, match="eta.*replay_grad"):

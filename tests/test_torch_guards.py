@@ -22,7 +22,9 @@ from pbrt_tpu_torch.materials.buffers import (
     MAT_SUBSURFACE,
     MaterialBuffers,
 )
+from pbrt_tpu_torch.media.medium import MediumBuffers
 from pbrt_tpu_torch.models.path import PathIntegrator
+from pbrt_tpu_torch.models.volpath import VolPathIntegrator
 from pbrt_tpu_torch.parallel.mesh import make_mesh
 from pbrt_tpu_torch.parallel.train import training_step
 from pbrt_tpu_torch.render import camera_rays, camera_rays_full, render
@@ -167,16 +169,18 @@ def _gallery_with_torus_kind(kind):
     return scene.replace(materials=scene.materials.replace(kind=kinds))
 
 
-def _material_gradient(scene, field):
-    """A request for the gradient of the materials' `field` through
-    `scene` (the rays of a 2x2 Cornell camera)."""
-    m = scene.materials
-    scene = scene.replace(materials=m.replace(
-        **{field: getattr(m, field).clone().requires_grad_(True)}))
+def _material_gradient(scene, field, integrator=None, part="materials"):
+    """A request for the gradient of `part`'s `field` through `scene` (the
+    rays of a 2x2 Cornell camera) and `integrator` (the default path
+    integrator)."""
+    m = getattr(scene, part)
+    scene = scene.replace(**{part: m.replace(
+        **{field: getattr(m, field).clone().requires_grad_(True)})})
     pixel = torch.arange(4)
     o, d, wl = camera_rays(cornell_box(resolution=(2, 2))[1], pixel, 0, 0,
                            n_spectrum=8)
-    PathIntegrator().trace(scene.with_accel(), o, d, wl, pixel, 0, 0)
+    integrator = integrator or PathIntegrator()
+    integrator.trace(scene.with_accel(), o, d, wl, pixel, 0, 0)
 
 
 def _raises(build, exc, match):
@@ -223,13 +227,17 @@ def _value_error(build, match):
         device="cpu"), "ptex file 't.ptx' cannot be read"),
     # The plain, coated and retroreflective conductors render
     # (tests/test_torch_coated.py, tests/test_torch_families.py) and carry
-    # the default gradients (tests/test_torch_grad_refusal.py); a gradient
-    # of the roughness is refused: the reference's is NaN (item 5).
-    lambda: _material_gradient(Scene(
+    # their spectra's and roughness's gradients under remat and attached
+    # (tests/test_torch_grad_leaves.py); under cvjp a gradient of the
+    # roughness is refused: the reference's reverse mode is NaN and a
+    # custom VJP has no forward mode (item 5).
+    _raises(lambda: _material_gradient(Scene(
         geom=GeometryBuffers.build(**_quad_geom(mat=1)),
         materials=MaterialBuffers.build([{"kind": MAT_DIFFUSE},
                                          {"kind": MAT_RETRO}]),
-        lights=LightBuffers.build()), "roughness"),
+        lights=LightBuffers.build()), "roughness",
+        PathIntegrator(grad_mode="cvjp")), NotImplementedError,
+        "roughness.*cvjp.*ROADMAP Queue 3"),
     # Every sampler kind of the reference is ported
     # (tests/test_torch_samplers.py); another name raises.
     _value_error(lambda: Sampler(kind="owen"), "unknown sampler kind"),
@@ -240,10 +248,16 @@ def _value_error(build, match):
         '"string filename" "v.nvdb"', device="cpu"), "'v.nvdb' cannot be read"),
     # The gallery's glass torus is shaded (tests/test_torch_dielectric.py),
     # and so are a diffuse-transmission one (tests/test_torch_coated.py)
-    # and a subsurface one, which carries the default gradients; a
-    # gradient of its mean free path has no gate and is refused (item 5).
-    lambda: _material_gradient(_gallery_with_torus_kind(MAT_SUBSURFACE),
-                               "ss_mfp_coeffs"),
+    # and a subsurface one, which carries every material gradient through
+    # the path integrator (tests/test_torch_grad_leaves.py); through the
+    # volumetric path a gradient on a scene that references it has no
+    # gate and is refused (item 5e.5).
+    _raises(lambda: _material_gradient(
+        _gallery_with_torus_kind(MAT_SUBSURFACE).replace(
+            medium=MediumBuffers.homogeneous((0.1,) * 3, (0.1,) * 3,
+                                             (-9.0,) * 3, (9.0,) * 3)),
+        "sigma_a_scale", VolPathIntegrator(max_depth=2, differentiable=True),
+        "medium"), NotImplementedError, "ROADMAP Queue 1 item 5e.5"),
 ], ids=["device_mesh", "realistic_camera", "gbuffer_film",
         "point_light", "infinite_light", "light_bvh", "texture",
         "referenced_conductor", "sobol_sampler", "nanovdb_medium",

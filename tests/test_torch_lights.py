@@ -18,6 +18,7 @@ Tolerances, each for its reason:
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -393,14 +394,21 @@ def test_sample_le_origin_raises():
 
 
 def test_new_light_gradients_refused(every_light):
-    """A gradient request on a light tensor outside the default trainable
-    set raises naming item 5 (models/path.py's guard)."""
+    """The light tables train under the estimators of their goldens
+    (tests/test_torch_grad_leaves.py); a request outside an estimator's
+    table raises naming item 5 (models/path.py's guard): the point, spot
+    and image lights' tables under the attached estimator, which has no
+    golden of theirs, and the image light's importance tables under
+    every estimator (item 5e.8). The sphere light's trains under all."""
     _, pl = every_light["uniform"]
     scene, camera = furnace_sphere_scene(resolution=(2, 2))
     pixel = torch.arange(4)
     o, d, wl = camera_rays(camera, pixel, 0, 0, n_spectrum=8)
-    for path in ("point_scale", "spot_coeffs", "env.scale",
-                 "env.dist.conditional.func", "sphl_scale"):
+    refusing = {"point_scale": {"attached"}, "spot_coeffs": {"attached"},
+                "env.scale": {"attached"},
+                "env.dist.conditional.func": {"remat", "attached"},
+                "sphl_scale": set()}
+    for path, by in refusing.items():
         lights = pl
         head, _, leaf = path.rpartition(".")
         if head:
@@ -418,6 +426,13 @@ def test_new_light_gradients_refused(every_light):
             lights = dataclasses.replace(
                 lights, **{leaf: getattr(lights, leaf).clone()
                            .requires_grad_(True)})
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-            PathIntegrator(max_depth=2).trace(scene.replace(lights=lights),
-                                              o, d, wl, pixel, 0, 0)
+        for est, kw in (("remat", {}), ("attached", {"replay_grad": False})):
+            trace = functools.partial(
+                PathIntegrator(max_depth=2, **kw).trace,
+                scene.replace(lights=lights), o, d, wl, pixel, 0, 0)
+            if est in by:
+                with pytest.raises(NotImplementedError,
+                                   match="ROADMAP Queue 1 item 5"):
+                    trace()
+            else:
+                assert bool(torch.isfinite(trace()).all()), (path, est)

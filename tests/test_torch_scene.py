@@ -160,6 +160,26 @@ def test_convert_refuses_unported_members(jax_cornell):
             np.testing.assert_array_equal(got[path], value, err_msg=path)
 
 
+@pytest.mark.parametrize("member", ["small", "clusters", "sweep", "bvh",
+                                    "kdtree"])
+def test_convert_refuses_unknown_accelerator_field(jax_cornell, member):
+    """The port carries every field of the accelerators' classes, so a
+    field of theirs it does not know is unknown, not unported: one that
+    holds data raises ValueError naming it, and one that holds none is
+    dropped."""
+    from pbrt_tpu_torch.convert import scene_from_arrays
+
+    arrays, static = flatten_jax(jax_cornell[0])
+    path = f"{member}.no_such_field"
+    with pytest.raises(ValueError, match=f"unknown scene field '{path}'"):
+        scene_from_arrays({**arrays, path: np.ones(3, np.float32)}, static)
+    with pytest.raises(ValueError, match=f"unknown scene field '{path}'"):
+        scene_from_arrays(arrays, {**static, path: 1})
+    if member == "small":
+        scene = scene_from_arrays({**arrays, path: np.zeros(3)}, static)
+        assert scene.small.n_tris == jax_cornell[0].small.n_tris
+
+
 def test_convert_refuses_unported_shapes():
     """Every shape family converts now: a reference scene with spheres,
     curves, disks, cylinders, bilinear patches and alpha-masked triangles
