@@ -326,8 +326,9 @@ Phases:
       the coated walk split from the BxDF's and light selection from the
       lights' (and the sorted dispatch's whole call), kernel launches per
       pass and the device's busy share (torch.profiler); then the power
-      pass with sorted_shading=False against the sorted default, in four
-      turns of one timed pass, the first pass's image of each bit-equal
+      pass with sorted_shading=False against the sorted default, one
+      timed pass each after a warm-up, the first pass's image of each
+      bit-equal
   e9  bench.py's cloud_fwd timed: the cloud at 128x128, one pass of 8 spp
       (bench's 16 cut; 131,072 camera rays a pass), depth 6, the DDA walk, Russian
       roulette from 3, 8 lanes: Mrays/s as bench.py counts rays, K1
@@ -344,8 +345,8 @@ Phases:
       with the BxDF's split by the sorted dispatch's family segments and
       the subsurface step's and its probe query's ms, kernel launches per
       pass and the device's busy share (torch.profiler); then sorted
-      against lockstep shading, in turns, the first pass's image of each
-      bit-equal
+      against lockstep shading, each timed after a warm-up, the first
+      pass's image of each bit-equal
   e11 the light tracers timed, each with K1 launches and ms per pass,
       peak memory, its layers' device ms (BDPT: walks, connection
       queries, BxDF, splats; SPPM: camera pass, grid, photon pass and its
@@ -466,6 +467,17 @@ Phases:
       make_torch_port_golden_leaves.py) with g's tolerance, a table
       along the golden's probe directions; 0 K1 (K2 on plymesh.pbrt)
       launches in every backward, the primal's in the forward
+  g13 the rest of item 5e (tests/torch_port_leaves.py's volpath and
+      sampling groups): the fog box's slab and the families box in a
+      homogeneous medium with their surface, light and medium leaves,
+      fog.pbrt's interior medium and the density grid's max_density
+      through the differentiable volumetric path, envmap.pbrt's
+      importance tables and leaf_lights.pbrt's selection pmf and cdf
+      under remat and cvjp, the 16-light hall's BVH node table under
+      cvjp: every case with a golden against it and against the same
+      pass on the CPU, with g's tolerance, a zero golden exactly zero;
+      K1 0 in every backward, the primal's in the forward (17, 46 with
+      interior media, 11)
   e15 cornell_fwdbwd_8lane's shape (256x256, passes of 2 spp, 8 lanes,
       depth 5, no Russian roulette) under every estimator (remat,
       attached, cvjp full / dots / none), then the textured Cornell box
@@ -477,12 +489,17 @@ Phases:
       requested: the families box with every material leaf of g12's
       golden (e15 has it with the default leaves), leaf_lights.pbrt with
       its light tables and texture.pbrt with its texture tables
+  e18 e17's shape and figures with the rest of item 5e's leaves: the
+      families box in its medium through the differentiable volumetric
+      path with g13's leaves, and the 16-light hall with its BVH node
+      table under cvjp
   t   t_train: three training_steps (lr 1e-2) on the Cornell box, 64x64, 2
       spp, 8 lanes: each loss, every parameter finite, moved and on the card
   f   the kernels line (the six micro kernels' launches those of m1's
       timed runs; K1's launches those of e, e12's shapes box,
       e13's cornell_lens, e14's io scenes, the loss and gradient calls
-      of g8-g12, e17's timed passes, d29's box.pbrt, p1's sharded calls
+      of g8-g13, e17's and e18's timed passes, d29's box.pbrt, p1's
+      sharded calls
       and p2's worker processes, K2's those of e2, d29's plymesh.pbrt
       and g12's plymesh.pbrt cases, K3's those of e3 and e12's moving
       field, by path),
@@ -2250,9 +2267,12 @@ def make_grad_pass(scene, camera, res: int, k: int, lanes: int,
         if mark is not None:
             mark()
         with torch.profiler.record_function("backward"):
-            # A leaf the loss does not read (a mix amount) gets zeros.
-            grads = torch.autograd.grad(loss, params, allow_unused=True,
-                                        materialize_grads=True)
+            # A leaf the loss does not read (a mix amount) gets zeros, and
+            # so do leaves none of which it reads (a medium's majorants).
+            grads = (torch.autograd.grad(loss, params, allow_unused=True,
+                                         materialize_grads=True)
+                     if loss.requires_grad
+                     else [torch.zeros_like(x) for x in params])
         ev[2].record()
         if mark is not None:
             mark()
@@ -2559,55 +2579,112 @@ def phase_grad_families(dev) -> int:
 
 def phase_grad_leaves(dev) -> dict:
     """g12: the scene leaves of ROADMAP item 5e.1-5e.4 on the card: each
-    scene of tests/torch_port_leaves.py (at its golden's settings: 16x16,
-    or 8x8 for the media, 2 spp, depth 5, 8 lanes, the bench loss, the
-    scene's hash keys) under one estimator of its golden, the attached
-    one where it has one (every leaf of the scene trains there), else
-    remat, the media's differentiable volumetric path; against the JAX
-    goldens of scripts/make_torch_port_golden_leaves.py: every gradient
-    within g's tolerance of its golden's largest entry (a table held
-    along the golden's probe directions), the loss within 1e-4, every
-    entry finite; the triangle kernel's launches of the forward+backward
-    pass counted from zero: 0 in the backward, and in the forward the
-    primal's (2 queries a bounce and the terminal one; 3 with the
-    subsurface probe; 3 a bounce and 2 more through the volumetric
-    path) (K1; K2 on plymesh.pbrt's 1,282 triangles). The other
-    estimators are held on the CPU (tests/test_torch_grad_leaves.py) and
-    card against CPU (tests/test_torch_cuda.py). Returns each kernel's
-    launches in the forward passes."""
+    scene of tests/torch_port_leaves.py's groups materials, textures,
+    lights and media (at its golden's settings: 16x16, or 8x8 for the
+    media, 2 spp, depth 5, 8 lanes, the bench loss, the scene's hash
+    keys) under one estimator of its golden, the attached one where it
+    has one (every leaf of the scene trains there), else remat, the
+    media's differentiable volumetric path; against the JAX goldens of
+    scripts/make_torch_port_golden_leaves.py: every gradient within g's
+    tolerance of its golden's largest entry (a table held along the
+    golden's probe directions), the loss within 1e-4, every entry
+    finite; the triangle kernel's launches of the forward+backward pass
+    counted from zero: 0 in the backward, and in the forward the
+    primal's (`_primal_queries`) (K1; K2 on plymesh.pbrt's 1,282
+    triangles). The other estimators are held on the CPU
+    (tests/test_torch_grad_leaves.py) and card against CPU
+    (tests/test_torch_cuda.py). Returns each kernel's launches in the
+    forward passes."""
+    from tests import torch_port_leaves as TL
+
+    cases = []
+    for group, name, ests, leaves in TL.CASES:
+        if group in ("materials", "textures", "lights", "media"):
+            est = ("attached" if "attached" in ests
+                   else "remat" if "remat" in ests else ests[0])
+            cases.append((group, name, est, leaves))
+    return _grad_leaf_cases(dev, "g12_grad_leaves", cases, against_cpu=False)
+
+
+def phase_grad_leaves_rest(dev) -> dict:
+    """g13: the rest of item 5e on the card (tests/torch_port_leaves.py's
+    groups volpath and sampling, 8x8 and 16x16, 2 spp): every case with a
+    golden, g12's way, and against the same pass on the CPU as well
+    (within g's tolerance of the CPU's largest entry; a zero gradient
+    exactly zero): the fog box's slab and the families box in its medium
+    with their surface, light and medium leaves, fog.pbrt's interior
+    medium and the grid's max_density through the differentiable
+    volumetric path (5e.5, 5e.7, 5e.8); envmap.pbrt's importance tables
+    and leaf_lights.pbrt's selection pmf and cdf under remat and cvjp
+    (5e.8); the 16-light hall's BVH node table under cvjp (5e.6). K1
+    launches 0 in every backward and the primal's in every forward.
+    Returns each kernel's launches in the forward passes."""
+    from tests import torch_port_leaves as TL
+
+    cases = [c for c in TL.cases(("volpath", "sampling"))
+             if TL.answered(TL.golden(c[0]), f"{c[1]}_{c[2]}", c[3])]
+    return _grad_leaf_cases(dev, "g13_grad_leaves_rest", cases,
+                            against_cpu=True)
+
+
+def _primal_queries(scene, est: str, depth: int) -> int:
+    """Triangle-kernel launches of one primal pass at `depth`: the path
+    integrator's closest and shadow query a bounce and the terminal
+    closest, with the subsurface probe a third a bounce; the volumetric
+    path's closest query a bounce, a shadow ray from the medium scatter
+    point (where a medium exists) and one from the surface, each one
+    any-hit or, with interior media, the interface walk's four closest
+    queries, and the terminal closest with its transmittance's any-hit
+    where a scene-level medium exists."""
+    from pbrt_tpu_torch.materials.buffers import MAT_SUBSURFACE
+
+    if est != "volpath":
+        return (3 if MAT_SUBSURFACE in scene.shaded_kinds else 2) * depth + 1
+    medium = scene.medium is not None and not scene.medium.is_none
+    stack = scene.media_stack is not None
+    shadow = 4 if stack else 1
+    return (1 + shadow * (2 if medium or stack else 1)) * depth + 1 + medium
+
+
+def leaf_scene_on(name: str, dev):
+    """(scene on the card, the same on the CPU, camera) of a case of
+    tests/torch_port_leaves.py: the families box, in its medium for
+    "volfamilies", from families_on (its measured table fitted once),
+    the others from their CPU build (TL.port_scene, once a process)."""
+    from tests import torch_port_leaves as TL
+
+    if name in ("families", "volfamilies"):
+        scene, camera, _ = families_on(dev)
+        if name == "volfamilies":
+            scene = TL.in_medium("pbrt_tpu_torch", scene)
+        return scene, scene.to("cpu"), camera
+    cpu_scene, camera = TL.port_scene(name)
+    return cpu_scene.to(dev), cpu_scene, camera
+
+
+def _grad_leaf_cases(dev, phase: str, cases, against_cpu: bool) -> dict:
+    """g12's and g13's check of each (group, scene, estimator, leaves)
+    case on the card; returns each kernel's launches in the forwards."""
     import numpy as np
     import torch
 
-    from pbrt_tpu_torch.materials.buffers import MAT_SUBSURFACE
     from pbrt_tpu_torch.ops import cluster, smallscene
     from tests import torch_port_leaves as TL
+    from tests.torch_port_grad import grad_errors, pass_loss_and_grads
 
     launches = {"smallscene": 0, "cluster": 0}
-    goldens = {}
-    for group, name, ests, leaves in TL.CASES:
-        est = ("attached" if "attached" in ests
-               else "remat" if "remat" in ests else ests[0])
-        if group not in goldens:
-            goldens[group] = np.load(TL.GOLDEN_FILES[group])
-        z = goldens[group]
+    for group, name, est, leaves in cases:
+        z = TL.golden(group)
         want = TL.answered(z, f"{name}_{est}", leaves)
         g = TL.settings_of(group)
         res, k, depth = g["resolution"], g["spp"], g["max_depth"]
-        if name == "families":
-            scene, camera, _ = families_on(dev)
-        else:
-            scene, camera = TL.leaf_scene("pbrt_tpu_torch", name, res,
-                                          device=dev)
+        scene, cpu_scene, camera = leaf_scene_on(name, dev)
         camera = camera.replace(resolution=(res, res)).to(dev)
         integ = TL.integrator("pbrt_tpu_torch", est)
         kernel = "smallscene" if scene.small is not None else "cluster"
         counter = {"smallscene": smallscene.STATS,
                    "cluster": cluster.STATS}[kernel]
-        if est == "volpath":
-            primal = 3 * depth + 2
-        else:
-            probe = MAT_SUBSURFACE in scene.shaded_kinds
-            primal = (3 if probe else 2) * depth + 1
+        primal = _primal_queries(scene, est, depth)
         marks = []
         with TL.keys("pbrt_tpu_torch", name):
             grad_pass, _ = make_grad_pass(scene, camera, res, k, 8,
@@ -2617,10 +2694,14 @@ def phase_grad_leaves(dev) -> dict:
             loss, grads = grad_pass(
                 0, mark=lambda: marks.append(counter.launches))
             torch.cuda.synchronize()
-        counter.reset()
-        loss = float(loss)
-        grads = {p: x.detach().cpu().double().numpy()
-                 for p, x in zip(want, grads)}
+            counter.reset()
+            loss = float(loss)
+            grads = {p: x.detach().cpu().double().numpy()
+                     for p, x in zip(want, grads)}
+            vs_cpu = None
+            if against_cpu:
+                vs_cpu = grad_errors(loss, grads, *pass_loss_and_grads(
+                    cpu_scene, camera.to("cpu"), integ, tuple(want), res, k))
         errs = TL.leaf_errors(want, grads)
         want_loss = float(z[f"{name}_{est}_loss"])
         loss_rel = abs(loss - want_loss) / abs(want_loss)
@@ -2628,21 +2709,26 @@ def phase_grad_leaves(dev) -> dict:
                  "primal": primal}
         ok = (errs["finite"] and loss_rel <= LOSS_RTOL
               and all(v <= GRAD_RTOL_OF_MAX for key, v in errs.items()
-                      if key != "finite"))
-        emit("g12_grad_leaves", group=group, scene=name, estimator=est,
+                      if key != "finite")
+              and (vs_cpu is None or vs_cpu["ok"]))
+        # A golden that is zero (by construction) is matched exactly.
+        zero = sorted(p for p, (_, w) in want.items() if not np.any(w))
+        ok = ok and not any(np.any(grads[p]) for p in zero)
+        emit(phase, group=group, scene=name, estimator=est,
              resolution=res, spp=k, lanes=8, leaves=list(want),
              held_along_directions=[p for p, (w, _) in want.items()
                                     if w == "jvp"],
+             zero_goldens=zero,
              loss=loss, golden_loss=want_loss, loss_rel_err=loss_rel,
-             vs_jax=errs, kernel=kernel, launches=split,
+             vs_jax=errs, vs_cpu=vs_cpu, kernel=kernel, launches=split,
              tolerance={"grad_of_max": GRAD_RTOL_OF_MAX,
                         "loss_rel": LOSS_RTOL})
         if not ok:
-            raise AssertionError(f"g12 {name} {est}: gradients disagree "
-                                 f"with the JAX golden: {errs}, loss "
-                                 f"{loss_rel}")
+            raise AssertionError(f"{phase} {name} {est}: gradients disagree "
+                                 f"with the JAX golden or the CPU: {errs}, "
+                                 f"{vs_cpu}, loss {loss_rel}, zero {zero}")
         if split["backward"] != 0 or split["forward"] != primal:
-            raise AssertionError(f"g12 {name} {est}: {kernel} launches "
+            raise AssertionError(f"{phase} {name} {est}: {kernel} launches "
                                  f"{split}")
         launches[kernel] += split["forward"]
     return launches
@@ -2735,7 +2821,9 @@ def _timed_fwdbwd_config(phase, scene_name, mode, scene, cam, integ, leaves,
         bwd = {marks[2 * i + 1] - marks[2 * i] for i in range(passes)}
     finite = acc == acc and all(bool(torch.isfinite(g).all())
                                 for g in grads)
-    line = dict(scene=scene_name, estimator=integ.estimator(scene),
+    est = (integ.estimator(scene) if hasattr(integ, "estimator")
+           else "volpath")
+    line = dict(scene=scene_name, estimator=est,
                 mode=mode, leaves=list(leaves), resolution=res,
                 samples_per_pass=k, lanes=lanes, max_depth=integ.max_depth,
                 passes=passes, rays_per_pass=rays_pass, seconds=seconds,
@@ -2819,13 +2907,43 @@ def phase_timed_fwdbwd_leaves(dev, smi: str) -> int:
                 fam_camera, leaves["families"])]
     for name, which in (("lightkinds", "light_leaves"),
                         ("texture", "texture_leaves")):
-        scene, camera = TL.leaf_scene("pbrt_tpu_torch", name, res,
-                                      device=dev)
-        configs.append((name, which, "remat", scene, camera, leaves[name]))
+        scene, _, camera = leaf_scene_on(name, dev)
+        configs.append((name, which, "remat", scene,
+                        camera.replace(resolution=(res, res)).to(dev),
+                        leaves[name]))
     total = 0
     for name, which, est, scene, camera, asked in configs:
         line = _timed_fwdbwd_config(
             "e17_timed_fwdbwd_leaves", name, which, scene, camera,
+            TL.integrator("pbrt_tpu_torch", est), asked, passes, smi,
+            keys=TL.keys("pbrt_tpu_torch", name))
+        total += line["k1_launches_forward"] * passes
+    return total
+
+
+def phase_timed_fwdbwd_leaves_rest(dev, smi: str) -> int:
+    """e18: e15's shape (256x256, passes of 2 spp, 8 lanes, depth 5, no
+    Russian roulette) with the rest of item 5e's leaves requested: the
+    families box inside its homogeneous medium through the differentiable
+    volumetric path (32-step walks) with every leaf of g13's golden
+    (5e.5: albedo, area scale, the medium's spectra, the hair,
+    subsurface, measured and mix leaves), and the hall cut to 16 lights
+    with its light BVH's node table under cvjp (5e.6). For each: e15's
+    figures over one timed pass. Returns K1's launches in the timed
+    passes."""
+    from tests import torch_port_leaves as TL
+
+    res, passes = ESTIMATOR_RES, ESTIMATOR_PASSES
+    total = 0
+    for name, which, est in (("volfamilies", "volpath_leaves", "volpath"),
+                             ("lightbvh", "bvh_nodes", "cvjp")):
+        group = TL.group_of(name)
+        leaves = dict((s, lv) for _, s, _, lv in TL.CASES)[name]
+        asked = tuple(TL.answered(TL.golden(group), f"{name}_{est}", leaves))
+        scene, _, camera = leaf_scene_on(name, dev)
+        line = _timed_fwdbwd_config(
+            "e18_timed_fwdbwd_leaves_rest", name, which, scene,
+            camera.replace(resolution=(res, res)).to(dev),
             TL.integrator("pbrt_tpu_torch", est), asked, passes, smi,
             keys=TL.keys("pbrt_tpu_torch", name))
         total += line["k1_launches_forward"] * passes
@@ -3062,8 +3180,9 @@ def phase_timed_hall(dev, smi: str, hall):
     (_hall_layers), the kernel launches of one pass and the device's busy
     share (scripts/profile_torch_pass.py's torch.profiler view); then the
     power pass with the lockstep chain (sorted_shading=False) against the
-    sorted default, in turns, in this call (the card's break-even), the
-    first pass's image of each mode bit-equal."""
+    sorted default, one timed pass each after a warm-up, in this call
+    (the card's break-even), the first pass's image of each mode
+    bit-equal."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -3105,7 +3224,7 @@ def phase_timed_hall(dev, smi: str, hall):
         k2_launches += out["k2_launches"]
         if sampler == "power":
             runs, first = {True: [], False: []}, {}
-            for sort in ("auto", False, False, "auto"):
+            for sort in ("auto", False):
                 rp = make_pass(scene, camera, res, k, lanes, depth=depth,
                                sorted_shading=sort)
                 # Each mode's first turn warms it up and keeps its image.
@@ -3770,8 +3889,8 @@ def phase_timed_families(dev, smi: str) -> int:
     Mrays/s, K1 launches per pass, peak memory, the first pass's seconds,
     the layers (_families_layers), kernel launches per pass and the busy
     share (torch.profiler); then sorted against lockstep shading
-    (sorted_shading=False), in turns, the first pass's image of each
-    bit-equal."""
+    (sorted_shading=False), each timed after a warm-up, the first pass's
+    image of each bit-equal."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -3809,7 +3928,7 @@ def phase_timed_families(dev, smi: str) -> int:
          profiled_pass_wall_ms=kern["wall_ms"], top_kernels=kern["top"],
          nvidia_smi=smi)
     runs, first = {True: [], False: []}, {}
-    for sort in ("auto", False, False, "auto"):
+    for sort in ("auto", False):
         rp = make_pass(scene, camera, res, k, f["lanes"], depth=f["depth"],
                        sorted_shading=sort)
         if (sort == "auto") not in first:  # the mode's warm-up pass
@@ -6184,6 +6303,8 @@ def _run(dev, smi, children, seed: int) -> int:
     grad_launches["grad_families"] = phase_grad_families(dev)
     leaf_launches = phase_grad_leaves(dev)
     grad_launches["grad_leaves"] = leaf_launches["smallscene"]
+    grad_launches["grad_leaves_rest"] = phase_grad_leaves_rest(
+        dev)["smallscene"]
     phase_k1_lighttransport_vs_twin(dev)
     phase_golden_mc(dev)
     phase_golden_lighttransport_jax(dev)
@@ -6200,6 +6321,8 @@ def _run(dev, smi, children, seed: int) -> int:
     phase_timed_fwdbwd(dev, smi)
     phase_timed_fwdbwd_estimators(dev, smi)
     grad_launches["fwdbwd_leaves"] = phase_timed_fwdbwd_leaves(dev, smi)
+    grad_launches["fwdbwd_leaves_rest"] = phase_timed_fwdbwd_leaves_rest(
+        dev, smi)
     phase_train(dev)
     k2_launches = phase_timed_killeroo(dev, builds["cluster"]["seconds"])
     k3_launches = phase_timed_instanced(dev, field[3])
@@ -6221,8 +6344,9 @@ def _run(dev, smi, children, seed: int) -> int:
     # of the 1,048,576-ray comparisons, both modes. K1's launches are those
     # of the Cornell (e), shapes (e12), cornell_lens (e13) and io (e14)
     # main paths, of the gradient estimators' loss and gradient calls
-    # (g8-g12), of e17's timed leaf passes, of the render CLI on box.pbrt
-    # (d29), of p1's sharded renders and mesh step and of p2's workers;
+    # (g8-g13), of e17's and e18's timed leaf passes, of the render CLI on
+    # box.pbrt (d29), of p1's sharded renders and mesh step and of p2's
+    # workers;
     # K2's of killeroo (e2), of the CLI on plymesh.pbrt (d29) and of
     # g12's plymesh.pbrt cases; K3's of the instanced
     # field (e3) and motion.pbrt (e12), each counted from zero around its

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core import cie, rgb2spec
+from ..core.floats import grad_flows
 from ..core.sampling import (
     UNIFORM_SPHERE_PDF,
     sample_uniform_sphere,
@@ -842,6 +843,10 @@ class LightBuffers:
                                     + _EPS)
             pdf = torch.where(light_idx >= na,
                               torch.where(inside, pdf_in, pdf_cone), pdf)
+        if grad_flows(pmf):
+            # A lane that hits no light has t, so pdf, inf: 0 * inf to the
+            # pmf's gradient (the reference's reverse mode is NaN there).
+            pdf = torch.where(light_idx >= 0, pdf, 0.0)
         return torch.where(light_idx >= 0, pdf * pmf, 0.0)
 
     def sample_le_origin(self, u_sel, u_pos):

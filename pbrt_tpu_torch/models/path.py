@@ -37,12 +37,19 @@ depends on the estimator (TRAINABLE), each held against the reference's
 gradient under that estimator: every estimator differentiates the
 albedo, the image texels, the conductors' spectra, the coat's thickness,
 the diffuse transmission and the area, sphere, projection, goniometric
-and distant lights' tables; remat and cvjp also the other texture tables
-and the point, spot, uniform infinite, image and portal lights' tables;
-remat and attached the roughness and the coat's roughness; the attached
-estimator eta and the hair, subsurface, measured and mix leaves. A
-request for any other leaf, or for o, d or the wavelengths, raises
-NotImplementedError with its reason (_REFUSED).
+and distant lights' tables; remat and cvjp also the other texture tables,
+the point, spot, uniform infinite, image and portal lights' tables and
+the sampling tables (the image light's importance tables, the selection
+pmf and cdf), which reach the loss only through the MIS pdfs: under
+remat they carry a gradient, under cvjp, whose replay reads the recorded
+pdfs as the reference's does, it is zero, and so is the light BVH's node
+table's, which trains under cvjp only; remat and attached the roughness
+and the coat's roughness; the attached estimator eta and the hair,
+subsurface, measured and mix leaves. A request for any other leaf, or
+for o, d or the wavelengths, raises NotImplementedError with its reason
+(_REFUSED, NO_GOLDEN): roughness under cvjp and the node table under
+remat, whose reference gradients are NaN, and any leaf under an
+estimator without its golden.
 
 RNG dimension layout (per ray; stateless pcg4d streams, core/rng.py):
   dims 0-7            camera: pixel jitter (0,1), lens (2,3), wavelength (4),
@@ -106,11 +113,18 @@ _DETACHED_TRAINABLE = (
     *_p("lights", "point_coeffs", "point_scale", "spot_coeffs", "spot_scale",
         "infinite_coeffs", "infinite_scale", "env.coeffs", "env.scale",
         "env.scale_tx", "env.strength"),
+    # The sampling tables, read through the MIS pdfs only: the image
+    # light's importance tables and the light selection's pmf and cdf.
+    *(f"lights.env.dist.{t}.{f}" for t in ("conditional", "marginal")
+      for f in ("func", "cdf", "integral")),
+    *_p("lights", "env.luminance", "select_pmf", "select_cdf"),
 )
 TRAINABLE = {
     "remat": (*_DETACHED_TRAINABLE,
               *_p("materials", "roughness", "coat_roughness")),
-    "cvjp": _DETACHED_TRAINABLE,
+    # cvjp's replay reads the recorded MIS pdfs, so the light BVH's node
+    # table gets its zero gradient there.
+    "cvjp": (*_DETACHED_TRAINABLE, "lights.bvh.nodes"),
     "attached": (
         *DEFAULT_TRAINABLE, "textures.img_flat", "materials.eta", *_COND,
         *_p("materials", "roughness", "coat_roughness", "thickness",
@@ -120,7 +134,8 @@ TRAINABLE = {
         *_LIGHT_TABLES),
 }
 # Why a leaf outside TRAINABLE[estimator] is refused, by dotted path or
-# by a prefix ending in "."; any other is refused as having no gate.
+# by a prefix ending in "."; any other has no golden under that
+# estimator (NO_GOLDEN).
 _REFUSED = {
     **{f"materials.{r}": "the reference's reverse-mode gradient of a "
                          "microfacet roughness is NaN, and cvjp, a custom "
@@ -129,17 +144,13 @@ _REFUSED = {
        for r in ("roughness", "coat_roughness")},
     "materials.eta": "eta moves the sampled directions, which only the "
                      "attached estimator (replay_grad=False) differentiates",
-    "lights.env.dist.": "the image light's importance tables are sampling "
-                        "controls, not radiance (ROADMAP Queue 1 item 5e.8)",
-    "lights.env.luminance": "the image light's importance tables are "
-                            "sampling controls, not radiance (ROADMAP Queue "
-                            "1 item 5e.8)",
-    "lights.bvh.": "the light BVH's node table has no gate (ROADMAP Queue 1 "
-                   "item 5e.6)",
-    **{f"lights.select_{t}": "the selection pmf is built on the host "
-                             "from the build-time power, a constant as in "
-                             "the reference" for t in ("pmf", "cdf")},
+    "lights.bvh.": "the reference's gradient through the light BVH's pmf "
+                   "(the MIS weight's) is NaN in both modes; only cvjp, "
+                   "whose replay reads the recorded pmf, answers it "
+                   "(ROADMAP Queue 3)",
 }
+NO_GOLDEN = ("it has no golden under this estimator (ROADMAP Queue 3, item "
+             "5e's departures)")
 
 
 def refusal_reason(refused: dict, name: str, default: str) -> str:
@@ -194,9 +205,7 @@ def _requested_leaves(scene, o, d, wl, estimator: str) -> list:
             continue
         name = name.removeprefix("scene.")
         if name not in TRAINABLE[estimator]:
-            why = refusal_reason(_REFUSED, name,
-                                 "it has no gate under this estimator "
-                                 "(ROADMAP Queue 1 item 5e)")
+            why = refusal_reason(_REFUSED, name, NO_GOLDEN)
             raise NotImplementedError(
                 f"scene.{name} requires grad under the {estimator} "
                 f"estimator: {why}; it differentiates "
@@ -345,6 +354,18 @@ class _Queries:
             self.records[key] = {f: getattr(isect, f) for f in _HIT_FIELDS}
         return isect
 
+    def recorded(self, key, compute):
+        """compute()'s tensors, which a replay reads from the records: the
+        MIS pdfs, pure geometry that the reference's replay reads back
+        too, so no sampling table gets a gradient through them under
+        cvjp."""
+        if self.replay is not None:
+            return self.replay[key]
+        out = compute()
+        if self.records is not None:
+            self.records[key] = tuple(x.detach() for x in out)
+        return out
+
     def occluded(self, key, so, wi, smax):
         if self.replay is not None:
             return self.replay[key]
@@ -378,6 +399,11 @@ class _TraceCVJP(torch.autograd.Function):
             replayed = with_leaves(scene, dict(zip(names, leaves)))
             L, _ = integ._run(replayed, *args, estimator="replay",
                               replay=records)
+            if not L.requires_grad:
+                # No leaf reaches the replay (a sampling table, read only
+                # through the recorded pdfs).
+                return (None, None, None, None,
+                        *(torch.zeros_like(x) for x in leaves))
             grads = torch.autograd.grad(L, leaves, g_L, allow_unused=True)
         return (None, None, None, None, *grads)
 
@@ -509,19 +535,23 @@ class PathIntegrator:
             Queue 3). The detached estimators stop these gradients."""
             return x if detach else torch.where(keep, x, 1.0)
 
-        def mis_weights(isect, active, d_cur, o_cur, prev):
+        def mis_pdfs(isect, d_cur, o_cur, prev_p, prev_ns):
+            # A lane that hits no light takes no weight w_l (its t is inf
+            # on a miss).
+            dist = isect.t if detach else kept(isect.t, isect.light >= 0)
+            return (lights.pdf_li_area(isect.light, dist,
+                                       dot(isect.n, isect.wo),
+                                       p_ref=prev_p, n_ref=prev_ns),
+                    lights.pdf_escaped(d_cur, o_cur))
+
+        def mis_weights(key, isect, active, d_cur, o_cur, prev):
             """Where emission and escaped radiance count, and their MIS
             weights against NEE from the previous vertex."""
             prev_pdf, specular, prev_p, prev_ns = prev
             if self.use_mis and self.use_nee:
-                # A lane that hits no light takes no weight w_l (its t is
-                # inf on a miss).
-                dist = isect.t if detach else kept(isect.t, isect.light >= 0)
-                light_pdf = lights.pdf_li_area(
-                    isect.light, dist, dot(isect.n, isect.wo),
-                    p_ref=prev_p, n_ref=prev_ns,
-                )
-                esc_pdf = lights.pdf_escaped(d_cur, o_cur)
+                light_pdf, esc_pdf = queries.recorded(
+                    ("mis", key), lambda: mis_pdfs(isect, d_cur, o_cur,
+                                                   prev_p, prev_ns))
                 w_l = torch.where(
                     specular, 1.0, power_heuristic(1, prev_pdf, 1, light_pdf)
                 )
@@ -629,7 +659,8 @@ class PathIntegrator:
             n_rays = st["rays"] + torch.sum(active.to(torch.float32))
             # Dead lanes get tmax = 0 and fail every hit gate.
             isect = queries.closest(depth, o, d, active)
-            weights = mis_weights(isect, active, d, o, prev) if have_lights else None
+            weights = (mis_weights(depth, isect, active, d, o, prev)
+                       if have_lights else None)
             hit = active & isect.valid
 
             frame = _frame(isect)
@@ -734,6 +765,7 @@ class PathIntegrator:
             o, d, active = st["o"], st["d"], st["active"]
             isect = queries.closest("terminal", o, d, active)
             L = add_emission(L, st["beta"], isect, d, o,
-                             mis_weights(isect, active, d, o, st["prev"]))
+                             mis_weights("terminal", isect, active, d, o,
+                                         st["prev"]))
             rays = rays + torch.sum(active.to(torch.float32))
         return L, {"rays": rays}

@@ -37,12 +37,19 @@ fixed-length masked loops with no compaction; majorants are inflated x1.5
 and detached, the absorption event folded into the null weight (pa = 0)
 and the scatter probability detached, so gradients reach the scene-level
 medium's sigma_a and sigma_s (their scales and spectra), the density
-grid and the RGB grid's fits through the continuous weights
-(VOLPATH_TRAINABLE). Any other request raises NotImplementedError with
-its reason (ROADMAP Queue 1 item 5): g (the reference's gradient is NaN),
-the majorants, the interior media's leaves, any request with
-differentiable=False, and any on a scene whose geometry references a
-hair, subsurface, measured, mix or retroreflective material (item 5e.5).
+grid and the RGB grid's fits through the continuous weights; max_density
+is read only through the detached majorants (its gradient is zero). The
+interior media's spectra, scales and g reach the loss through the
+closed-form free flight, the shadow walk and the phase function. The
+sampled directions are followed, as under the path integrator's attached
+estimator, so the albedo, the area lights' scale and the hair,
+subsurface, measured and mix leaves train too (VOLPATH_TRAINABLE; the
+subsurface leaves' and the mix amount's gradients are zero: there is no
+subsurface step and the mix picks by a step). Any other request raises
+NotImplementedError with its reason (ROADMAP Queue 1 item 5): the
+scene-level medium's g and the coarse majorants (the reference's
+gradients are NaN in both modes), any surface or light leaf without a
+golden through the walk, any request with differentiable=False.
 """
 
 from __future__ import annotations
@@ -55,18 +62,17 @@ from ..core.sampling import power_heuristic
 from ..core.tensorclass import static_field, tensorclass
 from ..core.vecmath import dot, from_local, shading_frame, to_local
 from ..materials import bxdf
-from ..materials.buffers import (
-    MAT_HAIR,
-    MAT_INTERFACE,
-    MAT_MEASURED,
-    MAT_MIX,
-    MAT_RETRO,
-    MAT_SUBSURFACE,
-)
+from ..materials.buffers import MAT_INTERFACE
 from ..media import phase as ph
 from ..media.medium import MED_KEEP
 from ..ops.compact import masked_loop, staged_masked_loop
-from .path import _ITEM5, _tensors, refusal_reason
+from .path import (
+    DEFAULT_TRAINABLE,
+    NO_GOLDEN,
+    _ITEM5,
+    _tensors,
+    refusal_reason,
+)
 
 _CAM_DIMS = 8
 _BOUNCE_DIMS = 512  # wide stride: walk iterations consume many dims
@@ -74,27 +80,33 @@ _BIG = 1e30
 
 # The scene leaves a gradient may be asked of, with differentiable=True,
 # each held against the reference's (tests/test_torch_volpath.py,
-# tests/test_torch_grad_leaves.py).
-VOLPATH_TRAINABLE = tuple(f"medium.{n}" for n in (
-    "sigma_a_scale", "sigma_s_scale", "sigma_a_coeffs", "sigma_s_coeffs",
-    "density", "sa_grid_coeffs", "sa_grid_scale", "ss_grid_coeffs",
-    "ss_grid_scale"))
+# tests/test_torch_grad_leaves.py, tests/test_torch_grad_leaves_rest.py):
+# the scene-level medium's spectra, grids and majorants, the interior
+# media's spectra, and the surface and light leaves that the families box
+# and the fog box answer through the walk (the sampled directions are
+# followed, as under the path integrator's attached estimator).
+VOLPATH_TRAINABLE = (
+    *(f"medium.{n}" for n in (
+        "sigma_a_scale", "sigma_s_scale", "sigma_a_coeffs", "sigma_s_coeffs",
+        "density", "sa_grid_coeffs", "sa_grid_scale", "ss_grid_coeffs",
+        "ss_grid_scale", "max_density")),
+    *(f"media_stack.{n}" for n in (
+        "sigma_a_coeffs", "sigma_a_scale", "sigma_s_coeffs",
+        "sigma_s_scale", "g")),
+    *DEFAULT_TRAINABLE,
+    *(f"materials.{n}" for n in (
+        "hair_sigma_coeffs", "hair_sigma_scale", "hair_alpha",
+        "ss_mfp_coeffs", "ss_mfp_scale", "measured_coeffs", "measured_scale",
+        "mix_amount")),
+)
 # Why another leaf is refused (path.refusal_reason's table).
 _VOLPATH_REFUSED = {
     "medium.g": "the reference's gradient with respect to g is NaN in both "
                 "modes on the media goldens' scenes (ROADMAP Queue 3)",
-    "medium.maj_grid": "the majorants are sampling controls, detached in "
-                       "both packages (ROADMAP Queue 1 item 5e.8)",
-    "medium.max_density": "the majorants are sampling controls, detached "
-                          "in both packages (ROADMAP Queue 1 item 5e.8)",
-    "media_stack.": "the interior media's leaves have no gate yet (ROADMAP "
-                    "Queue 1 item 5e.7)",
+    "medium.maj_grid": "the reference's gradient with respect to the "
+                       "coarse majorants is NaN in both modes on the 8^3 "
+                       "density grid (ROADMAP Queue 3)",
 }
-# Material kinds whose gradients through the volumetric path have no gate
-# (ROADMAP Queue 1 item 5e.5): a request on a scene whose geometry
-# references one raises.
-_UNGATED_KINDS = frozenset(
-    {MAT_HAIR, MAT_SUBSURFACE, MAT_MEASURED, MAT_MIX, MAT_RETRO})
 
 
 def _run_draws(sampler, dim0: int, stride: int):
@@ -154,19 +166,12 @@ class VolPathIntegrator:
                     f"({_ITEM5})")
             leaf = name.removeprefix("scene.")
             if leaf not in VOLPATH_TRAINABLE:
-                why = refusal_reason(_VOLPATH_REFUSED, leaf,
-                                     "it has no gate through media")
+                why = refusal_reason(_VOLPATH_REFUSED, leaf, NO_GOLDEN)
                 raise NotImplementedError(
                     f"{name} requires grad: {why}; only {VOLPATH_TRAINABLE} "
-                    f"have ported gradients through media ({_ITEM5})")
+                    "have ported gradients through the volumetric path "
+                    f"({_ITEM5})")
             asked = True
-        kinds = sorted(scene.shaded_kinds & _UNGATED_KINDS)
-        if asked and kinds:
-            raise NotImplementedError(
-                f"the geometry references material kind(s) {kinds} (hair 7, "
-                "subsurface 8, measured 9, mix 10, retroreflective 11), "
-                "whose gradients through the volumetric path have no gate "
-                "(ROADMAP Queue 1 item 5e.5); render under torch.no_grad()")
         return asked
 
     def _majorants(self, med, lam):

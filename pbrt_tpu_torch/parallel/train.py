@@ -53,8 +53,13 @@ def loss_and_grad(scene, render, target_rgb, trainable=DEFAULT_TRAINABLE,
     with torch.enable_grad():
         rgb = render(_set_paths(scene, params))
         loss = torch.sum((rgb - target_rgb) ** 2) / n_total
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True, materialize_grads=True)
+        if loss.requires_grad:
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        else:
+            # No leaf reaches the loss (a medium's majorants, detached).
+            grads = [torch.zeros_like(p) for p in params.values()]
     return loss.detach(), dict(zip(params, grads))
 
 

@@ -1,8 +1,10 @@
 #!/usr/bin/env python
 """Compute the JAX reference's gradients with respect to the scene leaves
-that ROADMAP item 5e.1-5e.4 ports: the material, texture-table, light and
-medium leaves. The PyTorch port is held against them
-(tests/test_torch_grad_leaves.py, chip_smoke.py phase g12).
+that ROADMAP item 5e ports: the material, texture-table, light and medium
+leaves (5e.1-5e.4), the surface and light leaves through the volumetric
+path, the interior media and the sampling tables (5e.5-5e.8). The
+PyTorch port is held against them (tests/test_torch_grad_leaves.py and
+chip_smoke.py phase g12; tests/test_torch_grad_leaves_rest.py and g13).
 
 The cases, their scenes (built by each package from the same file or
 recipe) and their leaves are tests/torch_port_leaves.py's CASES; each
@@ -15,10 +17,18 @@ recipe) and their leaves are tests/torch_port_leaves.py's CASES; each
 - "lights": spot.pbrt, plymesh.pbrt, envmap.pbrt, leaf_portal.pbrt and
   leaf_lights.pbrt (the last also under attached);
 - "media": the fog box's slab, an 8^3 density grid and an 8^3 RGB grid
-  under VolPathIntegrator(differentiable=True).
+  under VolPathIntegrator(differentiable=True);
+- "volpath": through the same walk, the fog box's slab with the albedo
+  and the area light's scale, the families box inside a homogeneous
+  medium with every family's leaves (op by op), fog.pbrt's interior
+  medium and the density grid's majorants;
+- "sampling": envmap.pbrt's importance tables and leaf_lights.pbrt's
+  selection pmf and cdf under remat and cvjp, and the hall cut to 16
+  lights with its light BVH's node table.
 
 The loss is the bench loss of one pass: the mean squared error of
-spectrum_to_rgb against 0.25, 16x16 (media 8x8), 2 spp, 8 wavelength
+spectrum_to_rgb against 0.25, 16x16 (media and volpath 8x8, 32-step
+walks), 2 spp, 8 wavelength
 lanes, seed 0, depth 5 without Russian roulette. Every case runs on the
 coarse hash keys of tests/torch_port_leaves.py `keys`. Under the attached
 estimator and the volumetric path the gradient follows the sampled
@@ -39,8 +49,9 @@ is NaN too has no golden, and the port refuses it.
 Usage (from the repository root; on an 8-core CPU the materials take
 ~40 min, the coated box's three estimators op by op, run side by side
 with --only coated:remat etc., 11 / 6 / 22 min; textures ~9 min, lights
-~10 min, media ~3 min):
-    JAX_PLATFORMS=cpu PBRT_TPU_NSPECTRUM=8 python scripts/make_torch_port_golden_leaves.py --which materials|textures|lights|media
+~10 min, media ~3 min; volpath ~7 min, the families box op by op ~4.5
+of them; sampling ~4 min, the hall ~2.7 of them):
+    JAX_PLATFORMS=cpu PBRT_TPU_NSPECTRUM=8 python scripts/make_torch_port_golden_leaves.py --which materials|textures|lights|media|volpath|sampling
 """
 
 from __future__ import annotations
@@ -55,7 +66,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Cases made op by op (jax.disable_jit), as their earlier goldens were.
-OP_BY_OP = ("families", "coated")
+OP_BY_OP = ("families", "coated", "volfamilies")
 
 
 def _jax():

@@ -27,43 +27,13 @@ from .torch_port_grad import GRAD_RTOL_OF_MAX, LOSS_RTOL, pass_loss_and_grads
 
 torch.set_num_threads(1)
 
-_GOLDENS = {}
-_SCENES = {}
-_RUNS = {}
-
-
-def _golden(group):
-    if group not in _GOLDENS:
-        _GOLDENS[group] = dict(np.load(TL.GOLDEN_FILES[group]))
-    return _GOLDENS[group]
-
-
-def _run(group, name, est):
-    """(golden loss, {leaf: (kind, golden)}, loss, {leaf: gradient}) of a
-    case, computed once a session."""
-    if (name, est) not in _RUNS:
-        z = _golden(group)
-        leaves = dict((s, lv) for _, s, _, lv in TL.CASES)[name]
-        want = TL.answered(z, f"{name}_{est}", leaves)
-        g = TL.settings_of(group)
-        if name not in _SCENES:
-            # A scene's build (its lights' and tables' fits) is shared by
-            # its estimators.
-            _SCENES[name] = TL.leaf_scene("pbrt_tpu_torch", name,
-                                          g["resolution"])
-        scene, camera = _SCENES[name]
-        integ = TL.integrator("pbrt_tpu_torch", est)
-        with TL.keys("pbrt_tpu_torch", name):
-            loss, grads = pass_loss_and_grads(scene, camera, integ,
-                                              tuple(want), g["resolution"],
-                                              g["spp"])
-        _RUNS[name, est] = (float(z[f"{name}_{est}_loss"]), want, loss,
-                            grads)
-    return _RUNS[name, est]
+# Item 5e.1-5e.4's groups (5e.5-5e.8's: test_torch_grad_leaves_rest.py).
+GROUPS = ("materials", "textures", "lights", "media")
+_golden, _run = TL.golden, TL.port_run
 
 
 @pytest.mark.parametrize("group, name, est", [
-    (g, s, e) for g, s, e, _ in TL.cases()])
+    (g, s, e) for g, s, e, _ in TL.cases(GROUPS)])
 def test_leaf_gradients_match_golden(group, name, est):
     want_loss, want, loss, grads = _run(group, name, est)
     assert want, (name, est)
@@ -81,7 +51,8 @@ def test_leaf_gradients_match_golden(group, name, est):
 
 
 @pytest.mark.parametrize("group, name", [
-    (g, s) for g, s, ests, _ in TL.CASES if "cvjp" in ests])
+    (g, s) for g, s, ests, _ in TL.CASES
+    if "cvjp" in ests and g in GROUPS])
 def test_cvjp_equals_remat(group, name):
     """cvjp replays the shading from recorded hits: on the CPU its
     gradients equal remat's within 1e-5 of the largest entry."""
@@ -93,13 +64,16 @@ def test_cvjp_equals_remat(group, name):
         assert np.max(np.abs(g - remat[p])) <= 1e-5 * scale, p
 
 
-@pytest.mark.parametrize("name, leaf", sorted(TL.ZERO_BY_CONSTRUCTION))
+@pytest.mark.parametrize("name, leaf", [
+    k for k in sorted(TL.ZERO_BY_CONSTRUCTION)
+    if TL.group_of(k[0]) in GROUPS])
 def test_zero_by_construction(name, leaf):
     """The mix amount picks a sub-material by a step (u < amount) and the
     bilerp, constant and checkerboard rows read no f0: their gradients
     are exactly zero in both packages."""
     rows = TL.ZERO_BY_CONSTRUCTION[name, leaf]
-    group, est = next((g, e) for g, s, e, _ in TL.cases() if s == name)
+    group, est = next((g, e) for g, s, e, _ in TL.cases(GROUPS)
+                      if s == name)
     _, want, _, grads = _run(group, name, est)
     sel = slice(None) if rows is None else list(rows)
     assert np.all(want[leaf][1][sel] == 0.0)
@@ -112,7 +86,7 @@ def _refused():
     """(group, scene, estimator, leaf) of every leaf a case asked for that
     has no golden."""
     out = []
-    for g, s, e, leaves in TL.cases():
+    for g, s, e, leaves in TL.cases(GROUPS):
         z = _golden(g)
         have = TL.answered(z, f"{s}_{e}", leaves)
         out += [(g, s, e, p) for p in leaves if p not in have]
@@ -135,10 +109,10 @@ def test_leaves_without_a_golden_are_refused():
     integ = TL.integrator("pbrt_tpu_torch", "volpath")
     with pytest.raises(NotImplementedError, match="g is NaN.*Queue 3"):
         pass_loss_and_grads(scene, camera, integ, ("medium.g",), 4, 1)
-    # The selection pmf is a constant built from the build-time power, as
-    # the reference's select_pmf is a leaf of its own: a scale's gradient
-    # does not reach it, and a request for it is refused.
+    # The selection pmf trains under remat and cvjp
+    # (tests/test_torch_grad_leaves_rest.py); under the attached
+    # estimator, which has no golden of it, a request is refused.
     scene, camera = TL.leaf_scene("pbrt_tpu_torch", "spot", 4)
-    with pytest.raises(NotImplementedError, match="selection pmf.*constant"):
+    with pytest.raises(NotImplementedError, match="select_pmf.*no golden"):
         pass_loss_and_grads(scene, camera, TL.integrator(
-            "pbrt_tpu_torch", "remat"), ("lights.select_pmf",), 4, 1)
+            "pbrt_tpu_torch", "attached"), ("lights.select_pmf",), 4, 1)

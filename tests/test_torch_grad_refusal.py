@@ -159,18 +159,21 @@ def test_textured_albedo_rows_get_no_gradient(imagetex8):
 @pytest.mark.parametrize("differentiable, member, field", [
     # The reference differentiates media only with differentiable=True.
     (False, "medium", "sigma_a_scale"),
-    # The majorants are sampling controls, detached in both packages.
+    # The reference's gradient with respect to the coarse majorants is
+    # NaN in both modes.
     (True, "medium", "maj_grid"),
     # The reference's gradient with respect to g is NaN in both modes.
     (True, "medium", "g"),
-    # Nor does any surface parameter through the volumetric path.
-    (True, "materials", "albedo_coeffs"),
+    # A surface leaf without a golden through the volumetric path.
+    (True, "materials", "roughness"),
 ])
 def test_medium_grad_request_raises(differentiable, member, field):
     """Gradients through media: the fog box's sigma_a and sigma_s (scales
-    and spectra) and the grids with differentiable=True
-    (tests/test_torch_volpath.py, tests/test_torch_grad_leaves.py); any
-    other request raises (item 5)."""
+    and spectra), the grids, max_density, the interior media and the
+    surface and light leaves of item 5e.5 with differentiable=True
+    (tests/test_torch_volpath.py, tests/test_torch_grad_leaves.py,
+    tests/test_torch_grad_leaves_rest.py); any other request raises
+    (item 5)."""
     from pbrt_tpu_torch.models.volpath import VolPathIntegrator
     from pbrt_tpu_torch.scenes.cloud import fog_box_scene
 

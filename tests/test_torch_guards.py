@@ -218,7 +218,10 @@ def _value_error(build, match):
     # Every image format of the reference is read (EXR, PFM, PNG, QOI;
     # tests/test_torch_io.py); a missing file raises, naming it.
     _raises(lambda: read_image_rgb("sky.exr"), OSError, "sky.exr"),
-    # The light BVH renders; a gradient of its node table is refused.
+    # The light BVH renders, and its node table trains under cvjp
+    # (tests/test_torch_grad_leaves_rest.py); under remat, where the
+    # reference's gradient through the BVH's pmf is NaN in both modes, a
+    # request is refused.
     _light_bvh_gradient,
     # Every texture family is ported, Ptex included; a Ptex texture whose
     # file cannot be read raises, naming it (the reference binds gray).
@@ -249,15 +252,16 @@ def _value_error(build, match):
     # The gallery's glass torus is shaded (tests/test_torch_dielectric.py),
     # and so are a diffuse-transmission one (tests/test_torch_coated.py)
     # and a subsurface one, which carries every material gradient through
-    # the path integrator (tests/test_torch_grad_leaves.py); through the
-    # volumetric path a gradient on a scene that references it has no
-    # gate and is refused (item 5e.5).
+    # the path integrator (tests/test_torch_grad_leaves.py) and the
+    # families' leaves through the volumetric path
+    # (tests/test_torch_grad_leaves_rest.py); there a leaf without a
+    # golden, such as eta, is refused (item 5e's departures).
     _raises(lambda: _material_gradient(
         _gallery_with_torus_kind(MAT_SUBSURFACE).replace(
             medium=MediumBuffers.homogeneous((0.1,) * 3, (0.1,) * 3,
                                              (-9.0,) * 3, (9.0,) * 3)),
-        "sigma_a_scale", VolPathIntegrator(max_depth=2, differentiable=True),
-        "medium"), NotImplementedError, "ROADMAP Queue 1 item 5e.5"),
+        "eta", VolPathIntegrator(max_depth=2, differentiable=True)),
+        NotImplementedError, "eta requires grad: it has no golden"),
 ], ids=["device_mesh", "realistic_camera", "gbuffer_film",
         "point_light", "infinite_light", "light_bvh", "texture",
         "referenced_conductor", "sobol_sampler", "nanovdb_medium",

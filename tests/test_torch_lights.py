@@ -395,18 +395,19 @@ def test_sample_le_origin_raises():
 
 def test_new_light_gradients_refused(every_light):
     """The light tables train under the estimators of their goldens
-    (tests/test_torch_grad_leaves.py); a request outside an estimator's
-    table raises naming item 5 (models/path.py's guard): the point, spot
-    and image lights' tables under the attached estimator, which has no
-    golden of theirs, and the image light's importance tables under
-    every estimator (item 5e.8). The sphere light's trains under all."""
+    (tests/test_torch_grad_leaves.py, and the image light's importance
+    tables under remat and cvjp, tests/test_torch_grad_leaves_rest.py); a
+    request outside an estimator's table raises naming item 5
+    (models/path.py's guard): the point, spot and image lights' tables
+    under the attached estimator, which has no golden of theirs. The
+    sphere light's trains under all."""
     _, pl = every_light["uniform"]
     scene, camera = furnace_sphere_scene(resolution=(2, 2))
     pixel = torch.arange(4)
     o, d, wl = camera_rays(camera, pixel, 0, 0, n_spectrum=8)
     refusing = {"point_scale": {"attached"}, "spot_coeffs": {"attached"},
                 "env.scale": {"attached"},
-                "env.dist.conditional.func": {"remat", "attached"},
+                "env.dist.conditional.func": {"attached"},
                 "sphl_scale": set()}
     for path, by in refusing.items():
         lights = pl

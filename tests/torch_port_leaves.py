@@ -1,6 +1,7 @@
 """The scene-leaf gradient goldens' cases, shared by
 scripts/make_torch_port_golden_leaves.py (the JAX reference's side),
-tests/test_torch_grad_leaves.py and chip_smoke.py phase g12 (the port's):
+tests/test_torch_grad_leaves.py, tests/test_torch_grad_leaves_rest.py
+and chip_smoke.py phases g12, g13, e17 and e18 (the port's):
 each scene built by either package from the same file or recipe, the
 estimators each golden holds, the leaves each asks for and the probe
 directions of the tables.
@@ -31,7 +32,7 @@ DATA = os.path.join(ROOT, "tests", "data", "torch_port")
 GOLDENS_DIR = os.path.join(ROOT, "tests", "goldens")
 
 # The settings of the surface goldens (the families golden's) and of the
-# media golden.
+# media and volpath goldens.
 SURFACE = dict(resolution=16, spp=2, n_spectrum=8, max_depth=5,
                rr_start_depth=5, seed=0, target=0.25)
 MEDIA = dict(SURFACE, resolution=8, max_steps=32)
@@ -45,6 +46,8 @@ GOLDEN_FILES = {
     "textures": os.path.join(DATA, "leaves_textures16_grad.npz"),
     "lights": os.path.join(DATA, "leaves_lights16_grad.npz"),
     "media": os.path.join(DATA, "leaves_media8_grad.npz"),
+    "volpath": os.path.join(DATA, "leaves_volpath8_grad.npz"),
+    "sampling": os.path.join(DATA, "leaves_sampling16_grad.npz"),
 }
 
 
@@ -106,13 +109,67 @@ CASES = (
     ("media", "rgbgrid", ("volpath",),
      ("medium.sa_grid_coeffs", "medium.sa_grid_scale",
       "medium.ss_grid_coeffs", "medium.ss_grid_scale", "medium.g")),
+    # 5e.5: surface and light leaves through the differentiable volumetric
+    # path: the fog box's slab, and the families box inside a homogeneous
+    # scene-level medium.
+    ("volpath", "fogsurf", ("volpath",),
+     ("materials.albedo_coeffs", "lights.area_scale")),
+    ("volpath", "volfamilies", ("volpath",),
+     ("materials.albedo_coeffs", "lights.area_scale",
+      "medium.sigma_a_coeffs", "medium.sigma_s_coeffs")
+     + _m("hair_sigma_coeffs", "hair_sigma_scale", "hair_alpha",
+          "ss_mfp_coeffs", "ss_mfp_scale", "measured_coeffs",
+          "measured_scale", "mix_amount")),
+    # 5e.7: fog.pbrt's sphere of interior medium.
+    ("volpath", "interior", ("volpath",),
+     tuple(f"media_stack.{n}" for n in (
+         "sigma_a_coeffs", "sigma_a_scale", "sigma_s_coeffs",
+         "sigma_s_scale", "g"))),
+    # 5e.8: the majorants of the 8^3 density grid.
+    ("volpath", "majorants", ("volpath",),
+     ("medium.maj_grid", "medium.max_density")),
+    # 5e.8: the image light's importance tables, and the light selection's
+    # tables of leaf_lights.pbrt.
+    ("sampling", "envdist", ("remat", "cvjp"),
+     tuple(f"lights.env.dist.{t}.{f}" for t in ("conditional", "marginal")
+           for f in ("func", "cdf", "integral")) + ("lights.env.luminance",)),
+    ("sampling", "selection", ("remat", "cvjp"),
+     ("lights.select_pmf", "lights.select_cdf")),
+    # 5e.6: the light BVH's node table, the hall cut to 16 lights.
+    ("sampling", "lightbvh", ("remat", "cvjp"), ("lights.bvh.nodes",)),
 )
 # Leaves whose gradient is zero by construction, with the rows (None:
 # all): the reference picks a mix material's sub-material where u <
 # amount, a step in amount; the bilerp, constant and checkerboard rows of
 # leaf_textures.pbrt read no f0 (its mix row's amount does).
+# Through the volumetric path, which has no subsurface step (a subsurface
+# surface shades with its exit lobe), the families box's mean free path
+# is read by nothing, and neither is the density grid's max_density but
+# through the detached majorants. Under remat the image light's cdfs,
+# its marginal func, its rows' integrals and its luminance, and the
+# selection cdf, reach the loss only through sampling decisions and
+# detached pdfs.
 ZERO_BY_CONSTRUCTION = {("families", "materials.mix_amount"): None,
-                        ("textured", "textures.f0"): (0, 1, 2)}
+                        ("textured", "textures.f0"): (0, 1, 2),
+                        ("volfamilies", "materials.mix_amount"): None,
+                        ("volfamilies", "materials.ss_mfp_coeffs"): None,
+                        ("volfamilies", "materials.ss_mfp_scale"): None,
+                        ("majorants", "medium.max_density"): None,
+                        **{("envdist", f"lights.env.{t}"): None for t in (
+                            "dist.conditional.cdf",
+                            "dist.conditional.integral",
+                            "dist.marginal.func", "dist.marginal.cdf",
+                            "luminance")},
+                        ("selection", "lights.select_cdf"): None}
+# The sampling tables reach the loss only through the MIS pdfs, which
+# cvjp's replay reads from its records in both packages: under cvjp their
+# gradients are zero by construction (the light BVH's node table, index
+# columns and all, included).
+SAMPLING_TABLES = (
+    *(f"lights.env.dist.{t}.{f}" for t in ("conditional", "marginal")
+      for f in ("func", "cdf", "integral")),
+    "lights.env.luminance", "lights.select_pmf", "lights.select_cdf",
+    "lights.bvh.nodes")
 # A table has more entries than this: its golden is held along
 # directions where the reference's reverse mode is NaN. A leaf whose
 # forward mode is NaN too has no golden ("..._forward_finite_<leaf>"
@@ -129,17 +186,39 @@ _PBRT = {
     "envmap": os.path.join(GOLDENS_DIR, "envmap.pbrt"),
     "portal": os.path.join(DATA, "leaf_portal.pbrt"),
     "lightkinds": os.path.join(DATA, "leaf_lights.pbrt"),
+    "volfamilies": os.path.join(DATA, "families.pbrt"),
+    "interior": os.path.join(GOLDENS_DIR, "fog.pbrt"),
+    "envdist": os.path.join(GOLDENS_DIR, "envmap.pbrt"),
+    "selection": os.path.join(DATA, "leaf_lights.pbrt"),
 }
+# The cases whose scene is the fog box with a medium of `_medium`.
+_FOG_BOX = {"fog": "fog", "grid": "grid", "rgbgrid": "rgbgrid",
+            "fogsurf": "fog", "majorants": "grid"}
 
 
 def key_of(leaf: str) -> str:
     return leaf.replace(".", "__")
 
 
-def cases(group=None):
-    """[(group, scene, estimator, leaves)] of one group or of all."""
+def cases(groups=None):
+    """[(group, scene, estimator, leaves)] of a group, of a tuple of
+    groups or of all."""
+    if isinstance(groups, str):
+        groups = (groups,)
     return [(g, s, e, leaves) for g, s, ests, leaves in CASES
-            for e in ests if group in (None, g)]
+            for e in ests if groups is None or g in groups]
+
+
+def group_of(name: str) -> str:
+    return next(g for g, s, _, _ in CASES if s == name)
+
+
+def zero_rows(name: str, est: str, leaf: str):
+    """The rows (None: all) of a case's leaf whose gradient is zero by
+    construction, or False."""
+    if est == "cvjp" and leaf in SAMPLING_TABLES:
+        return None
+    return ZERO_BY_CONSTRUCTION.get((name, leaf), False)
 
 
 def directions(leaf: str, shape) -> np.ndarray:
@@ -177,6 +256,46 @@ def leaf_errors(want: dict, grads: dict) -> dict:
         err = float(np.max(np.abs(g - w.reshape(g.shape))))
         out[p] = err / scale if scale else err
     return out
+
+
+_GOLDENS, _SCENES, _RUNS = {}, {}, {}
+
+
+def golden(group: str) -> dict:
+    """A group's golden file, read once a process."""
+    if group not in _GOLDENS:
+        _GOLDENS[group] = dict(np.load(GOLDEN_FILES[group]))
+    return _GOLDENS[group]
+
+
+def port_scene(name: str):
+    """(scene, camera) of a case on the port's CPU at its golden's
+    resolution, built once a process (its lights' and tables' fits shared
+    by its estimators)."""
+    if name not in _SCENES:
+        res = settings_of(group_of(name))["resolution"]
+        _SCENES[name] = leaf_scene("pbrt_tpu_torch", name, res)
+    return _SCENES[name]
+
+
+def port_run(group: str, name: str, est: str):
+    """(golden loss, {leaf: (kind, golden)}, loss, {leaf: gradient}) of a
+    case through the port on the CPU, computed once a process."""
+    from .torch_port_grad import pass_loss_and_grads
+
+    if (name, est) not in _RUNS:
+        z = golden(group)
+        leaves = dict((s, lv) for _, s, _, lv in CASES)[name]
+        want = answered(z, f"{name}_{est}", leaves)
+        g = settings_of(group)
+        scene, camera = port_scene(name)
+        with keys("pbrt_tpu_torch", name):
+            loss, grads = pass_loss_and_grads(
+                scene, camera, integrator("pbrt_tpu_torch", est),
+                tuple(want), g["resolution"], g["spp"])
+        _RUNS[name, est] = (float(z[f"{name}_{est}_loss"]), want, loss,
+                            grads)
+    return _RUNS[name, est]
 
 
 def _mod(pkg, name):
@@ -242,6 +361,18 @@ def _medium(pkg, name):
                       bounds_hi=hi, g=-0.2, maj_res=4)
 
 
+def in_medium(pkg: str, scene):
+    """The scene inside a homogeneous medium filling the families box, as
+    tests/test_torch_guards.py's volumetric requests use (the port's on
+    the scene's device)."""
+    medium = _mod(pkg, "media.medium").MediumBuffers.homogeneous(
+        sigma_a_rgb=(0.1,) * 3, sigma_s_rgb=(0.1,) * 3,
+        bounds_lo=(-9.0,) * 3, bounds_hi=(9.0,) * 3)
+    if pkg == "pbrt_tpu_torch":
+        medium = medium.to(scene.geom.tri_verts.device)
+    return scene.replace(medium=medium)
+
+
 def leaf_scene(pkg: str, name: str, resolution: int, device=None):
     """(scene, camera) of a case in package `pkg` ("pbrt_tpu" or
     "pbrt_tpu_torch"), the accelerator attached; the port's on `device`
@@ -249,14 +380,19 @@ def leaf_scene(pkg: str, name: str, resolution: int, device=None):
     res = (resolution, resolution)
     if name == "coated":
         scene, camera = coated_trans_cornell(pkg, res)
-    elif name in ("fog", "grid", "rgbgrid"):
+    elif name in _FOG_BOX:
         scene, camera = _mod(pkg, "scenes.cloud").fog_box_scene(
             sigma_a=0.5, sigma_s=0.5, resolution=res)
-        scene = scene.replace(medium=_medium(pkg, name))
+        scene = scene.replace(medium=_medium(pkg, _FOG_BOX[name]))
+    elif name == "lightbvh":
+        scene, camera = _mod(pkg, "scenes.manylight").manylight_scene(
+            resolution=res, n_lights=16, sampler="bvh")
     else:
         kw = {"device": "cpu"} if pkg == "pbrt_tpu_torch" else {}
         scene, camera, _ = _mod(pkg, "io.parser").load_pbrt(_PBRT[name], **kw)
         camera = camera.replace(resolution=res)
+        if name == "volfamilies":
+            scene = in_medium(pkg, scene)
     scene = scene.with_accel()
     if device is not None:
         scene, camera = scene.to(device), camera.to(device)
@@ -292,11 +428,11 @@ def keys(pkg: str, name: str):
     with contextlib.ExitStack() as stack:
         stack.enter_context(coarse_mix_keys(_mod(pkg, "materials.bxdf")))
         stack.enter_context(coarse_walk_keys(_mod(pkg, "materials.layered")))
-        if name in ("fog", "grid", "rgbgrid"):
+        if name in _FOG_BOX:
             stack.enter_context(inset_entry(
                 _mod(pkg, "media.medium").MediumBuffers))
         yield
 
 
 def settings_of(group: str) -> dict:
-    return MEDIA if group == "media" else SURFACE
+    return MEDIA if group in ("media", "volpath") else SURFACE
